@@ -4,17 +4,20 @@ Counterpart of ``ccj_tpu/engine/pallas_ops.py``.  Its one TPU kernel,
 ``_minplus_kernel`` (launched by ``minplus_suffix``), is a masked min-plus
 suffix reduction; the same function is the serial tt loop's k-shrink and
 j-shrink reductions ``red_k`` / ``red_j`` (``ccj_tpu/engine/ttloop.py:442-455``),
-13 calls per tt step.  Here it is :func:`minplus_window`, a CUDA C++ kernel
-for ``sm_90a`` (``csrc/minplus.cu``, whose header notes its bound and
-design), and the port's tt loop (``ttloop.run_tt_loop``) runs all 13
-reductions through it.
+13 windows per tt step.  Here it is one CUDA C++ kernel for ``sm_90a``
+(``csrc/minplus.cu``, whose header notes its bound and design) that reduces
+a *group* of windows in one launch: :func:`minplus_group` takes a
+:class:`WindowTable`, built once per span, and the step's ``tt``, and the
+port's tt loop (``ttloop.run_tt_loop``) makes one launch per step.
+:func:`minplus_window` is a group of one through the same kernel.
 
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
 back.  The library is built with ``nvcc`` into ``build/`` beside the
 package at first use and loaded with ``ctypes``.  ``LAUNCHES`` counts
-kernel launches (and nothing else), so a run can show that its main path
-went through the kernel.
+kernel launches and ``WINDOWS`` the windows those launches reduced (and
+nothing else), so a run can show that its main path went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -36,11 +40,33 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIB_NAME = "libccj_minplus.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+MAX_WINDOWS = 16        # csrc/minplus.cu kMaxWindows
 
-LAUNCHES = 0            # minplus_window kernel launches (CUDA only)
+LAUNCHES = 0            # minplus kernel launches (CUDA only)
+WINDOWS = 0             # windows reduced by those launches
 
 _lib = None
 _lib_lock = threading.Lock()
+
+
+class Window(ctypes.Structure):
+    """One kernel descriptor as a function of tt: csrc/minplus.cu's
+    ``struct Window``, field for field.  Strides are in elements; each
+    ``*_b`` / ``*_s`` pair is a base and a per-tt step.  ``w2`` (null when
+    unused) is a second weight table on the same slab window, reduced into
+    output plane ``out2``."""
+    _fields_ = [("slab", ctypes.c_void_p), ("ss0", ctypes.c_longlong),
+                ("ss1", ctypes.c_longlong), ("ss2", ctypes.c_longlong),
+                ("w", ctypes.c_void_p), ("ws0", ctypes.c_longlong),
+                ("ws1", ctypes.c_longlong),
+                ("w2", ctypes.c_void_p), ("w2s0", ctypes.c_longlong),
+                ("w2s1", ctypes.c_longlong),
+                ("row0_b", ctypes.c_int), ("row0_s", ctypes.c_int),
+                ("scol_b", ctypes.c_int), ("scol_s", ctypes.c_int),
+                ("wcol_b", ctypes.c_int), ("wcol_s", ctypes.c_int),
+                ("q_lo", ctypes.c_int), ("mode", ctypes.c_int),
+                ("c_b", ctypes.c_int), ("c_s", ctypes.c_int),
+                ("out", ctypes.c_int), ("out2", ctypes.c_int)]
 
 
 def nvcc_path() -> str:
@@ -84,29 +110,156 @@ def _library():
         if _lib is None:
             path, _ = build_library()
             lib = ctypes.CDLL(str(path))
-            fn = lib.ccj_minplus_window
-            fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
-                           + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                           + [ctypes.c_void_p] + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p])
+            if lib.ccj_minplus_window_bytes() != ctypes.sizeof(Window):
+                raise RuntimeError(
+                    f"cuda_ops.Window ({ctypes.sizeof(Window)} B) does not "
+                    f"mirror csrc/minplus.cu ({lib.ccj_minplus_window_bytes()} B)")
+            if lib.ccj_minplus_max_windows() != MAX_WINDOWS:
+                raise RuntimeError("MAX_WINDOWS does not match csrc/minplus.cu")
+            fn = lib.ccj_minplus_group
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def _check_window(slab, w, row0, col0, q_lo, mode):
+def _check_window(slab, w, row0, col0, q_lo, mode, J=None, wcol=0):
+    """Raise unless rows [row0, row0 + Q) x columns [col0, col0 + J) lie in
+    ``slab`` and columns [wcol, wcol + J) in ``w`` (Q = w's rows; J
+    defaults to w's columns)."""
     if slab.dim() != 3 or w.dim() != 2:
         raise ValueError(f"slab must be 3-D and w 2-D, got {tuple(slab.shape)}, "
                          f"{tuple(w.shape)}")
     if slab.dtype != torch.int32 or w.dtype != torch.int32:
         raise TypeError(f"slab and w must be int32, got {slab.dtype}, {w.dtype}")
-    Q, J = w.shape
+    Q, WC = w.shape
+    J = WC if J is None else J
     R, _, C = slab.shape
     if not (0 <= row0 and row0 + Q <= R and 0 <= col0 and col0 + J <= C):
         raise ValueError(f"window rows [{row0}, {row0 + Q}) x cols "
                          f"[{col0}, {col0 + J}) leaves slab {tuple(slab.shape)}")
+    if not (0 <= wcol and wcol + J <= WC):
+        raise ValueError(f"weight cols [{wcol}, {wcol + J}) leave w {tuple(w.shape)}")
     if q_lo < 0 or mode not in (0, 1, 2):
         raise ValueError(f"bad q_lo={q_lo} or mode={mode}")
+
+
+def _check_devices(tensors):
+    """The one CUDA device all ``tensors`` lie on; raises otherwise."""
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError("minplus needs every slab and w on one CUDA device "
+                         f"(or all on the CPU), got {[str(t.device) for t in tensors]}")
+    return dev
+
+
+@dataclass(frozen=True)
+class WindowSpec:
+    """One min-plus window as a function of the step ``tt``.
+
+    ``row0`` (slab row of q = 0), ``col0`` (slab column of j = 0), ``wcol``
+    (weight column of j = 0) and ``c`` (the mask's constant) are
+    ``(base, step)`` pairs: the value at ``tt`` is ``base + step * tt``.
+    The window reads weight rows [0, Q) with Q = ``w.shape[0]``.
+    """
+    slab: torch.Tensor
+    w: torch.Tensor
+    row0: tuple[int, int]
+    col0: tuple[int, int] = (0, 0)
+    wcol: tuple[int, int] = (0, 0)
+    q_lo: int = 0
+    mode: int = 0
+    c: tuple[int, int] = (0, 0)
+
+    def at(self, tt: int):
+        """(row0, col0, wcol, c) at ``tt``."""
+        return tuple(b + s * tt for b, s in (self.row0, self.col0, self.wcol, self.c))
+
+    def check(self, tt: int, J: int):
+        row0, col0, wcol, _ = self.at(tt)
+        _check_window(self.slab, self.w, row0, col0, self.q_lo, self.mode, J, wcol)
+
+    def slab_window(self):
+        """What fixes the slab terms this window reads at every tt: two
+        windows with equal keys differ only in their weights."""
+        return (self.slab.data_ptr(), tuple(self.slab.shape), self.slab.stride(),
+                self.row0, self.col0, self.wcol, self.q_lo, self.mode, self.c)
+
+
+def pair_windows(windows):
+    """The kernel's descriptors for ``windows``: tuples of one window index,
+    or of two whose slab window is the same (:meth:`WindowSpec.slab_window`),
+    so the kernel reads those slab terms once for both."""
+    jobs, open_ = [], {}
+    for g, win in enumerate(windows):
+        k = open_.pop(win.slab_window(), None)
+        if k is None:
+            open_[win.slab_window()] = len(jobs)
+            jobs.append((g,))
+        else:
+            jobs[k] += (g,)
+    return jobs
+
+
+class WindowTable:
+    """A group of windows that share Q (weight rows), I (slab dim 1) and J
+    (output columns), validated once for every tt in ``tt_range`` =
+    (lo, hi): each offset is affine in tt, so a window inside its slab at
+    both ends is inside at every step between.  On CUDA it also holds the
+    kernel's descriptor array (``jobs``: windows that share a slab window
+    share a descriptor), and the tensors it points into stay alive with it.
+    The output of a step is ``[G, I, J]`` int32 (``shape``)."""
+
+    def __init__(self, windows, J: int, tt_range: tuple[int, int]):
+        self.windows = tuple(windows)
+        self.tt_lo, self.tt_hi = tt_range
+        if not 1 <= len(self.windows) <= MAX_WINDOWS:
+            raise ValueError(f"a group holds 1..{MAX_WINDOWS} windows, "
+                             f"got {len(self.windows)}")
+        if self.tt_lo > self.tt_hi:
+            raise ValueError(f"empty tt range {tt_range}")
+        first = self.windows[0]
+        self.Q, self.I, self.J = first.w.shape[0], first.slab.shape[1], J
+        for win in self.windows:
+            for tt in tt_range:
+                win.check(tt, J)
+            if win.w.shape[0] != self.Q or win.slab.shape[1] != self.I:
+                raise ValueError("the windows of a group must share Q and I")
+        self.shape = (len(self.windows), self.I, self.J)
+        tensors = [t for win in self.windows for t in (win.slab, win.w)]
+        if all(t.device.type == "cpu" for t in tensors):
+            self.device = torch.device("cpu")
+            self.jobs = pair_windows(self.windows)
+            return
+        self.device = _check_devices(tensors)
+        self._fn = _library().ccj_minplus_group
+        self.jobs = pair_windows(self.windows)
+        for win in self.windows:                # the kernel's slab offsets are int32
+            if sum((n - 1) * st for n, st in zip(win.slab.shape, win.slab.stride())) >= 2 ** 31:
+                raise ValueError(f"slab {tuple(win.slab.shape)} spans 2^31 "
+                                 "elements or more")
+        descs = (Window * len(self.jobs))()
+        for d, job in zip(descs, self.jobs):
+            win = self.windows[job[0]]
+            d.slab, (d.ss0, d.ss1, d.ss2) = win.slab.data_ptr(), win.slab.stride()
+            d.w, (d.ws0, d.ws1) = win.w.data_ptr(), win.w.stride()
+            d.row0_b, d.row0_s = win.row0
+            d.scol_b, d.scol_s = win.col0
+            d.wcol_b, d.wcol_s = win.wcol
+            d.q_lo, d.mode = win.q_lo, win.mode
+            d.c_b, d.c_s = win.c
+            d.out = d.out2 = job[0]
+            if len(job) == 2:
+                w2 = self.windows[job[1]].w
+                d.w2, (d.w2s0, d.w2s1), d.out2 = w2.data_ptr(), w2.stride(), job[1]
+        self._descs = descs
+
+    def check_tt(self, tt: int):
+        if not self.tt_lo <= tt <= self.tt_hi:
+            raise ValueError(f"tt={tt} outside the table's range "
+                             f"[{self.tt_lo}, {self.tt_hi}]")
 
 
 def minplus_window_ref(slab, w, row0, col0=0, q_lo=0, mode=0, c=0):
@@ -128,6 +281,49 @@ def minplus_window_ref(slab, w, row0, col0=0, q_lo=0, mode=0, c=0):
     return torch.where(keep, vals, INF).amin(dim=0).clamp(max=INF)
 
 
+def minplus_group_ref(table: WindowTable, tt: int):
+    """Plain PyTorch version of :func:`minplus_group`: each window of
+    ``table`` evaluated at ``tt`` through :func:`minplus_window_ref`.
+    Returns a new [G, I, J] int32 tensor."""
+    table.check_tt(tt)
+    outs = []
+    for win in table.windows:
+        row0, col0, wcol, c = win.at(tt)
+        outs.append(minplus_window_ref(win.slab, win.w[:, wcol:wcol + table.J],
+                                       row0, col0, win.q_lo, win.mode, c))
+    return torch.stack(outs)
+
+
+def minplus_group(table: WindowTable, tt: int, out):
+    """Reduce every window of ``table`` at step ``tt`` into ``out``
+    ([G, I, J] int32, contiguous, on the table's device) with one kernel
+    launch; returns ``out``.  Window g gives out[g] = :func:`minplus_window`
+    of its slab and weights at ``tt``.  The kernel writes ``out`` in stream
+    order: a caller that reuses ``out`` across steps must enqueue every
+    read of one step's results before the next step's launch."""
+    table.check_tt(tt)
+    if (tuple(out.shape) != table.shape or out.dtype != torch.int32
+            or out.device != table.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int32 {table.shape} tensor "
+                         f"on {table.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    if table.device.type == "cpu":
+        return out.copy_(minplus_group_ref(table, tt))
+    return _minplus_group_cuda(table, tt, out)
+
+
+def _minplus_group_cuda(table, tt, out):
+    global LAUNCHES, WINDOWS
+    G, I, J = table.shape
+    rc = table._fn(table._descs, len(table.jobs), tt, out.data_ptr(), I, J, table.Q,
+                   torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"minplus_group launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    WINDOWS += G
+    return out
+
+
 def minplus_window(slab, w, row0, col0=0, q_lo=0, mode=0, c=0):
     """out[i, j] = min over q in [q_lo, Q) with mask(q, i, j) of
     slab[row0 + q, i, col0 + j] + w[q, j]; INF when no term survives.
@@ -136,31 +332,17 @@ def minplus_window(slab, w, row0, col0=0, q_lo=0, mode=0, c=0):
     through their strides (any views).  ``mode`` 0: no mask; 1:
     ``q <= c - j + i`` (red_k's k1 bound, c = s - 4 - tt); 2:
     ``q <= j - i - c`` (red_j's j1 bound, c = 2).  Raises when the window
-    leaves the slab.  Returns a new [I, J] int32 tensor.
+    leaves the slab.  Returns a new [I, J] int32 tensor.  On CUDA it is a
+    group of one through :func:`minplus_group`'s kernel.
     """
-    _check_window(slab, w, row0, col0, q_lo, mode)
     if slab.device.type == "cpu" and w.device.type == "cpu":
+        _check_window(slab, w, row0, col0, q_lo, mode)
         return minplus_window_ref(slab, w, row0, col0, q_lo, mode, c)
-    return _minplus_window_cuda(slab, w, row0, col0, q_lo, mode, c)
-
-
-def _minplus_window_cuda(slab, w, row0, col0, q_lo, mode, c):
-    global LAUNCHES
-    if not (slab.is_cuda and w.is_cuda and slab.device == w.device):
-        raise ValueError(f"minplus_window needs slab and w on one CUDA device "
-                         f"(or both on the CPU), got {slab.device}, {w.device}")
-    fn = _library().ccj_minplus_window
-    Q, J = w.shape
-    I = slab.shape[1]
-    out = torch.empty((I, J), dtype=torch.int32, device=slab.device)
-    ss, ws = slab.stride(), w.stride()
-    rc = fn(slab.data_ptr(), ss[0], ss[1], ss[2], w.data_ptr(), ws[0], ws[1],
-            out.data_ptr(), I, J, Q, row0, col0, q_lo, mode, c,
-            torch.cuda.current_stream(slab.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"minplus_window launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return out
+    # the table checks the window as it is built
+    table = WindowTable([WindowSpec(slab, w, (row0, 0), (col0, 0), (0, 0),
+                                    q_lo, mode, (c, 0))], w.shape[1], (0, 0))
+    out = torch.empty(table.shape, dtype=torch.int32, device=table.device)
+    return _minplus_group_cuda(table, 0, out)[0]
 
 
 def minplus_suffix_ref(slab, w, lo):

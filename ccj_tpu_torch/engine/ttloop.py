@@ -5,8 +5,9 @@ builders and ``run_tt_loop_unstacked`` (ported here as :func:`run_tt_loop`;
 the parked stacked experiment of the JAX module is not ported).  For each
 span s the loop runs s-1 sequential steps, each updating the 14
 same-span-dependent families from the previous tt rows.  Every step's 13
-k-shrink / j-shrink min-plus reductions go through
-:func:`cuda_ops.minplus_window`, the port's hand-written Hopper kernel.
+k-shrink / j-shrink min-plus reductions run as one launch of
+:func:`cuda_ops.minplus_group`, the port's hand-written Hopper kernel, from
+a descriptor table built once per span (:func:`reduction_table`).
 
 Recurrences and tie-breaking order are unchanged (reference:
 src/pseudo_loop.cc:181-679; per-branch citations in
@@ -99,6 +100,47 @@ B4_MATS_ALL = ("PK", "PLmloop00", "PLmloop10", "PMmloop00", "PfromL",
                "PfromMprime")
 
 
+# The step's 13 k-shrink / j-shrink reductions, in the order the step reads
+# them: (slab, weight table, kind, masked).  Kind "k" is red_k: rows
+# tt+1.. of an A slab, weights WKX[:, tt+2: tt+2+n2], mask mode 1
+# (d <= G - 1, i.e. q <= s - 4 - tt - (j - i)).  Kind "j" is red_j: rows
+# tt+1.. and columns tt.. of a u-skewed B slab, weights WJX, mask mode 2
+# (d <= (j - i) - 1, i.e. q <= j - i - 2).
+REDUCTIONS = (
+    ("B_PLmloop00", "WB", "j", False),       # PLmloop00
+    ("B_PLmloop00", "WBP", "j", False),      # PLmloop01
+    ("B_PLmloop10", "WB", "j", True),        # PLmloop10
+    ("PRmloop00", "WB", "k", False),         # PRmloop00
+    ("PRmloop00", "WBP", "k", False),        # PRmloop10
+    ("B_PMmloop00", "WB", "j", False),       # PMmloop00
+    ("PMmloop00", "WB", "k", False),         # PMmloop00
+    ("B_PfromL", "WP", "j", True),           # PfromL
+    ("PfromR", "WP", "k", True),             # PfromR
+    ("B_PfromMprime", "WP", "j", True),      # PfromM
+    ("mdp", "WP", "k", True),                # PfromMprime
+    ("B_PK", "WP", "j", True),               # PK
+    ("PK", "WP", "k", True),                 # PK
+)
+
+
+def reduction_table(slabs, WKX, WJX, s, n2):
+    """The descriptor table of one span's :data:`REDUCTIONS`, valid for
+    every tt in [0, s - 2]; ``slabs`` maps the slab names to the span's
+    A / B slabs (and ``mdp``), ``WKX`` / ``WJX`` the weight names to their
+    tables."""
+    wins = []
+    for slab, wn, kind, masked in REDUCTIONS:
+        if kind == "k":
+            wins.append(cuda_ops.WindowSpec(
+                slabs[slab], WKX[wn], row0=(1, 1), wcol=(2, 1),
+                mode=1 if masked else 0, c=(s - 4, -1)))
+        else:
+            wins.append(cuda_ops.WindowSpec(
+                slabs[slab], WJX[wn], row0=(1, 1), col0=(0, 1),
+                mode=2 if masked else 0, c=(2, 0)))
+    return cuda_ops.WindowTable(wins, n2, (0, s - 2))
+
+
 def _enc(v, vmask):
     """Store-encode a plane: int16-clamped value on valid cells, INF on
     invalid ones."""
@@ -148,10 +190,9 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     bp, cp, ap, PB = C["bp"], C["cp"], C["ap"], C["PB"]
     canp, pt, ESTP = C["can_pair"], C["ptype"], C["ESTP"]
     dev = valid4.device
-    minplus = cuda_ops.minplus_window
 
     # gather-free per-span weight / pair tables
-    WKX = {nm: wk_table(X, TB, UK, n2)
+    WKX = {nm: wk_table(X, TB, UK, n2).contiguous()
            for nm, X in (("WP", WPt), ("WB", WBt), ("WBP", WBPg))}
     WJX = {nm: wj_table(X, TB, n2).contiguous()
            for nm, X in (("WP", WPt), ("WB", WBt), ("WBP", WBPg))}
@@ -180,17 +221,18 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     ir = torch.arange(IB, device=dev)[:, None]
     b4_eye = (ir == jr)
 
+    if s >= 2:
+        table = reduction_table({**cur, "mdp": mdp}, WKX, WJX, s, n2)
+        red_out = torch.empty(table.shape, dtype=I32, device=dev)
+
     for tt in range(s - 2, -1, -1):
-        wk = {nm: dynamic_slice(W, (0, tt + 2), (TB, n2))
-              for nm, W in WKX.items()}
-
-        def red_k(slab, w, k1):
-            # d <= G - 1, i.e. q <= s - 4 - tt - (j - i)
-            return minplus(slab, w, tt + 1, 0, 0, 1 if k1 else 0, s - 4 - tt)
-
-        def red_j(slabB, w, j1):
-            # d <= (j - i) - 1, i.e. q <= j - i - 2
-            return minplus(slabB, w, tt + 1, tt, 0, 2 if j1 else 0, 2)
+        # One launch reduces the step's 13 windows into red_out.  Reusing
+        # red_out across steps is safe in stream order only: every read of
+        # these views below is enqueued in this step, before the next
+        # step's launch overwrites them (no result outlives its step).
+        (r_pl00, r_pl01, r_pl10, r_pr00, r_pr10, r_pm00_j, r_pm00_k, r_fl,
+         r_fr, r_fm, r_fmp, r_pk_j, r_pk_k) = cuda_ops.minplus_group(
+            table, tt, red_out).unbind(0)
 
         def plane_cur(slab, c, dj):
             sl = slab[tt + c]
@@ -202,20 +244,13 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
             return bases[name][tt]
 
         out = {}
-        out["PLmloop00"] = mmin(SAT16 + bp, base_at("PLmloop00"),
-                                red_j(cur["B_PLmloop00"], WJX["WB"], False))
-        out["PLmloop01"] = red_j(cur["B_PLmloop00"], WJX["WBP"], False)
-        out["PLmloop10"] = torch.minimum(
-            base_at("PLmloop10"), red_j(cur["B_PLmloop10"], WJX["WB"], True))
-        out["PRmloop00"] = mmin(SAT16 + bp, base_at("PRmloop00"),
-                                red_k(cur["PRmloop00"], wk["WB"], False))
+        out["PLmloop00"] = mmin(SAT16 + bp, base_at("PLmloop00"), r_pl00)
+        out["PLmloop01"] = r_pl01
+        out["PLmloop10"] = torch.minimum(base_at("PLmloop10"), r_pl10)
+        out["PRmloop00"] = mmin(SAT16 + bp, base_at("PRmloop00"), r_pr00)
         out["PRmloop10"] = torch.minimum(
-            plane_cur(cur["PRmloop10"], 1, 0) + cp,
-            red_k(cur["PRmloop00"], wk["WBP"], False))
-        out["PMmloop00"] = mmin(
-            SAT16 + bp,
-            red_j(cur["B_PMmloop00"], WJX["WB"], False),
-            red_k(cur["PMmloop00"], wk["WB"], False))
+            plane_cur(cur["PRmloop10"], 1, 0) + cp, r_pr10)
+        out["PMmloop00"] = mmin(SAT16 + bp, r_pm00_j, r_pm00_k)
         out["PMmloop01"] = torch.minimum(
             plane_cur(cur["PMmloop01"], 1, 0) + cp, base_at("PMmloop01"))
         out["PMmloop10"] = torch.minimum(
@@ -244,20 +279,13 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
         PRs_t = PRpad[tt]
         POs_t = POs[tt]
 
-        out["PfromL"] = mmin(
-            base_at("PfromL"),
-            red_j(cur["B_PfromL"], WJX["WP"], True),
-            PRs_t + PB, PMs_t + PB, POs_t + PB)
-        out["PfromR"] = mmin(
-            base_at("PfromR"),
-            red_k(cur["PfromR"], wk["WP"], True),
-            PMs_t + PB, POs_t + PB)
-        out["PfromM"] = red_j(cur["B_PfromMprime"], WJX["WP"], True)
-        out["PfromMprime"] = red_k(mdp, wk["WP"], True)
-        out["PK"] = mmin(
-            red_j(cur["B_PK"], WJX["WP"], True),
-            red_k(cur["PK"], wk["WP"], True),
-            PLs_t + PB, PMs_t + PB, PRs_t + PB, POs_t + PB)
+        out["PfromL"] = mmin(base_at("PfromL"), r_fl,
+                             PRs_t + PB, PMs_t + PB, POs_t + PB)
+        out["PfromR"] = mmin(base_at("PfromR"), r_fr, PMs_t + PB, POs_t + PB)
+        out["PfromM"] = r_fm
+        out["PfromMprime"] = r_fmp
+        out["PK"] = mmin(r_pk_j, r_pk_k,
+                         PLs_t + PB, PMs_t + PB, PRs_t + PB, POs_t + PB)
 
         # write-back of row tt (the B slabs store it at columns u = j + tt)
         for name in LOOP_MATS_ALL:

@@ -9,19 +9,29 @@ Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
    ``ccj_tpu_torch/csrc/`` and report the build time;
-2. ``minplus_window`` against its plain PyTorch version on the card,
-   exactly (tolerance zero: integer data), in all three mask modes, at the
-   CPU tests' shapes and at the main path's largest shapes for n=100 and
-   n=128, with the kernel's, the plain version's and the byte bound's time
-   per shape (no single PyTorch call computes this function, so there is
-   no library yardstick).  ``ms`` / ``plain_ms`` are device times per call
-   (CUDA-graph replay); ``call_ms`` / ``plain_call_ms`` are eager calls back
-   to back, the host's launch path included;
+2. the min-plus kernel against its plain PyTorch version on the card,
+   exactly (tolerance zero: integer data): single windows
+   (``minplus_window``, a group of one) in all three mask modes, at the CPU
+   tests' shapes and at the main path's largest shapes for n=100 and
+   n=128; then the full 13-window group of the main n=100 and n=128 tt
+   steps (``minplus_group``), whose descriptor table comes from the tt
+   loop's own ``ttloop.reduction_table`` on random slabs, checked at tt = 0, the
+   main step and s - 2.  Each row has the kernel's, the plain version's
+   and the byte bound's time (no single PyTorch call computes this
+   function, so there is no library yardstick).  ``ms`` / ``plain_ms``
+   are device times per call (CUDA-graph replay, inputs L2-hot);
+   ``call_ms`` / ``plain_call_ms`` are eager calls back to back, the
+   host's launch path included.  A group row's bound counts each slab and
+   weight element the group needs once, and the row adds ``ms_l2cold``:
+   graph replay cycling through copies of the operands that together
+   overflow L2, so the reads come from HBM as the bound assumes; it also
+   gives its times per window;
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
-   (bench.py, seed 42) with the kernel's launch count reset just before and
-   read just after (it must equal 13 per tt step); then the fill alone
+   (bench.py, seed 42) with the kernel's launch and window counts reset
+   just before and read just after (one launch of 13 windows per tt step:
+   4,851 and 63,063); then the fill alone
    (V(1, 100) must be -1528, bench.py's golden), the host copy and the
    traceback, timed apart, and cells/s as bench.py counts them;
 5. fold ``tests/golden/long/seed42_n126.txt`` (the bucket of 128, dense)
@@ -34,7 +44,9 @@ Prints one JSON line per phase, the kernels line, the card line, and last
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import random
 import subprocess
 import sys
@@ -45,6 +57,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+L2_BYTES = 50e6             # H100 SXM L2 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor-core float32 peak; int32
 #                             add/min have no tensor-core form and run no
 #                             faster, so ops / this rate is a floor
@@ -93,7 +106,8 @@ def cuda_ms(fn, reps):
 def graph_ms(fn, reps=50, replays=10):
     """Device time of one call: ``reps`` calls captured in one CUDA graph,
     replayed ``replays`` times between CUDA events, so the host's launch
-    path is out of the timing.  The inputs stay in L2 across calls."""
+    path is out of the timing.  Inputs that ``fn`` reuses stay in L2
+    across calls."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -124,11 +138,70 @@ def rand_i32(shape, gen, dev):
     return x.to(dev)
 
 
-def phase_kernel(cuda_ops, bucket_dims):
+def admissible(Q, I, J, q_lo, mode, c, dev):
+    """[Q, I, J] bool: the (q, i, j) terms one window's mask admits."""
+    q = torch.arange(Q, device=dev)[:, None, None]
+    i = torch.arange(I, device=dev)[None, :, None]
+    j = torch.arange(J, device=dev)[None, None, :]
+    keep = (q >= q_lo) & (i >= 0) & (j >= 0)
+    if mode == 1:
+        keep &= q <= c - j + i
+    elif mode == 2:
+        keep &= q <= j - i - c
+    return keep
+
+
+def bound(Q, I, J, q_lo, mode, c, dev):
+    """The least time of one window on this card: the bytes its data needs
+    (admissible (q, i, j) slab terms, the weights they use, the output)
+    over the memory rate, against its adds and mins over the float32
+    rate.  Returns (terms, bytes, t_bytes ms, t_ops ms)."""
+    keep = admissible(Q, I, J, q_lo, mode, c, dev)
+    terms = int(keep.sum())
+    w_used = int(keep.any(dim=1).sum())
+    nbytes = 4 * (terms + w_used + I * J)
+    return (terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
+            2 * terms / FP32_OPS_PER_S * 1e3)
+
+
+def group_bound(table, tt, dev):
+    """:func:`bound` of a whole group at ``tt``: each slab and weight
+    element that some window's admissible terms use is counted once,
+    however many windows read it (the union over each tensor), plus every
+    window's output.  Returns (terms, bytes, t_bytes ms, t_ops ms)."""
+    Q, I, J = table.Q, table.I, table.J
+    need = {}                   # (data_ptr, shape, strides) -> bool mask
+    terms = 0
+
+    def mask_of(x):
+        key = (x.data_ptr(), tuple(x.shape), x.stride())
+        return need.setdefault(key, torch.zeros(x.shape, dtype=torch.bool, device=dev))
+
+    for win in table.windows:
+        row0, col0, wcol, c = win.at(tt)
+        keep = admissible(Q, I, J, win.q_lo, win.mode, c, dev)
+        terms += int(keep.sum())
+        mask_of(win.slab)[row0:row0 + Q, :, col0:col0 + J] |= keep
+        mask_of(win.w)[:, wcol:wcol + J] |= keep.any(dim=1)
+    nbytes = 4 * (sum(int(m.sum()) for m in need.values()) + len(table.windows) * I * J)
+    return (terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
+            2 * terms / FP32_OPS_PER_S * 1e3)
+
+
+def main_span(n, bucket_dims):
+    """The span whose window TB x IB x n2 is largest on length n, its
+    (TB, IB) and its middle tt step."""
+    s = max(range(2, n), key=lambda s: (bucket_dims(n, s)[0]
+                                        * bucket_dims(n, s)[1], s))
+    TB, IB = bucket_dims(n, s)
+    return s, TB, IB, (s - 2) // 2
+
+
+def phase_kernel(cuda_ops, bucket_dims, dev):
     """Phase 2: kernel vs plain version; returns (rows, main-path row)."""
     from ccj_tpu_torch.engine.common import INF
+    from ccj_tpu_torch.engine.ttloop import REDUCTIONS, reduction_table
 
-    dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     cases = []
     for T, I, J in ((7, 5, 9), (16, 8, 128), (23, 13, 150)):
@@ -136,14 +209,9 @@ def phase_kernel(cuda_ops, bucket_dims):
             slab, w = rand_i32((T, I, J), gen, dev), rand_i32((T, J), gen, dev)
             cases.append((f"suffix {T}x{I}x{J} lo={lo}", slab, w,
                           (0, 0, max(lo + 1, 0), 0, 0)))
-    main_case = None
     for n in (100, 128):
-        # the span whose window TB x IB x n2 is largest on this length
         n2 = n + 2
-        s = max(range(2, n), key=lambda s: (bucket_dims(n, s)[0]
-                                            * bucket_dims(n, s)[1], s))
-        TB, IB = bucket_dims(n, s)
-        tt = (s - 2) // 2
+        s, TB, IB, tt = main_span(n, bucket_dims)
         slab = rand_i32((2 * TB + 2, IB, n2), gen, dev)
         wk = rand_i32((TB, n2 + TB + 1), gen, dev)[:, tt + 2: tt + 2 + n2]
         slabB = rand_i32((2 * TB + 2, IB, n2 + TB), gen, dev)
@@ -153,8 +221,6 @@ def phase_kernel(cuda_ops, bucket_dims):
                   (f"red_k mode1 {tag}", slab, wk, (tt + 1, 0, 0, 1, s - 4 - tt)),
                   (f"red_j mode0 {tag}", slabB, wj, (tt + 1, tt, 0, 0, 2)),
                   (f"red_j mode2 {tag}", slabB, wj, (tt + 1, tt, 0, 2, 2))]
-        if n == 100:
-            main_case = cases[-1][0]
 
     emit({"phase": "kernel", "library": "none: no single PyTorch call computes "
           "a masked min-plus window, so library_ms is null"})
@@ -171,24 +237,10 @@ def phase_kernel(cuda_ops, bucket_dims):
         err = int((got.long() - want.long()).abs().max())
         check(err == 0, f"minplus_window != plain on {name}: max |err| = {err}")
         check(int(got.max()) <= INF, f"minplus_window above INF on {name}")
-        # work this call's data needs: admissible (q, i, j) terms
         Q, J = w.shape
-        I = slab.shape[1]
-        q = torch.arange(Q, device=dev)[:, None, None]
-        i = torch.arange(I, device=dev)[None, :, None]
-        j = torch.arange(J, device=dev)[None, None, :]
-        keep = (q >= q_lo) & (i >= 0) & (j >= 0)
-        if mode == 1:
-            keep &= q <= c - j + i
-        elif mode == 2:
-            keep &= q <= j - i - c
-        terms = int(keep.sum())
-        w_used = int(keep.any(dim=1).sum())
-        nbytes = 4 * (terms + w_used + I * J)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * terms / FP32_OPS_PER_S * 1e3
+        terms, nbytes, t_bytes, t_ops = bound(Q, slab.shape[1], J, q_lo, mode, c, dev)
         rows.append({
-            "case": name, "Q": Q, "I": I, "J": J, "mode": mode,
+            "case": name, "Q": Q, "I": slab.shape[1], "J": J, "mode": mode,
             "terms": terms, "bytes": nbytes, "max_abs_err": err,
             "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
             "call_ms": cuda_ms(kern, 200), "plain_call_ms": cuda_ms(plain, 20),
@@ -197,7 +249,73 @@ def phase_kernel(cuda_ops, bucket_dims):
             "library_ms": None,
         })
         emit({"phase": "kernel", **rows[-1]})
-    return rows, next(r for r in rows if r["case"] == main_case)
+
+    # the full 13-window group of the main tt steps, one launch each
+    main_row = None
+    for n in (100, 128):
+        n2 = n + 2
+        s, TB, IB, tt = main_span(n, bucket_dims)
+        slabs = {}
+        for name, *_ in REDUCTIONS:
+            cols = n2 + TB if name.startswith("B_") else n2
+            if name not in slabs:
+                slabs[name] = rand_i32((2 * TB + 2, IB, cols), gen, dev)
+        WKX = {nm: rand_i32((TB, n2 + TB + 1), gen, dev) for nm in ("WP", "WB", "WBP")}
+        WJX = {nm: rand_i32((TB, n2), gen, dev) for nm in ("WP", "WB", "WBP")}
+        table = reduction_table(slabs, WKX, WJX, s, n2)
+        G = table.shape[0]
+        terms, nbytes, t_bytes, t_ops = group_bound(table, tt, dev)
+        # copies of the operands in fresh memory, enough that cycling
+        # through them overflows L2, so the kernel's reads come from HBM
+        copies = [table] + [
+            reduction_table(*({k: v.clone() for k, v in d.items()}
+                              for d in (slabs, WKX, WJX)), s, n2)
+            for _ in range(math.ceil(3 * L2_BYTES / nbytes))]
+        cycle = itertools.cycle(copies)
+        out = torch.empty(table.shape, dtype=torch.int32, device=dev)
+        err = 0
+        for t in (0, tt, s - 2):
+            before = cuda_ops.LAUNCHES
+            cuda_ops.minplus_group(table, t, out)
+            want = cuda_ops.minplus_group_ref(table, t)
+            torch.cuda.synchronize()
+            check(cuda_ops.LAUNCHES == before + 1, "a group made more than one launch")
+            err = max(err, int((out.long() - want.long()).abs().max()))
+            check(int(out.max()) <= INF, f"minplus_group above INF at n={n} tt={t}")
+        name = f"group of {G} n={n} s={s} tt={tt} TB={TB} IB={IB}"
+        check(err == 0, f"minplus_group != plain on {name}: max |err| = {err}")
+
+        def kern():
+            return cuda_ops.minplus_group(table, tt, out)
+
+        def kern_cold():
+            return cuda_ops.minplus_group(next(cycle), tt, out)
+
+        def plain():
+            return cuda_ops.minplus_group_ref(table, tt)
+
+        row = {
+            "case": name, "windows": G, "descriptors": len(table.jobs),
+            "Q": TB, "I": IB, "J": n2,
+            "masked_windows": sum(w.mode != 0 for w in table.windows),
+            "terms": terms, "bytes": nbytes, "max_abs_err": err,
+            "ms": graph_ms(kern), "ms_l2cold": graph_ms(kern_cold),
+            "l2cold_copies": len(copies), "plain_ms": graph_ms(plain, reps=10),
+            "call_ms": cuda_ms(kern, 200), "plain_call_ms": cuda_ms(plain, 10),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+        }
+        row.update({f"{k}_per_window": row[k] / G
+                    for k in ("ms", "ms_l2cold", "call_ms", "bound_ms")})
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+        rows.append(row)
+        emit({"phase": "kernel", **row})
+        if n == 100:
+            main_row = row
+        del slabs, WKX, WJX, table, copies, cycle, out
+    return rows, main_row
 
 
 def main():
@@ -230,7 +348,7 @@ def main():
           "kind": torch.cuda.get_device_name(0)})
 
     # ---- 2: kernel vs plain ----------------------------------------------
-    rows, main_row = phase_kernel(cuda_ops, bucket_dims)
+    rows, main_row = phase_kernel(cuda_ops, bucket_dims, torch.device("cuda"))
     report["kernel"] = rows
 
     # ---- 3: corpus goldens -----------------------------------------------
@@ -249,14 +367,15 @@ def main():
     # ---- 4: the main path at n=100 -----------------------------------------
     n = 100
     seq = bench_seq(n)
-    expect = 13 * sum(max(s - 1, 0) for s in range(n))
-    cuda_ops.LAUNCHES = 0
+    steps = sum(max(s - 1, 0) for s in range(n))
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
     t0 = time.perf_counter()
     res = fold(seq)
     fold_s = time.perf_counter() - t0
-    launches = cuda_ops.LAUNCHES
-    check(launches > 0, "the main path launched minplus_window no time")
-    check(launches == expect, f"launches {launches} != 13 per tt step ({expect})")
+    launches, windows = cuda_ops.LAUNCHES, cuda_ops.WINDOWS
+    check(launches > 0, "the main path launched the min-plus kernel no time")
+    check(launches == steps, f"launches {launches} != 1 per tt step ({steps})")
+    check(windows == 13 * steps, f"windows {windows} != 13 per tt step ({13 * steps})")
 
     sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
@@ -279,7 +398,7 @@ def main():
           "fill + traceback disagrees with fold()")
     report["n100"] = {"fold_s": fold_s, "fill_s": fill_s, "copy_s": copy_s,
                       "traceback_s": tb_s, "cells_per_s": cells4d(n) / fill_s,
-                      "launches": launches, "V_1_n": v, "energy": res.energy,
+                      "launches": launches, "windows": windows, "V_1_n": v, "energy": res.energy,
                       "structure": res.structure}
     emit({"phase": "main_path_n100", **report["n100"]})
     del st, mats, C, SC4
@@ -300,13 +419,18 @@ def main():
     emit({"phase": "anchor_n126", **report["n126"]})
 
     kernels = [{
-        "name": "minplus_window", "route": "cuda",
+        "name": "minplus_group", "route": "cuda",
         "source": "ccj_tpu_torch/csrc/minplus.cu", "replaces": REPLACES,
-        "launches": launches,
+        "launches": launches, "windows": windows,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None, "matches_plain": True, "shape": main_row["case"],
+        "library_ms": None, "call_ms": main_row["call_ms"],
+        "ms_l2cold": main_row["ms_l2cold"],
+        "ms_per_window": main_row["ms_per_window"],
+        "share_of_bound": main_row["share_of_bound"],
+        "share_of_bound_l2cold": main_row["share_of_bound_l2cold"],
+        "matches_plain": True, "shape": main_row["case"],
     }]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"

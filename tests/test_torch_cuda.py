@@ -11,6 +11,7 @@ import torch
 
 from ccj_tpu_torch.engine import cuda_ops
 from ccj_tpu_torch.engine.common import INF
+from ccj_tpu_torch.engine.ttloop import REDUCTIONS, reduction_table
 
 pytestmark = pytest.mark.gpu
 
@@ -47,6 +48,49 @@ def test_kernel_matches_plain(cuda, TB, IB, n2, s, mode):
         torch.cuda.synchronize()
         assert cuda_ops.LAUNCHES == before + 1
         assert torch.equal(got, cuda_ops.minplus_window_ref(slab, w, *args))
+
+
+SPANS = [(16, 16, 18, 12), (64, 102, 102, 40), (99, 64, 102, 66), (127, 64, 130, 70)]
+
+
+@pytest.mark.parametrize("TB,IB,n2,s", SPANS)
+def test_group_kernel_matches_plain(cuda, TB, IB, n2, s):
+    """A span's 13-window table (modes 0, 1 and 2) in one launch per tt."""
+    gen = torch.Generator().manual_seed(TB * 11 + s)
+    slabs = {}
+    for name, *_ in REDUCTIONS:
+        cols = n2 + TB if name.startswith("B_") else n2
+        slabs.setdefault(name, _rand((2 * TB + 2, IB, cols), gen, cuda))
+    WKX = {nm: _rand((TB, n2 + TB + 1), gen, cuda) for nm in ("WP", "WB", "WBP")}
+    WJX = {nm: _rand((TB, n2), gen, cuda) for nm in ("WP", "WB", "WBP")}
+    table = reduction_table(slabs, WKX, WJX, s, n2)
+    out = torch.empty(table.shape, dtype=torch.int32, device=cuda)
+    for tt in (0, (s - 2) // 2, s - 2):
+        before = (cuda_ops.LAUNCHES, cuda_ops.WINDOWS)
+        cuda_ops.minplus_group(table, tt, out)
+        torch.cuda.synchronize()
+        assert (cuda_ops.LAUNCHES, cuda_ops.WINDOWS) == (before[0] + 1, before[1] + 13)
+        assert torch.equal(out, cuda_ops.minplus_group_ref(table, tt))
+
+
+def test_group_kernel_pairs_windows_with_differently_strided_weights(cuda):
+    """Two windows on one slab window (one descriptor with w and w2) whose
+    weight tables have different strides, beside an unpaired window."""
+    gen = torch.Generator().manual_seed(5)
+    TB, IB, n2, s = 64, 102, 102, 40
+    slab = _rand((2 * TB + 2, IB, n2 + TB), gen, cuda)
+    w = _rand((TB, n2), gen, cuda)
+    w2 = _rand((n2, TB), gen, cuda).T                 # strides (1, TB)
+    spec = dict(slab=slab, row0=(1, 1), col0=(0, 1), mode=2, c=(2, 0))
+    table = cuda_ops.WindowTable(
+        [cuda_ops.WindowSpec(w=w, **spec), cuda_ops.WindowSpec(w=w2, **spec),
+         cuda_ops.WindowSpec(w=w2, **{**spec, "mode": 0})], n2, (0, s - 2))
+    assert table.jobs == [(0, 1), (2,)]
+    out = torch.empty(table.shape, dtype=torch.int32, device=cuda)
+    for tt in (0, (s - 2) // 2, s - 2):
+        cuda_ops.minplus_group(table, tt, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, cuda_ops.minplus_group_ref(table, tt))
 
 
 @pytest.mark.parametrize("lo", [-1, 0, 5, 40])

@@ -13,8 +13,8 @@ chiprun_out/fill_breakdown_n<n>.json):
   cross-span phase of span_gapped4, its serial tt loop, WM/WMv/WMp);
 * ``profile``: a torch.profiler trace over a window of spans: device
   kernel time over the window's wall without the profiler (the device's
-  busy share), the kernels that take the most device time, and the
-  PyTorch ops whose kernels take the most.
+  busy share), the kernels that take the most device time, the PyTorch
+  ops whose kernels take the most, and the port's own min-plus kernel.
 """
 
 from __future__ import annotations
@@ -66,12 +66,13 @@ def main():
 
     fold.fill6(C, SC4, n, sp.dangles)          # warm-up (allocator, caches)
     torch.cuda.synchronize()
-    cuda_ops.LAUNCHES = 0
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
     t0 = time.perf_counter()
     st = fold.fill6(C, SC4, n, sp.dangles)
     torch.cuda.synchronize()
     out["fill_s"] = time.perf_counter() - t0
     out["launches"] = cuda_ops.LAUNCHES
+    out["windows"] = cuda_ops.WINDOWS
     out["V_1_n"] = int(st["V"][1, n])
     del st
 
@@ -154,6 +155,8 @@ def main():
         "device_busy_share": dev_us / 1e6 / wall,
         "top_kernels": top(kernels),
         "top_ops": top(ops),
+        # the port's own kernels (csrc/), wherever they rank
+        "port_kernels": top([e for e in kernels if "minplus" in e.key]),
     }
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
