@@ -1,21 +1,29 @@
 """High-level folding API: sequence in, MFE structure + energy out (PyTorch).
 
-Counterpart of ``ccj_tpu/api.py`` on the dense, non-lazy path.  Mirrors the
+Counterpart of ``ccj_tpu/api.py`` on the dense engine.  Mirrors the
 reference CLI pipeline (reference: src/CCJ.cc:58-108): validate, T->U
 unless noConv, select parameter set (DirksPierce09 default; embedded DNA
 Mathews2004 when the unconverted sequence contains T), fill on the device,
 traceback on the host.
+
+Every entry point takes ``device`` (default: CUDA, raising when there is
+none; ``device="cpu"`` runs the plain PyTorch versions of the kernels).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+import os
+import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from .engine.fold import DENSE_MAX_N, run_fill
+from .engine.fold import DENSE_MAX_N, fill_state, run_fill
+from .engine.lazy import LazyMats
 from .engine.traceback import Traceback
 from .params import (
     DEFAULT_PK,
@@ -66,9 +74,30 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "ccj_tpu_torch.fold runs on a CUDA device by default and none is "
+            "ccj_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def _prepare(seq: str, no_conv: bool) -> str:
+    seq = seq.upper()
+    if not no_conv:
+        seq = seq_to_rna(seq)
+    validate_sequence(seq)
+    return seq
+
+
+def _fill_length(n: int, bucket: bool = True) -> int:
+    """The length the dense fill runs at: the bucket of ``n`` where that is
+    within ``DENSE_MAX_N``, else ``n``; raises where ``n`` itself is past
+    the dense engine's reach."""
+    if n > DENSE_MAX_N:
+        raise ValueError(
+            f"n={n} exceeds the dense engine's reach (DENSE_MAX_N="
+            f"{DENSE_MAX_N}); longer folds need packed storage (ROADMAP, "
+            "'Reach past dense')")
+    b = bucket_for(n) if bucket else n
+    return b if b <= DENSE_MAX_N else n
 
 
 def fold(
@@ -80,22 +109,22 @@ def fold(
     pk: PKPenalties = DEFAULT_PK,
     temperature: float = 37.0,
     bucket: bool = True,
+    lazy: bool | None = None,
     device=None,
 ) -> FoldResult:
     """Predict the MFE pseudoknotted secondary structure of one sequence.
 
     ``device`` is where the fill runs (default: CUDA, raising when there is
-    none).  ``bucket`` pads the fill to a length bucket (``BUCKETS``); the
-    padded tables' true-length window is bit-identical to an unpadded
-    fill, and the host traceback only visits regions inside [1, n].
-    Lengths whose fill exceeds ``DENSE_MAX_N`` raise: they need the packed
-    storage that ROADMAP queues ("Reach past dense").
+    none).  ``lazy`` keeps the DP state on the device and lets the
+    traceback fetch per-span slabs on demand (default: on for CUDA, off on
+    the CPU where host copies are free).  ``bucket`` pads the fill to a
+    length bucket (``BUCKETS``); the padded tables' true-length window is
+    bit-identical to an unpadded fill, and the host traceback only visits
+    regions inside [1, n].  Lengths past ``DENSE_MAX_N`` raise: they need
+    the packed storage that ROADMAP queues ("Reach past dense").
     """
     dev = resolve_device(device)
-    seq = seq.upper()
-    if not no_conv:
-        seq = seq_to_rna(seq)
-    validate_sequence(seq)
+    seq = _prepare(seq, no_conv)
 
     # DNA auto-selection (embedded Mathews2004 tables + forced noGU) happens
     # ONLY when no -P file is given (reference: src/CCJ.cc:80-98)
@@ -105,17 +134,175 @@ def fold(
     tables = _load_tables(param_file, dna)
     sp = scale_parameters(tables, temperature=temperature, dangles=dangles)
     tabs = build_seq_tables(seq, sp, pk, no_gu=no_gu)
-    n_fill = bucket_for(len(seq)) if bucket else len(seq)
-    if n_fill > DENSE_MAX_N:
-        n_fill = len(seq)
-    if n_fill > DENSE_MAX_N:
-        raise ValueError(
-            f"n={len(seq)} exceeds the dense engine's reach (DENSE_MAX_N="
-            f"{DENSE_MAX_N}); longer folds need packed storage (ROADMAP, "
-            "'Reach past dense')")
+    n_fill = _fill_length(len(seq), bucket)
     tabs_fill = pad_seq_tables(tabs, n_fill, sp, pk, no_gu=no_gu)
-    mats = run_fill(tabs_fill, sp, pk, dev)
+    if lazy is None:
+        lazy = dev.type != "cpu"
+    if lazy:
+        # keep the O(n^4) state on the device; the traceback fetches
+        # per-span slabs on demand (engine/lazy.py) instead of copying it all
+        mats = LazyMats(fill_state(tabs_fill, sp, pk, dev), tabs_fill.n)
+    else:
+        mats = run_fill(tabs_fill, sp, pk, dev)
     e_dcal, structure = Traceback(tabs, sp, pk, mats).run()
+    if lazy and os.environ.get("CCJ_TRANSFER_STATS"):
+        print(f"[ccj] traceback host-ward transfer: "
+              f"{mats.bytes_fetched / 1e6:.1f} MB in "
+              f"{mats.slab_fetches} slab fetches", file=sys.stderr)
     return FoldResult(
         seq=seq, structure=structure, energy=e_dcal / 100.0, energy_dcal=e_dcal
     )
+
+
+def fold_many(
+    seqs,
+    dangles: int = 2,
+    param_file: str | None = None,
+    no_gu: bool = False,
+    no_conv: bool = False,
+    pk: PKPenalties = DEFAULT_PK,
+    temperature: float = 37.0,
+    batch_limit: int = 8,
+    device=None,
+):
+    """Fold a list of sequences; results keep input order.
+
+    Sequences are grouped by length bucket and each is filled at its
+    bucket's length, then traced back through ``LazyMats``, one sequence
+    after the other.  (The JAX package dispatches fill k+1 before it walks
+    traceback k; here the fill is a host loop that blocks on dispatch, so
+    that overlap would buy nothing yet — ROADMAP item 10.)  So one fill's
+    state is live at a time, within any ``batch_limit``, the JAX package's
+    cap on the fills in flight.  As there, the parameter set is
+    ``param_file`` (or the default) for every sequence, with no DNA
+    auto-selection.  Every length is checked before any fill starts: a
+    sequence past ``DENSE_MAX_N`` raises ``fold``'s ValueError.
+    """
+    dev = resolve_device(device)
+    prepped = [_prepare(seq, no_conv) for seq in seqs]
+    groups: dict[int, list] = {}
+    for idx, seq in enumerate(prepped):
+        groups.setdefault(_fill_length(len(seq)), []).append((idx, seq))
+
+    tables = _load_tables(param_file, False)
+    sp = scale_parameters(tables, temperature=temperature, dangles=dangles)
+
+    results = [None] * len(prepped)
+    for b in sorted(groups):
+        for idx, seq in groups[b]:
+            tabs = build_seq_tables(seq, sp, pk, no_gu=no_gu)
+            tabs_fill = pad_seq_tables(tabs, b, sp, pk, no_gu=no_gu)
+            mats = LazyMats(fill_state(tabs_fill, sp, pk, dev), b)
+            e_dcal, structure = Traceback(tabs, sp, pk, mats).run()
+            del mats        # free this state before the next fill allocates
+            results[idx] = FoldResult(seq=seq, structure=structure,
+                                      energy=e_dcal / 100.0,
+                                      energy_dcal=e_dcal)
+    return results
+
+
+@dataclasses.dataclass
+class PFResult:
+    seq: str
+    ensemble_energy: float     # -kT ln Z, kcal/mol
+    Z: float
+    pair_probs: "object"       # sampled base-pair probability estimates
+    num_samples: int
+
+
+def partition(
+    seq: str,
+    dangles: int = 2,
+    param_file: str | None = None,
+    no_gu: bool = False,
+    no_conv: bool = False,
+    pk: PKPenalties = DEFAULT_PK,
+    temperature: float = 37.0,
+    num_samples: int = 1000,
+    seed: int = 0,
+    ps_path: str | None = None,
+    on_device: bool | None = None,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+) -> PFResult:
+    """Partition function + Boltzmann sampling (+ optional PS dot plot).
+
+    Implements the capability the reference ships disabled
+    (reference: src/CCJ.cc:51-56, src/part_func.cc, src/stoch_backtrack.cc)
+    with corrected recurrences and a completed pseudoknot sampler; see
+    engine/pf.py for the documented divergences.
+
+    ``on_device`` selects the engine: True = the sum-product span fill on
+    ``device`` (engine/pf4d.py, in ``dtype``), False = the host float64
+    engine (engine/pf.py, O(n^5) Python — fine to n~20), None = the device
+    fill for n >= 24.  ``device`` is the torch device (default: CUDA,
+    raising when there is none), which also runs the MFE fold of the dot
+    plot.
+    """
+    from .engine.pf import ensemble_energy, pf_fill
+    from .engine.sample import sample_structures, write_dot_plot
+
+    dev = resolve_device(device)
+    seq = _prepare(seq, no_conv)
+    # same -P/auto-DNA branch order as fold() (reference: src/CCJ.cc:80-98)
+    dna = no_conv and "T" in seq and param_file is None
+    if dna:
+        no_gu = True
+    tables = _load_tables(param_file, dna)
+    sp = scale_parameters(tables, temperature=temperature, dangles=dangles)
+    tabs = build_seq_tables(seq, sp, pk, no_gu=no_gu)
+    if on_device is None:
+        on_device = tabs.n >= 24
+    if on_device:
+        from .engine.pf4d import pf_fill_device
+
+        res = pf_fill_device(tabs, sp, pk, dtype=dtype, device=dev)
+    else:
+        res = pf_fill(tabs, sp, pk)
+
+    z = float(res["W"][tabs.n])
+    if not math.isfinite(z) or z <= 0.0:
+        # the reference's own pf stack NaNs silently on long sequences
+        # (src/CCJ.cc:105, src/part_func.cc:107); fail loudly instead.
+        # The float32 envelope below was measured on a CPU by the JAX
+        # package (tools/pf_envelope.py, random seqs at 37C): float32 vs
+        # float64 rel. error ~2e-7 at n=32/48, ~8e-7 at n=64; Z grows
+        # ~10^0.57 per nt and OVERFLOWS float32 (3.4e38) near n ~ 80-85
+        # (NaN at n=96, Z64 = 2.05e43).
+        raise FloatingPointError(
+            f"partition function overflow/underflow: Z = {z!r} at n = "
+            f"{tabs.n} (float32 device pf is accurate to ~1e-6 up to "
+            "n~64 and overflows near n~80-85 — measured, tools/"
+            "pf_envelope.py; pass dtype=torch.float64 for a float64 device "
+            "fill, or on_device=False for the float64 host engine)")
+    counts, _ = sample_structures(tabs, sp, pk, res, num_samples=num_samples,
+                                  seed=seed)
+    probs = counts.astype(np.float64) / max(num_samples, 1)
+    if ps_path:
+        mfe = fold(seq, dangles=dangles, param_file=param_file, no_gu=no_gu,
+                   no_conv=no_conv, pk=pk, temperature=temperature,
+                   device=dev)
+        mfe_pairs = _pairs_from_structure(mfe.structure)
+        write_dot_plot(ps_path, seq, counts, num_samples, mfe_pairs)
+    return PFResult(
+        seq=seq,
+        ensemble_energy=ensemble_energy(res),
+        Z=z,
+        pair_probs=probs,
+        num_samples=num_samples,
+    )
+
+
+def _pairs_from_structure(structure: str):
+    openers = {"(": ")", "[": "]", "{": "}", "<": ">"}
+    closers = {v: k for k, v in openers.items()}
+    stacks = {o: [] for o in openers}
+    pairs = np.full(len(structure) + 2, -1, dtype=np.int64)
+    for idx, ch in enumerate(structure, start=1):
+        if ch in openers:
+            stacks[ch].append(idx)
+        elif ch in closers:
+            a = stacks[closers[ch]].pop()
+            pairs[a] = idx
+            pairs[idx] = a
+    return pairs

@@ -148,10 +148,15 @@ def fill6(C, SC4, n: int, dangles: int):
     return st
 
 
+def fill_state(tabs: SeqTables, P: ScaledParams, pk: PKPenalties, device):
+    """Run the dense fill on ``device`` and return its whole state, left on
+    the device (what ``lazy.LazyMats`` reads)."""
+    C, SC4 = consts_from_numpy(build_consts(tabs, P, pk), device)
+    return fill6(C, SC4, tabs.n, P.dangles)
+
+
 def run_fill(tabs: SeqTables, P: ScaledParams, pk: PKPenalties, device):
     """Run the dense fill on ``device`` and return the arrays the traceback
-    reads (``TRACEBACK_KEYS``) as host numpy arrays; :func:`fill6` gives the
-    whole state, on the device."""
-    C, SC4 = consts_from_numpy(build_consts(tabs, P, pk), device)
-    st = fill6(C, SC4, tabs.n, P.dangles)
+    reads (``TRACEBACK_KEYS``) as host numpy arrays."""
+    st = fill_state(tabs, P, pk, device)
     return {k: st[k].cpu().numpy() for k in TRACEBACK_KEYS}

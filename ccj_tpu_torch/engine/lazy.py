@@ -1,0 +1,147 @@
+"""Lazy device->host matrix access for the traceback (PyTorch).
+
+Counterpart of the dense branch of ``ccj_tpu/engine/lazy.py``.  The
+traceback (engine/traceback.py) re-derives argmins the way the reference's
+stack machine does (reference: src/W_final.cc:175-719,
+src/pseudo_loop.cc:861-2820), touching O(n) cells across O(n) spans — a
+vanishing fraction of the O(n^4) DP state.  Instead of copying the whole
+state to the host (:func:`fold.run_fill`), :class:`LazyMats` copies the
+eight 2-D matrices once and fetches one (family, span) slab [T, n2, n2] of
+a 4-D family on first touch, caching it.
+
+The P-split case (pseudo_loop.cc:867-897) is the one access that scans PK
+over O(n) spans at once; it runs on the state's device instead
+(:meth:`LazyMats.case_p_argmin`), returning just the split indices.
+
+Only the dense layouts of ``fold.fill6`` are read here; the packed layouts
+wait for the packed engine (ROADMAP item 16).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .common import I32, INF, SAT16
+
+_TWOD = ("V", "Vtype", "WM", "WMv", "WMp", "P2", "WBP", "WPP")
+
+
+class LazyFamily:
+    """Scalar-indexable view of one 4-D family held on the device."""
+
+    def __init__(self, mats: "LazyMats", name: str):
+        self._mats = mats
+        self._name = name
+
+    def __getitem__(self, idx):
+        tt, ss, i, j = idx
+        slab = self._mats._slab(self._name, int(ss))
+        tt, i, j = int(tt), int(i), int(j)
+        if tt >= slab.shape[0] or i >= slab.shape[1] or j >= slab.shape[2]:
+            # beyond the stored extents: a never-written cell, which the
+            # reference's Matrix4D holds at the int16 unset value
+            return SAT16
+        return slab[tt, i, j]
+
+
+class LazyMats:
+    """Mapping from matrix name to host data, fetched lazily per slab.
+
+    ``st_device`` is the state dict :func:`fold.fill6` returns.  2-D
+    triangle matrices are copied at once (they are KB-sized and the
+    exterior-W pass reads them densely); 4-D families come over as
+    per-span slabs ``st[name][:, ss]`` on first touch.  ``bytes_fetched``
+    and ``slab_fetches`` count the host-ward traffic
+    (``CCJ_TRANSFER_STATS=1`` makes ``api.fold`` print them).
+    """
+
+    def __init__(self, st_device, n: int, segs=None):
+        if segs is not None:
+            raise NotImplementedError(
+                "LazyMats reads the dense fill6 layout only; the packed "
+                "layouts (segs) wait for ROADMAP item 16, 'Reach past dense'")
+        self._dev = st_device
+        self.n = n
+        self._slabs: dict = {}
+        self._eager: dict = {}
+        self.bytes_fetched = 0
+        self.slab_fetches = 0
+        for k in _TWOD:
+            arr = st_device[k].cpu().numpy()
+            self._eager[k] = arr
+            self.bytes_fetched += arr.nbytes
+
+    def __getitem__(self, name):
+        if name in self._eager:
+            return self._eager[name]
+        return LazyFamily(self, name)
+
+    def __contains__(self, name):
+        return name in self._eager or name in self._dev
+
+    def _slab(self, name: str, ss: int):
+        key = (name, ss)
+        slab = self._slabs.get(key)
+        if slab is None:
+            slab = self._dev[name][:, ss].cpu().numpy()
+            self._slabs[key] = slab
+            self.bytes_fetched += slab.nbytes
+            self.slab_fetches += 1
+        return slab
+
+    # ---- device-side P split (see module docstring) ----------------------
+    def case_p_argmin(self, i: int, l: int):
+        """argmin over the (j, d, k) cube of PK(i,j,d+1,k)+PK(j+1,d,k+1,l)
+        in C (lexicographic) order — matching the reference's sequential
+        strict-< scan (pseudo_loop.cc:867-897) and the numpy path in
+        traceback.case_p.  Returns (j, d, k, value); (0, 0, 0, value) when
+        no candidate is below INF."""
+        flat, v = case_p_device(self._dev["PKD"], i, l, self.n)
+        self.bytes_fetched += 16
+        if v >= INF:
+            return 0, 0, 0, v
+        m = l - i
+        oj, rem = divmod(flat, m * m)
+        od, ok_ = divmod(rem, m)
+        return i + oj, i + od, i + ok_, v
+
+
+@torch.inference_mode()
+def case_p_device(PKD, i: int, l: int, n: int):
+    """The masked (j, d, k) cube of the P split on ``PKD``'s device, read
+    through the PK diagonal layout (PKD[tt, span, i, a=j-i] =
+    PK[tt, span, i, j]).  Returns (flat index, value) as Python ints, the
+    only data brought back.
+
+    The cube holds the offsets j, d, k - i in [0, l - i): the same cells,
+    in the same C order, as the JAX package's [n+1]^3 cube padded to a
+    static shape, which torch does not need.  Ties keep the FIRST minimum
+    (the smallest flat index among the cells equal to the minimum), which
+    the reference's strict-< scan keeps; ``torch.argmin`` promises no tie
+    rule on CUDA.  int32 throughout: out-of-cube cells hold 4*INF.
+    """
+    dev = PKD.device
+    m = l - i
+    ar = torch.arange(m, device=dev)
+    jj = i + ar[:, None, None]
+    dd = i + ar[None, :, None]
+    kk = i + ar[None, None, :]
+    T, S, N2, A = PKD.shape
+
+    def g4v(i_, j_, k_, l_):
+        valid = (i_ <= j_) & (j_ < k_ - 1) & (k_ <= l_)
+        tt = k_ - j_ - 2
+        ss = l_ - i_
+        i_ = torch.as_tensor(i_, device=dev)
+        v = PKD[tt.clamp(0, T - 1), torch.as_tensor(ss, device=dev).clamp(0, S - 1),
+                i_.clamp(0, N2 - 1), (j_ - i_).clamp(0, A - 1)].to(I32)
+        return torch.where(valid, v, INF)
+
+    vals = g4v(i, jj, dd + 1, kk) + g4v(jj + 1, dd, kk + 1, l)
+    inside = (dd >= jj + 1) & (kk >= dd + 1)
+    vals = torch.where(inside, vals, 4 * INF).reshape(-1)
+    best = vals.min()
+    idx = torch.arange(vals.numel(), device=dev)
+    flat = torch.where(vals == best, idx, vals.numel()).min()
+    flat, best = torch.stack([flat, best.to(flat.dtype)]).tolist()
+    return flat, best

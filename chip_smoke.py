@@ -29,13 +29,31 @@ Phases; any failure exits non-zero and prints no result:
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
-   (bench.py, seed 42) with the kernel's launch and window counts reset
-   just before and read just after (one launch of 13 windows per tt step:
-   4,851 and 63,063); then the fill alone
-   (V(1, 100) must be -1528, bench.py's golden), the host copy and the
-   traceback, timed apart, and cells/s as bench.py counts them;
-5. fold ``tests/golden/long/seed42_n126.txt`` (the bucket of 128, dense)
-   and match structure and energy byte for byte; peak device memory.
+   (bench.py, seed 42; the lazy traceback, the default on CUDA) with the
+   kernel's launch and window counts reset just before and read just
+   after (one launch of 13 windows per tt step: 4,851 and 63,063); then
+   the fill alone (V(1, 100) must be -1528, bench.py's golden) and, on
+   that one fill, the lazy traceback (``LazyMats`` + ``Traceback.run``,
+   with its bytes and slabs fetched) against the eager host copy plus
+   traceback, each timed apart and each giving ``fold``'s structure and
+   energy; cells/s as bench.py counts them;
+5. fold ``tests/golden/long/seed42_n126.txt`` (the bucket of 128, dense,
+   lazy) and match structure and energy byte for byte; its bytes fetched,
+   launches and peak device memory;
+6. ``fold_many`` of the corpus entries at n=37, 60 and 16 in one call
+   (buckets 48, 64 and 16, in that order), each checked against
+   ``tests/golden/corpus.json``, with its own launch count;
+7. the CLI in a subprocess, ``python -m ccj_tpu_torch.cli`` on the n=37
+   crossing-band anchor; its second line must be the reference's;
+8. the partition function: the float64 device fill on the card against
+   the host float64 engine at n=16 (rtol 1e-9); float32 against float64
+   on the card at n=64 (Z within a relative 1e-5); the n=64 float32 fill's
+   wall, peak device memory, and its device launches (kernels, copies and
+   memsets) and their summed device time from a profiler run apart;
+   ``partition`` at n=64 with 1000 samples end to end, its ensemble
+   energy at or below the MFE.  The fill reaches no Pallas
+   kernel in the JAX package, so it is plain PyTorch here and launches no
+   min-plus kernel (checked).
 
 Prints one JSON line per phase, the kernels line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -63,6 +81,8 @@ FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor-core float32 peak; int32
 #                             faster, so ops / this rate is a floor
 BENCH_V100 = -1528          # bench.py BENCH_V[100]
 REPLACES = "ccj_tpu/engine/pallas_ops.py:38"
+CLI_SEQ = "GGGAAACGGGCGAUCCUUCCCGAAAGGGAUCGGGUUU"
+CLI_LINE = "(((([[[...[[[[[[[))))....]]]]]]].]]]. (-9.94)"
 
 
 class SmokeFailure(Exception):
@@ -74,7 +94,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+START = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase line also gets the seconds since the
+    script started, so the lines give the run's timeline."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -85,6 +112,11 @@ def bench_seq(n, seed=42):
 
 def cells4d(n):
     return 22 * n * (n + 1) * (n + 2) * (n + 3) // 24
+
+
+def tt_steps(n_fill):
+    """tt steps (one min-plus launch each) of a dense fill of length n_fill."""
+    return sum(max(s - 1, 0) for s in range(n_fill))
 
 
 def cuda_ms(fn, reps):
@@ -318,15 +350,104 @@ def phase_kernel(cuda_ops, bucket_dims, dev):
     return rows, main_row
 
 
+def max_rel_err(got, want):
+    """Largest |got - want| / max(|got|, |want|) over two arrays (0 where
+    both are 0)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    den = np.maximum(np.maximum(np.abs(got), np.abs(want)), 1e-300)
+    return float((np.abs(got - want) / den).max())
+
+
+def phase_partition(sp, fold, dev="cuda", n=64):
+    """Phase 8: the sum-product fill on ``dev``; returns its report (keys
+    name the phase's n=64, the length it runs at)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ccj_tpu_torch.api import partition
+    from ccj_tpu_torch.engine import cuda_ops
+    from ccj_tpu_torch.engine import pf as pfmod
+    from ccj_tpu_torch.engine.pf4d import pf_fill_device
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    out = {}
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    # float64 on the card against the host float64 engine at n=16
+    tabs = build_seq_tables("GCGCUUCGCCGCGCCA", sp, DEFAULT_PK)
+    host = pfmod.pf_fill(tabs, sp, DEFAULT_PK)
+    r16 = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device=dev)
+    worst = max(max_rel_err(r16[k], host[k])
+                for k in ("V", "WM", "WMv", "WMp", "P2", "WBP", "WPP", "W"))
+    for name, cells in host["M4"].items():
+        keys = list(cells)
+        worst = max(worst, max_rel_err([r16["M4"][name].get(k) for k in keys],
+                                       [cells[k] for k in keys]) if keys else 0.0)
+    check(worst <= 1e-9, f"float64 PF on the card vs host at n=16: rel err {worst}")
+    out["n16_f64_vs_host_max_rel_err"] = worst
+
+    # n=64: float32 (the default) against float64, both on the card
+    seq = bench_seq(n)
+    tabs = build_seq_tables(seq, sp, DEFAULT_PK)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r32 = pf_fill_device(tabs, sp, DEFAULT_PK, device=dev)
+    out["n64_f32_fill_s"] = time.perf_counter() - t0
+    out["n64_f32_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    r64 = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device=dev)
+    out["n64_f64_fill_s"] = time.perf_counter() - t0
+    z32, z64 = float(r32["W"][n]), float(r64["W"][n])
+    rel = abs(z32 - z64) / abs(z64)
+    check(math.isfinite(z32) and z64 > 0 and rel < 1e-5,
+          f"n=64: float32 Z {z32!r} vs float64 Z {z64!r} (rel {rel})")
+    out.update({"n64_Z_f32": z32, "n64_Z_f64": z64, "n64_Z_rel_err": rel})
+
+    # device work the float32 fill launches (a profiler run apart; its raw
+    # events are read directly, key_averages over them would take minutes)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pf_fill_device(tabs, sp, DEFAULT_PK, device=dev)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    copies = [e for e in events if e.name().startswith(("Memcpy", "Memset"))]
+    out["n64_f32_device_launches"] = len(events)
+    out["n64_f32_device_copies"] = len(copies)
+    out["n64_f32_device_busy_s"] = sum(e.duration_ns() for e in events) / 1e9
+    out["n64_profile_s"] = time.perf_counter() - t0
+
+    # partition end to end, and thermodynamic consistency with the MFE fold
+    t0 = time.perf_counter()
+    pf = partition(seq, num_samples=1000, device=dev)
+    out["n64_partition_s"] = time.perf_counter() - t0
+    out["minplus_launches"] = cuda_ops.LAUNCHES
+    check(cuda_ops.LAUNCHES == 0, "the partition function launched the min-plus kernel")
+    mfe = fold(seq, device=dev)
+    check(abs(pf.Z - z32) / z32 < 1e-5, f"partition Z {pf.Z!r} != fill Z {z32!r}")
+    check(pf.ensemble_energy <= mfe.energy + 1e-6,
+          f"ensemble energy {pf.ensemble_energy} above the MFE {mfe.energy}")
+    check(pf.pair_probs.shape == (n + 1, n + 1) and pf.pair_probs.min() >= 0,
+          f"partition gave pair probabilities of shape {pf.pair_probs.shape}")
+    out.update({"n64_ensemble_energy": pf.ensemble_energy, "n64_mfe": mfe.energy,
+                "n64_num_samples": pf.num_samples})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: needs a CUDA GPU")
     sys.path.insert(0, str(ROOT))
-    from ccj_tpu_torch import fold
+    from ccj_tpu_torch import api, fold, fold_many
+    from ccj_tpu_torch.api import bucket_for
     from ccj_tpu_torch.engine import cuda_ops
     from ccj_tpu_torch.engine.fold import (TRACEBACK_KEYS, build_consts,
                                            consts_from_numpy, fill6)
     from ccj_tpu_torch.engine.gapped4 import bucket_dims
+    from ccj_tpu_torch.engine.lazy import LazyMats
     from ccj_tpu_torch.engine.traceback import Traceback
     from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
     from ccj_tpu_torch.precompute import build_seq_tables
@@ -367,15 +488,15 @@ def main():
     # ---- 4: the main path at n=100 -----------------------------------------
     n = 100
     seq = bench_seq(n)
-    steps = sum(max(s - 1, 0) for s in range(n))
     cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
     t0 = time.perf_counter()
     res = fold(seq)
     fold_s = time.perf_counter() - t0
     launches, windows = cuda_ops.LAUNCHES, cuda_ops.WINDOWS
     check(launches > 0, "the main path launched the min-plus kernel no time")
-    check(launches == steps, f"launches {launches} != 1 per tt step ({steps})")
-    check(windows == 13 * steps, f"windows {windows} != 13 per tt step ({13 * steps})")
+    check(launches == tt_steps(n), f"launches {launches} != 1 per tt step ({tt_steps(n)})")
+    check(windows == 13 * tt_steps(n),
+          f"windows {windows} != 13 per tt step ({13 * tt_steps(n)})")
 
     sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
@@ -388,35 +509,99 @@ def main():
     fill_s = time.perf_counter() - t0
     v = int(st["V"][1, n])
     check(v == BENCH_V100, f"V(1,{n}) = {v}, want {BENCH_V100}")
+    state_bytes = sum(x.nbytes for x in st.values())
+    # the lazy traceback (fold's default on CUDA) on this fill ...
+    t0 = time.perf_counter()
+    lazy = LazyMats(st, n)
+    lazy_out = Traceback(tabs, sp, DEFAULT_PK, lazy).run()
+    lazy_s = time.perf_counter() - t0
+    # ... and the eager host copy + traceback, from the same fill
     t0 = time.perf_counter()
     mats = {k: st[k].cpu().numpy() for k in TRACEBACK_KEYS}
     copy_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    e_dcal, structure = Traceback(tabs, sp, DEFAULT_PK, mats).run()
+    eager_out = Traceback(tabs, sp, DEFAULT_PK, mats).run()
     tb_s = time.perf_counter() - t0
-    check((e_dcal, structure) == (res.energy_dcal, res.structure),
-          "fill + traceback disagrees with fold()")
-    report["n100"] = {"fold_s": fold_s, "fill_s": fill_s, "copy_s": copy_s,
+    for name, out in (("lazy", lazy_out), ("eager", eager_out)):
+        check(out == (res.energy_dcal, res.structure),
+              f"fill + {name} traceback disagrees with fold()")
+    report["n100"] = {"fold_s": fold_s, "fill_s": fill_s,
+                      "lazy_traceback_s": lazy_s, "bytes_fetched": lazy.bytes_fetched,
+                      "slab_fetches": lazy.slab_fetches, "state_bytes": state_bytes,
+                      "copy_s": copy_s, "copy_bytes": sum(x.nbytes for x in mats.values()),
                       "traceback_s": tb_s, "cells_per_s": cells4d(n) / fill_s,
                       "launches": launches, "windows": windows, "V_1_n": v, "energy": res.energy,
                       "structure": res.structure}
     emit({"phase": "main_path_n100", **report["n100"]})
-    del st, mats, C, SC4
+    del st, mats, lazy, C, SC4
     torch.cuda.empty_cache()
 
-    # ---- 5: the n=126 reference anchor ------------------------------------
+    # ---- 5: the n=126 reference anchor, through the lazy path -------------
     seq, line = (ROOT / "tests" / "golden" / "long" / "seed42_n126.txt") \
         .read_text().splitlines()[:2]
+    seen = []
+
+    class RecordingLazyMats(LazyMats):
+        """The fold's own LazyMats, kept to read its transfer counts."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            seen.append(self)
+
+    api.LazyMats = RecordingLazyMats
     torch.cuda.reset_peak_memory_stats()
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
     t0 = time.perf_counter()
     res = fold(seq)
     fold_s = time.perf_counter() - t0
+    api.LazyMats = LazyMats
     got = f"{res.structure} ({res.energy:.2f})"
     check(got == line, f"n=126: {got!r} != {line!r}")
+    check(len(seen) == 1, "the n=126 fold did not take the lazy traceback")
+    check(cuda_ops.LAUNCHES == tt_steps(128), f"n=126 launches {cuda_ops.LAUNCHES} != "
+          f"{tt_steps(128)}")
     report["n126"] = {"fold_s": fold_s,
                       "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                      "energy": res.energy}
+                      "bytes_fetched": seen[0].bytes_fetched,
+                      "slab_fetches": seen[0].slab_fetches,
+                      "launches": cuda_ops.LAUNCHES, "energy": res.energy}
     emit({"phase": "anchor_n126", **report["n126"]})
+    del seen
+    torch.cuda.empty_cache()
+
+    # ---- 6: fold_many -------------------------------------------------------
+    entries = [next(e for e in corpus if len(e["seq"]) == m and not e["args"])
+               for m in (37, 60, 16)]
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    t0 = time.perf_counter()
+    many = fold_many([e["seq"] for e in entries])
+    many_s = time.perf_counter() - t0
+    many_launches = cuda_ops.LAUNCHES
+    for e, r in zip(entries, many):
+        check((r.seq, r.structure) == (e["seq"], e["structure"])
+              and abs(r.energy - e["energy"]) < 1e-9,
+              f"fold_many n={len(e['seq'])}: {r.structure} ({r.energy}) != "
+              f"{e['structure']} ({e['energy']})")
+    want = sum(tt_steps(bucket_for(len(e["seq"]))) for e in entries)
+    check(many_launches == want, f"fold_many launches {many_launches} != {want}")
+    report["fold_many"] = {"n": [len(e["seq"]) for e in entries], "wall_s": many_s,
+                           "launches": many_launches}
+    emit({"phase": "fold_many", **report["fold_many"]})
+
+    # ---- 7: the CLI ---------------------------------------------------------
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "ccj_tpu_torch.cli", CLI_SEQ],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = cli.stdout.splitlines()
+    check(cli.returncode == 0, f"the CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    check(lines[:2] == [CLI_SEQ, CLI_LINE], f"the CLI printed {lines!r}")
+    report["cli"] = {"wall_s": cli_s, "stdout": lines}
+    emit({"phase": "cli", **report["cli"]})
+
+    # ---- 8: the partition function ------------------------------------------
+    report["partition"] = phase_partition(sp, fold)
+    emit({"phase": "partition", **report["partition"]})
 
     kernels = [{
         "name": "minplus_group", "route": "cuda",
@@ -431,6 +616,10 @@ def main():
         "share_of_bound": main_row["share_of_bound"],
         "share_of_bound_l2cold": main_row["share_of_bound_l2cold"],
         "matches_plain": True, "shape": main_row["case"],
+        "launches_by_path": {"fold n=100": launches,
+                             "fold n=126": report["n126"]["launches"],
+                             "fold_many n=37,60,16": report["fold_many"]["launches"],
+                             "partition n=16,64": report["partition"]["minplus_launches"]},
     }]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"

@@ -1,6 +1,7 @@
 """The CUDA kernel against its plain PyTorch version, on the card (exact:
-integer data).  Marked ``gpu``; each test skips where no CUDA device is
-present.  This file imports neither JAX nor ``ccj_tpu``, so on a machine
+integer data), and the card's lazy traceback, P-split argmin and float64
+partition function against the CPU's.  Marked ``gpu``; each test skips
+where no CUDA device is present.  This file imports neither JAX nor ``ccj_tpu``, so on a machine
 without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -109,3 +110,44 @@ def test_fold_on_cuda_matches_cpu(cuda):
     res = fold(seq)
     assert cuda_ops.LAUNCHES > before
     assert (res.structure, res.energy) == ("(((([[[...[[[[[[[))))....]]]]]]].]]].", -9.94)
+
+
+def test_lazy_fold_on_cuda_matches_eager_cpu(cuda):
+    from ccj_tpu_torch import fold
+
+    seq = "GGGAAACGGGCGAUCCUUCCCGAAAGGGAUCGGGUUU"
+    lazy = fold(seq, lazy=True)
+    eager = fold(seq, device="cpu", lazy=False)
+    assert (lazy.structure, lazy.energy_dcal) == (eager.structure, eager.energy_dcal)
+
+
+def test_case_p_argmin_on_cuda_matches_cpu(cuda):
+    from ccj_tpu_torch.engine.lazy import case_p_device
+
+    gen = torch.Generator().manual_seed(11)
+    n = 37
+    PKD = torch.randint(-3, 2, (n - 1, n, n + 2, n + 2), generator=gen,
+                        dtype=torch.int16)
+    PKD[torch.rand(PKD.shape, generator=gen) < 0.2] = 32767
+    PKD_cuda = PKD.to(cuda)
+    for i, l in ((1, 4), (1, n), (5, 30), (12, 20), (2, n - 1)):
+        assert case_p_device(PKD_cuda, i, l, n) == case_p_device(PKD, i, l, n)
+
+
+def test_pf_float64_on_cuda_matches_cpu(cuda):
+    import numpy as np
+
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine.pf4d import pf_fill_device
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    tabs = build_seq_tables("GGGAAACGGGCGAUCCUUCCCGAAAGGG", sp, DEFAULT_PK)
+    got = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device=cuda)
+    want = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device="cpu")
+    for k in ("V", "WM", "WMv", "WMp", "P2", "WBP", "WPP", "W"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=1e-300, err_msg=k)
+    for name, view in want["M4"].items():
+        np.testing.assert_allclose(got["M4"][name].arr, view.arr, rtol=1e-12,
+                                   atol=1e-300, err_msg=name)

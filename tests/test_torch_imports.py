@@ -1,7 +1,8 @@
 """The port stands alone and never runs on the CPU unasked: no module of
 ``ccj_tpu_torch`` (nor ``chip_smoke.py``) imports JAX or ``ccj_tpu``; the
-entry point defaults to CUDA and raises without it; the kernel wrapper
-launches or raises for non-CPU tensors and never falls back."""
+entry points (``fold``, ``fold_many``, ``partition``, the CLI) default to
+CUDA and raise without it; the kernel wrapper launches or raises for
+non-CPU tensors and never falls back."""
 
 import subprocess
 import sys
@@ -10,7 +11,9 @@ import pytest
 import torch
 
 import ccj_tpu_torch
+from ccj_tpu_torch import cli
 from ccj_tpu_torch.engine import cuda_ops
+from ccj_tpu_torch.engine.lazy import LazyMats
 
 from oracle_util import REPO
 
@@ -32,7 +35,7 @@ def test_port_imports_no_jax_and_no_ccj_tpu():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 15   # every engine module was seen
+    assert int(out.stdout.split()[-1]) >= 23   # every module was seen
 
 
 def test_fold_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -41,6 +44,31 @@ def test_fold_defaults_to_cuda_and_raises_without_it(monkeypatch):
         ccj_tpu_torch.fold("GGGAAACGGGCGAUCC")
     with pytest.raises(RuntimeError, match="CUDA"):
         ccj_tpu_torch.fold("GGGAAACGGGCGAUCC", device="cuda")
+
+
+def test_fold_many_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ccj_tpu_torch.fold_many(["GGGAAACGGGCGAUCC", "GCGCAAUUGCGC"])
+
+
+@pytest.mark.parametrize("on_device", [None, True, False])
+def test_partition_defaults_to_cuda_and_raises_without_it(monkeypatch, on_device):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ccj_tpu_torch.partition("GCGCAAUUGCGC", num_samples=1, on_device=on_device)
+
+
+@pytest.mark.parametrize("extra", [[], ["--pf"], ["--device", "cuda"]])
+def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, extra):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["GCGCAAUUGCGC", *extra])
+
+
+def test_lazy_mats_refuses_packed_layouts():
+    with pytest.raises(NotImplementedError, match="item 16"):
+        LazyMats({}, 16, segs=[(0, 16, 16, 16)])
 
 
 class _CudaTyped:
