@@ -1,6 +1,6 @@
 """High-level folding API: sequence in, MFE structure + energy out (PyTorch).
 
-Counterpart of ``ccj_tpu/api.py`` on the dense engine.  Mirrors the
+Counterpart of ``ccj_tpu/api.py``.  Mirrors the
 reference CLI pipeline (reference: src/CCJ.cc:58-108): validate, T->U
 unless noConv, select parameter set (DirksPierce09 default; embedded DNA
 Mathews2004 when the unconverted sequence contains T), fill on the device,
@@ -22,7 +22,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .engine.fold import DENSE_MAX_N, fill_state, run_fill
+from .engine.fold import (DENSE_MAX_N, default_version, fill_state, run_fill,
+                          state_segments)
 from .engine.lazy import LazyMats
 from .engine.traceback import Traceback
 from .params import (
@@ -88,14 +89,10 @@ def _prepare(seq: str, no_conv: bool) -> str:
 
 
 def _fill_length(n: int, bucket: bool = True) -> int:
-    """The length the dense fill runs at: the bucket of ``n`` where that is
-    within ``DENSE_MAX_N``, else ``n``; raises where ``n`` itself is past
-    the dense engine's reach."""
-    if n > DENSE_MAX_N:
-        raise ValueError(
-            f"n={n} exceeds the dense engine's reach (DENSE_MAX_N="
-            f"{DENSE_MAX_N}); longer folds need packed storage (ROADMAP, "
-            "'Reach past dense')")
+    """The length the fill runs at: the bucket of ``n`` where that is within
+    ``DENSE_MAX_N``, else ``n``.  Padding past ``DENSE_MAX_N`` would switch
+    to the packed fill7 at an inflated length (and grow the O(n^4) state by
+    (bucket/n)^4), so a longer sequence fills at its true length."""
     b = bucket_for(n) if bucket else n
     return b if b <= DENSE_MAX_N else n
 
@@ -117,11 +114,13 @@ def fold(
     ``device`` is where the fill runs (default: CUDA, raising when there is
     none).  ``lazy`` keeps the DP state on the device and lets the
     traceback fetch per-span slabs on demand (default: on for CUDA, off on
-    the CPU where host copies are free).  ``bucket`` pads the fill to a
-    length bucket (``BUCKETS``); the padded tables' true-length window is
-    bit-identical to an unpadded fill, and the host traceback only visits
-    regions inside [1, n].  Lengths past ``DENSE_MAX_N`` raise: they need
-    the packed storage that ROADMAP queues ("Reach past dense").
+    the CPU where host copies are free; always on for the packed fill, whose
+    state only ``LazyMats`` reads).  ``bucket`` pads the fill to a length
+    bucket (``BUCKETS``) within ``DENSE_MAX_N``; the padded tables'
+    true-length window is bit-identical to an unpadded fill, and the host
+    traceback only visits regions inside [1, n].  Up to ``DENSE_MAX_N`` the
+    dense fill6 runs, past it the segment-packed fill7 at the true length
+    (``fold.default_version``; ``CCJ_ENGINE`` overrides it).
     """
     dev = resolve_device(device)
     seq = _prepare(seq, no_conv)
@@ -136,14 +135,18 @@ def fold(
     tabs = build_seq_tables(seq, sp, pk, no_gu=no_gu)
     n_fill = _fill_length(len(seq), bucket)
     tabs_fill = pad_seq_tables(tabs, n_fill, sp, pk, no_gu=no_gu)
+    version = default_version(tabs_fill.n)
     if lazy is None:
         lazy = dev.type != "cpu"
+    if version == 7:
+        lazy = True
     if lazy:
         # keep the O(n^4) state on the device; the traceback fetches
         # per-span slabs on demand (engine/lazy.py) instead of copying it all
-        mats = LazyMats(fill_state(tabs_fill, sp, pk, dev), tabs_fill.n)
+        st = fill_state(tabs_fill, sp, pk, dev, version)
+        mats = LazyMats(st, tabs_fill.n, segs=state_segments(st, tabs_fill.n))
     else:
-        mats = run_fill(tabs_fill, sp, pk, dev)
+        mats = run_fill(tabs_fill, sp, pk, dev, version)
     e_dcal, structure = Traceback(tabs, sp, pk, mats).run()
     if lazy and os.environ.get("CCJ_TRANSFER_STATS"):
         print(f"[ccj] traceback host-ward transfer: "
@@ -167,34 +170,43 @@ def fold_many(
 ):
     """Fold a list of sequences; results keep input order.
 
-    Sequences are grouped by length bucket and each is filled at its
-    bucket's length, then traced back through ``LazyMats``, one sequence
-    after the other.  (The JAX package dispatches fill k+1 before it walks
-    traceback k; here the fill is a host loop that blocks on dispatch, so
-    that overlap would buy nothing yet — ROADMAP item 10.)  So one fill's
-    state is live at a time, within any ``batch_limit``, the JAX package's
-    cap on the fills in flight.  As there, the parameter set is
-    ``param_file`` (or the default) for every sequence, with no DNA
-    auto-selection.  Every length is checked before any fill starts: a
-    sequence past ``DENSE_MAX_N`` raises ``fold``'s ValueError.
+    Sequences past ``DENSE_MAX_N`` fold one at a time through :func:`fold`
+    (the packed fill at their true length); the rest are grouped by length
+    bucket and each is filled at its bucket's length, then traced back
+    through ``LazyMats``, one sequence after the other.  (The JAX package
+    dispatches fill k+1 before it walks traceback k; here the fill is a
+    host loop that blocks on dispatch, so that overlap would buy nothing
+    yet — ROADMAP item 10.)  So one fill's state is live at a time, within
+    any ``batch_limit``, the JAX package's cap on the fills in flight.  As
+    there, the parameter set is ``param_file`` (or the default) for every
+    sequence, with no DNA auto-selection for the bucketed ones.
     """
     dev = resolve_device(device)
     prepped = [_prepare(seq, no_conv) for seq in seqs]
     groups: dict[int, list] = {}
+    long_items = []
     for idx, seq in enumerate(prepped):
-        groups.setdefault(_fill_length(len(seq)), []).append((idx, seq))
+        if len(seq) > DENSE_MAX_N:
+            long_items.append((idx, seq))
+        else:
+            groups.setdefault(_fill_length(len(seq)), []).append((idx, seq))
+
+    results = [None] * len(prepped)
+    for idx, seq in long_items:
+        results[idx] = fold(seq, dangles=dangles, param_file=param_file,
+                            no_gu=no_gu, no_conv=no_conv, pk=pk,
+                            temperature=temperature, device=dev)
 
     tables = _load_tables(param_file, False)
     sp = scale_parameters(tables, temperature=temperature, dangles=dangles)
-
-    results = [None] * len(prepped)
     for b in sorted(groups):
         for idx, seq in groups[b]:
             tabs = build_seq_tables(seq, sp, pk, no_gu=no_gu)
             tabs_fill = pad_seq_tables(tabs, b, sp, pk, no_gu=no_gu)
-            mats = LazyMats(fill_state(tabs_fill, sp, pk, dev), b)
+            st = fill_state(tabs_fill, sp, pk, dev)
+            mats = LazyMats(st, b, segs=state_segments(st, b))
             e_dcal, structure = Traceback(tabs, sp, pk, mats).run()
-            del mats        # free this state before the next fill allocates
+            del st, mats    # free this state before the next fill allocates
             results[idx] = FoldResult(seq=seq, structure=structure,
                                       energy=e_dcal / 100.0,
                                       energy_dcal=e_dcal)

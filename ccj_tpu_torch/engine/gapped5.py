@@ -1,0 +1,258 @@
+"""Gapped-region DP, segment-packed ("fill7") storage for long sequences
+(PyTorch).
+
+Counterpart of ``ccj_tpu/engine/gapped5.py``.  The dense layout stores every
+family as [T, S, n2, n2], n^4 cells of which ~1/24 are valid: 97.5 GB of
+state at n=200 with the C skews, PKD and PKE, more than one 80 GB H100
+holds.  This engine keeps the dense compute (the same recurrences,
+``gapped4.span_families``, bit-identical) but stores each family per SPAN
+SEGMENT with exact extents:
+
+    name@g   : [TB_g, ns_g, IB_g, n2]   spans [lo_g, hi_g)
+    C_name@g : [TB_g, ns_g, Lc_g, n2]   C rows l - lo_g - 1
+    TB_g = hi_g - 2   (tt <= s - 2 < hi_g - 2)
+    IB_g = n - lo_g + 2   (i <= n - s + 1 < IB_g)
+
+Cross-span reads are resolved per segment with Python-int span arithmetic:
+
+* fixed-offset reads at spans s-1 / s-2 and the MAXLOOP stencil windows read
+  segment g or (for spans below lo_g) segment g-1; no overlap copies exist,
+  so segments are at least ``MIN_SEG`` wide;
+* the l-shrink / i-shrink history scans (RL / RI) loop over ALL prior
+  segments, reducing each segment's exact-extent block in turn.
+
+Rows beyond a segment's extents do not exist; every read pads them with the
+int16 unset value, the same losing candidates the dense layout holds there.
+
+One deliberate deviation from the JAX module: **PKD and PKE stay dense**
+(``gapped4.init_big_state4``'s shapes), so the span step reuses the port's
+in-place ``gapped4.update_pk_skews4`` and ``gapped3.compute_P_span3``
+unchanged, and ``update_pk_skews7`` / ``compute_P_span7`` are not ported.
+The JAX module stores PKE per segment because XLA copied the dense PKE on
+every span's scatter; an in-place ``index_put`` makes no such copy.  The
+dense PKE costs 5.1 GB more at n=200 (31.4 GB of state in all, against
+26.2 GB), and spares the card ``compute_P_span7``'s per-lane x per-segment
+loop, about six times the P split's dispatches at n=200.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .common import (I16, I32, INF, SAT16, dynamic_slice,
+                     dynamic_update_slice, pad_axis)
+from .gapped import C_MATS, DS, M4_NAMES, dims
+from .gapped4 import SpanReads, g2, span_families, update_pk_skews4
+
+MIN_SEG = DS + 2   # every cross-span window must fit within one neighbor
+
+# Families with NO canonical-layout reads in the fill: PK's history lives
+# in the PKD diagonal skew, PLmloop00/PfromL's in their C skews (their only
+# cross-span reads are the RI i-shrink scans and one C-servable fixed-
+# offset read).  The traceback reads them through the surviving layouts
+# (engine/lazy.py translations).
+DROPPED = ("PK", "PLmloop00", "PfromL")
+M4_STORED = tuple(m for m in M4_NAMES if m not in DROPPED)
+
+
+def segments7(n: int, width: int | None = None):
+    """Static segment schedule: ((lo, hi, TB, IB, Lc), ...).
+
+    Lc is the C-layout row extent (rows l - lo - 1; writes of span s touch
+    rows up to (n + 1 - lo) + (s - lo) - 1, see the write-back)."""
+    if width is None:
+        width = max(MIN_SEG, (n + 5) // 6)
+    segs = []
+    lo = 0
+    while lo < n:
+        # every segment but the LAST must be at least MIN_SEG wide (its
+        # successor's fixed-offset and stencil-window reads reach at most
+        # one segment back); a short final segment is fine
+        hi = min(lo + width, n)
+        TB = max(hi - 2, 1)
+        IB = n - lo + 2
+        Lc = (n + 2 - lo) + (hi - lo - 1)
+        segs.append((lo, hi, TB, IB, Lc))
+        lo = hi
+    assert all(h - l >= MIN_SEG for l, h, *_ in segs[:-1]), segs
+    return tuple(segs)
+
+
+def init_big_state7(n: int, SEGS, device):
+    """Per-segment packed families and C skews, plus the dense PK diagonal
+    skews PKD / PKE (see the module docstring)."""
+    n2, T, S, U = dims(n)
+    st = {}
+    for g, (lo, hi, TB, IB, Lc) in enumerate(SEGS):
+        ns = hi - lo
+        for m in M4_STORED:
+            st[f"{m}@{g}"] = torch.full((TB, ns, IB, n2), SAT16, dtype=I16,
+                                        device=device)
+        for m in C_MATS:
+            st[f"C_{m}@{g}"] = torch.full((TB, ns, Lc, n2), SAT16, dtype=I16,
+                                          device=device)
+    st["PKD"] = torch.full((T, S, n2, n2), SAT16, dtype=I16, device=device)
+    st["PKE"] = torch.full((T, S + T + 2, n2, n2), SAT16, dtype=I16,
+                           device=device)
+    return st
+
+
+def packed_reads(st, n, s, gi: int, SEGS):
+    """``gapped4.SpanReads`` of the segment-packed layout for span s of
+    segment gi (``SEGS[gi]`` gives the span's TB and IB)."""
+    n2, T, S, U = dims(n)
+    lo, hi, TB, IB, _Lc = SEGS[gi]
+    dev = st["PKD"].device
+    tv = torch.arange(TB, device=dev)[:, None, None]      # tt
+    iv = torch.arange(IB, device=dev)[None, :, None]      # i
+    jv = torch.arange(n2, device=dev)[None, None, :]      # j
+    Gv = (iv + s) - (jv + tv + 2)                         # l - k
+
+    def seg_of(u):
+        """The segment a fixed-offset read at span u takes: gi, or gi - 1
+        for spans below lo (spans below 0 are masked by the caller, so
+        segment 0 serves them with a clamped, unused read)."""
+        return gi if gi == 0 or u >= lo else gi - 1
+
+    # ---- segment-resolved plane reads ------------------------------------
+    def seg_plane(name, c, b, di):
+        """Family ``name`` at span u = s-b from its segment, tt rows
+        [c, c+TB), i rows [di, di+IB), missing extents as SAT16."""
+        u = s - b
+        h = seg_of(u)
+        loh, hih, TBh, IBh, _ = SEGS[h]
+        sl = dynamic_slice(st[f"{name}@{h}"],
+                           (0, min(max(u - loh, 0), hih - loh - 1), 0, 0),
+                           (TBh, 1, min(IB + 1, IBh), n2))[:, 0]
+        if IB + 1 > IBh:
+            sl = pad_axis(sl, 1, 0, IB + 1 - IBh, SAT16)
+        sl = pad_axis(sl, 0, 0, max(c + TB - TBh, 0), SAT16)
+        return sl[c: c + TB, di: di + IB]
+
+    def plane_from_C(name, c, b, di):
+        """A family stored ONLY as its C skew (``DROPPED``):
+        name[tt+c, u=s-b, i+di, j] = C_name[tt+c, u, l, j] at row
+        l = (i+di) + u, a contiguous row block of the segment's span u (two
+        lead rows of SAT16 stand for the rows before row 0)."""
+        u = s - b
+        h = seg_of(u)
+        loh, hih, TBh, IBh, Lch = SEGS[h]
+        sl = dynamic_slice(st[f"C_{name}@{h}"],
+                           (0, min(max(u - loh, 0), hih - loh - 1), 0, 0),
+                           (TBh, 1, Lch, n2))[:, 0]
+        sl = pad_axis(sl, 1, 2, 0, SAT16)
+        off = u + di - loh - 1 + 2          # row of i = 0 (>= 0, see +2)
+        sl = dynamic_slice(sl, (0, min(max(off, 0), Lch + 2 - IB), 0),
+                           (TBh, IB, n2))
+        sl = pad_axis(sl, 0, 0, max(c + TB - TBh, 0), SAT16)
+        return sl[c: c + TB]
+
+    def plane(name, c, b, di):
+        return (plane_from_C if name in DROPPED else seg_plane)(name, c, b, di)
+
+    # ---- cross-span reductions: loop over ALL prior segments -------------
+    # Spans u >= s of the current segment are not written yet and every
+    # term they give is masked (d = s - u <= 0), so the scans stop at s - 1:
+    # the same minimum over fewer terms.
+    i1 = torch.arange(IB, device=dev)
+
+    def prior_spans(h):
+        loh, hih = SEGS[h][0], SEGS[h][1]
+        return min(hih, s) - loh
+
+    def RL(name, X, g1):
+        """min over d in [1, G-g1] of name[tt, s-d, i, j] + X(l-d+1, l)."""
+        acc = torch.full((TB, IB, n2), INF, dtype=I32, device=dev)
+        for h in range(gi + 1):
+            loh, hih, TBh, IBh, _ = SEGS[h]
+            nsh = prior_spans(h)
+            if nsh <= 0:
+                continue
+            win = st[f"{name}@{h}"][:, :nsh, :IB, :].to(I32)
+            win = pad_axis(win, 0, 0, TB - TBh, SAT16)
+            u_h = loh + torch.arange(nsh, device=dev)
+            wl = g2(X, i1[None, :] + u_h[:, None] + 1,
+                    (i1[None, :] + s).expand(nsh, IB))
+            d_h = (s - u_h)[None, :, None, None]
+            ok = (d_h >= 1) & (d_h <= (Gv - g1)[:, None])
+            vals = torch.where(ok, win + wl[None, :, :, None], INF)
+            acc = torch.minimum(acc, vals.amin(dim=1))
+        return acc
+
+    l_val = lo + i1                          # actual l per C row
+    i_val = l_val - s                        # i = l - s
+    sj_lr = jv[0, 0][None, :] - i_val[:, None]            # [IB(lr), n2]
+
+    def RI(name, X, g1):
+        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1);
+        C rows l in [lo, lo+IB) (the dense engine's loff = min(s, n2-IB)
+        is lo for exact segment extents)."""
+        acc = torch.full((TB, IB, n2), INF, dtype=I32, device=dev)
+        for h in range(gi + 1):
+            loh, hih, TBh, IBh, _Lch = SEGS[h]
+            nsh = prior_spans(h)
+            if nsh <= 0:
+                continue
+            A = st[f"C_{name}@{h}"]
+            off = lo - loh - 1
+            if off >= 0:
+                win = A[:, :nsh, off: off + IB, :].to(I32)
+            else:  # h == gi: row l = lo is older-span territory, unset here
+                win = pad_axis(A[:, :nsh, :IB - 1, :].to(I32), 2, 1, 0, SAT16)
+            win = pad_axis(win, 0, 0, TB - TBh, SAT16)
+            u_h = loh + torch.arange(nsh, device=dev)
+            wi = g2(X, i_val[None, :].expand(nsh, IB),
+                    l_val[None, :] - u_h[:, None] - 1)    # [u, lr]
+            d_h = (s - u_h)[None, :, None, None]
+            ok = ((d_h >= 1) & (d_h <= (sj_lr - g1)[None, None])
+                  & (i_val >= 1)[None, None, :, None])
+            vals = torch.where(ok, win + wi[None, :, :, None], INF)
+            acc = torch.minimum(acc, vals.amin(dim=1))
+        # rows lr hold l = lo + lr; map to i rows (i = l - s) by shifting
+        return dynamic_slice(pad_axis(acc, 1, 0, IB, INF), (0, s - lo, 0),
+                             (TB, IB, n2))
+
+    # ---- MAXLOOP stencil windows (PL / PR) -------------------------------
+    def window(name, rows):
+        """[rows(tt'), DS, IB+DS, n2]: row r of axis 1 = span s - DS + r.
+        Spans below lo come from segment gi - 1 (which holds all of them:
+        segments are at least MIN_SEG wide), spans below 0 read as unset;
+        the JAX module's pad-and-select over both segments, reading only
+        the window's own spans."""
+        IW = IB + DS
+        u0 = s - DS
+        k = min(max(lo - u0, 0), DS)         # window rows below lo
+        parts = []
+        for h, a, b in ((gi - 1, 0, k), (gi, k, DS)):
+            if a == b:
+                continue
+            if h < 0:
+                parts.append(torch.full((rows, b - a, IW, n2), SAT16,
+                                        dtype=I16, device=dev))
+                continue
+            loh, hih, TBh, IBh, _ = SEGS[h]
+            w = st[f"{name}@{h}"][:, u0 + a - loh: u0 + b - loh, :min(IW, IBh)]
+            w = pad_axis(w, 2, 0, IW - w.shape[2], SAT16)
+            parts.append(pad_axis(w, 0, 0, max(rows - TBh, 0), SAT16)[:rows])
+        return torch.cat(parts, dim=1)
+
+    return SpanReads(plane, RL, RI, window)
+
+
+def span_gapped7(C, SC4, st, s, gi: int, SEGS):
+    """All 22 gapped families for span s of segment gi; updates the packed
+    state in place (every read of the span's inputs happens before the
+    write-back into segment gi) and returns it."""
+    n = C["n"]
+    lo, hi, TB, IB, _Lc = SEGS[gi]
+    packed = span_families(C, SC4, st, s, TB, IB,
+                           packed_reads(st, n, s, gi, SEGS))
+    for name in M4_STORED:
+        dynamic_update_slice(st[f"{name}@{gi}"], packed[name][:, None],
+                             (0, s - lo, 0, 0))
+    for name in C_MATS:
+        # C rows: local row l - lo - 1 = (s - lo) + (i - 1); drop the
+        # (invalid) i = 0 row so the write starts at i = 1
+        dynamic_update_slice(st[f"C_{name}@{gi}"], packed[name][:, None, 1:],
+                             (0, s - lo, s - lo, 0))
+    return update_pk_skews4(st, packed["PK"], s, n)

@@ -1,0 +1,183 @@
+"""Where a fill's time goes on the GPU, for the dense and the packed engine
+alike.
+
+    python -m ccj_tpu_torch.fill_breakdown [--n 100] [--engine 6|7]
+                                           [--profile-spans 50:52]
+
+Fills the bench sequence of length n (seed 42, as bench.py draws it) on one
+CUDA device with ``fold.fill6`` (``--engine 6``, the default) or
+``fold.fill7`` (``--engine 7``, segments ``gapped5.segments7(n)``) and
+prints one JSON object, also written to
+chiprun_out/fill_breakdown_n<n>_e<engine>.json.  Every figure is taken the
+same way for both engines, in this order:
+
+* ``fill_s_first``, ``fill_s``: two plain fills in a row, each synchronised
+  at its end only (the first also warms the allocator and caches);
+  ``max_memory_allocated`` over the two;
+* ``parts_s``: a third fill with a device synchronise around each span
+  function, so each part's wall is summed apart (V, P split, WBP/WPP, the
+  cross-span phase of the gapped step, its serial tt loop, WM/WMv/WMp);
+* ``profile``: a fill stopped before span lo, then spans [lo, hi) run
+  twice (re-running spans whose inputs are final rewrites the same
+  values): once for the wall, once under torch.profiler.  Device kernel
+  time over that wall is the device's busy share; the kernels and PyTorch
+  ops that take the most device time and the port's min-plus kernel are
+  listed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+from .engine import cuda_ops, fold, gapped4, gapped5
+from .params import DEFAULT_PK, parse_par, scale_parameters
+from .precompute import build_seq_tables
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _timed(fn, acc, key):
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        acc[key] += time.perf_counter() - t0
+        return out
+    return run
+
+
+def _top(events):
+    return [{"name": e.key[:80], "count": e.count,
+             "device_s": e.self_device_time_total / 1e6}
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=100)
+    ap.add_argument("--engine", type=int, choices=(6, 7), default=6)
+    ap.add_argument("--profile-spans", default="50:52")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    n, packed = args.n, args.engine == 7
+    rng = random.Random(42)
+    seq = "".join(rng.choice("ACGU") for _ in range(n))
+    sp = scale_parameters(parse_par(Path(__file__).parent / "params"
+                                    / "rna_DirksPierce09.par"))
+    tabs = build_seq_tables(seq, sp, DEFAULT_PK)
+    C, SC4 = fold.consts_from_numpy(fold.build_consts(tabs, sp, DEFAULT_PK), "cuda")
+    dev = C["H"].device
+    SEGS = gapped5.segments7(n)
+    out = {"n": n, "engine": args.engine, "card": torch.cuda.get_device_name(0)}
+    if packed:
+        out["segments"] = len(SEGS)
+
+    def run_fill():
+        if packed:
+            return fold.fill7(C, SC4, n, sp.dangles, SEGS)
+        return fold.fill6(C, SC4, n, sp.dangles)
+
+    def steps():
+        return fold._packed_steps(SEGS) if packed else fold._dense_steps(n)
+
+    # ---- plain fills ------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    for key in ("fill_s_first", "fill_s"):
+        torch.cuda.synchronize()
+        cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+        t0 = time.perf_counter()
+        st = run_fill()
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+        out["V_1_n"] = int(st["V"][1, n])
+        del st
+    out["launches"] = cuda_ops.LAUNCHES
+    out["windows"] = cuda_ops.WINDOWS
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # ---- per-part walls: wrap the span functions where the fill and the
+    # gapped step look them up, run one fill, restore ------------------------
+    acc = defaultdict(float)
+    step = "span_gapped7" if packed else "span_gapped4"
+    names = {"compute_V_span": fold, "compute_P_span3": fold,
+             "compute_WBP_WPP_span": fold, step: fold,
+             "compute_WMv_WMp_WM_span": fold, "run_tt_loop": gapped4}
+    saved = {k: getattr(m, k) for k, m in names.items()}
+    try:
+        for k, m in names.items():
+            setattr(m, k, _timed(saved[k], acc, k))
+        t0 = time.perf_counter()
+        run_fill()
+        torch.cuda.synchronize()
+        out["fill_synced_s"] = time.perf_counter() - t0
+    finally:
+        for k, m in names.items():
+            setattr(m, k, saved[k])
+    acc[f"{step} (cross-span phase)"] = acc.pop(step) - acc["run_tt_loop"]
+    out["parts_s"] = dict(sorted(acc.items(), key=lambda kv: -kv[1]))
+
+    # ---- device busy share over spans [lo, hi) of a fill stopped at lo ----
+    lo, hi = (int(x) for x in args.profile_spans.split(":"))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():      # the fills' state is inference tensors
+        if packed:
+            st = fold.init_state_2d(n, dev)
+            st.update(gapped5.init_big_state7(n, SEGS, dev))
+        else:
+            st = fold._init_dense(n, dev)
+        for _ in fold._run_spans(C, SC4, n, sp.dangles, st,
+                                 (x for x in steps() if x[0] < lo)):
+            pass
+
+    def window():
+        with torch.inference_mode():
+            for _ in fold._run_spans(C, SC4, n, sp.dangles, st,
+                                     (x for x in steps() if lo <= x[0] < hi)):
+                pass
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    wall = time.perf_counter() - t0           # the window without the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window()
+    del st
+    # Device kernels are the CUDA-typed entries; a CPU op's entry repeats
+    # the device time of the kernels it launched (as the profiler's own
+    # table totals it), so it names where that time came from instead.
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+    ops = [e for e in ka if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    out["profile"] = {
+        "spans": [lo, hi], "wall_s": wall,
+        "device_busy_s": dev_us / 1e6,
+        "device_busy_share": dev_us / 1e6 / wall,
+        "top_kernels": _top(kernels),
+        "top_ops": _top(ops),
+        # the port's own kernels (csrc/), wherever they rank
+        "port_kernels": _top([e for e in kernels if "minplus" in e.key]),
+    }
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / f"fill_breakdown_n{n}_e{args.engine}.json").write_text(
+        json.dumps(out, indent=1))
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -14,9 +14,10 @@ Phases; any failure exits non-zero and prints no result:
    (``minplus_window``, a group of one) in all three mask modes, at the CPU
    tests' shapes and at the main path's largest shapes for n=100 and
    n=128; then the full 13-window group of the main n=100 and n=128 tt
-   steps (``minplus_group``), whose descriptor table comes from the tt
-   loop's own ``ttloop.reduction_table`` on random slabs, checked at tt = 0, the
-   main step and s - 2.  Each row has the kernel's, the plain version's
+   steps (``minplus_group``) and of the packed fill's largest step at
+   n=200 (segment 3: span 135, TB 134, IB 100), whose descriptor table
+   comes from the tt loop's own ``ttloop.reduction_table`` on random slabs,
+   checked at tt = 0, the main step and s - 2.  Each row has the kernel's, the plain version's
    and the byte bound's time (no single PyTorch call computes this
    function, so there is no library yardstick).  ``ms`` / ``plain_ms``
    are device times per call (CUDA-graph replay, inputs L2-hot);
@@ -36,10 +37,18 @@ Phases; any failure exits non-zero and prints no result:
    that one fill, the lazy traceback (``LazyMats`` + ``Traceback.run``,
    with its bytes and slabs fetched) against the eager host copy plus
    traceback, each timed apart and each giving ``fold``'s structure and
-   energy; cells/s as bench.py counts them;
-5. fold ``tests/golden/long/seed42_n126.txt`` (the bucket of 128, dense,
-   lazy) and match structure and energy byte for byte; its bytes fetched,
-   launches and peak device memory;
+   energy; cells/s as bench.py counts them; then (4b) the packed ``fill7``
+   of the same sequence (4 segments) against that dense state, bit for bit
+   on every array (each ``name@g`` against the dense family's segment
+   extents, each ``C_name@g`` row by row, PKD, PKE, the 2-D matrices),
+   with both fill walls;
+5. fold the reference anchors ``tests/golden/long/seed42_n{126,134,200}.txt``
+   (n=126: dense at the bucket of 128; n=134, the first length past
+   ``DENSE_MAX_N``, and n=200: the packed fill, 5 and 6 segments; all
+   through the lazy traceback) and match structure and energy byte for
+   byte; each one's launches (one per tt step: 8,001, 8,778 and 19,701),
+   fold and fill walls, peak device memory, bytes and slabs fetched; at
+   n=200 cells/s beside the reference binary's 1467.2 s;
 6. ``fold_many`` of the corpus entries at n=37, 60 and 16 in one call
    (buckets 48, 64 and 16, in that order), each checked against
    ``tests/golden/corpus.json``, with its own launch count;
@@ -53,7 +62,11 @@ Phases; any failure exits non-zero and prints no result:
    ``partition`` at n=64 with 1000 samples end to end, its ensemble
    energy at or below the MFE.  The fill reaches no Pallas
    kernel in the JAX package, so it is plain PyTorch here and launches no
-   min-plus kernel (checked).
+   min-plus kernel (checked);
+9. checkpoint / resume at n=48: ``fill4`` with a snapshot every 16 spans,
+   interrupted from ``on_span`` at span 20, then resumed; the resumed state
+   equals an uninterrupted ``fill6`` on every array and the snapshot is
+   gone; the snapshot's bytes and its save and load walls.
 
 Prints one JSON line per phase, the kernels line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -80,6 +93,8 @@ FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor-core float32 peak; int32
 #                             add/min have no tensor-core form and run no
 #                             faster, so ops / this rate is a floor
 BENCH_V100 = -1528          # bench.py BENCH_V[100]
+REF_SECONDS_200 = 1467.2    # bench.py REF_SECONDS[200]: the reference binary
+#                             at n=200 on one CPU core (BASELINE.md)
 REPLACES = "ccj_tpu/engine/pallas_ops.py:38"
 CLI_SEQ = "GGGAAACGGGCGAUCCUUCCCGAAAGGGAUCGGGUUU"
 CLI_LINE = "(((([[[...[[[[[[[))))....]]]]]]].]]]. (-9.94)"
@@ -229,6 +244,17 @@ def main_span(n, bucket_dims):
     return s, TB, IB, (s - 2) // 2
 
 
+def packed_main_span(n, segments7):
+    """The packed fill's largest tt step on length n: the last span of the
+    segment whose slabs [2TB+2, IB, n2+TB] are largest, its (TB, IB), its
+    middle tt step and the segment's index."""
+    segs = segments7(n)
+    g = max(range(len(segs)), key=lambda g: segs[g][2] * segs[g][3] * (n + 2 + segs[g][2]))
+    lo, hi, TB, IB, _ = segs[g]
+    s = hi - 1
+    return s, TB, IB, (s - 2) // 2, g
+
+
 def phase_kernel(cuda_ops, bucket_dims, dev):
     """Phase 2: kernel vs plain version; returns (rows, main-path row)."""
     from ccj_tpu_torch.engine.common import INF
@@ -282,11 +308,16 @@ def phase_kernel(cuda_ops, bucket_dims, dev):
         })
         emit({"phase": "kernel", **rows[-1]})
 
-    # the full 13-window group of the main tt steps, one launch each
-    main_row = None
-    for n in (100, 128):
+    # the full 13-window group of the main tt steps, one launch each: the
+    # dense fill's at n=100 and n=128, the packed fill's at n=200
+    from ccj_tpu_torch.engine.gapped5 import segments7
+
+    group_cases = [(n, *main_span(n, bucket_dims), "") for n in (100, 128)]
+    s, TB, IB, tt, g = packed_main_span(200, segments7)
+    group_cases.append((200, s, TB, IB, tt, f" packed segment {g}"))
+    main_row = packed_row = None
+    for n, s, TB, IB, tt, label in group_cases:
         n2 = n + 2
-        s, TB, IB, tt = main_span(n, bucket_dims)
         slabs = {}
         for name, *_ in REDUCTIONS:
             cols = n2 + TB if name.startswith("B_") else n2
@@ -314,7 +345,7 @@ def phase_kernel(cuda_ops, bucket_dims, dev):
             check(cuda_ops.LAUNCHES == before + 1, "a group made more than one launch")
             err = max(err, int((out.long() - want.long()).abs().max()))
             check(int(out.max()) <= INF, f"minplus_group above INF at n={n} tt={t}")
-        name = f"group of {G} n={n} s={s} tt={tt} TB={TB} IB={IB}"
+        name = f"group of {G} n={n} s={s} tt={tt} TB={TB} IB={IB}{label}"
         check(err == 0, f"minplus_group != plain on {name}: max |err| = {err}")
 
         def kern():
@@ -346,8 +377,10 @@ def phase_kernel(cuda_ops, bucket_dims, dev):
         emit({"phase": "kernel", **row})
         if n == 100:
             main_row = row
+        if label:
+            packed_row = row
         del slabs, WKX, WJX, table, copies, cycle, out
-    return rows, main_row
+    return rows, main_row, packed_row
 
 
 def max_rel_err(got, want):
@@ -437,15 +470,179 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     return out
 
 
+def phase_packed_vs_dense(fill7, C, SC4, n, dangles, dense, dense_fill_s):
+    """Phase 4b: the packed fill7 of the length-n sequence against its dense
+    fill6 state ``dense``, bit for bit on the card (the comparison of
+    tests/test_fill.py's test_fill7_packed_matches_fill6)."""
+    from ccj_tpu_torch.engine.common import SAT16
+    from ccj_tpu_torch.engine.gapped import C_MATS
+    from ccj_tpu_torch.engine.gapped5 import M4_STORED, segments7
+
+    SEGS = segments7(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = fill7(C, SC4, n, dangles, SEGS)
+    torch.cuda.synchronize()
+    packed_s = time.perf_counter() - t0
+    compared = 0
+
+    def same(a, b, what):
+        nonlocal compared
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"n={n}: packed != dense on {what}")
+        compared += 1
+
+    for k in ("V", "Vtype", "WM", "WMv", "WMp", "P2", "WBP", "WPP", "PKD", "PKE"):
+        same(packed[k], dense[k], k)
+    for g, (lo, hi, TB, IB, Lc) in enumerate(SEGS):
+        for name in M4_STORED:
+            same(packed[f"{name}@{g}"], dense[name][:TB, lo:hi, :IB, :], f"{name}@{g}")
+        for name in C_MATS:
+            # packed C row r of span u holds dense row l = lo + 1 + r; rows
+            # past the dense l axis (l > n + 1) were never valid: unset
+            cp, cd = packed[f"C_{name}@{g}"], dense["C_" + name]
+            lmax = min(lo + 1 + Lc, n + 2)
+            same(cp[:, :, :lmax - lo - 1, :], cd[:TB, lo:hi, lo + 1:lmax, :], f"C_{name}@{g}")
+            check(bool((cp[:, :, lmax - lo - 1:] == SAT16).all()),
+                  f"n={n}: C_{name}@{g} rows past l = n + 1 were written")
+    out = {"n": n, "segments": len(SEGS), "fill7_s": packed_s, "fill6_s": dense_fill_s,
+           "arrays_compared": compared,
+           "packed_state_bytes": sum(x.nbytes for x in packed.values()),
+           "dense_state_bytes": sum(x.nbytes for x in dense.values())}
+    del packed
+    return out
+
+
+def fold_anchor(api, fold, LazyMats, cuda_ops, n):
+    """Fold ``tests/golden/long/seed42_n{n}.txt`` through ``fold`` and match
+    it byte for byte; returns its walls (the fill's inside the fold timed
+    apart), launches, peak device memory and the lazy traceback's bytes and
+    slabs fetched."""
+    from ccj_tpu_torch.cli import _format_energy
+
+    seq, line = (ROOT / "tests" / "golden" / "long" / f"seed42_n{n}.txt") \
+        .read_text().splitlines()[:2]
+    seen, fills = [], []
+
+    class RecordingLazyMats(LazyMats):
+        """The fold's own LazyMats, kept to read its transfer counts."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            seen.append(self)
+
+    real_fill_state = api.fill_state
+
+    def timed_fill_state(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = real_fill_state(*args, **kw)
+        torch.cuda.synchronize()
+        fills.append(time.perf_counter() - t0)
+        return st
+
+    api.LazyMats, api.fill_state = RecordingLazyMats, timed_fill_state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    try:
+        t0 = time.perf_counter()
+        res = fold(seq)
+        fold_s = time.perf_counter() - t0
+    finally:
+        api.LazyMats, api.fill_state = LazyMats, real_fill_state
+    launches = cuda_ops.LAUNCHES
+    got = f"{res.structure} ({_format_energy(res.energy)})"   # the CLI's line
+    check(got == line, f"n={n}: {got!r} != {line!r}")
+    check(len(seen) == 1 and len(fills) == 1, f"the n={n} fold did not take the lazy traceback")
+    n_fill = api._fill_length(n)
+    check(launches == tt_steps(n_fill), f"n={n} launches {launches} != {tt_steps(n_fill)}")
+    out = {"n": n, "n_fill": n_fill, "packed": seen[0]._segs is not None,
+           "segments": len(seen[0]._segs or ()), "fold_s": fold_s, "fill_s": fills[0],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "bytes_fetched": seen[0].bytes_fetched, "slab_fetches": seen[0].slab_fetches,
+           "launches": launches, "windows": cuda_ops.WINDOWS, "energy": res.energy,
+           "cells_per_s": cells4d(n_fill) / fills[0]}
+    del seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_checkpoint(sp, n=48, every=16, stop_at=20):
+    """Phase 9: fill4 with a snapshot every ``every`` spans, interrupted
+    from ``on_span`` at span ``stop_at``, then resumed; the resumed state
+    must equal an uninterrupted fill6 on every array and the snapshot must
+    be gone.  The snapshot lives under ``build/`` (git ignores it)."""
+    import shutil
+
+    from ccj_tpu_torch.engine import fold as fmod
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    tabs = build_seq_tables(bench_seq(n), sp, DEFAULT_PK)
+    C, SC4 = fmod.consts_from_numpy(fmod.build_consts(tabs, sp, DEFAULT_PK), "cuda")
+    ref = fmod.fill6(C, SC4, n, sp.dangles)
+    ckpt = ROOT / "build" / "checkpoint_smoke"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    snap = ckpt / fmod.CHECKPOINT_FILE
+    walls = {"save": [], "load": []}
+
+    def timed(fn, key):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            walls[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    class Stop(Exception):
+        pass
+
+    def bomb(s, _dt):
+        if s == stop_at:
+            raise Stop
+
+    real = fmod._save_checkpoint, fmod._load_checkpoint
+    fmod._save_checkpoint = timed(real[0], "save")
+    fmod._load_checkpoint = timed(real[1], "load")
+    dig = fmod.fold_digest(tabs, sp, DEFAULT_PK)
+    try:
+        try:
+            fmod.fill4(C, SC4, n, sp.dangles, checkpoint_dir=str(ckpt),
+                       checkpoint_every=every, on_span=bomb, digest=dig)
+        except Stop:
+            pass
+        else:
+            raise SmokeFailure("fill4 ran past the interruption")
+        check(snap.exists(), "fill4 left no snapshot")
+        snapshot_bytes = snap.stat().st_size
+        t0 = time.perf_counter()
+        st = fmod.fill4(C, SC4, n, sp.dangles, checkpoint_dir=str(ckpt),
+                        checkpoint_every=every, digest=dig)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        fmod._save_checkpoint, fmod._load_checkpoint = real
+    check(set(st) == set(ref), "the resumed state has other arrays than fill6's")
+    for k in ref:
+        check(torch.equal(st[k], ref[k]), f"resumed fill4 != fill6 on {k}")
+    check(not snap.exists(), "the completed fill4 left its snapshot")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"n": n, "checkpoint_every": every, "interrupted_at_span": stop_at,
+            "snapshot_bytes": snapshot_bytes, "save_s": walls["save"],
+            "load_s": walls["load"], "resumed_fill_s": resume_s,
+            "arrays_compared": len(ref)}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: needs a CUDA GPU")
     sys.path.insert(0, str(ROOT))
     from ccj_tpu_torch import api, fold, fold_many
-    from ccj_tpu_torch.api import bucket_for
+    from ccj_tpu_torch.api import DENSE_MAX_N, bucket_for
     from ccj_tpu_torch.engine import cuda_ops
     from ccj_tpu_torch.engine.fold import (TRACEBACK_KEYS, build_consts,
-                                           consts_from_numpy, fill6)
+                                           consts_from_numpy, fill6, fill7)
     from ccj_tpu_torch.engine.gapped4 import bucket_dims
     from ccj_tpu_torch.engine.lazy import LazyMats
     from ccj_tpu_torch.engine.traceback import Traceback
@@ -469,7 +666,7 @@ def main():
           "kind": torch.cuda.get_device_name(0)})
 
     # ---- 2: kernel vs plain ----------------------------------------------
-    rows, main_row = phase_kernel(cuda_ops, bucket_dims, torch.device("cuda"))
+    rows, main_row, packed_row = phase_kernel(cuda_ops, bucket_dims, torch.device("cuda"))
     report["kernel"] = rows
 
     # ---- 3: corpus goldens -----------------------------------------------
@@ -533,41 +730,30 @@ def main():
                       "launches": launches, "windows": windows, "V_1_n": v, "energy": res.energy,
                       "structure": res.structure}
     emit({"phase": "main_path_n100", **report["n100"]})
-    del st, mats, lazy, C, SC4
+
+    # ---- 4b: the packed fill against the dense one, same sequence ---------
+    del mats, lazy
+    report["packed_vs_dense_n100"] = phase_packed_vs_dense(
+        fill7, C, SC4, n, sp.dangles, st, fill_s)
+    emit({"phase": "packed_vs_dense_n100", **report["packed_vs_dense_n100"]})
+    del st, C, SC4
     torch.cuda.empty_cache()
 
-    # ---- 5: the n=126 reference anchor, through the lazy path -------------
-    seq, line = (ROOT / "tests" / "golden" / "long" / "seed42_n126.txt") \
-        .read_text().splitlines()[:2]
-    seen = []
-
-    class RecordingLazyMats(LazyMats):
-        """The fold's own LazyMats, kept to read its transfer counts."""
-
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            seen.append(self)
-
-    api.LazyMats = RecordingLazyMats
-    torch.cuda.reset_peak_memory_stats()
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
-    t0 = time.perf_counter()
-    res = fold(seq)
-    fold_s = time.perf_counter() - t0
-    api.LazyMats = LazyMats
-    got = f"{res.structure} ({res.energy:.2f})"
-    check(got == line, f"n=126: {got!r} != {line!r}")
-    check(len(seen) == 1, "the n=126 fold did not take the lazy traceback")
-    check(cuda_ops.LAUNCHES == tt_steps(128), f"n=126 launches {cuda_ops.LAUNCHES} != "
-          f"{tt_steps(128)}")
-    report["n126"] = {"fold_s": fold_s,
-                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                      "bytes_fetched": seen[0].bytes_fetched,
-                      "slab_fetches": seen[0].slab_fetches,
-                      "launches": cuda_ops.LAUNCHES, "energy": res.energy}
-    emit({"phase": "anchor_n126", **report["n126"]})
-    del seen
-    torch.cuda.empty_cache()
+    # ---- 5: the reference anchors through fold and the lazy traceback -----
+    # n=126 (dense, bucket 128), n=134 (the first length past dense) and
+    # n=200 (packed, 6 segments)
+    for m in (126, 134, 200):
+        report[f"n{m}"] = fold_anchor(api, fold, LazyMats, cuda_ops, m)
+        check(report[f"n{m}"]["packed"] == (m > DENSE_MAX_N),
+              f"n={m} took the {'packed' if m <= DENSE_MAX_N else 'dense'} fill")
+        emit({"phase": f"anchor_n{m}", **report[f"n{m}"]})
+    n200 = report["n200"]
+    n200.update(ref_seconds=REF_SECONDS_200,
+                ref_cells_per_s=cells4d(200) / REF_SECONDS_200,
+                fold_speedup_vs_ref=REF_SECONDS_200 / n200["fold_s"])
+    emit({"phase": "anchor_n200_vs_reference", **{
+        k: n200[k] for k in ("fill_s", "fold_s", "cells_per_s", "ref_seconds",
+                             "ref_cells_per_s", "fold_speedup_vs_ref")}})
 
     # ---- 6: fold_many -------------------------------------------------------
     entries = [next(e for e in corpus if len(e["seq"]) == m and not e["args"])
@@ -603,6 +789,10 @@ def main():
     report["partition"] = phase_partition(sp, fold)
     emit({"phase": "partition", **report["partition"]})
 
+    # ---- 9: checkpoint / resume (fill4) --------------------------------------
+    report["checkpoint"] = phase_checkpoint(sp)
+    emit({"phase": "checkpoint", **report["checkpoint"]})
+
     kernels = [{
         "name": "minplus_group", "route": "cuda",
         "source": "ccj_tpu_torch/csrc/minplus.cu", "replaces": REPLACES,
@@ -616,8 +806,13 @@ def main():
         "share_of_bound": main_row["share_of_bound"],
         "share_of_bound_l2cold": main_row["share_of_bound_l2cold"],
         "matches_plain": True, "shape": main_row["case"],
+        "packed_n200": {k: packed_row[k] for k in (
+            "case", "ms", "ms_l2cold", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "share_of_bound_l2cold", "max_abs_err")},
         "launches_by_path": {"fold n=100": launches,
                              "fold n=126": report["n126"]["launches"],
+                             "fold n=134 (packed)": report["n134"]["launches"],
+                             "fold n=200 (packed)": report["n200"]["launches"],
                              "fold_many n=37,60,16": report["fold_many"]["launches"],
                              "partition n=16,64": report["partition"]["minplus_launches"]},
     }]

@@ -78,10 +78,26 @@ def test_fold_many_matches_fold_and_jax():
         [(r.structure, r.energy_dcal) for r in want]
 
 
-def test_fold_many_refuses_long_sequence_before_any_fill(monkeypatch):
-    fills = []
-    monkeypatch.setattr(tapi, "fill_state", lambda *a: fills.append(a))
-    with pytest.raises(ValueError, match="DENSE_MAX_N"):
-        ccj_tpu_torch.fold_many(["GCGCAAUUGCGC", "A" * (DENSE_MAX_N + 1)],
-                                device="cpu")
-    assert fills == []
+def test_fold_many_sends_long_sequences_through_fold(monkeypatch):
+    """A sequence past ``DENSE_MAX_N`` goes through ``fold`` (stubbed here,
+    so no packed fill runs) with fold_many's arguments; the rest go through
+    their buckets; results keep input order."""
+    real_fold = tapi.fold
+    calls = []
+
+    def fake_fold(seq, **kw):
+        calls.append((seq, kw))
+        return tapi.FoldResult(seq=seq, structure="<long>", energy=0.0,
+                               energy_dcal=0)
+
+    monkeypatch.setattr(tapi, "fold", fake_fold)
+    long_seq = "GC" * ((DENSE_MAX_N + 2) // 2)
+    seqs = ["GCGCAAUUGCGC", long_seq, "GCGCUUCGCCGCGCCA"]
+    got = ccj_tpu_torch.fold_many(seqs, dangles=1, device="cpu")
+    assert [r.seq for r in got] == seqs
+    assert [(seq, kw["dangles"], kw["device"]) for seq, kw in calls] == \
+        [(long_seq, 1, torch.device("cpu"))]
+    assert got[1].structure == "<long>"
+    for r in (got[0], got[2]):
+        want = real_fold(r.seq, dangles=1, device="cpu")
+        assert (r.structure, r.energy_dcal) == (want.structure, want.energy_dcal)

@@ -1,8 +1,10 @@
 """The CUDA kernel against its plain PyTorch version, on the card (exact:
-integer data), and the card's lazy traceback, P-split argmin and float64
-partition function against the CPU's.  Marked ``gpu``; each test skips
-where no CUDA device is present.  This file imports neither JAX nor ``ccj_tpu``, so on a machine
-without JAX it runs without the suite's conftest:
+integer data), the card's lazy traceback, P-split argmin and float64
+partition function against the CPU's, and the long reference anchors
+(n = 134 ... 200) through the packed fill.  Marked ``gpu``; each test skips
+where no CUDA device is present.  This file imports neither JAX nor
+``ccj_tpu``, so on a machine without JAX it runs without the suite's
+conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -151,3 +153,28 @@ def test_pf_float64_on_cuda_matches_cpu(cuda):
     for name, view in want["M4"].items():
         np.testing.assert_allclose(got["M4"][name].arr, view.arr, rtol=1e-12,
                                    atol=1e-300, err_msg=name)
+
+
+LONG_ANCHORS = (134, 140, 150, 160, 170, 180, 200)
+
+
+@pytest.mark.parametrize("n", LONG_ANCHORS)
+def test_long_anchor_folds_on_cuda(cuda, n):
+    """Every long reference anchor past the dense reach, byte for byte,
+    through the packed fill (one min-plus launch per tt step)."""
+    from pathlib import Path
+
+    from ccj_tpu_torch import fold
+    from ccj_tpu_torch.cli import _format_energy
+
+    seq, line = (Path(__file__).parent / "golden" / "long" / f"seed42_n{n}.txt") \
+        .read_text().splitlines()[:2]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = cuda_ops.LAUNCHES
+    res = fold(seq)
+    peak = torch.cuda.max_memory_allocated()
+    got = f"{res.structure} ({_format_energy(res.energy)})"   # the CLI's line
+    assert got == line, f"n={n}: {got!r} != {line!r} (peak device memory {peak} B)"
+    assert cuda_ops.LAUNCHES - before == (n - 1) * (n - 2) // 2, \
+        f"n={n}: launches (peak device memory {peak} B)"
