@@ -11,6 +11,15 @@
 //
 // row0, scol, wcol and c are affine in tt (base + step * tt), so a table of
 // window descriptors is built once per span and each tt step passes only tt.
+// A batch of B sequences shares one table: each descriptor has a batch
+// stride for its slab and for each weight table (struct BatchStrides, zero
+// for an unbatched group), block z covers descriptor z % D of batch element
+// z / D (grid.z = D * B), and the output is [B, G, I, J].  The batch offset
+// is 64-bit; within one element the offsets stay 32-bit (the wrapper checks
+// each element's slab spans under 2^31 elements).  B = 1 launches its own
+// instantiation with no batch offsets: holding the bases in registers, as
+// the batched one must, took ptxas from 62 registers to 48 and the n = 100
+// group from 8.1 to 10.8 us L2-hot on the card (chip_smoke.py).
 // Two windows that read the same slab window under the same mask and differ
 // only in their weights travel as one descriptor with a second weight table
 // (w2) and a second output: the block reads each slab term once and feeds
@@ -102,14 +111,23 @@ struct Window {
   int out, out2;        // output planes of w and w2
 };
 
-struct Group {
-  Window win[kMaxWindows];
+// Per-descriptor batch strides in elements, mirrored by
+// ccj_tpu_torch/engine/cuda_ops.py:BatchStrides.
+struct BatchStrides {
+  long long slab, w, w2;
 };
 
-// One block's tile of descriptor d; kW = 2 when d carries w2.
+struct Group {
+  Window win[kMaxWindows];
+  BatchStrides bs[kMaxWindows];
+};
+
+// One block's tile of descriptor d for one batch element: slab, w0 / w1
+// (w and w2) and out are that element's bases; kW = 2 when d carries w2.
 template <int kW>
 __device__ __forceinline__ void reduce_tile(
-    const Window& d, int* __restrict__ out, int I, int J, int Q, int tt,
+    const Window& d, const int* __restrict__ slab, const int* w0, const int* w1,
+    int* __restrict__ out, int I, int J, int Q, int tt,
     int (&part)[2][kQGroups][kTileI][kTileJ]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -152,8 +170,8 @@ __device__ __forceinline__ void reduce_tile(
   const int ss0 = (int)d.ss0;
   const int* wp[2];                               // w[0, wcol + jc] and w2's
   const long long ws0[2] = {d.ws0, d.w2s0};
-  wp[0] = d.w + (long long)(wcol + jc) * d.ws1;
-  wp[1] = kW == 2 ? d.w2 + (long long)(wcol + jc) * d.w2s1 : nullptr;
+  wp[0] = w0 + (long long)(wcol + jc) * d.ws1;
+  wp[1] = kW == 2 ? w1 + (long long)(wcol + jc) * d.w2s1 : nullptr;
   int hi[kRows], acc[kW][kRows], sp[kRows];       // sp: slab offset at q = 0
   int qmax = -1;
 #pragma unroll
@@ -181,7 +199,7 @@ __device__ __forceinline__ void reduce_tile(
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int qq = q + u * kQGroups;
-        v[u][r] = qq <= hi[r] ? __ldg(d.slab + (sp[r] + qq * ss0)) : 0;
+        v[u][r] = qq <= hi[r] ? __ldg(slab + (sp[r] + qq * ss0)) : 0;
       }
     }
 #pragma unroll
@@ -201,7 +219,7 @@ __device__ __forceinline__ void reduce_tile(
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (q <= hi[r]) {
-        const int v = __ldg(d.slab + (sp[r] + q * ss0));
+        const int v = __ldg(slab + (sp[r] + q * ss0));
 #pragma unroll
         for (int k = 0; k < kW; ++k) acc[k][r] = min(acc[k][r], v + __ldg(wp[k] + (long long)q * ws0[k]));
       }
@@ -226,15 +244,30 @@ __device__ __forceinline__ void reduce_tile(
   }
 }
 
+// kBatched = false is the unbatched group (B = 1): no batch offsets at all.
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 minplus_group_kernel(const __grid_constant__ Group grp, int* __restrict__ out,
-                     int I, int J, int Q, int tt) {
+                     int D, int G, int I, int J, int Q, int tt) {
   __shared__ int part[2][kQGroups][kTileI][kTileJ];
-  const Window& d = grp.win[blockIdx.z];
-  if (d.w2 != nullptr) {
-    reduce_tile<2>(d, out, I, J, Q, tt, part);
+  const int z = kBatched ? blockIdx.z % D : blockIdx.z;
+  const Window& d = grp.win[z];
+  const int* slab = d.slab;
+  const int* w0 = d.w;
+  const int* w1 = d.w2;
+  int* o = out;
+  if (kBatched) {
+    const long long b = blockIdx.z / D;
+    const BatchStrides& bs = grp.bs[z];
+    slab += b * bs.slab;
+    w0 += b * bs.w;
+    if (w1 != nullptr) w1 += b * bs.w2;
+    o += b * G * I * J;
+  }
+  if (w1 != nullptr) {
+    reduce_tile<2>(d, slab, w0, w1, o, I, J, Q, tt, part);
   } else {
-    reduce_tile<1>(d, out, I, J, Q, tt, part);
+    reduce_tile<1>(d, slab, w0, nullptr, o, I, J, Q, tt, part);
   }
 }
 
@@ -244,21 +277,32 @@ minplus_group_kernel(const __grid_constant__ Group grp, int* __restrict__ out,
 
 extern "C" int ccj_minplus_window_bytes() { return (int)sizeof(Window); }
 
+extern "C" int ccj_minplus_batch_strides_bytes() { return (int)sizeof(BatchStrides); }
+
 extern "C" int ccj_minplus_max_windows() { return kMaxWindows; }
 
-// Reduce the D descriptors at `windows` (D consecutive Window structs) at
-// `tt` into out [G, I, J] (int32, contiguous; each descriptor names its
-// planes) on `stream`.  Returns cudaGetLastError() after the launch: 0 on
-// success.
-extern "C" int ccj_minplus_group(const void* windows, int D, int tt, void* out,
-                                 int I, int J, int Q, void* stream) {
-  if (D < 1 || D > kMaxWindows) return (int)cudaErrorInvalidValue;
+// Reduce the D descriptors at `windows` (D consecutive Window structs, with
+// D BatchStrides at `strides`) at `tt` for each of B batch elements into
+// out [B, G, I, J] (int32, contiguous; each descriptor names its planes
+// among the G) on `stream`.  Returns cudaGetLastError() after the launch:
+// 0 on success.
+extern "C" int ccj_minplus_group(const void* windows, const void* strides, int D,
+                                 int B, int G, int tt, void* out, int I, int J,
+                                 int Q, void* stream) {
+  if (D < 1 || D > kMaxWindows || B < 1 || (long long)D * B > 65535)
+    return (int)cudaErrorInvalidValue;
   if (I <= 0 || J <= 0) return 0;
   Group grp;
   std::memset(&grp, 0, sizeof(grp));
   std::memcpy(grp.win, windows, sizeof(Window) * D);
-  const dim3 grid((J + kTileJ - 1) / kTileJ, (I + kTileI - 1) / kTileI, D);
-  minplus_group_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      grp, (int*)out, I, J, Q, tt);
+  std::memcpy(grp.bs, strides, sizeof(BatchStrides) * D);
+  const dim3 grid((J + kTileJ - 1) / kTileJ, (I + kTileI - 1) / kTileI, D * B);
+  if (B == 1) {
+    minplus_group_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        grp, (int*)out, D, G, I, J, Q, tt);
+  } else {
+    minplus_group_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        grp, (int*)out, D, G, I, J, Q, tt);
+  }
   return (int)cudaGetLastError();
 }

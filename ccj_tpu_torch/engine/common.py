@@ -26,6 +26,11 @@ Three differences from JAX shape how the rest of the engine is written:
 * Index tensors are int64 (torch's index type); value tensors are int32 as
   in JAX.  Scalar constants stay Python ints, which promote like JAX's
   weakly typed scalars.
+
+The fills carry a leading batch axis on every state array and per-sequence
+table (``fold.fill6`` is a batch of one): the slice helpers act on the
+trailing axes they are given starts for, and the getters index the last
+two axes, so leading batch axes pass through whole.
 """
 
 from __future__ import annotations
@@ -46,9 +51,14 @@ I16 = torch.int16
 def dynamic_slice(x, starts, sizes):
     """``jax.lax.dynamic_slice``: a view of ``x``.  As in JAX, a negative
     start counts once from the end (``allow_negative_indices``), then every
-    start is clamped to ``[0, dim - size]``."""
+    start is clamped to ``[0, dim - size]``.  ``starts`` and ``sizes`` name
+    the trailing axes; leading (batch) axes are kept whole."""
     out = x
-    for d, (st, sz) in enumerate(zip(starts, sizes)):
+    lead = x.dim() - len(starts)
+    if lead < 0 or len(sizes) != len(starts):
+        raise ValueError(f"{len(starts)} starts, {len(sizes)} sizes for "
+                         f"{tuple(x.shape)}")
+    for d, (st, sz) in enumerate(zip(starts, sizes), start=lead):
         dim = x.shape[d]
         if sz > dim:
             raise ValueError(f"slice size {sz} exceeds dim {d} of {tuple(x.shape)}")
@@ -61,8 +71,9 @@ def dynamic_slice(x, starts, sizes):
 
 def dynamic_update_slice(x, update, starts):
     """``jax.lax.dynamic_update_slice`` IN PLACE: writes ``update`` into ``x``
-    at the starts :func:`dynamic_slice` resolves; returns ``x``."""
-    dynamic_slice(x, starts, update.shape).copy_(update)
+    at the starts :func:`dynamic_slice` resolves (``update`` broadcasts over
+    leading axes it lacks); returns ``x``."""
+    dynamic_slice(x, starts, update.shape[update.dim() - len(starts):]).copy_(update)
     return x
 
 
@@ -102,13 +113,15 @@ def pack16(plane, valid):
 
 
 def tri_get(Mraw, ii, jj):
-    """TriangleMatrix::get — INF for i > j, raw cell otherwise."""
-    return torch.where(ii > jj, INF, Mraw[ii, jj])
+    """TriangleMatrix::get — INF for i > j, raw cell otherwise (of the last
+    two axes of ``Mraw``)."""
+    return torch.where(ii > jj, INF, Mraw[..., ii, jj])
 
 
 def v_get(Vraw, ii, jj):
-    """s_energy_matrix::get_energy — INF for i >= j, raw cell otherwise."""
-    return torch.where(ii >= jj, INF, Vraw[ii, jj])
+    """s_energy_matrix::get_energy — INF for i >= j, raw cell otherwise (of
+    the last two axes of ``Vraw``)."""
+    return torch.where(ii >= jj, INF, Vraw[..., ii, jj])
 
 
 def wx_get(Wraw, n, ii, jj, unit_cost):
@@ -116,9 +129,9 @@ def wx_get(Wraw, n, ii, jj, unit_cost):
 
     INF out of [1, n] bounds, 0 for i > j, else min(unit_cost*(j-i+1), raw).
     """
-    n2 = Wraw.shape[0]
+    n2 = Wraw.shape[-1]
     inb = (ii >= 1) & (jj >= 1) & (ii <= n) & (jj <= n)
-    raw = Wraw[ii.clamp(0, n2 - 1), jj.clamp(0, n2 - 1)]
+    raw = Wraw[..., ii.clamp(0, n2 - 1), jj.clamp(0, n2 - 1)]
     base = torch.minimum((unit_cost * (jj - ii + 1)).to(I32), raw)
     return torch.where(inb, torch.where(ii > jj, 0, base), INF)
 

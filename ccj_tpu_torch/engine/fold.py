@@ -15,6 +15,12 @@ the host (engine/traceback.py):
 ``default_version`` picks one by length (``CCJ_ENGINE`` overrides it) and
 ``fill_state`` runs it.  The JAX package's oracle engines (1, 3) and its
 lane-tile layout (8) are not ported (ROADMAP, "Not to port").
+
+Every span function runs a batch: state arrays and per-sequence tables
+carry a leading batch axis (``stack_consts``).  :func:`fill6_batched` fills
+a bucket's batch in one span loop (``dist.batch.batched_fill6``); the
+single-sequence fills are a batch of one, take and return arrays without
+the axis, and so hand ``LazyMats`` and every caller the arrays they had.
 """
 
 from __future__ import annotations
@@ -107,31 +113,59 @@ def consts_from_numpy(C_np, device, sc4_np=None):
     return C, SC4
 
 
-def init_state_2d(n: int, device):
+def add_batch(tables):
+    """A table dict as a batch of one: a leading axis on every tensor (a
+    view), Python scalars as they are."""
+    return {k: v[None] if isinstance(v, torch.Tensor) else v
+            for k, v in tables.items()}
+
+
+def stack_consts(dicts):
+    """Stack per-sequence table dicts (``consts_from_numpy``'s C or SC4, all
+    of one padded length) along a new leading batch axis; scalars are
+    shared Python ints and must agree."""
+    out = {}
+    for k, v in dicts[0].items():
+        if isinstance(v, torch.Tensor):
+            out[k] = torch.stack([d[k] for d in dicts])
+        elif any(d[k] != v for d in dicts):
+            raise ValueError(f"scalar {k!r} differs within the batch")
+        else:
+            out[k] = v
+    return out
+
+
+def drop_batch(st):
+    """Element 0 of a batch-of-one state, as views."""
+    return {k: v[0] for k, v in st.items()}
+
+
+def init_state_2d(n: int, device, batch: int = 1):
     """The 2-D triangle matrices (int32; V with its getter semantics baked
-    in: INF on i>=j, nodes default elsewhere)."""
+    in: INF on i>=j, nodes default elsewhere), [batch, n2, n2] each."""
     n2 = n + 2
     ii = torch.arange(n2, device=device)[:, None]
     jj = torch.arange(n2, device=device)[None, :]
 
     def tri():
-        return torch.full((n2, n2), TRI_UNSET, dtype=torch.int32, device=device)
+        return torch.full((batch, n2, n2), TRI_UNSET, dtype=torch.int32,
+                          device=device)
 
     return {
-        "V": torch.where(ii < jj, V_UNSET, INF).to(torch.int32),
-        "Vtype": torch.zeros((n2, n2), dtype=torch.int8, device=device),
+        "V": torch.where(ii < jj, V_UNSET, INF).to(torch.int32).repeat(batch, 1, 1),
+        "Vtype": torch.zeros((batch, n2, n2), dtype=torch.int8, device=device),
         "WM": tri(), "WMv": tri(), "WMp": tri(),
         "P2": tri(), "WBP": tri(), "WPP": tri(),
     }
 
 
-def init_state(n: int, device):
-    st = init_state_2d(n, device)
+def init_state(n: int, device, batch: int = 1):
+    st = init_state_2d(n, device, batch)
     n2 = n + 2
     T = max(n - 1, 1)
     S = max(n, 1)
     for name in M4_NAMES:
-        st[name] = torch.full((T, S, n2, n2), SAT16, dtype=torch.int16,
+        st[name] = torch.full((batch, T, S, n2, n2), SAT16, dtype=torch.int16,
                               device=device)
     return st
 
@@ -165,7 +199,9 @@ def _packed_steps(SEGS):
 def _run_spans(C, SC4, n: int, dangles: int, st, steps, s0: int = 0):
     """Run the spans of ``steps`` from s0 on ``st`` in place, yielding each
     span after its update: the one span body of every fill (nested
-    recurrences, P split, WBP/WPP, the layout's gapped step, WM)."""
+    recurrences, P split, WBP/WPP, the layout's gapped step, WM).  ``C``,
+    ``SC4`` and ``st`` carry the batch axis (:func:`add_batch`,
+    :func:`stack_consts`)."""
     C = {**C, "n": n}
     for s, step, args in steps:
         if s < s0:
@@ -178,9 +214,22 @@ def _run_spans(C, SC4, n: int, dangles: int, st, steps, s0: int = 0):
         yield s
 
 
-def _init_dense(n: int, device):
-    st = init_state(n, device)
-    st.update(init_big_state4(n, device))
+def _init_dense(n: int, device, batch: int = 1):
+    st = init_state(n, device, batch)
+    st.update(init_big_state4(n, device, batch))
+    return st
+
+
+@torch.inference_mode()
+def fill6_batched(Cb, SC4b, n: int, dangles: int):
+    """The dense fill of a batch: ``Cb`` / ``SC4b`` carry a leading batch
+    axis on every table (:func:`stack_consts`), all padded to length ``n``.
+    One span loop fills every element, one ``minplus_group`` launch per tt
+    step for the whole batch.  Returns the state dict, every array
+    ``[B, ...]``; element b equals :func:`fill6` of sequence b."""
+    st = _init_dense(n, Cb["H"].device, Cb["H"].shape[0])
+    for _ in _run_spans(Cb, SC4b, n, dangles, st, _dense_steps(n)):
+        pass
     return st
 
 
@@ -188,11 +237,9 @@ def _init_dense(n: int, device):
 def fill6(C, SC4, n: int, dangles: int):
     """The whole dense fill on the device of ``C``'s tables: the
     ``fill6_whole`` loop of the JAX package as a Python loop over spans,
-    each span updating the state in place.  Returns the state dict."""
-    st = _init_dense(n, C["H"].device)
-    for _ in _run_spans(C, SC4, n, dangles, st, _dense_steps(n)):
-        pass
-    return st
+    each span updating the state in place (:func:`fill6_batched` on a batch
+    of one).  Returns the state dict."""
+    return drop_batch(fill6_batched(add_batch(C), add_batch(SC4), n, dangles))
 
 
 @torch.inference_mode()
@@ -206,9 +253,10 @@ def fill7(C, SC4, n: int, dangles: int, SEGS):
     device = C["H"].device
     st = init_state_2d(n, device)
     st.update(init_big_state7(n, SEGS, device))
-    for _ in _run_spans(C, SC4, n, dangles, st, _packed_steps(SEGS)):
+    for _ in _run_spans(add_batch(C), add_batch(SC4), n, dangles, st,
+                        _packed_steps(SEGS)):
         pass
-    return st
+    return drop_batch(st)
 
 
 def fold_digest(tabs: SeqTables, P: ScaledParams, pk: PKPenalties) -> str:
@@ -254,7 +302,8 @@ def fill4(C, SC4, n: int, dangles: int, checkpoint_dir: str | None = None,
     if st is None:
         s0, st = 0, _init_dense(n, device)
     t0 = time.perf_counter()
-    for s in _run_spans(C, SC4, n, dangles, st, _dense_steps(n), s0):
+    for s in _run_spans(add_batch(C), add_batch(SC4), n, dangles, st,
+                        _dense_steps(n), s0):
         if on_span is not None:
             _sync(device)
             on_span(s, time.perf_counter() - t0)
@@ -263,21 +312,22 @@ def fill4(C, SC4, n: int, dangles: int, checkpoint_dir: str | None = None,
         t0 = time.perf_counter()
     if checkpoint_dir:
         _clear_checkpoint(checkpoint_dir)
-    return st
+    return drop_batch(st)
 
 
 CHECKPOINT_FILE = "wavefront.npz"
 
 
 def _save_checkpoint(path, n, next_span, st, digest=""):
-    """Atomic snapshot of the wavefront state after span ``next_span``-1:
-    written to a temporary file in ``path``, then renamed over the last."""
+    """Atomic snapshot of the wavefront state after span ``next_span``-1
+    (a batch of one, saved without its batch axis): written to a temporary
+    file in ``path``, then renamed over the last."""
     os.makedirs(path, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=path, suffix=".tmp.npz")
     try:
         with os.fdopen(fd, "wb") as fh:
             np.savez(fh, __n=n, __next_span=next_span, __digest=digest,
-                     **{k: v.cpu().numpy() for k, v in st.items()})
+                     **{k: v[0].cpu().numpy() for k, v in st.items()})
         os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
     except BaseException:
         os.remove(tmp)
@@ -285,8 +335,9 @@ def _save_checkpoint(path, n, next_span, st, digest=""):
 
 
 def _load_checkpoint(path, n, digest="", device="cpu"):
-    """(next span, state on ``device``) of the snapshot in ``path``, or
-    (0, None).  Resume only from a snapshot of the SAME fold: the n key
+    """(next span, state on ``device`` as a batch of one) of the snapshot in
+    ``path``, or (0, None).  Resume only from a snapshot of the SAME fold:
+    the n key
     alone is not enough (a different sequence / param set / dangle model of
     equal length would silently resume into wrong structures)."""
     f = os.path.join(path, CHECKPOINT_FILE)
@@ -295,7 +346,7 @@ def _load_checkpoint(path, n, digest="", device="cpu"):
     with np.load(f) as data:
         if int(data["__n"]) != n or str(data["__digest"]) != digest:
             return 0, None
-        st = {k: torch.from_numpy(data[k]).to(device)
+        st = {k: torch.from_numpy(data[k]).to(device)[None]
               for k in data.files if not k.startswith("__")}
         return int(data["__next_span"]), st
 

@@ -6,6 +6,7 @@ diagonal write and the WBP/WPP span update.  Storage layout is
 ``M[tt, s, i, j]`` with ``s = l - i`` (outer span) and ``tt = k - j - 2``
 (gap diagonal); k and l are implicit.  The reference's quirks are kept
 exactly (see ``ccj_tpu/engine/gapped.py`` for the pseudo_loop.cc citations).
+State arrays carry a leading batch axis, as in engine/nested.py.
 
 The layout constants ``DS``, ``PADT``, ``C_MATS`` and ``dims`` come from
 ``ccj_tpu/engine/gapped2.py`` (the v2-lineage layout vocabulary shared by
@@ -44,7 +45,8 @@ def dims(n):
 
 
 def _wx_tables(C, st):
-    """Dense WB/WP/WBP-get/WPP-get lookup tables for the current state."""
+    """Dense WB/WP/WBP-get/WPP-get lookup tables for the current state
+    ([B, n2, n2] each)."""
     n = C["n"]
     n2 = n + 2
     dev = st["WBP"].device
@@ -65,17 +67,17 @@ def _wx_tables(C, st):
 
 
 def _set_P_diag(st, n, s, p_min):
-    """Write the span-s diagonal of P from the candidate minima p_min[i];
-    in place."""
+    """Write the span-s diagonal of P from the candidate minima
+    p_min[b, i]; in place."""
     n2 = n + 2
     P2 = st["P2"]
     ii = torch.arange(n2, device=P2.device)
     ll = ii + s
     llc = ll.clamp(0, n2 - 1)
     row_valid = (ii >= 1) & (ll <= n)
-    old = P2[ii, llc]
+    old = P2[:, ii, llc]
     newP = torch.where(p_min < INF // 2, p_min, old)
-    P2[ii, llc] = torch.where(row_valid, newP, old)
+    P2[:, ii, llc] = torch.where(row_valid, newP, old)
     return st
 
 
@@ -100,28 +102,28 @@ def compute_WBP_WPP_span(C, st, s):
     ddc = dd.clamp(0, n2 - 1)
     lv = (iv2 + s).clamp(0, n2 - 1)
     vdl = v_get(st["V"], ddc, lv)
-    pdl = torch.where(dd > iv2 + s, INF, st["P2"][ddc, lv])  # P.get(d,l), d<=l
+    pdl = torch.where(dd > iv2 + s, INF, st["P2"][:, ddc, lv])  # P.get(d,l), d<=l
     ivc = iv2.clamp(0, n2 - 1)
     dm1 = (dd - 1).clamp(0, n2 - 1)
 
     WBPr = st["WBP"]
-    wb_prev = torch.where(dd - 1 >= 0, WB[ivc, dm1], INF)
-    b1 = torch.where(ok, wb_prev + vdl + C["bp"] + C["PPS"], INF).amin(dim=0)
-    b2 = torch.where(ok, wb_prev + pdl + C["PSM"] + C["PPS"], INF).amin(dim=0)
-    b3 = torch.where(ii > ll - 1, INF, WBPr[ii, lm1]) + C["cp"]
+    wb_prev = torch.where(dd - 1 >= 0, WB[:, ivc, dm1], INF)
+    b1 = torch.where(ok, wb_prev + vdl + C["bp"] + C["PPS"], INF).amin(dim=-2)
+    b2 = torch.where(ok, wb_prev + pdl + C["PSM"] + C["PPS"], INF).amin(dim=-2)
+    b3 = torch.where(ii > ll - 1, INF, WBPr[:, ii, lm1]) + C["cp"]
     wbp_min = mmin(b1, b2, b3)
 
     WPPr = st["WPP"]
-    wp_prev = torch.where(dd - 1 >= 0, WP[ivc, dm1], INF)
-    c1 = torch.where(ok, wp_prev + vdl + C["PPS"], INF).amin(dim=0)
-    c2 = torch.where(ok, wp_prev + pdl + C["PSP"] + C["PPS"], INF).amin(dim=0)
-    c3 = torch.where(ii > ll - 1, INF, WPPr[ii, lm1]) + C["PUP"]
+    wp_prev = torch.where(dd - 1 >= 0, WP[:, ivc, dm1], INF)
+    c1 = torch.where(ok, wp_prev + vdl + C["PPS"], INF).amin(dim=-2)
+    c2 = torch.where(ok, wp_prev + pdl + C["PSP"] + C["PPS"], INF).amin(dim=-2)
+    c3 = torch.where(ii > ll - 1, INF, WPPr[:, ii, lm1]) + C["PUP"]
     wpp_min = mmin(c1, c2, c3)
 
-    old = WBPr[ii, llc]
+    old = WBPr[:, ii, llc]
     newWBP = torch.where(wbp_min < INF // 2, wbp_min, old)
-    WBPr[ii, llc] = torch.where(row_valid, newWBP, old)
-    old = WPPr[ii, llc]
+    WBPr[:, ii, llc] = torch.where(row_valid, newWBP, old)
+    old = WPPr[:, ii, llc]
     newWPP = torch.where(wpp_min < INF // 2, wpp_min, old)
-    WPPr[ii, llc] = torch.where(row_valid, newWPP, old)
+    WPPr[:, ii, llc] = torch.where(row_valid, newWPP, old)
     return st

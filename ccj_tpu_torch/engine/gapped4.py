@@ -22,6 +22,13 @@ one of engine/gapped5.py; each layout supplies its reads and its
 write-back.  The span steps update the big state IN PLACE: every read of
 the span's inputs happens before the write-back at its end, as in the JAX
 data flow.
+
+Every state array and per-sequence table carries a leading batch axis
+(``[B, T, S, n2, n2]`` families, ``[B, n2, n2]`` tables, ``[B, ...]``
+stencil weights); the scalar energies stay Python ints and the
+shape-only masks (``valid4``) are shared by the batch.  One span step runs
+the whole batch: ``fold.fill6`` is a batch of one, ``dist.batch`` a
+bucket's batch.
 """
 
 from __future__ import annotations
@@ -134,38 +141,42 @@ def build_sc4(EINTP, canp, n: int):
     return {"W4PL": W4PL, "W4PR": W4PR, "DPM": DPM}
 
 
-def init_big_state4(n, device):
-    """Big state beyond the 22 families: C-skews + PK diagonals."""
+def init_big_state4(n, device, batch: int = 1):
+    """Big state beyond the 22 families: C-skews + PK diagonals, each with
+    a leading batch axis of ``batch``."""
     n2, T, S, U = dims(n)
     st = {}
     for m in C_MATS:
-        st["C_" + m] = torch.full((T, S, n2, n2), SAT16, dtype=I16, device=device)
-    st["PKD"] = torch.full((T, S, n2, n2), SAT16, dtype=I16, device=device)
-    st["PKE"] = torch.full((T, S + T + 2, n2, n2), SAT16, dtype=I16, device=device)
+        st["C_" + m] = torch.full((batch, T, S, n2, n2), SAT16, dtype=I16,
+                                  device=device)
+    st["PKD"] = torch.full((batch, T, S, n2, n2), SAT16, dtype=I16, device=device)
+    st["PKE"] = torch.full((batch, T, S + T + 2, n2, n2), SAT16, dtype=I16,
+                           device=device)
     return st
 
 
 def update_pk_skews4(st, pk16, s, n):
-    """Refresh PKD / PKE from span s's packed PK slab [TB, IB, n2] int16,
-    in place: PKD[tt, s, i, a] = PK[tt, s, i, i+a] and
+    """Refresh PKD / PKE from span s's packed PK slab [B, TB, IB, n2]
+    int16, in place: PKD[tt, s, i, a] = PK[tt, s, i, i+a] and
     PKE[tt, s - tt, i, a] = PKD[tt, s, i, a] for tt <= s."""
     n2, T, S, U = dims(n)
-    TBp, IBp = pk16.shape[0], pk16.shape[1]
-    slab = unskew_right(pk16, SAT16, n2)                 # [TBp, i, a]
+    TBp, IBp = pk16.shape[-3], pk16.shape[-2]
+    slab = unskew_right(pk16, SAT16, n2)                 # [B, TBp, i, a]
     slab = torch.nn.functional.pad(slab, (0, 0, 0, n2 - IBp, 0, T - TBp),
                                    value=SAT16)
-    dynamic_update_slice(st["PKD"], slab[:, None], (0, s, 0, 0))
+    dynamic_update_slice(st["PKD"], slab[:, :, None], (0, s, 0, 0))
     # rows tt > s write back their own value in the JAX scatter: skip them
     tt_idx = torch.arange(min(s, T - 1) + 1, device=pk16.device)
-    st["PKE"][tt_idx, s - tt_idx] = slab[tt_idx]
+    st["PKE"][:, tt_idx, s - tt_idx] = slab[:, tt_idx]
     return st
 
 
 def g2(X, a, b):
-    """X[a, b] of a square [n2, n2] table, INF where (a, b) lies off it."""
-    n2 = X.shape[0]
+    """X[..., a, b] of square [..., n2, n2] tables, INF where (a, b) lies
+    off them."""
+    n2 = X.shape[-1]
     ok = (a >= 0) & (a < n2) & (b >= 0) & (b < n2)
-    return torch.where(ok, X[a.clamp(0, n2 - 1), b.clamp(0, n2 - 1)], INF)
+    return torch.where(ok, X[..., a.clamp(0, n2 - 1), b.clamp(0, n2 - 1)], INF)
 
 
 class SpanReads(NamedTuple):
@@ -173,12 +184,12 @@ class SpanReads(NamedTuple):
     :func:`span_families` (built per span by :func:`dense_reads` and
     ``gapped5.packed_reads``):
 
-    * ``plane(name, c, b, di)``: int16 [TB, IB, n2] slab
+    * ``plane(name, c, b, di)``: int16 [B, TB, IB, n2] slab
       name[tt+c, s-b, i+di, j], unset where the layout holds nothing;
     * ``RL(name, X, g1)`` / ``RI(name, X, g1)``: the l-shrink / i-shrink
-      history scans for all tt, int32 [TB, IB, n2];
-    * ``window(name, rows)``: int16 [rows(tt'), DS, >= IB, n2] stencil
-      window, row r of axis 1 = span s-DS+r, spans below 0 unset.
+      history scans for all tt, int32 [B, TB, IB, n2];
+    * ``window(name, rows)``: int16 [B, rows(tt'), DS, >= IB, n2] stencil
+      window, row r of axis 2 = span s-DS+r, spans below 0 unset.
     """
     plane: Callable
     RL: Callable
@@ -198,10 +209,10 @@ def dense_reads(st, n, s, TB, IB):
 
     def plane(name, c, b, di):
         sl = dynamic_slice(st[name], (0, max(s - b, 0), 0, 0),
-                           (T, 1, n2, n2))[:, 0]
-        sl = pad_axis(sl, 0, 0, max(c + TB - T, 0), SAT16)
+                           (T, 1, n2, n2))[:, :, 0]
+        sl = pad_axis(sl, -3, 0, max(c + TB - T, 0), SAT16)
         sl = dynamic_slice(sl, (c, 0, 0), (TB, n2, n2))
-        return pad_axis(sl, 1, 0, 1, SAT16)[:, di: di + IB, :]
+        return pad_axis(sl, -2, 0, 1, SAT16)[..., di: di + IB, :]
 
     # batched cross-span reductions (l-shrink / i-shrink histories)
     sp0 = max(s - TB, 0)
@@ -213,11 +224,11 @@ def dense_reads(st, n, s, TB, IB):
         """min over d in [1, G-g1] of big[name][tt, s-d, i, j] + X(l-d+1, l)
         for all tt (pseudo_loop's l-shrink candidate scans)."""
         win = dynamic_slice(st[name], (0, sp0, 0, 0),
-                            (TB, TB, n2, n2))[:, :, :IB, :].to(I32)
+                            (TB, TB, n2, n2))[..., :IB, :].to(I32)
         wl = g2(X, i1[None, :] + spv[:, None] + 1,
-                (i1[None, :] + s).expand(TB, IB))           # [sp, i]
+                (i1[None, :] + s).expand(TB, IB))           # [B, sp, i]
         ok = (d_rl >= 1) & (d_rl <= (Gv - g1)[:, None])
-        return torch.where(ok, win + wl[None, :, :, None], INF).amin(dim=1)
+        return torch.where(ok, win + wl[:, None, :, :, None], INF).amin(dim=-3)
 
     def RI(name, X, g1):
         """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
@@ -228,28 +239,28 @@ def dense_reads(st, n, s, TB, IB):
         l_val = loff + i1                                # actual l per row
         i_val = l_val - s                                # i = l - s
         wi = g2(X, i_val[None, :].expand(TB, IB),
-                l_val[None, :] - spv[:, None] - 1)       # [sp, lr]
+                l_val[None, :] - spv[:, None] - 1)       # [B, sp, lr]
         sj_lr = jv[0] - i_val[:, None]                   # [IB(lr), n2]
         ok = ((d_rl >= 1) & (d_rl <= (sj_lr - g1)[None, None])
               & (i_val >= 1)[None, None, :, None])
-        red = torch.where(ok, win + wi[None, :, :, None], INF).amin(dim=1)
+        red = torch.where(ok, win + wi[:, None, :, :, None], INF).amin(dim=-3)
         sh = s - loff                                    # row i at lr=i+sh
-        return dynamic_slice(pad_axis(red, 1, 0, IB, INF), (0, sh, 0),
+        return dynamic_slice(pad_axis(red, -2, 0, IB, INF), (0, sh, 0),
                              (TB, IB, n2))
 
     def window(name, rows):
-        """[rows(tt'), DS, n2, n2] window with row r of axis1 = span s-DS+r;
-        rows for spans < 0 (and spans beyond a short S axis) read as unset,
-        alignment preserved for any s."""
+        """[B, rows(tt'), DS, n2, n2] window with row r of axis 2 = span
+        s-DS+r; rows for spans < 0 (and spans beyond a short S axis) read
+        as unset, alignment preserved for any s."""
         DSs = min(DS, S)
         rs = max(s - DSs, 0)
         raw = dynamic_slice(st[name], (0, rs, 0, 0), (T, DSs, n2, n2))
-        padded = pad_axis(raw, 1, DS, 0, SAT16)
+        padded = pad_axis(raw, -3, DS, 0, SAT16)
         # padded row p holds span rs + p - DS; window row q needs span
         # s - DS + q, i.e. p = q + (s - rs)
         win = dynamic_slice(padded, (0, s - rs, 0, 0), (T, DS, n2, n2))
-        win = pad_axis(win, 0, 0, max(rows - T, 0), SAT16)
-        return win[:rows]
+        win = pad_axis(win, -4, 0, max(rows - T, 0), SAT16)
+        return win[:, :rows]
 
     return SpanReads(plane, RL, RI, window)
 
@@ -257,7 +268,7 @@ def dense_reads(st, n, s, TB, IB):
 def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     """All 22 gapped families for span s, read from the state through
     ``reads`` (its layout's :class:`SpanReads`): a dict of int16
-    [TB, IB, n2] slabs, unset on invalid cells.  Writes nothing, so the
+    [B, TB, IB, n2] slabs, unset on invalid cells.  Writes nothing, so the
     caller's write-back into ``st`` follows every read of the span.
 
     TB, IB are sizes with TB >= s-1 and IB >= n-s+2 (caller guarantees;
@@ -268,6 +279,7 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     bp, cp, ap, PB = C["bp"], C["cp"], C["ap"], C["PB"]
     canp, pt, ESTP = C["can_pair"], C["ptype"], C["ESTP"]
     dev = st["PKD"].device
+    B = st["PKD"].shape[0]
     RL, RI = reads.RL, reads.RI
 
     tv = torch.arange(TB, device=dev)[:, None, None]      # tt
@@ -300,9 +312,9 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
         """value[tt, i, j] = read4(name, n, tt+c, s-b, i+di, j+dj)."""
         sl = reads.plane(name, c, b, di)
         if dj == -1:
-            sl = torch.nn.functional.pad(sl, (1, 0), value=SAT16)[:, :, :n2]
+            sl = torch.nn.functional.pad(sl, (1, 0), value=SAT16)[..., :n2]
         elif dj == 1:
-            sl = torch.nn.functional.pad(sl, (0, 1), value=SAT16)[:, :, 1:]
+            sl = torch.nn.functional.pad(sl, (0, 1), value=SAT16)[..., 1:]
         i2, j2 = iv + di, jv + dj
         k2 = j2 + (tv + c) + 2
         l2 = i2 + (s - b)
@@ -314,19 +326,19 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     # pl_int[tt,i,j] = min over d1,d2 of PL(tt+d2, s-d1, i+d1, j-d2)
     #                  + W4PL[d1, d2, i, j]          (pseudo_loop.cc:682-703)
     plw = reads.window("PL", TB + DS)
-    plw = torch.flip(plw, dims=(1,))                 # row d1-1 = span s-d1
-    plw = pad_axis(plw, 2, 0, max(IB + DS - plw.shape[2], 0), SAT16)
+    plw = torch.flip(plw, dims=(-3,))                # row d1-1 = span s-d1
+    plw = pad_axis(plw, -2, 0, max(IB + DS - plw.shape[-2], 0), SAT16)
     # d1-diagonal over (span-row, i): V1[tt', d1-1, i, j] = plw[tt', d1-1,
     # i+d1, j]  (l = i + s is invariant across the d1 shift)
-    V1 = torch.stack([plw[:, d1 - 1, d1: d1 + IB, :]
-                      for d1 in range(1, DS + 1)], dim=1)  # [tt', d1, i, j]
-    W4PL = SC4["W4PL"][:, :, :IB, :]                       # [d1, d2, i, j]
-    pl_int = torch.full((TB, IB, n2), INF, dtype=I32, device=dev)
+    V1 = torch.stack([plw[:, :, d1 - 1, d1: d1 + IB, :]
+                      for d1 in range(1, DS + 1)], dim=2)  # [tt', d1, i, j]
+    W4PL = SC4["W4PL"][..., :IB, :]                        # [d1, d2, i, j]
+    pl_int = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
     for d2 in range(1, DS + 1):
-        sub = V1[d2: d2 + TB]                              # rows tt + d2
+        sub = V1[:, d2: d2 + TB]                           # rows tt + d2
         sub = torch.nn.functional.pad(sub, (d2, 0), value=SAT16)[..., :n2]
-        vals = sub.to(I32) + W4PL[None, :, d2 - 1]
-        pl_int = torch.minimum(pl_int, vals.amin(dim=1))
+        vals = sub.to(I32) + W4PL[:, None, :, d2 - 1]
+        pl_int = torch.minimum(pl_int, vals.amin(dim=-3))
 
     pl_stack = torch.where(
         iv + TURN + 2 < jv,
@@ -346,18 +358,18 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     #                  + W4PR[d1, d2, k, l]          (pseudo_loop.cc:717-738)
     # k = j + tt + 2 = u + 2 is tt-free in u = j + tt coordinates; the
     # (tt+d1, u+d1) diagonal is walked with d1-shifted slices.
-    prw = reads.window("PR", TB + DS)[:, :, :IB, :]
-    prw = torch.flip(prw, dims=(1,))                 # row d2-1 = span s-d2
-    prm = prw.movedim(0, -2)                         # [d2, i, tt', j]
+    prw = reads.window("PR", TB + DS)[..., :IB, :]
+    prw = torch.flip(prw, dims=(-3,))                # row d2-1 = span s-d2
+    prm = prw.movedim(1, -2)                         # [d2, i, tt', j]
     pru = skew_right(prm, SAT16)                     # [d2, i, tt', u]
     wpr = dynamic_slice(SC4["W4PR"], (0, 0, 2, s), (DS, DS, UB, IB))
-    wpr = wpr.permute(0, 1, 3, 2)                    # [d1, d2, i, u]
-    pr_acc = torch.full((IB, TB, UB), INF, dtype=I32, device=dev)
+    wpr = wpr.transpose(-1, -2)                      # [d1, d2, i, u]
+    pr_acc = torch.full((B, IB, TB, UB), INF, dtype=I32, device=dev)
     for d1 in range(1, DS + 1):
-        sub = pru[:, :, d1: d1 + TB, d1: d1 + UB]    # [d2, i, tt, u]
-        vals = sub.to(I32) + wpr[d1 - 1][:, :, None, :]
-        pr_acc = torch.minimum(pr_acc, vals.amin(dim=0))
-    pr_int = unskew_right(pr_acc, INF, n2).movedim(0, 1)   # [tt, i, j]
+        sub = pru[..., d1: d1 + TB, d1: d1 + UB]     # [d2, i, tt, u]
+        vals = sub.to(I32) + wpr[:, d1 - 1, :, :, None, :]
+        pr_acc = torch.minimum(pr_acc, vals.amin(dim=-4))
+    pr_int = unskew_right(pr_acc, INF, n2).movedim(-3, -2)  # [tt, i, j]
 
     pr_stack = torch.where(
         kv + TURN + 2 < lv,
@@ -412,7 +424,7 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
                       valid4, s, TB, IB)
 
     def pack(slab32):
-        v = slab32[:TB].clamp(-32768, SAT16)
+        v = slab32[:, :TB].clamp(-32768, SAT16)
         return torch.where(valid4, v, SAT16).to(I16)
 
     packed = {name: pack(cur[name]) for name in LOOP_MATS}
@@ -438,11 +450,11 @@ def span_gapped4(C, SC4, st, s, TB, IB):
     for name in M4_NAMES:
         sl = packed[name]
         if IB < n2:
-            sl = pad_axis(sl, 1, 0, n2 - IB, SAT16)
-        dynamic_update_slice(st[name], sl[:, None], (0, s, 0, 0))
+            sl = pad_axis(sl, -2, 0, n2 - IB, SAT16)
+        dynamic_update_slice(st[name], sl[:, :, None], (0, s, 0, 0))
     for name in C_MATS:
         # C layout: row l = i + s holds the (i, j) plane row i
-        slp = pad_axis(packed[name], 1, n2, 0, SAT16)     # [TB, n2+IB, n2]
+        slp = pad_axis(packed[name], -2, n2, 0, SAT16)    # [TB, n2+IB, n2]
         cs = dynamic_slice(slp, (0, n2 - s, 0), (TB, n2, n2))
-        dynamic_update_slice(st["C_" + name], cs[:, None], (0, s, 0, 0))
+        dynamic_update_slice(st["C_" + name], cs[:, :, None], (0, s, 0, 0))
     return update_pk_skews4(st, packed["PK"], s, n)

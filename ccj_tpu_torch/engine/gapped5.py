@@ -33,6 +33,10 @@ every span's scatter; an in-place ``index_put`` makes no such copy.  The
 dense PKE costs 5.1 GB more at n=200 (31.4 GB of state in all, against
 26.2 GB), and spares the card ``compute_P_span7``'s per-lane x per-segment
 loop, about six times the P split's dispatches at n=200.
+
+Every array carries the shared span assembly's leading batch axis, of one:
+the JAX package has no batched packed fill, and ``fold.fill7`` drops the
+axis from the state it returns.
 """
 
 from __future__ import annotations
@@ -80,19 +84,20 @@ def segments7(n: int, width: int | None = None):
 
 def init_big_state7(n: int, SEGS, device):
     """Per-segment packed families and C skews, plus the dense PK diagonal
-    skews PKD / PKE (see the module docstring)."""
+    skews PKD / PKE (see the module docstring), each with a leading batch
+    axis of one."""
     n2, T, S, U = dims(n)
     st = {}
     for g, (lo, hi, TB, IB, Lc) in enumerate(SEGS):
         ns = hi - lo
         for m in M4_STORED:
-            st[f"{m}@{g}"] = torch.full((TB, ns, IB, n2), SAT16, dtype=I16,
+            st[f"{m}@{g}"] = torch.full((1, TB, ns, IB, n2), SAT16, dtype=I16,
                                         device=device)
         for m in C_MATS:
-            st[f"C_{m}@{g}"] = torch.full((TB, ns, Lc, n2), SAT16, dtype=I16,
-                                          device=device)
-    st["PKD"] = torch.full((T, S, n2, n2), SAT16, dtype=I16, device=device)
-    st["PKE"] = torch.full((T, S + T + 2, n2, n2), SAT16, dtype=I16,
+            st[f"C_{m}@{g}"] = torch.full((1, TB, ns, Lc, n2), SAT16,
+                                          dtype=I16, device=device)
+    st["PKD"] = torch.full((1, T, S, n2, n2), SAT16, dtype=I16, device=device)
+    st["PKE"] = torch.full((1, T, S + T + 2, n2, n2), SAT16, dtype=I16,
                            device=device)
     return st
 
@@ -103,6 +108,7 @@ def packed_reads(st, n, s, gi: int, SEGS):
     n2, T, S, U = dims(n)
     lo, hi, TB, IB, _Lc = SEGS[gi]
     dev = st["PKD"].device
+    B = st["PKD"].shape[0]
     tv = torch.arange(TB, device=dev)[:, None, None]      # tt
     iv = torch.arange(IB, device=dev)[None, :, None]      # i
     jv = torch.arange(n2, device=dev)[None, None, :]      # j
@@ -123,11 +129,11 @@ def packed_reads(st, n, s, gi: int, SEGS):
         loh, hih, TBh, IBh, _ = SEGS[h]
         sl = dynamic_slice(st[f"{name}@{h}"],
                            (0, min(max(u - loh, 0), hih - loh - 1), 0, 0),
-                           (TBh, 1, min(IB + 1, IBh), n2))[:, 0]
+                           (TBh, 1, min(IB + 1, IBh), n2))[:, :, 0]
         if IB + 1 > IBh:
-            sl = pad_axis(sl, 1, 0, IB + 1 - IBh, SAT16)
-        sl = pad_axis(sl, 0, 0, max(c + TB - TBh, 0), SAT16)
-        return sl[c: c + TB, di: di + IB]
+            sl = pad_axis(sl, -2, 0, IB + 1 - IBh, SAT16)
+        sl = pad_axis(sl, -3, 0, max(c + TB - TBh, 0), SAT16)
+        return sl[:, c: c + TB, di: di + IB]
 
     def plane_from_C(name, c, b, di):
         """A family stored ONLY as its C skew (``DROPPED``):
@@ -139,13 +145,13 @@ def packed_reads(st, n, s, gi: int, SEGS):
         loh, hih, TBh, IBh, Lch = SEGS[h]
         sl = dynamic_slice(st[f"C_{name}@{h}"],
                            (0, min(max(u - loh, 0), hih - loh - 1), 0, 0),
-                           (TBh, 1, Lch, n2))[:, 0]
-        sl = pad_axis(sl, 1, 2, 0, SAT16)
+                           (TBh, 1, Lch, n2))[:, :, 0]
+        sl = pad_axis(sl, -2, 2, 0, SAT16)
         off = u + di - loh - 1 + 2          # row of i = 0 (>= 0, see +2)
         sl = dynamic_slice(sl, (0, min(max(off, 0), Lch + 2 - IB), 0),
                            (TBh, IB, n2))
-        sl = pad_axis(sl, 0, 0, max(c + TB - TBh, 0), SAT16)
-        return sl[c: c + TB]
+        sl = pad_axis(sl, -3, 0, max(c + TB - TBh, 0), SAT16)
+        return sl[:, c: c + TB]
 
     def plane(name, c, b, di):
         return (plane_from_C if name in DROPPED else seg_plane)(name, c, b, di)
@@ -162,21 +168,21 @@ def packed_reads(st, n, s, gi: int, SEGS):
 
     def RL(name, X, g1):
         """min over d in [1, G-g1] of name[tt, s-d, i, j] + X(l-d+1, l)."""
-        acc = torch.full((TB, IB, n2), INF, dtype=I32, device=dev)
+        acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
         for h in range(gi + 1):
             loh, hih, TBh, IBh, _ = SEGS[h]
             nsh = prior_spans(h)
             if nsh <= 0:
                 continue
-            win = st[f"{name}@{h}"][:, :nsh, :IB, :].to(I32)
-            win = pad_axis(win, 0, 0, TB - TBh, SAT16)
+            win = st[f"{name}@{h}"][:, :, :nsh, :IB, :].to(I32)
+            win = pad_axis(win, -4, 0, TB - TBh, SAT16)
             u_h = loh + torch.arange(nsh, device=dev)
             wl = g2(X, i1[None, :] + u_h[:, None] + 1,
                     (i1[None, :] + s).expand(nsh, IB))
             d_h = (s - u_h)[None, :, None, None]
             ok = (d_h >= 1) & (d_h <= (Gv - g1)[:, None])
-            vals = torch.where(ok, win + wl[None, :, :, None], INF)
-            acc = torch.minimum(acc, vals.amin(dim=1))
+            vals = torch.where(ok, win + wl[:, None, :, :, None], INF)
+            acc = torch.minimum(acc, vals.amin(dim=-3))
         return acc
 
     l_val = lo + i1                          # actual l per C row
@@ -187,7 +193,7 @@ def packed_reads(st, n, s, gi: int, SEGS):
         """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1);
         C rows l in [lo, lo+IB) (the dense engine's loff = min(s, n2-IB)
         is lo for exact segment extents)."""
-        acc = torch.full((TB, IB, n2), INF, dtype=I32, device=dev)
+        acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
         for h in range(gi + 1):
             loh, hih, TBh, IBh, _Lch = SEGS[h]
             nsh = prior_spans(h)
@@ -196,25 +202,26 @@ def packed_reads(st, n, s, gi: int, SEGS):
             A = st[f"C_{name}@{h}"]
             off = lo - loh - 1
             if off >= 0:
-                win = A[:, :nsh, off: off + IB, :].to(I32)
+                win = A[:, :, :nsh, off: off + IB, :].to(I32)
             else:  # h == gi: row l = lo is older-span territory, unset here
-                win = pad_axis(A[:, :nsh, :IB - 1, :].to(I32), 2, 1, 0, SAT16)
-            win = pad_axis(win, 0, 0, TB - TBh, SAT16)
+                win = pad_axis(A[:, :, :nsh, :IB - 1, :].to(I32), -2, 1, 0,
+                               SAT16)
+            win = pad_axis(win, -4, 0, TB - TBh, SAT16)
             u_h = loh + torch.arange(nsh, device=dev)
             wi = g2(X, i_val[None, :].expand(nsh, IB),
-                    l_val[None, :] - u_h[:, None] - 1)    # [u, lr]
+                    l_val[None, :] - u_h[:, None] - 1)    # [B, u, lr]
             d_h = (s - u_h)[None, :, None, None]
             ok = ((d_h >= 1) & (d_h <= (sj_lr - g1)[None, None])
                   & (i_val >= 1)[None, None, :, None])
-            vals = torch.where(ok, win + wi[None, :, :, None], INF)
-            acc = torch.minimum(acc, vals.amin(dim=1))
+            vals = torch.where(ok, win + wi[:, None, :, :, None], INF)
+            acc = torch.minimum(acc, vals.amin(dim=-3))
         # rows lr hold l = lo + lr; map to i rows (i = l - s) by shifting
-        return dynamic_slice(pad_axis(acc, 1, 0, IB, INF), (0, s - lo, 0),
+        return dynamic_slice(pad_axis(acc, -2, 0, IB, INF), (0, s - lo, 0),
                              (TB, IB, n2))
 
     # ---- MAXLOOP stencil windows (PL / PR) -------------------------------
     def window(name, rows):
-        """[rows(tt'), DS, IB+DS, n2]: row r of axis 1 = span s - DS + r.
+        """[B, rows(tt'), DS, IB+DS, n2]: row r of axis 2 = span s - DS + r.
         Spans below lo come from segment gi - 1 (which holds all of them:
         segments are at least MIN_SEG wide), spans below 0 read as unset;
         the JAX module's pad-and-select over both segments, reading only
@@ -227,14 +234,16 @@ def packed_reads(st, n, s, gi: int, SEGS):
             if a == b:
                 continue
             if h < 0:
-                parts.append(torch.full((rows, b - a, IW, n2), SAT16,
+                parts.append(torch.full((B, rows, b - a, IW, n2), SAT16,
                                         dtype=I16, device=dev))
                 continue
             loh, hih, TBh, IBh, _ = SEGS[h]
-            w = st[f"{name}@{h}"][:, u0 + a - loh: u0 + b - loh, :min(IW, IBh)]
-            w = pad_axis(w, 2, 0, IW - w.shape[2], SAT16)
-            parts.append(pad_axis(w, 0, 0, max(rows - TBh, 0), SAT16)[:rows])
-        return torch.cat(parts, dim=1)
+            w = st[f"{name}@{h}"][:, :, u0 + a - loh: u0 + b - loh,
+                                  :min(IW, IBh)]
+            w = pad_axis(w, -2, 0, IW - w.shape[-2], SAT16)
+            parts.append(pad_axis(w, -4, 0, max(rows - TBh, 0),
+                                  SAT16)[:, :rows])
+        return torch.cat(parts, dim=-3)
 
     return SpanReads(plane, RL, RI, window)
 
@@ -248,11 +257,12 @@ def span_gapped7(C, SC4, st, s, gi: int, SEGS):
     packed = span_families(C, SC4, st, s, TB, IB,
                            packed_reads(st, n, s, gi, SEGS))
     for name in M4_STORED:
-        dynamic_update_slice(st[f"{name}@{gi}"], packed[name][:, None],
+        dynamic_update_slice(st[f"{name}@{gi}"], packed[name][:, :, None],
                              (0, s - lo, 0, 0))
     for name in C_MATS:
         # C rows: local row l - lo - 1 = (s - lo) + (i - 1); drop the
         # (invalid) i = 0 row so the write starts at i = 1
-        dynamic_update_slice(st[f"C_{name}@{gi}"], packed[name][:, None, 1:],
+        dynamic_update_slice(st[f"C_{name}@{gi}"],
+                             packed[name][:, :, None, 1:],
                              (0, s - lo, s - lo, 0))
     return update_pk_skews4(st, packed["PK"], s, n)

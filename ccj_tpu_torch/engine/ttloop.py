@@ -11,7 +11,9 @@ a descriptor table built once per span (:func:`reduction_table`).
 
 Recurrences and tie-breaking order are unchanged (reference:
 src/pseudo_loop.cc:181-679; per-branch citations in
-``ccj_tpu/engine/gapped.py``).
+``ccj_tpu/engine/gapped.py``).  The span's slabs and tables carry a leading
+batch axis, and one launch per step reduces the windows of every element
+of the batch; the table builders take any leading axes.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ from .skew import skew_right, unskew_right
 
 # ---------------------------------------------------------------------------
 # Gather-free table reads: every index pattern the span phase uses is a
-# diagonal or a per-row shift of a 2-D table, built from pad-reshape skews
-# and slices.
+# diagonal or a per-row shift of a 2-D table (the last two axes; leading
+# batch axes pass through), built from pad-reshape skews and slices.
 # ---------------------------------------------------------------------------
 
 def diag_cols(X32, fill, W):
@@ -38,58 +40,51 @@ def diag_cols(X32, fill, W):
 def wk_table(X, TB, UK, n2, fill=INF):
     """WKX[q, a] = X[a, a+q] masked to a, a+q in [0, n2) — the k-shrink
     weight table."""
-    X32 = X.to(I32)
-    Xp = torch.cat([X32, torch.full((UK - n2, n2), fill, dtype=I32,
-                                    device=X.device)], dim=0)
-    return diag_cols(Xp, fill, TB).T                 # [TB(q), UK(a)]
+    Xp = pad_axis(X.to(I32), -2, 0, UK - n2, fill)
+    return diag_cols(Xp, fill, TB).transpose(-1, -2)  # [TB(q), UK(a)]
 
 
 def wj_table(X, TB, n2, fill=INF):
     """WJX[q, j] = X[j-q, j] masked to j-q >= 0 — the j-shrink weight
     table."""
     X32 = X.to(I32)
-    Xt_f = torch.flip(X32.T, dims=(1,))              # [j, c] = X[n2-1-c, j]
+    Xt_f = torch.flip(X32.transpose(-1, -2), dims=(-1,))  # [j, c] = X[n2-1-c, j]
     Sk = skew_right(Xt_f, fill)                      # [j, u] = X[n2-1-u+j, j]
-    return Sk[:, n2 - 1: n2 - 1 + TB].T
+    return Sk[..., n2 - 1: n2 - 1 + TB].transpose(-1, -2)
 
 
 def jk_table(X, TB, n2, c0: int, row_shift: int, fill=INF):
     """T[tt, j] = X[j - row_shift, (j - row_shift) + tt + c0] — the per-tt
     diagonal rows of a pair table (CJK/PJK/EJK)."""
     X32 = X.to(I32)
-    M = diag_cols(X32, fill, TB + c0)[:, c0: c0 + TB]      # [r, tt]
+    M = diag_cols(X32, fill, TB + c0)[..., c0: c0 + TB]    # [r, tt]
     if row_shift:
-        M = torch.cat([torch.full((row_shift, TB), fill, dtype=I32,
-                                  device=X.device), M], dim=0)[:n2]
-    return M.T                                              # [tt, j]
+        M = pad_axis(M, -2, row_shift, 0, fill)[..., :n2, :]
+    return M.transpose(-1, -2)                              # [tt, j]
 
 
 def plane_ij(X, TB, IB, fill=INF):
     """out[tt, i, j] = X[i, j] broadcast over tt (a view)."""
     X32 = X.to(I32)
-    return X32[None, :IB, :].expand(TB, IB, X.shape[1])
+    return X32[..., None, :IB, :].expand(*X.shape[:-2], TB, IB, X.shape[-1])
 
 
 def plane_kl(X, s, TB, IB, n2, fill=INF):
     """out[tt, i, j] = X[j + tt + 2, i + s] masked to k, l in [0, n2)."""
-    X32 = X.to(I32)
-    dev = X.device
-    Xp = torch.cat([X32, torch.full((n2, IB), fill, dtype=I32, device=dev)],
-                   dim=1)
+    Xp = pad_axis(X.to(I32), -1, 0, IB, fill)
     Xs = dynamic_slice(Xp, (0, s), (n2, IB))              # [k, i], l = i+s
-    Xs = torch.cat([Xs, torch.full((TB + 3, IB), fill, dtype=I32, device=dev)],
-                   dim=0)
-    Xt = Xs.T                                             # [i, k]
-    y = Xt[:, None, 2:].expand(IB, TB, Xt.shape[1] - 2)
+    Xs = pad_axis(Xs, -2, 0, TB + 3, fill)
+    Xt = Xs.transpose(-1, -2)                             # [i, k]
+    y = Xt[..., :, None, 2:].expand(*Xt.shape[:-1], TB, Xt.shape[-1] - 2)
     A = unskew_right(y, fill, n2)                 # [i, tt, j] = Xt[i, j+tt+2]
-    return A.movedim(0, 1)
+    return A.movedim(-3, -2)
 
 
 def diag_il(X, s, TB, IB, n2, fill=INF):
     """out[tt, i, j] = X[i, i + s] masked to i+s < n2 (a broadcast view)."""
     Z = diag_cols(X.to(I32), fill, n2)            # [i, c] = X[i, i+c]
-    d = dynamic_slice(Z, (0, s), (IB, 1))[:, 0]   # [IB]
-    return d[None, :, None].expand(TB, IB, n2)
+    d = dynamic_slice(Z, (0, s), (IB, 1))[..., 0]   # [IB]
+    return d[..., None, :, None].expand(*d.shape[:-1], TB, IB, n2)
 
 
 LOOP_MATS_ALL = ("PLmloop00", "PLmloop01", "PLmloop10", "PRmloop00",
@@ -127,7 +122,7 @@ def reduction_table(slabs, WKX, WJX, s, n2):
     """The descriptor table of one span's :data:`REDUCTIONS`, valid for
     every tt in [0, s - 2]; ``slabs`` maps the slab names to the span's
     A / B slabs (and ``mdp``), ``WKX`` / ``WJX`` the weight names to their
-    tables."""
+    tables, all with or all without a leading batch axis."""
     wins = []
     for slab, wn, kind, masked in REDUCTIONS:
         if kind == "k":
@@ -147,30 +142,39 @@ def _enc(v, vmask):
     return torch.where(vmask, v.clamp(-32768, SAT16), INF)
 
 
-def _pm_stencil(STM, DPM, s, tt, TB, IB, UB):
-    """The PM interior-loop stencil over the same-span STM slab, in u
-    coordinates: pm_acc[i, u] = min(INF, min over d1, d2 in [1, DS] of
-    STM[tt + d1 + d2, i, u + d2] + DPM[d1, d2, tt, u]) under the
-    d1 <= (u - tt) - i - 1 and d2 <= (i + s - u - 2) - 1 bounds.
-
-    The JAX loop over d2 becomes one strided view X[d2, d1, i, u] of the
-    column-padded slab: row tt + 2 + (d1 - 1) + (d2 - 1), column u + d2.
-    """
-    dev = STM.device
-    slPM = dynamic_slice(STM, (tt + 2, 0, 0), (2 * DS, IB, UB))
-    slPM = torch.nn.functional.pad(slPM, (0, DS), value=INF)   # cols u + d2
-    W = UB + DS
-    sR = IB * W
-    X = slPM.as_strided((DS, DS, IB, UB), (sR + 1, sR, W, 1),
-                        slPM.storage_offset() + 1)
-    dpm = dynamic_slice(DPM, (0, 0, tt, 0), (DS, DS, 1, UB))[:, :, 0]
+def _pm_bounds(s, IB, UB, dev):
+    """The span-constant parts of the PM stencil's loop bounds: d1 (as
+    [1, DS, 1, 1]), the d1 bound's tt-free part u - i - 1, and the whole
+    d2 mask d2 <= (i + s - u - 2) - 1 ([DS, 1, IB, UB])."""
     d = torch.arange(1, DS + 1, device=dev)
     i = torch.arange(IB, device=dev)[:, None]
     u = torch.arange(UB, device=dev)[None, :]
-    mask = ((d[None, :, None, None] <= (u - tt) - i - 1)
-            & (d[:, None, None, None] <= (i + s - u - 2) - 1))
-    vals = torch.where(mask, X + dpm.permute(1, 0, 2)[:, :, None, :], INF)
-    return vals.amin(dim=(0, 1)).clamp(max=INF)
+    return (d[None, :, None, None], u - i - 1,
+            d[:, None, None, None] <= (i + s - u - 2) - 1)
+
+
+def _pm_stencil(STM, DPM, tt, bounds):
+    """The PM interior-loop stencil over the same-span STM slab, in u
+    coordinates: pm_acc[i, u] = min(INF, min over d1, d2 in [1, DS] of
+    STM[tt + d1 + d2, i, u + d2] + DPM[d1, d2, tt, u]) under the
+    d1 <= (u - tt) - i - 1 and d2 <= (i + s - u - 2) - 1 bounds
+    (:func:`_pm_bounds`).
+
+    The JAX loop over d2 becomes one strided view X[b, d2, d1, i, u] of the
+    slab: row tt + 2 + (d1 - 1) + (d2 - 1), column u + d2, of batch element
+    b.  STM is [B, rows, IB, UB + DS], contiguous, its last DS columns INF
+    (the reads past u = UB - 1); DPM is [B, DS, DS, T, U].
+    """
+    d1, lim1, mask2 = bounds
+    B, _, IB, W = STM.shape
+    UB = W - DS
+    sR = IB * W
+    X = STM.as_strided((B, DS, DS, IB, UB), (STM.stride(0), sR + 1, sR, W, 1),
+                       STM.storage_offset() + (tt + 2) * sR + 1)
+    dpm = DPM.select(3, tt).narrow(-1, 0, UB)                # [B, d1, d2, u]
+    mask = (d1 <= lim1 - tt) & mask2
+    vals = torch.where(mask, X + dpm.transpose(1, 2)[:, :, :, None, :], INF)
+    return vals.amin(dim=(1, 2)).clamp(max=INF)
 
 
 def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
@@ -178,10 +182,11 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     """Run the serial tt loop for span ``s``; returns the final families.
 
     ``bases``: the 7 span-constant cross-span reduction bases by name.
-    ``mdp0``: the PfromMdoubleprime base min(PL,PR)+PB [TB, IB, n2].
-    Returns {name: [TB, IB, n2] int32} for every LOOP_MATS family.  The
+    ``mdp0``: the PfromMdoubleprime base min(PL,PR)+PB [B, TB, IB, n2].
+    Returns {name: [B, TB, IB, n2] int32} for every LOOP_MATS family.  The
     span slabs it carries are updated in place, one tt row per step, after
-    every read of the step.
+    every read of the step.  ``valid4`` ([TB, IB, n2]) is shared by the
+    batch; every other operand has the leading batch axis.
     """
     n = C["n"]
     n2 = n + 2
@@ -190,6 +195,7 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     bp, cp, ap, PB = C["bp"], C["cp"], C["ap"], C["PB"]
     canp, pt, ESTP = C["can_pair"], C["ptype"], C["ESTP"]
     dev = valid4.device
+    B = PLs.shape[0]
 
     # gather-free per-span weight / pair tables
     WKX = {nm: wk_table(X, TB, UK, n2).contiguous()
@@ -205,21 +211,26 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     # can only lose (INF + weight <= 2e7 << int32 max, and every consumer
     # clamps through _enc() exactly as the reference's int16 store).
     validp = pad_axis(valid4, 0, 0, TB + 2, False)
-    PLpad = pad_axis(PLs, 0, 0, 2, INF)
-    PRpad = pad_axis(PRs, 0, 0, 2, INF)
-    mdp = pad_axis(mdp0, 0, 0, TB + 2, INF)               # PfromMdoubleprime
+    PLpad = pad_axis(PLs, -3, 0, 2, INF)
+    PRpad = pad_axis(PRs, -3, 0, 2, INF)
+    mdp = pad_axis(mdp0, -3, 0, TB + 2, INF)              # PfromMdoubleprime
 
-    cur = {name: torch.where(validp, SAT16, INF).to(I32)
-           for name in LOOP_MATS_ALL}
+    init = torch.where(validp, SAT16, INF).to(I32)
+    cur = {name: init.repeat(B, 1, 1, 1) for name in LOOP_MATS_ALL}
     for name in B4_MATS_ALL:
-        cur["B_" + name] = torch.full((2 * TB + 2, IB, UB), INF, dtype=I32,
+        cur["B_" + name] = torch.full((B, 2 * TB + 2, IB, UB), INF, dtype=I32,
                                       device=dev)
-    STM = torch.full((TB + 2 * PADT, IB, UB), INF, dtype=I32, device=dev)
+    # the same-span PM slab, with the DS INF columns its stencil reads past
+    # u = UB - 1 (rows tt + 2 .. tt + 2 * DS stay inside TB + 2 * PADT)
+    STM = torch.full((B, TB + 2 * PADT, IB, UB + DS), INF, dtype=I32, device=dev)
     DPM = SC4["DPM"]
+    pm_bounds = _pm_bounds(s, IB, UB, dev)
 
+    # PM's base case (i == j and k == l): the step tt at which each (i, j)
+    # meets it, -1 where i != j
     jr = torch.arange(n2, device=dev)[None, :]
     ir = torch.arange(IB, device=dev)[:, None]
-    b4_eye = (ir == jr)
+    b4_tt = torch.where(ir == jr, ir + s - jr - 2, -1)
 
     if s >= 2:
         table = reduction_table({**cur, "mdp": mdp}, WKX, WJX, s, n2)
@@ -232,16 +243,19 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
         # step's launch overwrites them (no result outlives its step).
         (r_pl00, r_pl01, r_pl10, r_pr00, r_pr10, r_pm00_j, r_pm00_k, r_fl,
          r_fr, r_fm, r_fmp, r_pk_j, r_pk_k) = cuda_ops.minplus_group(
-            table, tt, red_out).unbind(0)
+            table, tt, red_out).unbind(1)
 
+        # per-step rows are select / narrow views: the leading batch axis
+        # makes them tuple indexes, whose Python parsing costs host time
+        # on every one of the loop's dispatch-bound steps
         def plane_cur(slab, c, dj):
-            sl = slab[tt + c]
+            sl = slab.select(1, tt + c)
             if dj == -1:
-                sl = torch.nn.functional.pad(sl, (1, 0), value=INF)[:, :n2]
+                sl = torch.nn.functional.pad(sl, (1, 0), value=INF).narrow(-1, 0, n2)
             return sl
 
         def base_at(name):
-            return bases[name][tt]
+            return bases[name].select(1, tt)
 
         out = {}
         out["PLmloop00"] = mmin(SAT16 + bp, base_at("PLmloop00"), r_pl00)
@@ -257,27 +271,27 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
             plane_cur(cur["PMmloop10"], 1, -1) + cp, base_at("PMmloop10"))
 
         # PM interior stencil over the same-span STM slab (u-coordinates)
-        pm_acc = _pm_stencil(STM, DPM, s, tt, TB, IB, UB)
-        pm_int = pm_acc[:, tt: tt + n2]
+        pm_acc = _pm_stencil(STM, DPM, tt, pm_bounds)
+        pm_int = pm_acc.narrow(-1, tt, n2)
 
-        canp_jk = CJK[tt: tt + 1]
-        pt_jk = PJK[tt: tt + 1]
-        estp_jk = EJK[tt: tt + 1]
+        canp_jk = CJK.narrow(1, tt, 1)
+        pt_jk = PJK.narrow(1, tt, 1)
+        estp_jk = EJK.narrow(1, tt, 1)
         pm_stack = plane_cur(cur["PM"], 2, -1) + estp_jk
         PMiloop = torch.where(canp_jk > 0, torch.minimum(pm_stack, pm_int), INF)
         PMmloop_v = torch.minimum(plane_cur(cur["PMmloop10"], 2, -1),
                                   plane_cur(cur["PMmloop01"], 2, -1)) + ap + bp
         PM_b3 = plane_cur(cur["PfromM"], 2, -1)  # k >= j+TURN-1 always holds
-        PM_b4 = torch.where(b4_eye & (ir + s == jr + tt + 2), 0, INF)
+        PM_b4 = torch.where(b4_tt == tt, 0, INF)
         PMv = torch.where(pt_jk > 0,
                           mmin(PMiloop, PMmloop_v + bp, PM_b3, PM_b4), INF)
         out["PM"] = PMv
 
         vmask = valid4[tt]
         PMs_t = _enc(PMv, vmask)
-        PLs_t = PLpad[tt]
-        PRs_t = PRpad[tt]
-        POs_t = POs[tt]
+        PLs_t = PLpad.select(1, tt)
+        PRs_t = PRpad.select(1, tt)
+        POs_t = POs.select(1, tt)
 
         out["PfromL"] = mmin(base_at("PfromL"), r_fl,
                              PRs_t + PB, PMs_t + PB, POs_t + PB)
@@ -290,9 +304,9 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
         # write-back of row tt (the B slabs store it at columns u = j + tt)
         for name in LOOP_MATS_ALL:
             encp = PMs_t if name == "PM" else _enc(out[name], vmask)
-            cur[name][tt] = encp
+            cur[name].select(1, tt).copy_(encp)
             if name in B4_MATS_ALL:
-                cur["B_" + name][tt, :, tt: tt + n2] = encp
-        STM[tt, :, tt: tt + n2] = PMs_t
+                cur["B_" + name].select(1, tt).narrow(-1, tt, n2).copy_(encp)
+        STM.select(1, tt).narrow(-1, tt, n2).copy_(PMs_t)
 
-    return {nm: cur[nm][:TB] for nm in LOOP_MATS_ALL}
+    return {nm: cur[nm][:, :TB] for nm in LOOP_MATS_ALL}

@@ -127,7 +127,9 @@ def main(argv=None):
     out["parts_s"] = dict(sorted(acc.items(), key=lambda kv: -kv[1]))
 
     # ---- device busy share over spans [lo, hi) of a fill stopped at lo ----
+    # (the span loop runs batches: this fill is a batch of one)
     lo, hi = (int(x) for x in args.profile_spans.split(":"))
+    Cb, SC4b = fold.add_batch(C), fold.add_batch(SC4)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -137,13 +139,13 @@ def main(argv=None):
             st.update(gapped5.init_big_state7(n, SEGS, dev))
         else:
             st = fold._init_dense(n, dev)
-        for _ in fold._run_spans(C, SC4, n, sp.dangles, st,
+        for _ in fold._run_spans(Cb, SC4b, n, sp.dangles, st,
                                  (x for x in steps() if x[0] < lo)):
             pass
 
     def window():
         with torch.inference_mode():
-            for _ in fold._run_spans(C, SC4, n, sp.dangles, st,
+            for _ in fold._run_spans(Cb, SC4b, n, sp.dangles, st,
                                      (x for x in steps() if lo <= x[0] < hi)):
                 pass
         torch.cuda.synchronize()

@@ -17,7 +17,10 @@ Phases; any failure exits non-zero and prints no result:
    steps (``minplus_group``) and of the packed fill's largest step at
    n=200 (segment 3: span 135, TB 134, IB 100), whose descriptor table
    comes from the tt loop's own ``ttloop.reduction_table`` on random slabs,
-   checked at tt = 0, the main step and s - 2.  Each row has the kernel's, the plain version's
+   checked at tt = 0, the main step and s - 2; then the same group with a
+   leading batch axis, one launch for the whole batch, at the batched
+   fills' main steps (n=100 for B=4, bucket 64 for B=8; their bound is B
+   times one element's).  Each row has the kernel's, the plain version's
    and the byte bound's time (no single PyTorch call computes this
    function, so there is no library yardstick).  ``ms`` / ``plain_ms``
    are device times per call (CUDA-graph replay, inputs L2-hot);
@@ -41,7 +44,12 @@ Phases; any failure exits non-zero and prints no result:
    of the same sequence (4 segments) against that dense state, bit for bit
    on every array (each ``name@g`` against the dense family's segment
    extents, each ``C_name@g`` row by row, PKD, PKE, the 2-D matrices),
-   with both fill walls;
+   with both fill walls; then (4c) ``dist.batch.batched_fill6`` of four
+   sequences at bucket 100 (lengths 100, 97, 90, 83; the first the bench
+   sequence) in one span loop: 4,851 launches for the whole batch, element
+   0 bit-equal to 4's fill, elements 1-3 to the fill inside their own
+   ``fold``, each element's ``LazyMats`` traceback equal to ``fold``; its
+   wall against 4's single fill and its peak memory;
 5. fold the reference anchors ``tests/golden/long/seed42_n{126,134,200}.txt``
    (n=126: dense at the bucket of 128; n=134, the first length past
    ``DENSE_MAX_N``, and n=200: the packed fill, 5 and 6 segments; all
@@ -54,7 +62,21 @@ Phases; any failure exits non-zero and prints no result:
    ``tests/golden/corpus.json``, with its own launch count;
 7. the CLI in a subprocess, ``python -m ccj_tpu_torch.cli`` on the n=37
    crossing-band anchor; its second line must be the reference's;
-8. the partition function: the float64 device fill on the card against
+8. checkpoint / resume at n=48: ``fill4`` with a snapshot every 16 spans,
+   interrupted from ``on_span`` at span 20, then resumed; the resumed state
+   equals an uninterrupted ``fill6`` on every array and the snapshot is
+   gone; the snapshot's bytes and its save and load walls;
+9. ``batched_fill6`` of eight seed-made sequences of lengths 49-64 at
+   bucket 64: 1,953 launches, every element bit-equal on every array to its
+   own ``fill6``; the batched wall against the eight single walls (tables
+   built inside both) and the peak memory;
+10. ``python -m ccj_tpu_torch.dist.corpus`` over the 15 default-argument
+   entries of ``tests/golden/corpus.json``: two processes merging through a
+   loopback ``TCPStore`` (one per card where there are two, else both on
+   cuda:0), then one process alone; both outputs equal the goldens in order
+   with no ``error``; each process's wall, fold wall and min-plus launches
+   (the CLI prints them);
+11. the partition function: the float64 device fill on the card against
    the host float64 engine at n=16 (rtol 1e-9); float32 against float64
    on the card at n=64 (Z within a relative 1e-5); the n=64 float32 fill's
    wall, peak device memory, and its device launches (kernels, copies and
@@ -63,10 +85,14 @@ Phases; any failure exits non-zero and prints no result:
    energy at or below the MFE.  The fill reaches no Pallas
    kernel in the JAX package, so it is plain PyTorch here and launches no
    min-plus kernel (checked);
-9. checkpoint / resume at n=48: ``fill4`` with a snapshot every 16 spans,
-   interrupted from ``on_span`` at span 20, then resumed; the resumed state
-   equals an uninterrupted ``fill6`` on every array and the snapshot is
-   gone; the snapshot's bytes and its save and load walls.
+12. the device's busy share of the batched fills: spans 40-41 of phase
+   9's batch (a batched fill stopped at span 40) and spans 70-71 of phase
+   4c's (the window PERF.md gives for the single n=100 fill), their
+   kernels', copies' and memsets' device time under the profiler over
+   their wall without it.
+   The phases that use the profiler (11 and 12) run last: once it has
+   run, the process's later dispatch is slower (a bucket-64 fill, 30-40 %
+   in one call), which would spoil the walls of any phase after them.
 
 Prints one JSON line per phase, the kernels line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -215,8 +241,11 @@ def group_bound(table, tt, dev):
     """:func:`bound` of a whole group at ``tt``: each slab and weight
     element that some window's admissible terms use is counted once,
     however many windows read it (the union over each tensor), plus every
-    window's output.  Returns (terms, bytes, t_bytes ms, t_ops ms)."""
+    window's output; a batched table counts every element of its batch (B
+    times one element's bound).  Returns (terms, bytes, t_bytes ms,
+    t_ops ms)."""
     Q, I, J = table.Q, table.I, table.J
+    B = table.batch or 1
     need = {}                   # (data_ptr, shape, strides) -> bool mask
     terms = 0
 
@@ -227,10 +256,11 @@ def group_bound(table, tt, dev):
     for win in table.windows:
         row0, col0, wcol, c = win.at(tt)
         keep = admissible(Q, I, J, win.q_lo, win.mode, c, dev)
-        terms += int(keep.sum())
-        mask_of(win.slab)[row0:row0 + Q, :, col0:col0 + J] |= keep
-        mask_of(win.w)[:, wcol:wcol + J] |= keep.any(dim=1)
-    nbytes = 4 * (sum(int(m.sum()) for m in need.values()) + len(table.windows) * I * J)
+        terms += B * int(keep.sum())
+        mask_of(win.slab)[..., row0:row0 + Q, :, col0:col0 + J] |= keep
+        mask_of(win.w)[..., :, wcol:wcol + J] |= keep.any(dim=1)
+    nbytes = 4 * (sum(int(m.sum()) for m in need.values())
+                  + B * len(table.windows) * I * J)
     return (terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
             2 * terms / FP32_OPS_PER_S * 1e3)
 
@@ -309,78 +339,96 @@ def phase_kernel(cuda_ops, bucket_dims, dev):
         emit({"phase": "kernel", **rows[-1]})
 
     # the full 13-window group of the main tt steps, one launch each: the
-    # dense fill's at n=100 and n=128, the packed fill's at n=200
+    # dense fill's at n=100 and n=128, the packed fill's at n=200; then the
+    # batched groups of the batched fills' main steps (n=100 for a batch of
+    # 4, bucket 64 for a batch of 8), one launch for the whole batch
     from ccj_tpu_torch.engine.gapped5 import segments7
 
-    group_cases = [(n, *main_span(n, bucket_dims), "") for n in (100, 128)]
+    group_cases = [(n, *main_span(n, bucket_dims), "", None) for n in (100, 128)]
     s, TB, IB, tt, g = packed_main_span(200, segments7)
-    group_cases.append((200, s, TB, IB, tt, f" packed segment {g}"))
+    group_cases.append((200, s, TB, IB, tt, f" packed segment {g}", None))
+    group_cases += [(n, *main_span(n, bucket_dims), f" batch of {B}", B)
+                    for n, B in ((100, 4), (64, 8))]
     main_row = packed_row = None
-    for n, s, TB, IB, tt, label in group_cases:
-        n2 = n + 2
-        slabs = {}
-        for name, *_ in REDUCTIONS:
-            cols = n2 + TB if name.startswith("B_") else n2
-            if name not in slabs:
-                slabs[name] = rand_i32((2 * TB + 2, IB, cols), gen, dev)
-        WKX = {nm: rand_i32((TB, n2 + TB + 1), gen, dev) for nm in ("WP", "WB", "WBP")}
-        WJX = {nm: rand_i32((TB, n2), gen, dev) for nm in ("WP", "WB", "WBP")}
-        table = reduction_table(slabs, WKX, WJX, s, n2)
-        G = table.shape[0]
-        terms, nbytes, t_bytes, t_ops = group_bound(table, tt, dev)
-        # copies of the operands in fresh memory, enough that cycling
-        # through them overflows L2, so the kernel's reads come from HBM
-        copies = [table] + [
-            reduction_table(*({k: v.clone() for k, v in d.items()}
-                              for d in (slabs, WKX, WJX)), s, n2)
-            for _ in range(math.ceil(3 * L2_BYTES / nbytes))]
-        cycle = itertools.cycle(copies)
-        out = torch.empty(table.shape, dtype=torch.int32, device=dev)
-        err = 0
-        for t in (0, tt, s - 2):
-            before = cuda_ops.LAUNCHES
-            cuda_ops.minplus_group(table, t, out)
-            want = cuda_ops.minplus_group_ref(table, t)
-            torch.cuda.synchronize()
-            check(cuda_ops.LAUNCHES == before + 1, "a group made more than one launch")
-            err = max(err, int((out.long() - want.long()).abs().max()))
-            check(int(out.max()) <= INF, f"minplus_group above INF at n={n} tt={t}")
-        name = f"group of {G} n={n} s={s} tt={tt} TB={TB} IB={IB}{label}"
-        check(err == 0, f"minplus_group != plain on {name}: max |err| = {err}")
-
-        def kern():
-            return cuda_ops.minplus_group(table, tt, out)
-
-        def kern_cold():
-            return cuda_ops.minplus_group(next(cycle), tt, out)
-
-        def plain():
-            return cuda_ops.minplus_group_ref(table, tt)
-
-        row = {
-            "case": name, "windows": G, "descriptors": len(table.jobs),
-            "Q": TB, "I": IB, "J": n2,
-            "masked_windows": sum(w.mode != 0 for w in table.windows),
-            "terms": terms, "bytes": nbytes, "max_abs_err": err,
-            "ms": graph_ms(kern), "ms_l2cold": graph_ms(kern_cold),
-            "l2cold_copies": len(copies), "plain_ms": graph_ms(plain, reps=10),
-            "call_ms": cuda_ms(kern, 200), "plain_call_ms": cuda_ms(plain, 10),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        }
-        row.update({f"{k}_per_window": row[k] / G
-                    for k in ("ms", "ms_l2cold", "call_ms", "bound_ms")})
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+    batched_rows = []
+    for n, s, TB, IB, tt, label, B in group_cases:
+        row = group_row(cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev,
+                        n, s, TB, IB, tt, label, B)
         rows.append(row)
         emit({"phase": "kernel", **row})
-        if n == 100:
+        if n == 100 and B is None:
             main_row = row
-        if label:
+        if B is not None:
+            batched_rows.append(row)
+        elif label:
             packed_row = row
-        del slabs, WKX, WJX, table, copies, cycle, out
-    return rows, main_row, packed_row
+    return rows, main_row, packed_row, batched_rows
+
+
+def group_row(cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev, n, s, TB, IB,
+              tt, label, B=None):
+    """One 13-window group at the tt step ``tt`` of span ``s`` (random
+    slabs of that step's shapes, with a leading batch axis of ``B`` where
+    given), checked against the plain version at tt = 0, ``tt`` and s - 2
+    and timed L2-hot and L2-cold; returns its row."""
+    n2 = n + 2
+    lead = () if B is None else (B,)
+    slabs = {}
+    for name, *_ in REDUCTIONS:
+        cols = n2 + TB if name.startswith("B_") else n2
+        if name not in slabs:
+            slabs[name] = rand_i32((*lead, 2 * TB + 2, IB, cols), gen, dev)
+    WKX = {nm: rand_i32((*lead, TB, n2 + TB + 1), gen, dev) for nm in ("WP", "WB", "WBP")}
+    WJX = {nm: rand_i32((*lead, TB, n2), gen, dev) for nm in ("WP", "WB", "WBP")}
+    table = reduction_table(slabs, WKX, WJX, s, n2)
+    G = table.shape[-3]
+    terms, nbytes, t_bytes, t_ops = group_bound(table, tt, dev)
+    # copies of the operands in fresh memory, enough that cycling
+    # through them overflows L2, so the kernel's reads come from HBM
+    copies = [table] + [
+        reduction_table(*({k: v.clone() for k, v in d.items()}
+                          for d in (slabs, WKX, WJX)), s, n2)
+        for _ in range(math.ceil(3 * L2_BYTES / nbytes))]
+    cycle = itertools.cycle(copies)
+    out = torch.empty(table.shape, dtype=torch.int32, device=dev)
+    err = 0
+    for t in (0, tt, s - 2):
+        before = cuda_ops.LAUNCHES
+        cuda_ops.minplus_group(table, t, out)
+        want = cuda_ops.minplus_group_ref(table, t)
+        torch.cuda.synchronize()
+        check(cuda_ops.LAUNCHES == before + 1, "a group made more than one launch")
+        err = max(err, int((out.long() - want.long()).abs().max()))
+        check(int(out.max()) <= INF, f"minplus_group above INF at n={n} tt={t}")
+    name = f"group of {G} n={n} s={s} tt={tt} TB={TB} IB={IB}{label}"
+    check(err == 0, f"minplus_group != plain on {name}: max |err| = {err}")
+
+    def kern():
+        return cuda_ops.minplus_group(table, tt, out)
+
+    def kern_cold():
+        return cuda_ops.minplus_group(next(cycle), tt, out)
+
+    def plain():
+        return cuda_ops.minplus_group_ref(table, tt)
+
+    row = {
+        "case": name, "windows": G, "descriptors": len(table.jobs),
+        "batch": B or 1, "Q": TB, "I": IB, "J": n2,
+        "masked_windows": sum(w.mode != 0 for w in table.windows),
+        "terms": terms, "bytes": nbytes, "max_abs_err": err,
+        "ms": graph_ms(kern), "ms_l2cold": graph_ms(kern_cold),
+        "l2cold_copies": len(copies), "plain_ms": graph_ms(plain, reps=10),
+        "call_ms": cuda_ms(kern, 200), "plain_call_ms": cuda_ms(plain, 10),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    row.update({f"{k}_per_window": row[k] / (G * (B or 1))
+                for k in ("ms", "ms_l2cold", "call_ms", "bound_ms")})
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+    return row
 
 
 def max_rel_err(got, want):
@@ -394,7 +442,7 @@ def max_rel_err(got, want):
 
 
 def phase_partition(sp, fold, dev="cuda", n=64):
-    """Phase 8: the sum-product fill on ``dev``; returns its report (keys
+    """Phase 11: the sum-product fill on ``dev``; returns its report (keys
     name the phase's n=64, the length it runs at)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -569,7 +617,7 @@ def fold_anchor(api, fold, LazyMats, cuda_ops, n):
 
 
 def phase_checkpoint(sp, n=48, every=16, stop_at=20):
-    """Phase 9: fill4 with a snapshot every ``every`` spans, interrupted
+    """Phase 8: fill4 with a snapshot every ``every`` spans, interrupted
     from ``on_span`` at span ``stop_at``, then resumed; the resumed state
     must equal an uninterrupted fill6 on every array and the snapshot must
     be gone.  The snapshot lives under ``build/`` (git ignores it)."""
@@ -634,6 +682,262 @@ def phase_checkpoint(sp, n=48, every=16, stop_at=20):
             "arrays_compared": len(ref)}
 
 
+def device_busy_s(fn):
+    """Device time of the kernels, copies and memsets ``fn`` launches, from
+    a profiler run of it (the raw events: key_averages over a whole fill's
+    would take minutes); returns (seconds, events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return sum(e.duration_ns() for e in events) / 1e9, len(events)
+
+
+def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63)):
+    """Phase 9: ``batched_fill6`` of eight seed-made sequences of lengths
+    49-64 at bucket 64, with the launch counts reset just before and read
+    just after (one launch per tt step for the whole batch: 1,953); every
+    element bit-equal on every array to its own ``fill6``; the batched
+    wall against the eight single walls (tables built inside both) and the
+    peak memory.  Returns the report and the sequences."""
+    from ccj_tpu_torch.api import bucket_for
+    from ccj_tpu_torch.dist.batch import batched_fill6
+    from ccj_tpu_torch.engine.fold import build_consts, consts_from_numpy, fill6
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables, pad_seq_tables
+
+    seqs = [bench_seq(m, seed=100 + k) for k, m in enumerate(lengths)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    t0 = time.perf_counter()
+    st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    launches, windows = cuda_ops.LAUNCHES, cuda_ops.WINDOWS
+    peak = torch.cuda.max_memory_allocated()
+    B = len(seqs)
+    check(n_pad == bucket_for(max(lengths)), f"the batch padded to {n_pad}")
+    check(launches == tt_steps(n_pad), f"batched fill x{B} launches {launches} != "
+          f"1 per tt step ({tt_steps(n_pad)})")
+    check(windows == 13 * B * tt_steps(n_pad), f"batched fill windows {windows}")
+    singles, singles_fill = [], []
+    for b, seq in enumerate(seqs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tabs = pad_seq_tables(build_seq_tables(seq, sp, DEFAULT_PK), n_pad, sp, DEFAULT_PK)
+        C, SC4 = consts_from_numpy(build_consts(tabs, sp, DEFAULT_PK), "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one = fill6(C, SC4, n_pad, sp.dangles)
+        torch.cuda.synchronize()
+        singles.append(time.perf_counter() - t0)
+        singles_fill.append(time.perf_counter() - t1)
+        check(set(one) == set(st), "batched and single states hold other arrays")
+        for k, v in one.items():
+            check(torch.equal(st[k][b], v), f"batched fill x{B} element {b} != its fill6 on {k}")
+        del one, C, SC4
+    arrays = len(st)
+    del st
+    torch.cuda.empty_cache()
+    return {"n": list(lengths), "n_pad": n_pad, "batch": B, "batched_fill_s": batched_s,
+            "single_fills_s": singles, "single_fills_sum_s": sum(singles),
+            "single_fill_only_sum_s": sum(singles_fill),
+            "speedup_vs_singles": sum(singles) / batched_s,
+            "max_memory_allocated": peak, "memory_before": base,
+            "launches": launches, "windows": windows,
+            "arrays_compared": arrays * B}, seqs
+
+
+def phase_batched_busy(sp, seqs, lo, hi):
+    """Phase 12: the device's busy share of a batched fill of ``seqs``:
+    spans [lo, hi) of a batched fill stopped at span lo, run once for the
+    wall and once under the profiler for the device time (as
+    ``ccj_tpu_torch.fill_breakdown`` takes a single fill's)."""
+    from ccj_tpu_torch.dist.batch import _stack_v4_consts
+    from ccj_tpu_torch.engine import fold as fmod
+    from ccj_tpu_torch.params import DEFAULT_PK
+
+    Cb, SC4b, n_pad = _stack_v4_consts(seqs, sp, DEFAULT_PK, device="cuda")
+
+    def spans(a, b):
+        with torch.inference_mode():
+            for _ in fmod._run_spans(Cb, SC4b, n_pad, sp.dangles, st,
+                                     (x for x in fmod._dense_steps(n_pad)
+                                      if a <= x[0] < b)):
+                pass
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        st = fmod._init_dense(n_pad, Cb["H"].device, len(seqs))
+    spans(0, lo)
+    t0 = time.perf_counter()
+    spans(lo, hi)            # re-running spans whose inputs are final
+    wall = time.perf_counter() - t0
+    dev_s, events = device_busy_s(lambda: spans(lo, hi))
+    del st
+    torch.cuda.empty_cache()
+    return {"n_pad": n_pad, "batch": len(seqs), "spans": [lo, hi], "wall_s": wall,
+            "device_busy_s": dev_s, "device_events": events,
+            "device_busy_share": dev_s / wall}
+
+
+def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill100_s,
+                          lengths=(97, 90, 83)):
+    """Phase 4c: ``batched_fill6`` at bucket 100 for a batch of four whose
+    element 0 is the main path's n=100 sequence: launches 4,851 (one per tt
+    step for the whole batch); element 0 bit-equal to the main path's
+    ``fill6`` state ``st100``; elements 1-3 bit-equal to the ``fill6`` state
+    inside their own ``fold``; each element's ``LazyMats`` traceback gives
+    ``fold``'s structure and energy; the wall against the single fill's
+    ``fill100_s`` and the peak memory above what was allocated before.
+    Returns the report and the sequences."""
+    from ccj_tpu_torch.dist.batch import batched_fill6
+    from ccj_tpu_torch.engine.lazy import LazyMats
+    from ccj_tpu_torch.engine.traceback import Traceback
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    seqs = [seq100] + [bench_seq(m, seed=200 + k) for k, m in enumerate(lengths)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    t0 = time.perf_counter()
+    st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    launches, windows = cuda_ops.LAUNCHES, cuda_ops.WINDOWS
+    peak = torch.cuda.max_memory_allocated()
+    B = len(seqs)
+    check(n_pad == 100, f"the bucket-100 batch padded to {n_pad}")
+    check(launches == tt_steps(n_pad), f"batched fill x{B} launches {launches} != "
+          f"1 per tt step ({tt_steps(n_pad)})")
+    check(int(st["V"][0, 1, 100]) == BENCH_V100, "batched element 0: V(1,100) != -1528")
+    for k, v in st100.items():
+        check(torch.equal(st[k][0], v), f"batched element 0 != the main path's fill6 on {k}")
+    results, traceback_s = [], []
+    for b, seq in enumerate(seqs):
+        t0 = time.perf_counter()
+        mats = LazyMats({k: v[b] for k, v in st.items()}, n_pad)
+        e_dcal, structure = Traceback(build_seq_tables(seq, sp, DEFAULT_PK), sp,
+                                      DEFAULT_PK, mats).run()
+        traceback_s.append(time.perf_counter() - t0)
+        if b == 0:
+            want = res100
+        else:       # fold it, keeping the fill6 state of the fold to compare
+            own = []
+            real = api.fill_state
+            api.fill_state = lambda *a, **kw: own.append(real(*a, **kw)) or own[-1]
+            try:
+                want = fold(seq)
+            finally:
+                api.fill_state = real
+            check(len(own) == 1 and set(own[0]) == set(st), f"fold of element {b}")
+            for k, v in own[0].items():
+                check(torch.equal(st[k][b], v), f"batched element {b} != its fill6 on {k}")
+            del own
+        check((e_dcal, structure) == (want.energy_dcal, want.structure),
+              f"batched element {b}: {structure} ({e_dcal}) != fold's "
+              f"{want.structure} ({want.energy_dcal})")
+        results.append({"n": len(seq), "energy": e_dcal / 100.0})
+    del st
+    torch.cuda.empty_cache()
+    return {"n": [len(s) for s in seqs], "n_pad": n_pad, "batch": B,
+            "batched_fill_s": batched_s, "single_fill_n100_s": fill100_s,
+            "wall_vs_single": batched_s / fill100_s,
+            "per_sequence_throughput_vs_single": B * fill100_s / batched_s,
+            "max_memory_allocated": peak, "memory_before": base,
+            "peak_above_before": peak - base, "launches": launches, "windows": windows,
+            "lazy_traceback_s": traceback_s, "elements": results}, seqs
+
+
+def phase_corpus_processes(entries, nproc=2):
+    """Phase 10: ``python -m ccj_tpu_torch.dist.corpus`` over ``entries``
+    with ``nproc`` processes merging through a loopback TCPStore (one per
+    card where there are enough, else all on cuda:0), then one process
+    alone; both outputs must be the goldens in corpus order with no
+    ``error``.  Returns each process's wall, its own fold wall and its
+    min-plus launches (which the CLI prints), and the one-process ones."""
+    import socket
+
+    work = ROOT / "build" / "corpus_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    corpus = work / "corpus.txt"
+    corpus.write_text("\n".join(e["seq"] for e in entries) + "\n")
+
+    def run(n, extra):
+        out = work / f"out_{n}.json"
+        out.unlink(missing_ok=True)
+        errs = [work / f"stderr_{n}_{pid}.txt" for pid in range(n)]
+        t0 = time.perf_counter()
+        procs = []
+        for pid in range(n):
+            with open(errs[pid], "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "ccj_tpu_torch.dist.corpus", str(corpus),
+                     str(out), *extra, "--num-processes", str(n), "--process-id", str(pid)],
+                    cwd=ROOT, stdout=subprocess.DEVNULL, stderr=fh))
+        walls, reports = [None] * n, []
+        try:
+            pending = set(range(n))
+            while pending:
+                for pid in list(pending):
+                    if procs[pid].poll() is not None:
+                        walls[pid] = time.perf_counter() - t0
+                        pending.discard(pid)
+                time.sleep(0.05)
+                check(time.perf_counter() - t0 < 600, "the corpus processes hung")
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for pid, p in enumerate(procs):
+            err = errs[pid].read_text()
+            check(p.returncode == 0, f"corpus process {pid} exited {p.returncode}: "
+                  f"{err[-2000:]}")
+            vals = dict(ln.split() for ln in err.splitlines()
+                        if ln.startswith(("corpus-fold-seconds", "corpus-minplus-launches")))
+            reports.append({"wall_s": walls[pid],
+                            "fold_s": float(vals["corpus-fold-seconds"]),
+                            "launches": int(vals["corpus-minplus-launches"])})
+        res = json.loads(out.read_text())
+        check([r["seq"] for r in res] == [e["seq"] for e in entries],
+              f"the {n}-process corpus is out of order")
+        for r, e in zip(res, entries):
+            check(r["error"] is None, f"corpus entry {r['index']}: {r['error']}")
+            check(r["structure"] == e["structure"] and abs(r["energy"] - e["energy"]) < 1e-9,
+                  f"corpus n={len(e['seq'])}: {r['structure']} ({r['energy']}) != "
+                  f"{e['structure']} ({e['energy']})")
+        return reports
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cards = torch.cuda.device_count()
+    placement = ("one process per card" if cards >= nproc
+                 else f"all {nproc} processes on cuda:0 ({cards} card)")
+    multi = run(nproc, ["--coordinator", f"127.0.0.1:{port}"])
+    solo = run(1, [])
+    from ccj_tpu_torch.api import bucket_for
+
+    want = sum(tt_steps(bucket_for(len(e["seq"]))) for e in entries)
+    for label, reps in (("two-process", multi), ("one-process", solo)):
+        got = sum(r["launches"] for r in reps)
+        check(got == want, f"{label} corpus launches {got} != {want}")
+    return {"n": [len(e["seq"]) for e in entries], "processes": nproc,
+            "placement": placement, "process_reports": multi,
+            "launches": sum(r["launches"] for r in multi),
+            "one_process": solo[0]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: needs a CUDA GPU")
@@ -666,7 +970,8 @@ def main():
           "kind": torch.cuda.get_device_name(0)})
 
     # ---- 2: kernel vs plain ----------------------------------------------
-    rows, main_row, packed_row = phase_kernel(cuda_ops, bucket_dims, torch.device("cuda"))
+    rows, main_row, packed_row, batched_rows = phase_kernel(
+        cuda_ops, bucket_dims, torch.device("cuda"))
     report["kernel"] = rows
 
     # ---- 3: corpus goldens -----------------------------------------------
@@ -736,6 +1041,11 @@ def main():
     report["packed_vs_dense_n100"] = phase_packed_vs_dense(
         fill7, C, SC4, n, sp.dangles, st, fill_s)
     emit({"phase": "packed_vs_dense_n100", **report["packed_vs_dense_n100"]})
+
+    # ---- 4c: the batched fill at bucket 100, the main path's sequence first
+    report["batched_fill_n100_x4"], seqs100 = phase_batched_fill100(
+        sp, api, fold, cuda_ops, seq, st, res, fill_s)
+    emit({"phase": "batched_fill_n100_x4", **report["batched_fill_n100_x4"]})
     del st, C, SC4
     torch.cuda.empty_cache()
 
@@ -785,13 +1095,27 @@ def main():
     report["cli"] = {"wall_s": cli_s, "stdout": lines}
     emit({"phase": "cli", **report["cli"]})
 
-    # ---- 8: the partition function ------------------------------------------
+    # ---- 8: checkpoint / resume (fill4) --------------------------------------
+    report["checkpoint"] = phase_checkpoint(sp)
+    emit({"phase": "checkpoint", **report["checkpoint"]})
+
+    # ---- 9: the batched fill at bucket 64, eight sequences of 49-64 -----------
+    report["batched_fill_n64_x8"], seqs64 = phase_batched_fill64(sp, cuda_ops)
+    emit({"phase": "batched_fill_n64_x8", **report["batched_fill_n64_x8"]})
+
+    # ---- 10: the corpus driver, two processes, on the 15 default goldens ------
+    report["corpus_processes"] = phase_corpus_processes(
+        [e for e in corpus if not e["args"]])
+    emit({"phase": "corpus_processes", **report["corpus_processes"]})
+
+    # ---- 11: the partition function (the profiler from here on) ---------------
     report["partition"] = phase_partition(sp, fold)
     emit({"phase": "partition", **report["partition"]})
 
-    # ---- 9: checkpoint / resume (fill4) --------------------------------------
-    report["checkpoint"] = phase_checkpoint(sp)
-    emit({"phase": "checkpoint", **report["checkpoint"]})
+    # ---- 12: the batched fills' device busy share ----------------------------
+    for key, seqs_b, lo in (("n64_x8", seqs64, 40), ("n100_x4", seqs100, 70)):
+        report[f"batched_fill_{key}_busy"] = phase_batched_busy(sp, seqs_b, lo, lo + 2)
+        emit({"phase": f"batched_fill_{key}_busy", **report[f"batched_fill_{key}_busy"]})
 
     kernels = [{
         "name": "minplus_group", "route": "cuda",
@@ -809,11 +1133,20 @@ def main():
         "packed_n200": {k: packed_row[k] for k in (
             "case", "ms", "ms_l2cold", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "share_of_bound_l2cold", "max_abs_err")},
+        "batched": [{k: r[k] for k in (
+            "case", "batch", "ms", "ms_l2cold", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "share_of_bound_l2cold", "ms_per_window",
+            "max_abs_err")} for r in batched_rows],
         "launches_by_path": {"fold n=100": launches,
                              "fold n=126": report["n126"]["launches"],
                              "fold n=134 (packed)": report["n134"]["launches"],
                              "fold n=200 (packed)": report["n200"]["launches"],
                              "fold_many n=37,60,16": report["fold_many"]["launches"],
+                             "batched fill bucket 64 x8":
+                                 report["batched_fill_n64_x8"]["launches"],
+                             "batched fill bucket 100 x4":
+                                 report["batched_fill_n100_x4"]["launches"],
+                             "corpus": report["corpus_processes"]["launches"],
                              "partition n=16,64": report["partition"]["minplus_launches"]},
     }]
     report["kernels"] = kernels

@@ -178,3 +178,101 @@ def test_long_anchor_folds_on_cuda(cuda, n):
     assert got == line, f"n={n}: {got!r} != {line!r} (peak device memory {peak} B)"
     assert cuda_ops.LAUNCHES - before == (n - 1) * (n - 2) // 2, \
         f"n={n}: launches (peak device memory {peak} B)"
+
+
+def _bench_seq(n, seed):
+    import random
+
+    rng = random.Random(seed)
+    return "".join(rng.choice("ACGU") for _ in range(n))
+
+
+def test_batched_group_kernel_matches_plain(cuda):
+    """The main tt step of a bucket-64 fill for a batch of 8: one launch
+    reduces the 13 windows of all 8 elements."""
+    from ccj_tpu_torch.engine.gapped4 import bucket_dims
+
+    n, B = 64, 8
+    n2 = n + 2
+    s = max(range(2, n), key=lambda s: (bucket_dims(n, s)[0] * bucket_dims(n, s)[1], s))
+    TB, IB = bucket_dims(n, s)
+    gen = torch.Generator().manual_seed(64)
+    slabs = {}
+    for name, *_ in REDUCTIONS:
+        cols = n2 + TB if name.startswith("B_") else n2
+        slabs.setdefault(name, _rand((B, 2 * TB + 2, IB, cols), gen, cuda))
+    WKX = {nm: _rand((B, TB, n2 + TB + 1), gen, cuda) for nm in ("WP", "WB", "WBP")}
+    WJX = {nm: _rand((B, TB, n2), gen, cuda) for nm in ("WP", "WB", "WBP")}
+    table = reduction_table(slabs, WKX, WJX, s, n2)
+    assert table.shape == (B, 13, IB, n2)
+    out = torch.empty(table.shape, dtype=torch.int32, device=cuda)
+    for tt in (0, (s - 2) // 2, s - 2):
+        before = (cuda_ops.LAUNCHES, cuda_ops.WINDOWS)
+        cuda_ops.minplus_group(table, tt, out)
+        torch.cuda.synchronize()
+        assert (cuda_ops.LAUNCHES, cuda_ops.WINDOWS) == (before[0] + 1, before[1] + 13 * B)
+        assert torch.equal(out, cuda_ops.minplus_group_ref(table, tt))
+
+
+def test_batched_fill_on_cuda_equals_single_fills(cuda):
+    """batched_fill6 at bucket 48 with B=4 (lengths 41-48, padding inside
+    the batch), bit-equal on every array to each sequence's own fill6, with
+    one launch per tt step for the whole batch."""
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.dist.batch import batched_fill6
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables, pad_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    seqs = [_bench_seq(n, seed) for seed, n in enumerate((48, 41, 45, 47))]
+    before = cuda_ops.LAUNCHES
+    st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
+    torch.cuda.synchronize()
+    assert n_pad == 48
+    assert cuda_ops.LAUNCHES - before == (n_pad - 1) * (n_pad - 2) // 2
+    for b, seq in enumerate(seqs):
+        tabs = pad_seq_tables(build_seq_tables(seq, sp, DEFAULT_PK), n_pad, sp, DEFAULT_PK)
+        C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
+        single = tfold.fill6(C, SC4, n_pad, sp.dangles)
+        assert set(single) == set(st)
+        for k, v in single.items():
+            assert torch.equal(st[k][b], v), f"{seq}: {k}"
+
+
+def test_two_process_corpus_on_cuda(cuda, tmp_path):
+    """python -m ccj_tpu_torch.dist.corpus, two processes on the card(s),
+    merged through a loopback TCPStore: the goldens, in corpus order."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    golden = [e for e in json.loads((root / "tests" / "golden" / "corpus.json").read_text())
+              if not e["args"] and len(e["seq"]) <= 40]
+    corpus, out = tmp_path / "corpus.txt", tmp_path / "out.json"
+    corpus.write_text("\n".join(e["seq"] for e in golden) + "\n")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ccj_tpu_torch.dist.corpus", str(corpus), str(out),
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(pid)],
+        env={**os.environ, "PYTHONPATH": str(root)}, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err.decode()[-2000:]
+    merged = json.loads(out.read_text())
+    assert [r["seq"] for r in merged] == [e["seq"] for e in golden]
+    for r, e in zip(merged, golden):
+        assert r["error"] is None, r
+        assert r["structure"] == e["structure"] and abs(r["energy"] - e["energy"]) < 1e-9, r
