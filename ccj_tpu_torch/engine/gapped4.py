@@ -155,14 +155,19 @@ def init_big_state4(n, device, batch: int = 1):
     return st
 
 
-def update_pk_skews4(st, pk16, s, n):
+def update_pk_skews4(st, pk16, s, n, i0=0):
     """Refresh PKD / PKE from span s's packed PK slab [B, TB, IB, n2]
     int16, in place: PKD[tt, s, i, a] = PK[tt, s, i, i+a] and
-    PKE[tt, s - tt, i, a] = PKD[tt, s, i, a] for tt <= s."""
+    PKE[tt, s - tt, i, a] = PKD[tt, s, i, a] for tt <= s.  The slab's rows
+    i in [i0, i0 + IB) are the arrays' first IB rows (a row shard of
+    dist/wavefront.py holds rows from its i0)."""
     n2, T, S, U = dims(n)
     TBp, IBp = pk16.shape[-3], pk16.shape[-2]
+    rows = st["PKD"].shape[-2]           # n2, or a row shard's R (dist/wavefront.py)
+    if i0:   # a = j - i: slab row r (i = i0 + r) reads column i0 + r + a
+        pk16 = pad_axis(pk16[..., i0:], -1, 0, i0, SAT16)
     slab = unskew_right(pk16, SAT16, n2)                 # [B, TBp, i, a]
-    slab = torch.nn.functional.pad(slab, (0, 0, 0, n2 - IBp, 0, T - TBp),
+    slab = torch.nn.functional.pad(slab, (0, 0, 0, rows - IBp, 0, T - TBp),
                                    value=SAT16)
     dynamic_update_slice(st["PKD"], slab[:, :, None], (0, s, 0, 0))
     # rows tt > s write back their own value in the JAX scatter: skip them
@@ -188,8 +193,13 @@ class SpanReads(NamedTuple):
       name[tt+c, s-b, i+di, j], unset where the layout holds nothing;
     * ``RL(name, X, g1)`` / ``RI(name, X, g1)``: the l-shrink / i-shrink
       history scans for all tt, int32 [B, TB, IB, n2];
-    * ``window(name, rows)``: int16 [B, rows(tt'), DS, >= IB, n2] stencil
-      window, row r of axis 2 = span s-DS+r, spans below 0 unset.
+    * ``window(name, rows, halo)``: int16 [B, rows(tt'), DS, >= IB + halo,
+      n2] stencil window, row r of axis 2 = span s-DS+r, spans below 0
+      unset; rows past the layout's last row may be absent (the caller
+      pads them unset).
+
+    Every read is of rows i in [i0, i0 + IB): the whole state has i0 = 0;
+    a row shard of dist/wavefront.py has its own.
     """
     plane: Callable
     RL: Callable
@@ -197,15 +207,52 @@ class SpanReads(NamedTuple):
     window: Callable
 
 
-def dense_reads(st, n, s, TB, IB):
-    """:class:`SpanReads` of the dense layout ([T, S, n2, n2] families and
-    C skews)."""
-    n2, T, S, U = dims(n)
+def ri_min(win, wi, i_val, d, jrow, g1):
+    """RI's scan over a C-layout history window: min over the history rows
+    d = s - sp of win[tt, sp, r, j] + wi[sp, r] under d in [1, sj - g1] and
+    i >= 1, where row r has i = ``i_val[r]`` and sj = j - i (``jrow`` is
+    the j axis); int32 [B, TB, rows, n2]."""
+    sj = jrow[None, :] - i_val[:, None]                  # [rows, n2]
+    ok = ((d >= 1) & (d <= (sj - g1)[None, None])
+          & (i_val >= 1)[None, None, :, None])
+    return torch.where(ok, win + wi[:, None, :, :, None], INF).amin(dim=-3)
+
+
+def dense_rl(st, n, s, TB, IB, i0=0):
+    """The dense layout's ``RL`` scan (see :class:`SpanReads`) over rows
+    i in [i0, i0 + IB), which are the arrays' first IB rows.  It reads
+    only its own rows, so a row shard of dist/wavefront.py (its rows from
+    ``i0``) uses it as it is."""
+    n2 = n + 2
     dev = st["PKD"].device
     tv = torch.arange(TB, device=dev)[:, None, None]      # tt
-    iv = torch.arange(IB, device=dev)[None, :, None]      # i
+    iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]  # i
     jv = torch.arange(n2, device=dev)[None, None, :]      # j
     Gv = (iv + s) - (jv + tv + 2)                         # l - k
+    sp0 = max(s - TB, 0)
+    spv = sp0 + torch.arange(TB, device=dev)            # window sp values
+    d_rl = (s - spv)[None, :, None, None]               # d = s - sp
+    i1 = iv[0, :, 0]
+
+    def RL(name, X, g1):
+        """min over d in [1, G-g1] of big[name][tt, s-d, i, j] + X(l-d+1, l)
+        for all tt (pseudo_loop's l-shrink candidate scans)."""
+        win = dynamic_slice(st[name], (0, sp0, 0, 0),
+                            (TB, TB, IB, n2)).to(I32)
+        wl = g2(X, i1[None, :] + spv[:, None] + 1,
+                (i1[None, :] + s).expand(TB, IB))           # [B, sp, i]
+        ok = (d_rl >= 1) & (d_rl <= (Gv - g1)[:, None])
+        return torch.where(ok, win + wl[:, None, :, :, None], INF).amin(dim=-3)
+
+    return RL
+
+
+def dense_reads(st, n, s, TB, IB):
+    """:class:`SpanReads` of the dense layout ([T, S, n2, n2] families and
+    C skews), rows from i = 0."""
+    n2, T, S, U = dims(n)
+    dev = st["PKD"].device
+    jv = torch.arange(n2, device=dev)
 
     def plane(name, c, b, di):
         sl = dynamic_slice(st[name], (0, max(s - b, 0), 0, 0),
@@ -220,16 +267,6 @@ def dense_reads(st, n, s, TB, IB):
     d_rl = (s - spv)[None, :, None, None]               # d = s - sp
     i1 = torch.arange(IB, device=dev)
 
-    def RL(name, X, g1):
-        """min over d in [1, G-g1] of big[name][tt, s-d, i, j] + X(l-d+1, l)
-        for all tt (pseudo_loop's l-shrink candidate scans)."""
-        win = dynamic_slice(st[name], (0, sp0, 0, 0),
-                            (TB, TB, n2, n2))[..., :IB, :].to(I32)
-        wl = g2(X, i1[None, :] + spv[:, None] + 1,
-                (i1[None, :] + s).expand(TB, IB))           # [B, sp, i]
-        ok = (d_rl >= 1) & (d_rl <= (Gv - g1)[:, None])
-        return torch.where(ok, win + wl[:, None, :, :, None], INF).amin(dim=-3)
-
     def RI(name, X, g1):
         """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
         for all tt (i-shrink scans; l = i + s is the C-layout row)."""
@@ -240,18 +277,16 @@ def dense_reads(st, n, s, TB, IB):
         i_val = l_val - s                                # i = l - s
         wi = g2(X, i_val[None, :].expand(TB, IB),
                 l_val[None, :] - spv[:, None] - 1)       # [B, sp, lr]
-        sj_lr = jv[0] - i_val[:, None]                   # [IB(lr), n2]
-        ok = ((d_rl >= 1) & (d_rl <= (sj_lr - g1)[None, None])
-              & (i_val >= 1)[None, None, :, None])
-        red = torch.where(ok, win + wi[:, None, :, :, None], INF).amin(dim=-3)
+        red = ri_min(win, wi, i_val, d_rl, jv, g1)
         sh = s - loff                                    # row i at lr=i+sh
         return dynamic_slice(pad_axis(red, -2, 0, IB, INF), (0, sh, 0),
                              (TB, IB, n2))
 
-    def window(name, rows):
+    def window(name, rows, halo=DS):
         """[B, rows(tt'), DS, n2, n2] window with row r of axis 2 = span
         s-DS+r; rows for spans < 0 (and spans beyond a short S axis) read
-        as unset, alignment preserved for any s."""
+        as unset, alignment preserved for any s.  It holds every row,
+        whatever ``halo``."""
         DSs = min(DS, S)
         rs = max(s - DSs, 0)
         raw = dynamic_slice(st[name], (0, rs, 0, 0), (T, DSs, n2, n2))
@@ -262,17 +297,19 @@ def dense_reads(st, n, s, TB, IB):
         win = pad_axis(win, -4, 0, max(rows - T, 0), SAT16)
         return win[:, :rows]
 
-    return SpanReads(plane, RL, RI, window)
+    return SpanReads(plane, dense_rl(st, n, s, TB, IB), RI, window)
 
 
-def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
+def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
     """All 22 gapped families for span s, read from the state through
     ``reads`` (its layout's :class:`SpanReads`): a dict of int16
     [B, TB, IB, n2] slabs, unset on invalid cells.  Writes nothing, so the
     caller's write-back into ``st`` follows every read of the span.
 
-    TB, IB are sizes with TB >= s-1 and IB >= n-s+2 (caller guarantees;
-    padded rows are never valid)."""
+    The slabs' rows are i in [i0, i0 + IB).  TB >= s-1 covers tt; the
+    whole state (i0 = 0) takes IB >= n-s+2, a row shard of
+    dist/wavefront.py its rows with i <= n - s (caller guarantees; padded
+    rows are never valid)."""
     n = C["n"]
     n2, T, S, U = dims(n)
     UB = n2 + TB
@@ -283,7 +320,7 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     RL, RI = reads.RL, reads.RI
 
     tv = torch.arange(TB, device=dev)[:, None, None]      # tt
-    iv = torch.arange(IB, device=dev)[None, :, None]      # i
+    iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]  # i
     jv = torch.arange(n2, device=dev)[None, None, :]      # j
     kv = jv + tv + 2
     lv = iv + s
@@ -292,15 +329,15 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     WBt, WPt, WBPg, WPPg = _wx_tables(C, st)
 
     # gather-free pair/energy planes (ttloop.py)
-    ESTP_ij = plane_ij(ESTP, TB, IB)
-    canp_ij = plane_ij(canp, TB, IB)
-    pt_ij = plane_ij(pt, TB, IB)
-    canp_kl = plane_kl(canp, s, TB, IB, n2)
-    pt_kl = plane_kl(pt, s, TB, IB, n2)
-    ESTP_klp = plane_kl(ESTP, s, TB, IB, n2)
-    canp_il = diag_il(canp, s, TB, IB, n2)
-    pt_il = diag_il(pt, s, TB, IB, n2)
-    ESTP_il = diag_il(ESTP, s, TB, IB, n2)
+    ESTP_ij = plane_ij(ESTP, TB, IB, i0=i0)
+    canp_ij = plane_ij(canp, TB, IB, i0=i0)
+    pt_ij = plane_ij(pt, TB, IB, i0=i0)
+    canp_kl = plane_kl(canp, s, TB, IB, n2, i0=i0)
+    pt_kl = plane_kl(pt, s, TB, IB, n2, i0=i0)
+    ESTP_klp = plane_kl(ESTP, s, TB, IB, n2, i0=i0)
+    canp_il = diag_il(canp, s, TB, IB, n2, i0=i0)
+    pt_il = diag_il(pt, s, TB, IB, n2, i0=i0)
+    ESTP_il = diag_il(ESTP, s, TB, IB, n2, i0=i0)
 
     def enc(v, vmask):
         """Store-encode a plane: int16-clamped value on valid cells
@@ -325,14 +362,14 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     # ---- PL: interior stencil + assembly (batched over tt) ---------------
     # pl_int[tt,i,j] = min over d1,d2 of PL(tt+d2, s-d1, i+d1, j-d2)
     #                  + W4PL[d1, d2, i, j]          (pseudo_loop.cc:682-703)
-    plw = reads.window("PL", TB + DS)
+    plw = reads.window("PL", TB + DS, DS)
     plw = torch.flip(plw, dims=(-3,))                # row d1-1 = span s-d1
     plw = pad_axis(plw, -2, 0, max(IB + DS - plw.shape[-2], 0), SAT16)
     # d1-diagonal over (span-row, i): V1[tt', d1-1, i, j] = plw[tt', d1-1,
     # i+d1, j]  (l = i + s is invariant across the d1 shift)
     V1 = torch.stack([plw[:, :, d1 - 1, d1: d1 + IB, :]
                       for d1 in range(1, DS + 1)], dim=2)  # [tt', d1, i, j]
-    W4PL = SC4["W4PL"][..., :IB, :]                        # [d1, d2, i, j]
+    W4PL = SC4["W4PL"][..., i0:i0 + IB, :]                 # [d1, d2, i, j]
     pl_int = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
     for d2 in range(1, DS + 1):
         sub = V1[:, d2: d2 + TB]                           # rows tt + d2
@@ -358,11 +395,11 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     #                  + W4PR[d1, d2, k, l]          (pseudo_loop.cc:717-738)
     # k = j + tt + 2 = u + 2 is tt-free in u = j + tt coordinates; the
     # (tt+d1, u+d1) diagonal is walked with d1-shifted slices.
-    prw = reads.window("PR", TB + DS)[..., :IB, :]
+    prw = reads.window("PR", TB + DS, 0)[..., :IB, :]
     prw = torch.flip(prw, dims=(-3,))                # row d2-1 = span s-d2
     prm = prw.movedim(1, -2)                         # [d2, i, tt', j]
     pru = skew_right(prm, SAT16)                     # [d2, i, tt', u]
-    wpr = dynamic_slice(SC4["W4PR"], (0, 0, 2, s), (DS, DS, UB, IB))
+    wpr = dynamic_slice(SC4["W4PR"], (0, 0, 2, s + i0), (DS, DS, UB, IB))
     wpr = wpr.transpose(-1, -2)                      # [d1, d2, i, u]
     pr_acc = torch.full((B, IB, TB, UB), INF, dtype=I32, device=dev)
     for d1 in range(1, DS + 1):
@@ -421,7 +458,7 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads):
     # ---- serial loop over tt (descending): one minplus_group per step ----
     mdp0 = torch.minimum(PLs, PRs) + PB       # PfromMdoubleprime base
     cur = run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
-                      valid4, s, TB, IB)
+                      valid4, s, TB, IB, i0)
 
     def pack(slab32):
         v = slab32[:, :TB].clamp(-32768, SAT16)

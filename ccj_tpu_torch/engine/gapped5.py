@@ -220,8 +220,9 @@ def packed_reads(st, n, s, gi: int, SEGS):
                              (TB, IB, n2))
 
     # ---- MAXLOOP stencil windows (PL / PR) -------------------------------
-    def window(name, rows):
-        """[B, rows(tt'), DS, IB+DS, n2]: row r of axis 2 = span s - DS + r.
+    def window(name, rows, halo=DS):
+        """[B, rows(tt'), DS, IB+DS, n2]: row r of axis 2 = span s - DS + r
+        (``halo`` <= DS rows past IB, whatever it is).
         Spans below lo come from segment gi - 1 (which holds all of them:
         segments are at least MIN_SEG wide), spans below 0 read as unset;
         the JAX module's pad-and-select over both segments, reading only

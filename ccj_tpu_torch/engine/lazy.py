@@ -13,10 +13,15 @@ on first touch, caching it.
 The P-split case (pseudo_loop.cc:867-897) is the one access that scans PK
 over O(n) spans at once; it runs on the state's device instead
 (:meth:`LazyMats.case_p_argmin`), returning just the split indices.  Both
-layouts keep PKD dense, so it reads the same array in either.
+layouts keep PKD dense, so it reads the same array in either.  The
+row-sharded state of ``dist.wavefront.fill6_sharded`` reads as the dense
+one: its slabs are the shards' rows put together, and the P split gets
+only the PKD cells it reads (row i, and one span of each row r in (i, l]).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -126,7 +131,10 @@ class LazyMats:
         strict-< scan (pseudo_loop.cc:867-897) and the numpy path in
         traceback.case_p.  Returns (j, d, k, value); (0, 0, 0, value) when
         no candidate is below INF."""
-        flat, v = case_p_device(self._dev["PKD"], i, l, self.n)
+        reads = getattr(self._dev, "p_split_reads", None)
+        if reads is None:
+            reads = functools.partial(p_split_reads, self._dev["PKD"])
+        flat, v = case_p_cube(*reads(i, l), i, l)
         self.bytes_fetched += 16
         if v >= INF:
             return 0, 0, 0, v
@@ -136,12 +144,27 @@ class LazyMats:
         return i + oj, i + od, i + ok_, v
 
 
-@torch.inference_mode()
+def p_split_reads(PKD, i: int, l: int):
+    """What the P-split cube of (i, l) reads of ``PKD`` ([T, S, n2, A],
+    PKD[tt, span, i, a=j-i] = PK[tt, span, i, j]): row i at spans
+    [0, l - i), [T, l - i, A], and each row r in (i, l] at its one span
+    l - r, [T, l - i, A] (entry r - i - 1)."""
+    r = torch.arange(i + 1, l + 1, device=PKD.device)
+    return PKD[:, :l - i, i], PKD[:, l - r, r]
+
+
 def case_p_device(PKD, i: int, l: int, n: int):
-    """The masked (j, d, k) cube of the P split on ``PKD``'s device, read
-    through the PK diagonal layout (PKD[tt, span, i, a=j-i] =
-    PK[tt, span, i, j]).  Returns (flat index, value) as Python ints, the
-    only data brought back.
+    """The P split of (i, l) on ``PKD``'s device (:func:`case_p_cube` over
+    :func:`p_split_reads`)."""
+    return case_p_cube(*p_split_reads(PKD, i, l), i, l)
+
+
+@torch.inference_mode()
+def case_p_cube(row_i, anti, i: int, l: int):
+    """The masked (j, d, k) cube of the P split on the device of its PKD
+    reads (:func:`p_split_reads`): PK(i, j, d+1, k) from row i at span
+    k - i, PK(j+1, d, k+1, l) from row j + 1 at span l - j - 1.  Returns
+    (flat index, value) as Python ints, the only data brought back.
 
     The cube holds the offsets j, d, k - i in [0, l - i): the same cells,
     in the same C order, as the JAX package's [n+1]^3 cube padded to a
@@ -150,26 +173,26 @@ def case_p_device(PKD, i: int, l: int, n: int):
     the reference's strict-< scan keeps; ``torch.argmin`` promises no tie
     rule on CUDA.  int32 throughout: out-of-cube cells hold 4*INF.
     """
-    dev = PKD.device
+    dev = row_i.device
     m = l - i
+    T, M, A = row_i.shape
     ar = torch.arange(m, device=dev)
-    jj = i + ar[:, None, None]
-    dd = i + ar[None, :, None]
-    kk = i + ar[None, None, :]
-    T, S, N2, A = PKD.shape
+    oj = ar[:, None, None]                  # j - i
+    od = ar[None, :, None]                  # d - i
+    ok_ = ar[None, None, :]                 # k - i
 
-    def g4v(i_, j_, k_, l_):
-        valid = (i_ <= j_) & (j_ < k_ - 1) & (k_ <= l_)
-        tt = k_ - j_ - 2
-        ss = l_ - i_
-        i_ = torch.as_tensor(i_, device=dev)
-        v = PKD[tt.clamp(0, T - 1), torch.as_tensor(ss, device=dev).clamp(0, S - 1),
-                i_.clamp(0, N2 - 1), (j_ - i_).clamp(0, A - 1)].to(I32)
+    def pick(arr, valid, tt, span, a):
+        v = arr[tt.clamp(0, T - 1), span.clamp(0, arr.shape[1] - 1),
+                a.clamp(0, A - 1)].to(I32)
         return torch.where(valid, v, INF)
 
-    vals = g4v(i, jj, dd + 1, kk) + g4v(jj + 1, dd, kk + 1, l)
-    inside = (dd >= jj + 1) & (kk >= dd + 1)
-    vals = torch.where(inside, vals, 4 * INF).reshape(-1)
+    # PK(i, j, d+1, k): tt = d - j - 1, span k - i, a = j - i
+    f1 = pick(row_i, (od > oj) & (od < ok_), od - oj - 1, ok_, oj)
+    # PK(j+1, d, k+1, l): tt = k - d - 1, entry j - i, a = d - j - 1
+    f2 = pick(anti, (od >= oj + 1) & (ok_ > od) & (ok_ + 1 <= m),
+              ok_ - od - 1, oj.expand(m, m, m), od - oj - 1)
+    inside = (od >= oj + 1) & (ok_ >= od + 1)
+    vals = torch.where(inside, f1 + f2, 4 * INF).reshape(-1)
     best = vals.min()
     idx = torch.arange(vals.numel(), device=dev)
     flat = torch.where(vals == best, idx, vals.numel()).min()

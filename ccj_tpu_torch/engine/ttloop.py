@@ -63,16 +63,16 @@ def jk_table(X, TB, n2, c0: int, row_shift: int, fill=INF):
     return M.transpose(-1, -2)                              # [tt, j]
 
 
-def plane_ij(X, TB, IB, fill=INF):
-    """out[tt, i, j] = X[i, j] broadcast over tt (a view)."""
+def plane_ij(X, TB, IB, fill=INF, i0=0):
+    """out[tt, i, j] = X[i0 + i, j] broadcast over tt (a view)."""
     X32 = X.to(I32)
-    return X32[..., None, :IB, :].expand(*X.shape[:-2], TB, IB, X.shape[-1])
+    return X32[..., None, i0:i0 + IB, :].expand(*X.shape[:-2], TB, IB, X.shape[-1])
 
 
-def plane_kl(X, s, TB, IB, n2, fill=INF):
-    """out[tt, i, j] = X[j + tt + 2, i + s] masked to k, l in [0, n2)."""
+def plane_kl(X, s, TB, IB, n2, fill=INF, i0=0):
+    """out[tt, i, j] = X[j + tt + 2, i0 + i + s] masked to k, l in [0, n2)."""
     Xp = pad_axis(X.to(I32), -1, 0, IB, fill)
-    Xs = dynamic_slice(Xp, (0, s), (n2, IB))              # [k, i], l = i+s
+    Xs = dynamic_slice(Xp, (0, s + i0), (n2, IB))         # [k, i], l = i+s
     Xs = pad_axis(Xs, -2, 0, TB + 3, fill)
     Xt = Xs.transpose(-1, -2)                             # [i, k]
     y = Xt[..., :, None, 2:].expand(*Xt.shape[:-1], TB, Xt.shape[-1] - 2)
@@ -80,10 +80,11 @@ def plane_kl(X, s, TB, IB, n2, fill=INF):
     return A.movedim(-3, -2)
 
 
-def diag_il(X, s, TB, IB, n2, fill=INF):
-    """out[tt, i, j] = X[i, i + s] masked to i+s < n2 (a broadcast view)."""
+def diag_il(X, s, TB, IB, n2, fill=INF, i0=0):
+    """out[tt, i, j] = X[i0 + i, i0 + i + s] masked to i+s < n2 (a
+    broadcast view)."""
     Z = diag_cols(X.to(I32), fill, n2)            # [i, c] = X[i, i+c]
-    d = dynamic_slice(Z, (0, s), (IB, 1))[..., 0]   # [IB]
+    d = dynamic_slice(Z, (i0, s), (IB, 1))[..., 0]  # [IB]
     return d[..., None, :, None].expand(*d.shape[:-1], TB, IB, n2)
 
 
@@ -118,21 +119,22 @@ REDUCTIONS = (
 )
 
 
-def reduction_table(slabs, WKX, WJX, s, n2):
+def reduction_table(slabs, WKX, WJX, s, n2, i0=0):
     """The descriptor table of one span's :data:`REDUCTIONS`, valid for
     every tt in [0, s - 2]; ``slabs`` maps the slab names to the span's
     A / B slabs (and ``mdp``), ``WKX`` / ``WJX`` the weight names to their
-    tables, all with or all without a leading batch axis."""
+    tables, all with or all without a leading batch axis.  Slab row r is
+    i = i0 + r: both masks read i - c, so the row offset moves into c."""
     wins = []
     for slab, wn, kind, masked in REDUCTIONS:
         if kind == "k":
             wins.append(cuda_ops.WindowSpec(
                 slabs[slab], WKX[wn], row0=(1, 1), wcol=(2, 1),
-                mode=1 if masked else 0, c=(s - 4, -1)))
+                mode=1 if masked else 0, c=(s - 4 + i0, -1)))
         else:
             wins.append(cuda_ops.WindowSpec(
                 slabs[slab], WJX[wn], row0=(1, 1), col0=(0, 1),
-                mode=2 if masked else 0, c=(2, 0)))
+                mode=2 if masked else 0, c=(2 + i0, 0)))
     return cuda_ops.WindowTable(wins, n2, (0, s - 2))
 
 
@@ -142,12 +144,13 @@ def _enc(v, vmask):
     return torch.where(vmask, v.clamp(-32768, SAT16), INF)
 
 
-def _pm_bounds(s, IB, UB, dev):
+def _pm_bounds(s, IB, UB, dev, i0=0):
     """The span-constant parts of the PM stencil's loop bounds: d1 (as
     [1, DS, 1, 1]), the d1 bound's tt-free part u - i - 1, and the whole
-    d2 mask d2 <= (i + s - u - 2) - 1 ([DS, 1, IB, UB])."""
+    d2 mask d2 <= (i + s - u - 2) - 1 ([DS, 1, IB, UB]); rows are
+    i = i0 + r."""
     d = torch.arange(1, DS + 1, device=dev)
-    i = torch.arange(IB, device=dev)[:, None]
+    i = torch.arange(i0, i0 + IB, device=dev)[:, None]
     u = torch.arange(UB, device=dev)[None, :]
     return (d[None, :, None, None], u - i - 1,
             d[:, None, None, None] <= (i + s - u - 2) - 1)
@@ -178,8 +181,9 @@ def _pm_stencil(STM, DPM, tt, bounds):
 
 
 def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
-                valid4, s, TB: int, IB: int):
-    """Run the serial tt loop for span ``s``; returns the final families.
+                valid4, s, TB: int, IB: int, i0: int = 0):
+    """Run the serial tt loop for span ``s`` over rows i in
+    [i0, i0 + IB); returns the final families.
 
     ``bases``: the 7 span-constant cross-span reduction bases by name.
     ``mdp0``: the PfromMdoubleprime base min(PL,PR)+PB [B, TB, IB, n2].
@@ -224,16 +228,16 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     # u = UB - 1 (rows tt + 2 .. tt + 2 * DS stay inside TB + 2 * PADT)
     STM = torch.full((B, TB + 2 * PADT, IB, UB + DS), INF, dtype=I32, device=dev)
     DPM = SC4["DPM"]
-    pm_bounds = _pm_bounds(s, IB, UB, dev)
+    pm_bounds = _pm_bounds(s, IB, UB, dev, i0)
 
     # PM's base case (i == j and k == l): the step tt at which each (i, j)
     # meets it, -1 where i != j
     jr = torch.arange(n2, device=dev)[None, :]
-    ir = torch.arange(IB, device=dev)[:, None]
+    ir = torch.arange(i0, i0 + IB, device=dev)[:, None]
     b4_tt = torch.where(ir == jr, ir + s - jr - 2, -1)
 
     if s >= 2:
-        table = reduction_table({**cur, "mdp": mdp}, WKX, WJX, s, n2)
+        table = reduction_table({**cur, "mdp": mdp}, WKX, WJX, s, n2, i0)
         red_out = torch.empty(table.shape, dtype=I32, device=dev)
 
     for tt in range(s - 2, -1, -1):

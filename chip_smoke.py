@@ -20,9 +20,11 @@ Phases; any failure exits non-zero and prints no result:
    checked at tt = 0, the main step and s - 2; then the same group with a
    leading batch axis, one launch for the whole batch, at the batched
    fills' main steps (n=100 for B=4, bucket 64 for B=8; their bound is B
-   times one element's).  Each row has the kernel's, the plain version's
-   and the byte bound's time (no single PyTorch call computes this
-   function, so there is no library yardstick).  ``ms`` / ``plain_ms``
+   times one element's); then the group of a row shard's step (n=100,
+   shard 1 of 4: 26 rows from i0 = 26, the row offset in its masks).
+   Each row has the kernel's, the plain version's and the byte bound's
+   time (no single PyTorch call computes this function, so there is no
+   library yardstick).  ``ms`` / ``plain_ms``
    are device times per call (CUDA-graph replay, inputs L2-hot);
    ``call_ms`` / ``plain_call_ms`` are eager calls back to back, the
    host's launch path included.  A group row's bound counts each slab and
@@ -49,14 +51,23 @@ Phases; any failure exits non-zero and prints no result:
    sequence) in one span loop: 4,851 launches for the whole batch, element
    0 bit-equal to 4's fill, elements 1-3 to the fill inside their own
    ``fold``, each element's ``LazyMats`` traceback equal to ``fold``; its
-   wall against 4's single fill and its peak memory;
+   wall against 4's single fill and its peak memory; then (4d) ``dist.wavefront.fill6_sharded`` of the same sequence with
+   P=2 and P=4 row shards on cuda:0: launches one per tt step and shard
+   with a span-s row (``sharded_tt_steps``), every array of ``gather()``
+   bit-equal to 4's fill, ``LazyMats`` over the sharded state giving
+   ``fold``'s structure and energy; the wall against 4's fill, the peak
+   memory, the state bytes per shard and the bytes exchanged per class
+   (halo, shift, gather, all-gather), in total and at the widest span;
 5. fold the reference anchors ``tests/golden/long/seed42_n{126,134,200}.txt``
    (n=126: dense at the bucket of 128; n=134, the first length past
    ``DENSE_MAX_N``, and n=200: the packed fill, 5 and 6 segments; all
    through the lazy traceback) and match structure and energy byte for
    byte; each one's launches (one per tt step: 8,001, 8,778 and 19,701),
    fold and fill walls, peak device memory, bytes and slabs fetched; at
-   n=200 cells/s beside the reference binary's 1467.2 s;
+   n=200 cells/s beside the reference binary's 1467.2 s; then (5b) the
+   n=126 anchor filled by ``fill6_sharded`` with P=2 at the bucket of 128
+   and traced back through ``LazyMats`` over the sharded state, byte for
+   byte, its wall against the n=126 fold's fill;
 6. ``fold_many`` of the corpus entries at n=37, 60 and 16 in one call
    (buckets 48, 64 and 16, in that order), each checked against
    ``tests/golden/corpus.json``, with its own launch count;
@@ -362,15 +373,24 @@ def phase_kernel(cuda_ops, bucket_dims, dev):
             batched_rows.append(row)
         elif label:
             packed_row = row
-    return rows, main_row, packed_row, batched_rows
+    # a row shard's step (dist/wavefront.py): shard 1 of 4 at n=100's main
+    # span, IB = R = 26 rows from i0 = 26, which the masks' c absorbs
+    s, TB, _, tt = main_span(100, bucket_dims)
+    R = -(-102 // 4)
+    shard_row = group_row(cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev,
+                          100, s, TB, R, tt, f" row shard 1 of 4, i0={R}", i0=R)
+    rows.append(shard_row)
+    emit({"phase": "kernel", **shard_row})
+    return rows, main_row, packed_row, batched_rows, shard_row
 
 
 def group_row(cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev, n, s, TB, IB,
-              tt, label, B=None):
+              tt, label, B=None, i0=0):
     """One 13-window group at the tt step ``tt`` of span ``s`` (random
     slabs of that step's shapes, with a leading batch axis of ``B`` where
-    given), checked against the plain version at tt = 0, ``tt`` and s - 2
-    and timed L2-hot and L2-cold; returns its row."""
+    given, rows i from ``i0``), checked against the plain version at
+    tt = 0, ``tt`` and s - 2 and timed L2-hot and L2-cold; returns its
+    row."""
     n2 = n + 2
     lead = () if B is None else (B,)
     slabs = {}
@@ -380,14 +400,14 @@ def group_row(cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev, n, s, TB, IB
             slabs[name] = rand_i32((*lead, 2 * TB + 2, IB, cols), gen, dev)
     WKX = {nm: rand_i32((*lead, TB, n2 + TB + 1), gen, dev) for nm in ("WP", "WB", "WBP")}
     WJX = {nm: rand_i32((*lead, TB, n2), gen, dev) for nm in ("WP", "WB", "WBP")}
-    table = reduction_table(slabs, WKX, WJX, s, n2)
+    table = reduction_table(slabs, WKX, WJX, s, n2, i0)
     G = table.shape[-3]
     terms, nbytes, t_bytes, t_ops = group_bound(table, tt, dev)
     # copies of the operands in fresh memory, enough that cycling
     # through them overflows L2, so the kernel's reads come from HBM
     copies = [table] + [
         reduction_table(*({k: v.clone() for k, v in d.items()}
-                          for d in (slabs, WKX, WJX)), s, n2)
+                          for d in (slabs, WKX, WJX)), s, n2, i0)
         for _ in range(math.ceil(3 * L2_BYTES / nbytes))]
     cycle = itertools.cycle(copies)
     out = torch.empty(table.shape, dtype=torch.int32, device=dev)
@@ -859,6 +879,93 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
             "lazy_traceback_s": traceback_s, "elements": results}, seqs
 
 
+def sharded_tt_steps(n, P):
+    """Launches of a dense fill of length n split over P row shards: each
+    span's tt steps once per shard that owns a span-s row (1 <= i <= n - s),
+    with R = ceil((n + 2) / P) rows a shard."""
+    R = -(-(n + 2) // P)
+    return sum(max(s - 1, 0) * sum(1 for p in range(P) if p * R <= n - s and (p + 1) * R > 1)
+               for s in range(n))
+
+
+def phase_wavefront_dense(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
+                          dense=None, dense_fill_s=None):
+    """Phase 4d / 5b: ``dist.wavefront.fill6_sharded`` with P row shards on
+    cuda:0.  Launches equal :func:`sharded_tt_steps`; every array its
+    ``gather()`` gives equals ``dense`` (the main path's ``fill6`` state,
+    where given), read one array at a time; ``LazyMats`` over the sharded
+    state traces back to ``want_line`` (structure, energy in dcal).  Reports
+    the wall against ``dense_fill_s``, the peak memory above what was held
+    before, the state bytes per shard and the bytes exchanged per class, in
+    total and at the widest span."""
+    from ccj_tpu_torch.dist.wavefront import CLASSES, ROW_NAMES, fill6_sharded
+    from ccj_tpu_torch.engine.lazy import LazyMats
+    from ccj_tpu_torch.engine.traceback import Traceback
+    from ccj_tpu_torch.params import DEFAULT_PK
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    t0 = time.perf_counter()
+    st = fill6_sharded(C, SC4, n, dangles, devices=["cuda:0"] * P)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_ops.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == sharded_tt_steps(n, P),
+          f"wavefront P={P} n={n}: launches {launches} != {sharded_tt_steps(n, P)}")
+    compared = 0
+    if dense is not None:
+        check(set(st.keys()) == set(dense), f"wavefront P={P} n={n}: keys differ")
+        for k, v in dense.items():
+            got = st.rows(k, 0, n + 2) if k in ROW_NAMES else st[k]
+            check(got.shape == v.shape and torch.equal(got, v),
+                  f"wavefront P={P} n={n}: gather() != fill6 on {k}")
+            compared += 1
+            del got
+    tr = st.transport
+    read_before, p_splits = tr.bytes["read"], []
+    reads = st.p_split_reads
+    st.p_split_reads = lambda i, l: p_splits.append(l - i) or reads(i, l)
+    t0 = time.perf_counter()
+    mats = LazyMats(st, n)
+    got_line = Traceback(tabs, sp, DEFAULT_PK, mats).run()
+    traceback_s = time.perf_counter() - t0
+    check(got_line == want_line, f"wavefront P={P} n={n}: traceback {got_line} != {want_line}")
+    # the traceback moves at most the rows of its host slabs and, per P
+    # split of (i, l), row i at l - i spans and one span of each row in (i, l]
+    traceback_read = tr.bytes["read"] - read_before
+    _, T, _, _, A = st.shards[0]["PKD"].shape
+    p_split_bound = sum(2 * T * m * A * 2 for m in p_splits)
+    check(traceback_read <= mats.bytes_fetched + p_split_bound,
+          f"wavefront P={P} n={n}: the traceback moved {traceback_read} B between "
+          f"shards, over {mats.bytes_fetched} B of slabs + {p_split_bound} B of P split")
+    fill_classes = [c for c in CLASSES if c != "read"]
+    widest = max(tr.span_bytes, key=lambda u: sum(tr.span_bytes[u][c] for c in fill_classes))
+    out = {"n": n, "shards": P, "rows_per_shard": st.R, "fill_s": wall,
+           "fill6_s": dense_fill_s,
+           "wall_vs_fill6": None if dense_fill_s is None else wall / dense_fill_s,
+           "launches": launches, "arrays_compared": compared,
+           "lazy_traceback_s": traceback_s, "slab_fetches": mats.slab_fetches,
+           "bytes_fetched": mats.bytes_fetched,
+           "max_memory_allocated": peak, "memory_before": base,
+           "peak_above_before": peak - base,
+           "state_bytes_per_shard": [st.shard_bytes(p) for p in range(P)],
+           "replica_bytes": st.replica_bytes(),
+           "exchange_bytes": {c: tr.bytes[c] for c in fill_classes},
+           "exchange_bytes_read": tr.bytes["read"],
+           "traceback_exchange_bytes": traceback_read, "p_splits": len(p_splits),
+           "p_split_bound_bytes": p_split_bound,
+           "widest_span": widest,
+           "widest_span_bytes": {c: tr.span_bytes[widest][c] for c in fill_classes},
+           "energy_dcal": got_line[0]}
+    del st, mats
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_corpus_processes(entries, nproc=2):
     """Phase 10: ``python -m ccj_tpu_torch.dist.corpus`` over ``entries``
     with ``nproc`` processes merging through a loopback TCPStore (one per
@@ -970,7 +1077,7 @@ def main():
           "kind": torch.cuda.get_device_name(0)})
 
     # ---- 2: kernel vs plain ----------------------------------------------
-    rows, main_row, packed_row, batched_rows = phase_kernel(
+    rows, main_row, packed_row, batched_rows, shard_row = phase_kernel(
         cuda_ops, bucket_dims, torch.device("cuda"))
     report["kernel"] = rows
 
@@ -1046,6 +1153,13 @@ def main():
     report["batched_fill_n100_x4"], seqs100 = phase_batched_fill100(
         sp, api, fold, cuda_ops, seq, st, res, fill_s)
     emit({"phase": "batched_fill_n100_x4", **report["batched_fill_n100_x4"]})
+
+    # ---- 4d: the row-sharded fill against the main path's fill ------------
+    for P in (2, 4):
+        report[f"wavefront_dense_P{P}_n100"] = phase_wavefront_dense(
+            cuda_ops, C, SC4, n, sp.dangles, tabs, sp, P,
+            (res.energy_dcal, res.structure), st, fill_s)
+        emit({"phase": "wavefront_dense", **report[f"wavefront_dense_P{P}_n100"]})
     del st, C, SC4
     torch.cuda.empty_cache()
 
@@ -1057,6 +1171,26 @@ def main():
         check(report[f"n{m}"]["packed"] == (m > DENSE_MAX_N),
               f"n={m} took the {'packed' if m <= DENSE_MAX_N else 'dense'} fill")
         emit({"phase": f"anchor_n{m}", **report[f"n{m}"]})
+
+    # ---- 5b: the n=126 anchor through the row-sharded fill (P=2) -------------
+    from ccj_tpu_torch.cli import _format_energy
+    from ccj_tpu_torch.precompute import pad_seq_tables
+    seq126, line126 = (ROOT / "tests" / "golden" / "long" / "seed42_n126.txt") \
+        .read_text().splitlines()[:2]
+    tabs126 = build_seq_tables(seq126, sp, DEFAULT_PK)
+    n_fill = api._fill_length(126)
+    C126, SC4126 = consts_from_numpy(build_consts(
+        pad_seq_tables(tabs126, n_fill, sp, DEFAULT_PK), sp, DEFAULT_PK), "cuda")
+    structure, energy = line126.rsplit(" (", 1)
+    want126 = (round(float(energy.rstrip(")")) * 100), structure)
+    wf126 = phase_wavefront_dense(cuda_ops, C126, SC4126, n_fill, sp.dangles, tabs126,
+                                  sp, 2, want126, dense_fill_s=report["n126"]["fill_s"])
+    got126 = f"{structure} ({_format_energy(wf126['energy_dcal'] / 100.0)})"
+    check(got126 == line126, f"wavefront n=126: {got126!r} != {line126!r}")
+    report["wavefront_dense_P2_n126"] = wf126
+    emit({"phase": "wavefront_dense", **wf126})
+    del C126, SC4126
+
     n200 = report["n200"]
     n200.update(ref_seconds=REF_SECONDS_200,
                 ref_cells_per_s=cells4d(200) / REF_SECONDS_200,
@@ -1137,6 +1271,9 @@ def main():
             "case", "batch", "ms", "ms_l2cold", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "share_of_bound_l2cold", "ms_per_window",
             "max_abs_err")} for r in batched_rows],
+        "row_shard_n100_P4": {k: shard_row[k] for k in (
+            "case", "ms", "ms_l2cold", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "share_of_bound_l2cold", "max_abs_err")},
         "launches_by_path": {"fold n=100": launches,
                              "fold n=126": report["n126"]["launches"],
                              "fold n=134 (packed)": report["n134"]["launches"],
@@ -1147,6 +1284,12 @@ def main():
                              "batched fill bucket 100 x4":
                                  report["batched_fill_n100_x4"]["launches"],
                              "corpus": report["corpus_processes"]["launches"],
+                             "wavefront dense P2 n100":
+                                 report["wavefront_dense_P2_n100"]["launches"],
+                             "wavefront dense P4 n100":
+                                 report["wavefront_dense_P4_n100"]["launches"],
+                             "wavefront dense P2 n126":
+                                 report["wavefront_dense_P2_n126"]["launches"],
                              "partition n=16,64": report["partition"]["minplus_launches"]},
     }]
     report["kernels"] = kernels
