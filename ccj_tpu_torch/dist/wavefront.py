@@ -1,34 +1,41 @@
-"""Wavefront (row-sharded) dense fill: the DP state's row axis split over
-shards that one process holds on a list of devices (PyTorch).
+"""Wavefront (row-sharded) fills: the DP state's row axis split over shards
+that one process holds on a list of devices (PyTorch).
 
-Counterpart of ``ccj_tpu/dist/wavefront.py``'s ``fill4_sharded`` (BASELINE
-config 3: one long sequence, the O(n^4) DP state partitioned across
-devices).  The dense state is a dict of ``[tt, span, i, j]`` arrays whose i
-axis (the l axis for the C skews) is read only through slices and shifts,
-so the span body runs per shard on the shard's own rows.  The JAX module
-partitions that axis over a ``wave`` mesh axis with a GSPMD
-``NamedSharding`` and lets XLA insert the collectives; here one process
-holds P shards, each on a torch device (all ``"cpu"`` in the tests, all
-``cuda:0`` on a one-card machine, ``cuda:0..P-1`` with P cards), and moves
-rows between them explicitly through :class:`RowTransport`.
+Counterpart of ``ccj_tpu/dist/wavefront.py`` (BASELINE config 3: one long
+sequence, the O(n^4) DP state partitioned across devices): its
+``fill4_sharded`` as :func:`fill6_sharded`, over the dense layout of
+``fold.fill6``, and its ``fill8_sharded`` as :func:`fill7_sharded`, over
+the segment-packed layout of ``fold.fill7`` (engine/gapped5.py).  The
+state is a dict of ``[tt, span, i, j]`` arrays whose i axis (the l axis
+for the C skews) is read only through slices and shifts, so the span body
+runs per shard on the shard's own rows.  The JAX module partitions that
+axis over a ``wave`` mesh axis with a GSPMD ``NamedSharding`` and lets XLA
+insert the collectives; here one process holds P shards, each on a torch
+device (all ``"cpu"`` in the tests, all ``cuda:0`` on a one-card machine,
+``cuda:0..P-1`` with P cards), and moves rows between them explicitly
+through :class:`RowTransport`.
 
 The partition (:func:`row_partition`): the n2 = n + 2 rows padded to a
-multiple of P (``pad_i`` of the JAX module), shard p holding rows
-[p R, (p + 1) R).  Cut on axis -2: the 22 families (i rows), the five C
-skews (l rows), PKD and PKE (i rows).  Replicated once per distinct
-device: the eight 2-D matrices and the tables, which are O(n^2) and
-O(DS^2 n^2).
+multiple of P (``pad_i`` of the JAX module), shard p holding global rows
+[p R, (p + 1) R) of every array (:class:`ShardedState`).  Cut on axis -2:
+the families (i rows), the C skews (l rows), PKD and PKE (i rows); a
+packed array stores only its own rows (``name@g`` i < IB_g, ``C_name@g``
+l in [lo_g + 1, n2)), so a shard holds those of them it owns.  Replicated
+once per distinct device: the eight 2-D matrices and the tables, which
+are O(n^2) and O(DS^2 n^2).
 
 Not every cross-row read is a neighbour halo.  Per span s, a shard whose
 rows are i in [i0, i0 + IB) reads:
 
-* ``plane(.., di)`` (``gapped4.dense_reads``' counterpart): rows i + 1 — a halo of one
-  row;
-* the PL stencil window: rows i + d1 for d1 <= DS = 29 — a halo of 29
-  rows, which may reach several shards (R < 29 at n=30, P=4);
-* ``RI``: C rows l = i + s of every earlier span — a shift by s.  The
-  owner of row l reduces its history and ships the reduced
-  [B, TB, rows, n2] slab, never the history itself;
+* the fixed-offset family planes: rows i + 1 — a halo of one row; in the
+  packed layout the families stored only as C skews (``gapped5.DROPPED``)
+  read C rows l = i + di + u — a shift by u + di;
+* the PL stencil window (in the packed layout stitched from two
+  segments): rows i + d1 for d1 <= DS = 29 — a halo of 29 rows, which may
+  reach several shards (R < 29 at n=30, P=4);
+* ``RI``: C rows l = i + s of every earlier span (of every earlier
+  segment) — a shift by s.  The owner of row l reduces its history and
+  ships the reduced [B, TB, rows, n2] slab, never the history itself;
 * the P split: PKD rows i + a + 1 for every a <= s - 2 — a gather of every
   row up to i + s - 1, one span slice per a;
 * the C-skew write-back: rows l = i + s — a shift by s, put into the
@@ -45,13 +52,15 @@ breaks the serial tt-descending loop across devices; pipelining the
 parallel inside every reduction of a span.
 
 Memory: all shards on one card hold the unsharded state plus halos and
-gathers; one shard's figure is what each card of a P-card run would hold.
-The GSPMD sharding itself and ``fill8_sharded``'s lane-tile layout are not
-ported (ROADMAP, "Not to port"); the packed layout's sharding is the next
-step on the same transport.
+gathers; one shard's figure is what each card of a P-card run would hold
+(shard 0 the most in the packed layout: late segments have only low
+rows).  The GSPMD sharding itself and ``fill8_sharded``'s lane-tile layout
+(engine/gapped6.py) are not ported (ROADMAP, "Not to port").
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -61,6 +70,7 @@ from ..engine.gapped import C_MATS, DS, M4_NAMES, _set_P_diag, compute_WBP_WPP_s
 from ..engine.gapped3 import p_split_rows
 from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, g2, ri_min,
                               span_families, update_pk_skews4)
+from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_spans
 from ..engine.nested import compute_V_span, compute_WMv_WMp_WM_span
 
 # exchange classes the transport counts ("read": the traceback and gather())
@@ -93,12 +103,16 @@ def span_rows(n: int, R: int, P: int, s: int):
 class RowTransport:
     """Moves rows of row-sharded arrays between the shards' devices.
 
-    An array is given as one tensor per shard, its row axis last but one;
-    ``take`` selects the leading part a read or write touches (a view).
-    Rows past the n2 real ones read as unset.  ``bytes`` counts, per class,
-    the bytes that would cross between devices in a P-device run (rows a
-    shard reads from, or writes to, another shard's rows); ``span_bytes``
-    the same per span of the fill (``span`` is set by the fill)."""
+    An array is given as one tensor per shard, its row axis last but one,
+    and the global rows it stores, ``rows`` = (lo, hi) (default (0, n2)):
+    shard q's tensor holds rows [max(lo, q R), min(hi, (q + 1) R)) from
+    its first row on (a dense array's shard holds R rows from q R, the last
+    padded past n2).  ``take`` selects the leading part a read or write
+    touches (a view).  Rows outside [lo, hi) read as unset and are not
+    written.  ``bytes`` counts, per class, the bytes that would cross
+    between devices in a P-device run (rows a shard reads from, or writes
+    to, another shard's rows); ``span_bytes`` the same per span of the
+    fill (``span`` is set by the fill)."""
 
     def __init__(self, devices, R: int, n2: int):
         self.devices, self.R, self.n2 = devices, R, n2
@@ -106,16 +120,22 @@ class RowTransport:
         self.span_bytes: dict = {}
         self.span = None
 
-    def owners(self, a: int, b: int):
-        """[(q, lo, hi)]: the shards holding rows [a, b) within [0, n2)."""
-        a, b = max(a, 0), min(b, self.n2)
+    def owners(self, a: int, b: int, rows=None):
+        """[(q, lo, hi)]: the shards holding rows [a, b) within the stored
+        rows (default [0, n2))."""
+        lo, hi = rows or (0, self.n2)
+        a, b = max(a, lo), min(b, hi)
         out = []
         while a < b:
             q = a // self.R
-            hi = min(b, (q + 1) * self.R)
-            out.append((q, a, hi))
-            a = hi
+            top = min(b, (q + 1) * self.R)
+            out.append((q, a, top))
+            a = top
         return out
+
+    def _first_row(self, q: int, rows=None) -> int:
+        """The global row of shard q's first local row."""
+        return max(q * self.R, rows[0] if rows else 0)
 
     def _count(self, cls: str, t):
         nbytes = t.numel() * t.element_size()
@@ -124,13 +144,13 @@ class RowTransport:
             per = self.span_bytes.setdefault(self.span, dict.fromkeys(CLASSES, 0))
             per[cls] += nbytes
 
-    def fetch(self, p: int, arrs, take, a: int, b: int, cls: str, fill=SAT16):
+    def fetch(self, p: int, arrs, take, a: int, b: int, cls: str, fill=SAT16,
+              rows=None):
         """Rows [a, b) of ``take(arrs[q])`` over the owning shards q, on
         shard p's device; a view when p owns them all."""
-        R = self.R
-        pieces = self.owners(a, b)
+        pieces = self.owners(a, b, rows)
         if len(pieces) == 1 and pieces[0] == (p, a, b):
-            return take(arrs[p]).narrow(-2, a - p * R, b - a)
+            return take(arrs[p]).narrow(-2, a - self._first_row(p, rows), b - a)
         dev = self.devices[p]
         ref = take(arrs[p])
 
@@ -142,7 +162,7 @@ class RowTransport:
         for q, lo, hi in pieces:
             if lo > cur:
                 parts.append(unset(lo - cur))
-            t = take(arrs[q]).narrow(-2, lo - q * R, hi - lo)
+            t = take(arrs[q]).narrow(-2, lo - self._first_row(q, rows), hi - lo)
             if q != p:
                 self._count(cls, t)
                 t = t.to(dev)
@@ -152,15 +172,15 @@ class RowTransport:
             parts.append(unset(b - cur))
         return torch.cat(parts, dim=-2)
 
-    def put(self, p: int, arrs, take, a: int, slab, cls: str):
+    def put(self, p: int, arrs, take, a: int, slab, cls: str, rows=None):
         """Write shard p's ``slab`` into rows [a, a + rows) of
-        ``take(arrs[q])`` on the owning shards q."""
-        R = self.R
-        for q, lo, hi in self.owners(a, a + slab.shape[-2]):
+        ``take(arrs[q])`` on the owning shards q (rows outside the stored
+        ones are dropped)."""
+        for q, lo, hi in self.owners(a, a + slab.shape[-2], rows):
             src = slab.narrow(-2, lo - a, hi - lo)
             if q != p:
                 self._count(cls, src)
-            take(arrs[q]).narrow(-2, lo - q * R, hi - lo).copy_(src)
+            take(arrs[q]).narrow(-2, lo - self._first_row(q, rows), hi - lo).copy_(src)
 
     def move(self, t, p: int, q: int, cls: str):
         """``t`` (on shard p's device) on shard q's device."""
@@ -185,65 +205,128 @@ class RowTransport:
         return out
 
 
+class Rows(NamedTuple):
+    """Where a row-sharded array lies on the global row axis: row r of the
+    unsharded array is global row ``off + r`` (``nrows`` rows); the shards
+    store the global rows [lo, hi), and the others read as unset."""
+    off: int
+    nrows: int
+    lo: int
+    hi: int
+
+
 class ShardedArray:
     """One row-sharded array of a :class:`ShardedState`, as ``LazyMats``
-    reads it: indexing the leading axes (never the row and column axes)
-    gives the n2 rows of every shard, concatenated on the first device."""
+    reads it: an index of the leading (tt, span) axes, with an optional
+    third entry slicing the rows (in the unsharded array's own row
+    coordinate; all rows without it), gives those rows of every shard put
+    together on the first device.  The column axis is never indexed."""
 
     def __init__(self, state: "ShardedState", name: str):
         self._state, self._name = state, name
 
     def __getitem__(self, idx):
-        st = self._state
-        return st.transport.fetch(0, [sh[self._name] for sh in st.shards],
-                                  lambda t: t[0][idx], 0, st.n2, "read")
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        rsl = idx[2] if len(idx) > 2 else slice(None)
+        a, b, step = rsl.indices(self._state.layout[self._name].nrows)
+        if step != 1 or len(idx) > 3:
+            raise IndexError(f"a sharded array takes (tt, span, row slice), got {idx!r}")
+        return self._state.rows(self._name, a, b, idx[:2])
 
 
 class ShardedState:
-    """A dense fill's state split by rows over ``devices`` (one shard each).
+    """A fill's state split by rows over ``devices`` (one shard each): the
+    dense layout of ``fold.fill6``, or with ``segs`` (``gapped5.segments7``)
+    the segment-packed layout of ``fold.fill7``.
 
-    ``shards[p]`` holds the row-sharded arrays (:data:`ROW_NAMES`, rows
-    [p R, (p + 1) R), batch axis 1) and, by reference, its device's replica
-    of the 2-D matrices (``replicas``, one per distinct device).  As a
-    mapping it reads like the plain state of ``fold.fill6`` for
-    ``lazy.LazyMats``: a 2-D name gives the first device's replica, a
-    sharded name a :class:`ShardedArray`; :meth:`rows` gives a row range,
-    :meth:`p_split_reads` what the traceback's P split reads of PKD,
-    :meth:`gather` the whole plain dict."""
+    Every array is cut by one global row partition (:func:`row_partition`):
+    shard p holds the global rows [p R, (p + 1) R) of it that the array
+    stores (``layout``, a :class:`Rows` per name).  A family row is its i
+    and a C-skew row its l; a packed ``name@g`` block stores the rows
+    i < IB_g, a packed ``C_name@g`` skew the rows l in [lo_g + 1, n2)
+    (its row r is l = r + lo_g + 1; the rows l >= n2 are written only from
+    invalid i rows and hold the unset value, so no shard stores them).
+    The dense arrays (all of the dense layout, PKD and PKE of the packed
+    one) hold R rows a shard, the last padded past n2.
 
-    def __init__(self, n: int, devices):
+    ``shards[p]`` holds the row-sharded arrays (batch axis 1) and, by
+    reference, its device's replica of the 2-D matrices (``replicas``, one
+    per distinct device).  As a mapping it reads like the plain state of
+    ``fold.fill6`` / ``fill7`` for ``lazy.LazyMats``: a 2-D name gives the
+    first device's replica, a sharded name a :class:`ShardedArray`;
+    :meth:`rows` gives a row range, :meth:`p_split_reads` what the
+    traceback's P split reads of PKD, :meth:`gather` the whole plain
+    dict."""
+
+    def __init__(self, n: int, devices, segs=None):
         self.n, self.n2 = n, n + 2
+        self.segs = segs
         self.devices = [torch.device(d) for d in devices]
         self.P = len(self.devices)
         self.R, _ = row_partition(n, self.P)
         n2, T, S, U = dims(n)
         self.replicas = {dev: init_state_2d(n, dev)
                          for dev in dict.fromkeys(self.devices)}
+        dense = Rows(0, n2, 0, n2)
+        # name -> (leading axes, rows, whether every shard holds R rows)
+        arrays = {}
+        if segs is None:
+            arrays.update({name: ((T, S), dense, True) for name in ROW_NAMES[:-1]})
+        else:
+            for g, (lo, hi, TB, IB, Lc) in enumerate(segs):
+                for m in M4_STORED:
+                    arrays[f"{m}@{g}"] = ((TB, hi - lo), Rows(0, IB, 0, IB), False)
+                for m in C_MATS:
+                    arrays[f"C_{m}@{g}"] = ((TB, hi - lo), Rows(
+                        lo + 1, Lc, lo + 1, min(lo + 1 + Lc, n2)), False)
+            arrays["PKD"] = ((T, S), dense, True)
+        arrays["PKE"] = ((T, S + T + 2), dense, True)
+        self.layout = {name: r for name, (_, r, _) in arrays.items()}
+        self.row_names = tuple(arrays)
         self.shards = []
-        for dev in self.devices:
-            sh = {name: torch.full((1, T, S + (T + 2) * (name == "PKE"),
-                                    self.R, n2), SAT16, dtype=I16, device=dev)
-                  for name in ROW_NAMES}
+        for q, dev in enumerate(self.devices):
+            sh = {}
+            for name, (lead, r, padded) in arrays.items():
+                rows = self.R if padded else max(
+                    0, min((q + 1) * self.R, r.hi) - max(q * self.R, r.lo))
+                sh[name] = torch.full((1, *lead, rows, n2), SAT16, dtype=I16,
+                                      device=dev)
             sh.update(self.replicas[dev])
             self.shards.append(sh)
         self.transport = RowTransport(self.devices, self.R, n2)
 
     def keys(self):
-        return [*self.replicas[self.devices[0]], *ROW_NAMES]
+        return [*self.replicas[self.devices[0]], *self.row_names]
 
     def __contains__(self, name):
-        return name in self.keys()
+        return name in self.layout or name in self.replicas[self.devices[0]]
 
     def __getitem__(self, name):
-        if name in ROW_NAMES:
+        if name in self.layout:
             return ShardedArray(self, name)
         return self.replicas[self.devices[0]][name][0]
 
-    def rows(self, name: str, a: int, b: int):
-        """Rows [a, b) of a sharded array (batch axis dropped) on the first
-        device."""
-        return self.transport.fetch(0, [sh[name] for sh in self.shards],
-                                    lambda t: t[0], a, b, "read")
+    def fetch(self, p: int, name: str, take, a: int, b: int, cls: str):
+        """Global rows [a, b) of ``take`` of every shard's ``name``, on
+        shard p's device (:meth:`RowTransport.fetch`)."""
+        r = self.layout[name]
+        return self.transport.fetch(p, [sh[name] for sh in self.shards], take,
+                                    a, b, cls, rows=(r.lo, r.hi))
+
+    def put(self, p: int, name: str, take, a: int, slab, cls: str):
+        """Shard p's ``slab`` into global rows [a, a + rows) of ``name``
+        (:meth:`RowTransport.put`)."""
+        r = self.layout[name]
+        self.transport.put(p, [sh[name] for sh in self.shards], take, a, slab,
+                           cls, rows=(r.lo, r.hi))
+
+    def rows(self, name: str, a: int = 0, b: int | None = None, lead=()):
+        """Rows [a, b) (default: all) of a sharded array, in the unsharded
+        array's own row coordinate, on the first device; the batch axis
+        dropped and ``lead`` indexing the leading axes."""
+        r = self.layout[name]
+        b = r.nrows if b is None else b
+        return self.fetch(0, name, lambda t: t[0][lead], r.off + a, r.off + b, "read")
 
     def p_split_reads(self, i: int, l: int):
         """``lazy.p_split_reads`` of the sharded PKD, on the first device:
@@ -260,17 +343,17 @@ class ShardedState:
         return row_i, torch.cat(anti, dim=1)
 
     def gather(self, device=None):
-        """The plain state dict of ``fold.fill6`` on ``device`` (default:
-        the first shard's)."""
+        """The plain state dict of ``fold.fill6`` (``fill7`` for a packed
+        state) on ``device`` (default: the first shard's)."""
         dev = self.devices[0] if device is None else torch.device(device)
         out = {k: v[0].to(dev) for k, v in self.replicas[self.devices[0]].items()}
-        for name in ROW_NAMES:
-            out[name] = self.rows(name, 0, self.n2).to(dev)
+        for name in self.row_names:
+            out[name] = self.rows(name).to(dev)
         return out
 
     def shard_bytes(self, p: int) -> int:
         """Bytes of shard p's row-sharded arrays (its replica apart)."""
-        return sum(self.shards[p][k].nbytes for k in ROW_NAMES)
+        return sum(self.shards[p][k].nbytes for k in self.row_names)
 
     def replica_bytes(self) -> int:
         """Bytes of one replica of the 2-D matrices."""
@@ -279,18 +362,16 @@ class ShardedState:
 
 def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanReads:
     """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
-    s: ``RL`` is the dense layout's (row-local); ``plane`` and ``window``
-    fetch their halos, ``RI`` reduces each C row's history on its owner."""
+    s of a dense state: ``RL`` is the dense layout's (row-local); ``plane``
+    and ``window`` fetch their halos, ``RI`` reduces each C row's history
+    on its owner."""
     n = st.n
     n2, T, S, U = dims(n)
     sh, tr, R = st.shards[p], st.transport, st.R
     i0, dev = p * R, st.devices[p]
 
-    def arrs(name):
-        return [x[name] for x in st.shards]
-
     def plane(name, c, b, di):
-        sl = tr.fetch(p, arrs(name), lambda t: t.select(2, max(s - b, 0)),
+        sl = st.fetch(p, name, lambda t: t.select(2, max(s - b, 0)),
                       i0 + di, i0 + di + IB, "halo")
         sl = pad_axis(sl, -3, 0, max(c + TB - T, 0), SAT16)
         return dynamic_slice(sl, (c, 0, 0), (TB, IB, n2))
@@ -322,7 +403,7 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanRea
         """[B, rows(tt'), DS, IB + halo, n2]: row r of axis 2 = span
         s - DS + r (spans below 0 unset), rows from i0, unset past n2."""
         lo = max(s - DS, 0)
-        w = tr.fetch(p, arrs(name), lambda t: t.narrow(2, lo, s - lo),
+        w = st.fetch(p, name, lambda t: t.narrow(2, lo, s - lo),
                      i0, i0 + IB + halo, "halo")
         w = pad_axis(w, -3, DS - (s - lo), 0, SAT16)
         w = pad_axis(w, -4, 0, max(rows - T, 0), SAT16)
@@ -331,18 +412,109 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanRea
     return SpanReads(plane, dense_rl(sh, n, s, TB, IB, i0), RI, window)
 
 
+def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
+                         IB: int) -> SpanReads:
+    """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
+    s of segment gi of a packed state, reader by reader
+    ``gapped5.packed_reads``' own over the transport: a family plane
+    fetches a one-row halo, a ``DROPPED`` family's C rows l = i + di + u a
+    shift; ``RL`` is row-local (``gapped5.packed_rl``); ``RI`` reduces each
+    C row's history over every prior segment on its owner; the stencil
+    window, stitched from segments gi - 1 and gi, fetches a DS-row halo.
+    Rows a segment does not store read as unset, as they do unsharded."""
+    n2 = st.n + 2
+    lo, _hi, TB, _IB, _Lc = SEGS[gi]
+    sh, tr = st.shards[p], st.transport
+    i0, dev = p * st.R, st.devices[p]
+    B = sh["PKD"].shape[0]
+
+    def seg_of(u):
+        """gapped5.packed_reads' segment of a fixed-offset read at span u."""
+        return gi if gi == 0 or u >= lo else gi - 1
+
+    def plane(name, c, b, di):
+        """name[tt+c, u=s-b, i+di, j] from the segment of u: a family's
+        rows i + di (halo), a ``DROPPED`` family's C rows l = i + di + u
+        (shift)."""
+        u = s - b
+        h = seg_of(u)
+        loh, hih, TBh = SEGS[h][:3]
+        span = min(max(u - loh, 0), hih - loh - 1)
+        if name in DROPPED:
+            key, r0, cls = f"C_{name}@{h}", i0 + di + u, "shift"
+        else:
+            key, r0, cls = f"{name}@{h}", i0 + di, "halo"
+        sl = st.fetch(p, key, lambda t: t.select(2, span), r0, r0 + IB, cls)
+        sl = pad_axis(sl, -3, 0, max(c + TB - TBh, 0), SAT16)
+        return sl[:, c: c + TB]
+
+    i_val = torch.arange(i0, i0 + IB, device=dev)
+    hist = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
+    hist = [(h, loh, nsh) for h, loh, nsh in hist if nsh > 0]
+
+    def RI(name, X, g1):
+        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
+        for rows i (l = i + s) over every prior segment's spans: each owner
+        of rows l reduces its own history and ships the int32 result."""
+        out = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)  # l >= n2: INF
+        if not hist:
+            return out
+        u = torch.cat([loh + torch.arange(nsh, device=dev) for _, loh, nsh in hist])
+        wi = g2(X, i_val[None, :].expand(len(u), IB),
+                i_val[None, :] + s - u[:, None] - 1)       # [B, u, i]
+        for q, a, b in tr.owners(i0 + s, i0 + s + IB):
+            devq = st.devices[q]
+            wq = tr.move(wi[..., a - i0 - s: b - i0 - s], p, q, "shift")
+            iq = torch.arange(a - s, b - s, device=devq)
+            jq = torch.arange(n2, device=devq)
+            red = torch.full((B, TB, b - a, n2), INF, dtype=I32, device=devq)
+            k = 0
+            for h, loh, nsh in hist:
+                win = st.fetch(q, f"C_{name}@{h}", lambda t, m=nsh: t.narrow(2, 0, m),
+                               a, b, "shift").to(I32)         # q's own rows
+                win = pad_axis(win, -4, 0, TB - SEGS[h][2], SAT16)
+                d = (s - loh - torch.arange(nsh, device=devq))[None, :, None, None]
+                red = torch.minimum(red, ri_min(win, wq[:, k:k + nsh], iq, d, jq, g1))
+                k += nsh
+            out[:, :, a - i0 - s: b - i0 - s] = tr.move(red, q, p, "shift")
+        return out
+
+    def window(name, rows, halo=DS):
+        """[B, rows(tt'), DS, IB + halo, n2]: row r of axis 2 = span
+        s - DS + r, from segment gi - 1 below lo and gi from lo (spans
+        below 0 unset), rows from i0 (unset past the segment's)."""
+        u0 = s - DS
+        k = min(max(lo - u0, 0), DS)         # window rows below lo
+        parts = []
+        for h, a, b in ((gi - 1, 0, k), (gi, k, DS)):
+            if a == b:
+                continue
+            if h < 0:
+                parts.append(torch.full((B, rows, b - a, IB + halo, n2), SAT16,
+                                        dtype=I16, device=dev))
+                continue
+            loh, TBh = SEGS[h][0], SEGS[h][2]
+            w = st.fetch(p, f"{name}@{h}",
+                         lambda t, x=u0 + a - loh, y=u0 + b - loh: t[:, :, x:y],
+                         i0, i0 + IB + halo, "halo")
+            parts.append(pad_axis(w, -4, 0, max(rows - TBh, 0), SAT16)[:, :rows])
+        return torch.cat(parts, dim=-3)
+
+    return SpanReads(plane, packed_rl(sh, st.n, s, gi, SEGS, TB, IB, i0), RI, window)
+
+
 def resolve_devices(devices=None):
     """The shards' devices: ``devices`` as given, else one shard per card
     (``cuda:0``, ``cuda:1``, ...); raises without CUDA."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "fill6_sharded runs on CUDA devices by default and none is "
+                "the sharded fills run on CUDA devices by default and none is "
                 "available; pass devices=['cpu', ...] to run on the CPU")
         devices = [f"cuda:{p}" for p in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
     if not devices:
-        raise ValueError("fill6_sharded needs at least one device")
+        raise ValueError("a sharded fill needs at least one device")
     if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
         raise RuntimeError("a CUDA shard was asked for and CUDA is not available")
     return devices
@@ -353,43 +525,51 @@ def _on(tables, dev):
                       for k, v in tables.items()})
 
 
-def _write_back(st: ShardedState, p: int, s: int, packed):
+def _write_back(st: ShardedState, p: int, s: int, packed, gi=None):
     """Shard p's span-s slabs into the state: the families and PKD / PKE
-    into its own rows, the C-skew rows l = i + s into their owners."""
+    into its own rows, the C-skew rows l = i + s into their owners.  ``gi``
+    is the span's segment in a packed state (None: dense), whose C skews
+    drop the invalid i = 0 row, as ``gapped5.span_gapped7`` does."""
     sh, i0 = st.shards[p], p * st.R
     TB, IB = packed["PK"].shape[-3], packed["PK"].shape[-2]
+    if gi is None:
+        names, sfx, u = M4_NAMES, "", s
+    else:
+        names, sfx, u = M4_STORED, f"@{gi}", s - st.segs[gi][0]
 
     def at_span(t):
-        return t.narrow(1, 0, TB).select(2, s)
+        return t.narrow(1, 0, TB).select(2, u)
 
-    for name in M4_NAMES:
-        at_span(sh[name]).narrow(-2, 0, IB).copy_(packed[name])
+    for name in names:
+        at_span(sh[name + sfx]).narrow(-2, 0, IB).copy_(packed[name])
     for name in C_MATS:
-        st.transport.put(p, [x["C_" + name] for x in st.shards], at_span,
-                         i0 + s, packed[name], "shift")
+        slab, l0 = packed[name], i0 + s
+        if gi is not None and i0 == 0:
+            slab, l0 = slab[..., 1:, :], l0 + 1
+        st.put(p, f"C_{name}{sfx}", at_span, l0, slab, "shift")
     update_pk_skews4(sh, packed["PK"], s, st.n, i0)
 
 
-@torch.inference_mode()
-def fill6_sharded(C, SC4, n: int, dangles: int, devices=None) -> ShardedState:
-    """The dense fill (``fold.fill6``) with the rows split over shards.
+def _spans(st: ShardedState):
+    """(s, TB, gi) per span in fill order: its tt extent and, in a packed
+    state, its segment (None in a dense one)."""
+    if st.segs is None:
+        return ((s, bucket_dims(st.n, s)[0], None) for s in range(st.n))
+    return ((s, TB, gi) for gi, (lo, hi, TB, *_r) in enumerate(st.segs)
+            for s in range(lo, hi))
 
-    ``C`` / ``SC4``: ``fold.consts_from_numpy``'s tables (copied to every
-    shard's device).  ``devices``: one torch device per shard (P shards on
-    one card: ``["cuda:0"] * P``); without it, one shard per card, raising
-    without CUDA.  Per span: the 2-D recurrences on every replica;
-    the P split on each shard's rows, all-gathered into every replica's
-    P diagonal; the gapped step on each shard with a span-s row
-    (``gapped4.span_families`` with its row offset, one ``minplus_group``
-    launch per tt step and shard on CUDA); then the write-back.  Returns
-    the :class:`ShardedState`; its ``gather()`` equals ``fill6``'s state
-    bit for bit."""
-    st = ShardedState(n, resolve_devices(devices))
-    tr = st.transport
+
+def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
+    """The span loop of both sharded fills, on ``st`` in place.  Per span:
+    the 2-D recurrences on every replica; the P split on each shard's
+    rows, all-gathered into every replica's P diagonal; the gapped step on
+    each shard with a span-s row (``gapped4.span_families`` over the
+    layout's sharded reads with its row offset, one ``minplus_group``
+    launch per tt step and shard on CUDA); then the write-back."""
+    n, tr = st.n, st.transport
     Cd = {dev: {**_on(C, dev), "n": n} for dev in st.replicas}
     SC4d = {dev: _on(SC4, dev) for dev in st.replicas}
-    for s in range(n):
-        TB, _ = bucket_dims(n, s)
+    for s, TB, gi in _spans(st):
         tr.span = s
         for dev, rep in st.replicas.items():
             compute_V_span(Cd[dev], rep, s, dangles)
@@ -399,8 +579,8 @@ def fill6_sharded(C, SC4, n: int, dangles: int, devices=None) -> ShardedState:
             dev = st.devices[p]
 
             def pkd_rows(span, r0, rows, p=p):
-                return tr.fetch(p, [x["PKD"] for x in st.shards],
-                                lambda t: t.select(2, span), r0, r0 + rows, "gather")
+                return st.fetch(p, "PKD", lambda t: t.select(2, span), r0,
+                                r0 + rows, "gather")
 
             pieces[p] = (i0, p_split_rows(Cd[dev], st.shards[p]["PKE"], pkd_rows,
                                           s, i0, IB))
@@ -412,11 +592,38 @@ def fill6_sharded(C, SC4, n: int, dangles: int, devices=None) -> ShardedState:
         packed = {}
         for p, i0, IB in active:
             dev = st.devices[p]
+            reads = (sharded_reads(st, p, s, TB, IB) if gi is None else
+                     sharded_packed_reads(st, p, s, gi, st.segs, IB))
             packed[p] = span_families(Cd[dev], SC4d[dev], st.shards[p], s, TB, IB,
-                                      sharded_reads(st, p, s, TB, IB), i0)
+                                      reads, i0)
         for p, slabs in packed.items():
-            _write_back(st, p, s, slabs)
+            _write_back(st, p, s, slabs, gi)
         for dev, rep in st.replicas.items():
             compute_WMv_WMp_WM_span(Cd[dev], rep, s, dangles)
     tr.span = None
     return st
+
+
+@torch.inference_mode()
+def fill6_sharded(C, SC4, n: int, dangles: int, devices=None) -> ShardedState:
+    """The dense fill (``fold.fill6``) with the rows split over shards.
+
+    ``C`` / ``SC4``: ``fold.consts_from_numpy``'s tables (copied to every
+    shard's device).  ``devices``: one torch device per shard (P shards on
+    one card: ``["cuda:0"] * P``); without it, one shard per card, raising
+    without CUDA.  Returns the :class:`ShardedState`; its ``gather()``
+    equals ``fill6``'s state bit for bit."""
+    return _fill_sharded(C, SC4, dangles, ShardedState(n, resolve_devices(devices)))
+
+
+@torch.inference_mode()
+def fill7_sharded(C, SC4, n: int, dangles: int, SEGS, devices=None) -> ShardedState:
+    """The segment-packed fill (``fold.fill7``, ``SEGS`` =
+    ``gapped5.segments7(n)``) with the rows split over shards: the
+    counterpart of the JAX package's ``fill8_sharded``, with ``devices``
+    (as :func:`fill6_sharded` takes them) in place of its mesh.  Returns
+    the packed :class:`ShardedState`; its ``gather()`` equals ``fill7``'s
+    state bit for bit, and ``LazyMats(st, n, segs=SEGS)`` reads it as it
+    is."""
+    return _fill_sharded(C, SC4, dangles,
+                         ShardedState(n, resolve_devices(devices), SEGS))

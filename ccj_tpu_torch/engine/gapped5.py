@@ -102,6 +102,52 @@ def init_big_state7(n: int, SEGS, device):
     return st
 
 
+def prior_spans(SEGS, h: int, s: int) -> int:
+    """Spans of segment h that span s's history scans reduce: those below
+    s.  Spans u >= s of the current segment are not written yet and every
+    term they give is masked (d = s - u <= 0), so the scans stop at s - 1:
+    the same minimum over fewer terms."""
+    loh, hih = SEGS[h][0], SEGS[h][1]
+    return min(hih, s) - loh
+
+
+def packed_rl(st, n, s, gi: int, SEGS, TB, IB, i0=0):
+    """The packed layout's ``RL`` scan (``gapped4.SpanReads``) for span s
+    of segment gi over rows i in [i0, i0 + IB), which are the first IB
+    rows of every ``name@h`` block in ``st``.  Row-local, it loops over
+    every prior segment; a row shard of dist/wavefront.py (its blocks'
+    rows from ``i0``) uses it as it is."""
+    n2 = n + 2
+    dev = st["PKD"].device
+    B = st["PKD"].shape[0]
+    tv = torch.arange(TB, device=dev)[:, None, None]          # tt
+    iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]  # i
+    jv = torch.arange(n2, device=dev)[None, None, :]          # j
+    Gv = (iv + s) - (jv + tv + 2)                             # l - k
+    i1 = iv[0, :, 0]
+
+    def RL(name, X, g1):
+        """min over d in [1, G-g1] of name[tt, s-d, i, j] + X(l-d+1, l)."""
+        acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
+        for h in range(gi + 1):
+            loh, hih, TBh, IBh, _ = SEGS[h]
+            nsh = prior_spans(SEGS, h, s)
+            if nsh <= 0:
+                continue
+            win = st[f"{name}@{h}"][:, :, :nsh, :IB, :].to(I32)
+            win = pad_axis(win, -4, 0, TB - TBh, SAT16)
+            u_h = loh + torch.arange(nsh, device=dev)
+            wl = g2(X, i1[None, :] + u_h[:, None] + 1,
+                    (i1[None, :] + s).expand(nsh, IB))
+            d_h = (s - u_h)[None, :, None, None]
+            ok = (d_h >= 1) & (d_h <= (Gv - g1)[:, None])
+            vals = torch.where(ok, win + wl[:, None, :, :, None], INF)
+            acc = torch.minimum(acc, vals.amin(dim=-3))
+        return acc
+
+    return RL
+
+
 def packed_reads(st, n, s, gi: int, SEGS):
     """``gapped4.SpanReads`` of the segment-packed layout for span s of
     segment gi (``SEGS[gi]`` gives the span's TB and IB)."""
@@ -109,10 +155,6 @@ def packed_reads(st, n, s, gi: int, SEGS):
     lo, hi, TB, IB, _Lc = SEGS[gi]
     dev = st["PKD"].device
     B = st["PKD"].shape[0]
-    tv = torch.arange(TB, device=dev)[:, None, None]      # tt
-    iv = torch.arange(IB, device=dev)[None, :, None]      # i
-    jv = torch.arange(n2, device=dev)[None, None, :]      # j
-    Gv = (iv + s) - (jv + tv + 2)                         # l - k
 
     def seg_of(u):
         """The segment a fixed-offset read at span u takes: gi, or gi - 1
@@ -157,37 +199,10 @@ def packed_reads(st, n, s, gi: int, SEGS):
         return (plane_from_C if name in DROPPED else seg_plane)(name, c, b, di)
 
     # ---- cross-span reductions: loop over ALL prior segments -------------
-    # Spans u >= s of the current segment are not written yet and every
-    # term they give is masked (d = s - u <= 0), so the scans stop at s - 1:
-    # the same minimum over fewer terms.
-    i1 = torch.arange(IB, device=dev)
-
-    def prior_spans(h):
-        loh, hih = SEGS[h][0], SEGS[h][1]
-        return min(hih, s) - loh
-
-    def RL(name, X, g1):
-        """min over d in [1, G-g1] of name[tt, s-d, i, j] + X(l-d+1, l)."""
-        acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
-        for h in range(gi + 1):
-            loh, hih, TBh, IBh, _ = SEGS[h]
-            nsh = prior_spans(h)
-            if nsh <= 0:
-                continue
-            win = st[f"{name}@{h}"][:, :, :nsh, :IB, :].to(I32)
-            win = pad_axis(win, -4, 0, TB - TBh, SAT16)
-            u_h = loh + torch.arange(nsh, device=dev)
-            wl = g2(X, i1[None, :] + u_h[:, None] + 1,
-                    (i1[None, :] + s).expand(nsh, IB))
-            d_h = (s - u_h)[None, :, None, None]
-            ok = (d_h >= 1) & (d_h <= (Gv - g1)[:, None])
-            vals = torch.where(ok, win + wl[:, None, :, :, None], INF)
-            acc = torch.minimum(acc, vals.amin(dim=-3))
-        return acc
-
-    l_val = lo + i1                          # actual l per C row
-    i_val = l_val - s                        # i = l - s
-    sj_lr = jv[0, 0][None, :] - i_val[:, None]            # [IB(lr), n2]
+    # (RL is row-local: packed_rl)
+    l_val = lo + torch.arange(IB, device=dev)            # actual l per C row
+    i_val = l_val - s                                    # i = l - s
+    sj_lr = torch.arange(n2, device=dev)[None, :] - i_val[:, None]  # [IB(lr), n2]
 
     def RI(name, X, g1):
         """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1);
@@ -196,7 +211,7 @@ def packed_reads(st, n, s, gi: int, SEGS):
         acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
         for h in range(gi + 1):
             loh, hih, TBh, IBh, _Lch = SEGS[h]
-            nsh = prior_spans(h)
+            nsh = prior_spans(SEGS, h, s)
             if nsh <= 0:
                 continue
             A = st[f"C_{name}@{h}"]
@@ -246,7 +261,7 @@ def packed_reads(st, n, s, gi: int, SEGS):
                                   SAT16)[:, :rows])
         return torch.cat(parts, dim=-3)
 
-    return SpanReads(plane, RL, RI, window)
+    return SpanReads(plane, packed_rl(st, n, s, gi, SEGS, TB, IB), RI, window)
 
 
 def span_gapped7(C, SC4, st, s, gi: int, SEGS):

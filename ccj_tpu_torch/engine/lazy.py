@@ -17,6 +17,8 @@ layouts keep PKD dense, so it reads the same array in either.  The
 row-sharded state of ``dist.wavefront.fill6_sharded`` reads as the dense
 one: its slabs are the shards' rows put together, and the P split gets
 only the PKD cells it reads (row i, and one span of each row r in (i, l]).
+The packed one of ``fill7_sharded`` reads as the packed one, each slab
+asking the shards for its own rows only.
 """
 
 from __future__ import annotations
@@ -107,7 +109,7 @@ class LazyMats:
         Each slab is cut to size on the device; only it comes to the host."""
         g = next(gi for gi, (lo, hi, *_r) in enumerate(self._segs)
                  if lo <= ss < hi)
-        lo = self._segs[g][0]
+        lo, _hi, TB, _IB, Lc = self._segs[g]
         n2 = self.n + 2
         if f"{name}@{g}" in self._dev:
             return self._dev[f"{name}@{g}"][:, ss - lo].cpu().numpy()
@@ -115,13 +117,12 @@ class LazyMats:
             # slab[tt, i, j] = PKD[tt, ss, i, j - i] for j >= i
             return skew_right(self._dev["PKD"][:, ss], SAT16)[:, :, :n2] \
                 .cpu().numpy()
-        c = self._dev[f"C_{name}@{g}"][:, ss - lo]         # [T, Lc, n2]
-        T, Lc, _ = c.shape
         rows = min(Lc, n2)
         base = ss - lo - 1                                 # C row of i = 0
-        out = torch.full((T, rows, n2), SAT16, dtype=c.dtype, device=c.device)
         a, b = max(base, 0), min(base + rows, Lc)
-        out[:, a - base: b - base] = c[:, a:b]
+        c = self._dev[f"C_{name}@{g}"][:, ss - lo, a:b]    # the slab's rows only
+        out = torch.full((TB, rows, n2), SAT16, dtype=c.dtype, device=c.device)
+        out[:, a - base: b - base] = c
         return out.cpu().numpy()
 
     # ---- device-side P split (see module docstring) ----------------------

@@ -21,7 +21,9 @@ Phases; any failure exits non-zero and prints no result:
    leading batch axis, one launch for the whole batch, at the batched
    fills' main steps (n=100 for B=4, bucket 64 for B=8; their bound is B
    times one element's); then the group of a row shard's step (n=100,
-   shard 1 of 4: 26 rows from i0 = 26, the row offset in its masks).
+   shard 1 of 4: 26 rows from i0 = 26, the row offset in its masks), and
+   of a packed row shard's (n=200, segment 3's widest step on a shard
+   with a row offset: P=4, shard 1, 48 rows from i0 = 51 at span 102).
    Each row has the kernel's, the plain version's and the byte bound's
    time (no single PyTorch call computes this function, so there is no
    library yardstick).  ``ms`` / ``plain_ms``
@@ -67,7 +69,16 @@ Phases; any failure exits non-zero and prints no result:
    n=200 cells/s beside the reference binary's 1467.2 s; then (5b) the
    n=126 anchor filled by ``fill6_sharded`` with P=2 at the bucket of 128
    and traced back through ``LazyMats`` over the sharded state, byte for
-   byte, its wall against the n=126 fold's fill;
+   byte, its wall against the n=126 fold's fill; then (5c,
+   ``wavefront_packed``) ``fill7_sharded`` on cuda:0: the n=134 anchor
+   with P=2 and P=4, every array bit-equal to its ``fill7`` state (filled
+   in the phase, one array at a time) and the anchor byte for byte through
+   ``LazyMats(.., segs)``; the n=200 anchor with P=2, byte for byte (no
+   whole-state comparison: two copies come too close to 80 GB); each with
+   4d's figures (launches against ``sharded_tt_steps``: 10,923, 16,369 and
+   24,552; the wall against the unsharded fill's; peak above what was
+   held; bytes per shard and exchanged per class; the traceback's bytes
+   between shards);
 6. ``fold_many`` of the corpus entries at n=37, 60 and 16 in one call
    (buckets 48, 64 and 16, in that order), each checked against
    ``tests/golden/corpus.json``, with its own launch count;
@@ -112,6 +123,7 @@ Prints one JSON line per phase, the kernels line, the card line, and last
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -381,7 +393,29 @@ def phase_kernel(cuda_ops, bucket_dims, dev):
                           100, s, TB, R, tt, f" row shard 1 of 4, i0={R}", i0=R)
     rows.append(shard_row)
     emit({"phase": "kernel", **shard_row})
-    return rows, main_row, packed_row, batched_rows, shard_row
+    # a packed row shard's step (fill7_sharded): the widest step of n=200's
+    # segment 3 on a shard with a row offset, which at P=2 has none there
+    # (R = 101 > n - s), so P=4
+    s, TB, IB, tt, p, i0 = widest_packed_shard_step(200, 4, 3, segments7)
+    packed_shard_row = group_row(
+        cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev, 200, s, TB, IB, tt,
+        f" packed segment 3, row shard {p} of 4, i0={i0}", i0=i0)
+    rows.append(packed_shard_row)
+    emit({"phase": "kernel", **packed_shard_row})
+    return rows, main_row, packed_row, batched_rows, shard_row, packed_shard_row
+
+
+def widest_packed_shard_step(n, P, g, segments7):
+    """The step of segment g of the packed fill of length n with P row
+    shards whose shard slab is widest among shards with a row offset
+    (i0 > 0): its span, TB, rows, middle tt step, shard and i0."""
+    from ccj_tpu_torch.dist.wavefront import row_partition, span_rows
+
+    lo, hi, TB, *_r = segments7(n)[g]
+    R, _ = row_partition(n, P)
+    IB, s, p, i0 = max((IB, s, p, i0) for s in range(lo, hi)
+                       for p, i0, IB in span_rows(n, R, P, s) if i0 > 0)
+    return s, TB, IB, (s - 2) // 2, p, i0
 
 
 def group_row(cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev, n, s, TB, IB,
@@ -610,6 +644,7 @@ def fold_anchor(api, fold, LazyMats, cuda_ops, n):
         return st
 
     api.LazyMats, api.fill_state = RecordingLazyMats, timed_fill_state
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
@@ -631,7 +666,7 @@ def fold_anchor(api, fold, LazyMats, cuda_ops, n):
            "bytes_fetched": seen[0].bytes_fetched, "slab_fetches": seen[0].slab_fetches,
            "launches": launches, "windows": cuda_ops.WINDOWS, "energy": res.energy,
            "cells_per_s": cells4d(n_fill) / fills[0]}
-    del seen
+    seen.clear()     # the recording class, a reference cycle, holds the list
     torch.cuda.empty_cache()
     return out
 
@@ -888,41 +923,49 @@ def sharded_tt_steps(n, P):
                for s in range(n))
 
 
-def phase_wavefront_dense(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
-                          dense=None, dense_fill_s=None):
-    """Phase 4d / 5b: ``dist.wavefront.fill6_sharded`` with P row shards on
-    cuda:0.  Launches equal :func:`sharded_tt_steps`; every array its
-    ``gather()`` gives equals ``dense`` (the main path's ``fill6`` state,
+def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
+                    plain=None, plain_fill_s=None, segs=None):
+    """Phases 4d, 5b (dense) and 5c (packed, ``segs`` its segment schedule):
+    ``dist.wavefront.fill6_sharded`` / ``fill7_sharded`` with P row shards on
+    cuda:0.  Launches equal :func:`sharded_tt_steps`; every array the state
+    holds equals ``plain`` (the unsharded ``fill6`` / ``fill7`` state,
     where given), read one array at a time; ``LazyMats`` over the sharded
-    state traces back to ``want_line`` (structure, energy in dcal).  Reports
-    the wall against ``dense_fill_s``, the peak memory above what was held
-    before, the state bytes per shard and the bytes exchanged per class, in
-    total and at the widest span."""
-    from ccj_tpu_torch.dist.wavefront import CLASSES, ROW_NAMES, fill6_sharded
+    state traces back to ``want_line`` (structure, energy in dcal).
+    Reports the wall against ``plain_fill_s``, the peak memory above what
+    was held before, the state bytes per shard and the bytes exchanged per
+    class, in total and at the widest span, and the traceback's bytes
+    between shards."""
+    from ccj_tpu_torch.dist.wavefront import CLASSES, fill6_sharded, fill7_sharded
     from ccj_tpu_torch.engine.lazy import LazyMats
     from ccj_tpu_torch.engine.traceback import Traceback
     from ccj_tpu_torch.params import DEFAULT_PK
 
+    unsharded = "fill6" if segs is None else "fill7"
+    what = f"wavefront {'dense' if segs is None else 'packed'} P={P} n={n}"
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
     t0 = time.perf_counter()
-    st = fill6_sharded(C, SC4, n, dangles, devices=["cuda:0"] * P)
+    if segs is None:
+        st = fill6_sharded(C, SC4, n, dangles, devices=["cuda:0"] * P)
+    else:
+        st = fill7_sharded(C, SC4, n, dangles, segs, devices=["cuda:0"] * P)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = cuda_ops.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     check(launches == sharded_tt_steps(n, P),
-          f"wavefront P={P} n={n}: launches {launches} != {sharded_tt_steps(n, P)}")
+          f"{what}: launches {launches} != {sharded_tt_steps(n, P)}")
     compared = 0
-    if dense is not None:
-        check(set(st.keys()) == set(dense), f"wavefront P={P} n={n}: keys differ")
-        for k, v in dense.items():
-            got = st.rows(k, 0, n + 2) if k in ROW_NAMES else st[k]
+    if plain is not None:
+        check(set(st.keys()) == set(plain), f"{what}: keys differ")
+        for k, v in plain.items():
+            got = st.rows(k) if k in st.layout else st[k]
             check(got.shape == v.shape and torch.equal(got, v),
-                  f"wavefront P={P} n={n}: gather() != fill6 on {k}")
+                  f"{what}: gather() != {unsharded} on {k}")
             compared += 1
             del got
     tr = st.transport
@@ -930,23 +973,27 @@ def phase_wavefront_dense(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
     reads = st.p_split_reads
     st.p_split_reads = lambda i, l: p_splits.append(l - i) or reads(i, l)
     t0 = time.perf_counter()
-    mats = LazyMats(st, n)
-    got_line = Traceback(tabs, sp, DEFAULT_PK, mats).run()
+    try:
+        mats = LazyMats(st, n, segs=segs)
+        got_line = Traceback(tabs, sp, DEFAULT_PK, mats).run()
+    finally:
+        del st.p_split_reads        # the spy refers to st: leave no cycle
     traceback_s = time.perf_counter() - t0
-    check(got_line == want_line, f"wavefront P={P} n={n}: traceback {got_line} != {want_line}")
+    check(got_line == want_line, f"{what}: traceback {got_line} != {want_line}")
     # the traceback moves at most the rows of its host slabs and, per P
     # split of (i, l), row i at l - i spans and one span of each row in (i, l]
     traceback_read = tr.bytes["read"] - read_before
     _, T, _, _, A = st.shards[0]["PKD"].shape
     p_split_bound = sum(2 * T * m * A * 2 for m in p_splits)
     check(traceback_read <= mats.bytes_fetched + p_split_bound,
-          f"wavefront P={P} n={n}: the traceback moved {traceback_read} B between "
+          f"{what}: the traceback moved {traceback_read} B between "
           f"shards, over {mats.bytes_fetched} B of slabs + {p_split_bound} B of P split")
     fill_classes = [c for c in CLASSES if c != "read"]
     widest = max(tr.span_bytes, key=lambda u: sum(tr.span_bytes[u][c] for c in fill_classes))
-    out = {"n": n, "shards": P, "rows_per_shard": st.R, "fill_s": wall,
-           "fill6_s": dense_fill_s,
-           "wall_vs_fill6": None if dense_fill_s is None else wall / dense_fill_s,
+    out = {"n": n, "shards": P, "rows_per_shard": st.R,
+           "segments": None if segs is None else len(segs), "fill_s": wall,
+           f"{unsharded}_s": plain_fill_s,
+           f"wall_vs_{unsharded}": None if plain_fill_s is None else wall / plain_fill_s,
            "launches": launches, "arrays_compared": compared,
            "lazy_traceback_s": traceback_s, "slab_fetches": mats.slab_fetches,
            "bytes_fetched": mats.bytes_fetched,
@@ -963,6 +1010,54 @@ def phase_wavefront_dense(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
            "energy_dcal": got_line[0]}
     del st, mats
     torch.cuda.empty_cache()
+    return out
+
+
+def anchor_line(n):
+    """(sequence, the reference's line, (energy in dcal, structure)) of
+    ``tests/golden/long/seed42_n{n}.txt``."""
+    seq, line = (ROOT / "tests" / "golden" / "long" / f"seed42_n{n}.txt") \
+        .read_text().splitlines()[:2]
+    structure, energy = line.rsplit(" (", 1)
+    return seq, line, (round(float(energy.rstrip(")")) * 100), structure)
+
+
+def phase_wavefront_packed(cuda_ops, sp, report):
+    """Phase 5c: ``fill7_sharded`` on the packed reference anchors: n=134
+    with P=2 and P=4, every array bit-equal to its ``fill7`` state (filled
+    here, its wall beside) and the anchor byte for byte; n=200 with P=2, the
+    anchor byte for byte (no whole-state comparison: two copies of its
+    state come too close to the card's 80 GB), its wall against the n=200
+    fold's fill.  Returns the reports by key."""
+    from ccj_tpu_torch.cli import _format_energy
+    from ccj_tpu_torch.engine.fold import build_consts, consts_from_numpy, fill7
+    from ccj_tpu_torch.engine.gapped5 import segments7
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    out = {}
+    for m, shard_counts in ((134, (2, 4)), (200, (2,))):
+        seq, line, want = anchor_line(m)
+        tabs = build_seq_tables(seq, sp, DEFAULT_PK)
+        C, SC4 = consts_from_numpy(build_consts(tabs, sp, DEFAULT_PK), "cuda")
+        segs = segments7(m)
+        plain, plain_s = None, report[f"n{m}"]["fill_s"]
+        if m == 134:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = fill7(C, SC4, m, sp.dangles, segs)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        for P in shard_counts:
+            wf = phase_wavefront(cuda_ops, C, SC4, m, sp.dangles, tabs, sp, P, want,
+                                 plain, plain_s, segs)
+            got = f"{want[1]} ({_format_energy(wf['energy_dcal'] / 100.0)})"
+            check(got == line, f"wavefront packed n={m} P={P}: {got!r} != {line!r}")
+            wf["fold_fill_s"] = report[f"n{m}"]["fill_s"]
+            out[f"wavefront_packed_P{P}_n{m}"] = wf
+            emit({"phase": "wavefront_packed", **wf})
+        del plain, C, SC4
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1077,7 +1172,7 @@ def main():
           "kind": torch.cuda.get_device_name(0)})
 
     # ---- 2: kernel vs plain ----------------------------------------------
-    rows, main_row, packed_row, batched_rows, shard_row = phase_kernel(
+    rows, main_row, packed_row, batched_rows, shard_row, packed_shard_row = phase_kernel(
         cuda_ops, bucket_dims, torch.device("cuda"))
     report["kernel"] = rows
 
@@ -1156,7 +1251,7 @@ def main():
 
     # ---- 4d: the row-sharded fill against the main path's fill ------------
     for P in (2, 4):
-        report[f"wavefront_dense_P{P}_n100"] = phase_wavefront_dense(
+        report[f"wavefront_dense_P{P}_n100"] = phase_wavefront(
             cuda_ops, C, SC4, n, sp.dangles, tabs, sp, P,
             (res.energy_dcal, res.structure), st, fill_s)
         emit({"phase": "wavefront_dense", **report[f"wavefront_dense_P{P}_n100"]})
@@ -1175,21 +1270,21 @@ def main():
     # ---- 5b: the n=126 anchor through the row-sharded fill (P=2) -------------
     from ccj_tpu_torch.cli import _format_energy
     from ccj_tpu_torch.precompute import pad_seq_tables
-    seq126, line126 = (ROOT / "tests" / "golden" / "long" / "seed42_n126.txt") \
-        .read_text().splitlines()[:2]
+    seq126, line126, want126 = anchor_line(126)
     tabs126 = build_seq_tables(seq126, sp, DEFAULT_PK)
     n_fill = api._fill_length(126)
     C126, SC4126 = consts_from_numpy(build_consts(
         pad_seq_tables(tabs126, n_fill, sp, DEFAULT_PK), sp, DEFAULT_PK), "cuda")
-    structure, energy = line126.rsplit(" (", 1)
-    want126 = (round(float(energy.rstrip(")")) * 100), structure)
-    wf126 = phase_wavefront_dense(cuda_ops, C126, SC4126, n_fill, sp.dangles, tabs126,
-                                  sp, 2, want126, dense_fill_s=report["n126"]["fill_s"])
-    got126 = f"{structure} ({_format_energy(wf126['energy_dcal'] / 100.0)})"
+    wf126 = phase_wavefront(cuda_ops, C126, SC4126, n_fill, sp.dangles, tabs126,
+                            sp, 2, want126, plain_fill_s=report["n126"]["fill_s"])
+    got126 = f"{want126[1]} ({_format_energy(wf126['energy_dcal'] / 100.0)})"
     check(got126 == line126, f"wavefront n=126: {got126!r} != {line126!r}")
     report["wavefront_dense_P2_n126"] = wf126
     emit({"phase": "wavefront_dense", **wf126})
     del C126, SC4126
+
+    # ---- 5c: the packed anchors through the row-sharded packed fill --------
+    report.update(phase_wavefront_packed(cuda_ops, sp, report))
 
     n200 = report["n200"]
     n200.update(ref_seconds=REF_SECONDS_200,
@@ -1271,9 +1366,11 @@ def main():
             "case", "batch", "ms", "ms_l2cold", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "share_of_bound_l2cold", "ms_per_window",
             "max_abs_err")} for r in batched_rows],
-        "row_shard_n100_P4": {k: shard_row[k] for k in (
+        **{key: {k: r[k] for k in (
             "case", "ms", "ms_l2cold", "plain_ms", "bound_ms", "bound_by",
-            "share_of_bound", "share_of_bound_l2cold", "max_abs_err")},
+            "share_of_bound", "share_of_bound_l2cold", "max_abs_err")}
+           for key, r in (("row_shard_n100_P4", shard_row),
+                          ("row_shard_packed_n200_P4", packed_shard_row))},
         "launches_by_path": {"fold n=100": launches,
                              "fold n=126": report["n126"]["launches"],
                              "fold n=134 (packed)": report["n134"]["launches"],
@@ -1290,6 +1387,9 @@ def main():
                                  report["wavefront_dense_P4_n100"]["launches"],
                              "wavefront dense P2 n126":
                                  report["wavefront_dense_P2_n126"]["launches"],
+                             **{f"wavefront packed P{P} n{m}":
+                                report[f"wavefront_packed_P{P}_n{m}"]["launches"]
+                                for m, P in ((134, 2), (134, 4), (200, 2))},
                              "partition n=16,64": report["partition"]["minplus_launches"]},
     }]
     report["kernels"] = kernels

@@ -2,7 +2,7 @@
 integer data), the card's lazy traceback, P-split argmin and float64
 partition function against the CPU's, the long reference anchors
 (n = 134 ... 200) through the packed fill, the batched and the row-sharded
-fills against single fills.  Marked ``gpu``; each test skips
+fills (dense and packed) against single fills.  Marked ``gpu``; each test skips
 where no CUDA device is present.  This file imports neither JAX nor
 ``ccj_tpu``, so on a machine without JAX it runs without the suite's
 conftest:
@@ -258,6 +258,36 @@ def test_sharded_fill_on_cuda_equals_fill6(cuda):
     single = tfold.fill6(C, SC4, n, sp.dangles)
     before = cuda_ops.LAUNCHES
     st = fill6_sharded(C, SC4, n, sp.dangles, devices=[cuda] * P)
+    torch.cuda.synchronize()
+    R = -(-(n + 2) // P)
+    want = sum(max(s - 1, 0) * sum(p * R <= n - s for p in range(P)) for s in range(n))
+    assert cuda_ops.LAUNCHES - before == want
+    got = st.gather()
+    assert set(got) == set(single)
+    for k, v in single.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_sharded_packed_fill_on_cuda_equals_fill7(cuda):
+    """fill7_sharded at n=64 (3 segments) with P=3 shards on cuda:0:
+    gather() bit-equal to fill7 on every array, with one launch per tt step
+    and shard with a span-s row."""
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.dist.wavefront import fill7_sharded
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.engine.gapped5 import segments7
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    n, P = 64, 3
+    SEGS = segments7(n)
+    assert len(SEGS) == 3
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    tabs = build_seq_tables(_bench_seq(n, 5), sp, DEFAULT_PK)
+    C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
+    single = tfold.fill7(C, SC4, n, sp.dangles, SEGS)
+    before = cuda_ops.LAUNCHES
+    st = fill7_sharded(C, SC4, n, sp.dangles, SEGS, devices=[cuda] * P)
     torch.cuda.synchronize()
     R = -(-(n + 2) // P)
     want = sum(max(s - 1, 0) * sum(p * R <= n - s for p in range(P)) for s in range(n))
