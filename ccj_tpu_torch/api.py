@@ -12,6 +12,8 @@ none; ``device="cpu"`` runs the plain PyTorch versions of the kernels).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import math
@@ -157,6 +159,65 @@ def fold(
     )
 
 
+class _FillPipeline:
+    """Fills on a side stream, tracebacks on a reading stream (CUDA), so
+    the card runs fill k+1 while the host walks traceback k.
+
+    ``LazyMats`` reads with blocking copies on the current stream.  With
+    fill k+1 queued on that same stream, traceback k's first read would
+    wait for fill k+1 to finish.  So each fill is queued on ``fills`` and
+    followed by an event, and traceback k reads on ``reads``, which waits
+    on fill k's event only.  The caching allocator: a fill's state is
+    allocated on ``fills`` and read on ``reads``; it is freed only after
+    its traceback returns and after ``fills`` has been made to wait for
+    ``reads``, so a later fill that reuses its memory runs after every
+    read of it.  On the CPU the same calls run in order, with no streams."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.cuda = dev.type == "cuda"
+        if self.cuda:
+            self.fills = torch.cuda.Stream(dev)
+            self.reads = torch.cuda.Stream(dev)
+            self.fills.wait_stream(torch.cuda.current_stream(dev))
+
+    def _on(self, stream_name):
+        if self.cuda:
+            return torch.cuda.stream(getattr(self, stream_name))
+        return contextlib.nullcontext()
+
+    def fill(self, tabs_fill, sp, pk):
+        """Queue the fill of ``tabs_fill``; returns (state, its event or
+        None on the CPU)."""
+        with self._on("fills"):
+            st = fill_state(tabs_fill, sp, pk, self.dev)
+        if not self.cuda:
+            return st, None
+        done = torch.cuda.Event()
+        done.record(self.fills)
+        return st, done
+
+    def traceback(self, tabs, sp, pk, n_fill, st, done):
+        """Trace back the fill (``st``, ``done``) through ``LazyMats``;
+        returns (energy in dcal/mol, structure).  The caller frees ``st``
+        after this returns."""
+        if self.cuda:
+            self.reads.wait_event(done)
+        with self._on("reads"):
+            mats = LazyMats(st, n_fill, segs=state_segments(st, n_fill))
+            out = Traceback(tabs, sp, pk, mats).run()
+        if self.cuda:
+            self.fills.wait_stream(self.reads)
+        return out
+
+    def close(self):
+        """Order the caller's stream after every fill and read."""
+        if self.cuda:
+            cur = torch.cuda.current_stream(self.dev)
+            cur.wait_stream(self.fills)
+            cur.wait_stream(self.reads)
+
+
 def fold_many(
     seqs,
     dangles: int = 2,
@@ -168,18 +229,22 @@ def fold_many(
     batch_limit: int = 8,
     device=None,
 ):
-    """Fold a list of sequences; results keep input order.
+    """Fold a list of sequences, the fills of one on the device while the
+    host traces back the one before; results keep input order.
 
     Sequences past ``DENSE_MAX_N`` fold one at a time through :func:`fold`
     (the packed fill at their true length); the rest are grouped by length
-    bucket and each is filled at its bucket's length, then traced back
-    through ``LazyMats``, one sequence after the other.  (The JAX package
-    dispatches fill k+1 before it walks traceback k; here the fill is a
-    host loop that blocks on dispatch, so that overlap would buy nothing
-    yet — ROADMAP item 10.)  So one fill's state is live at a time, within
-    any ``batch_limit``, the JAX package's cap on the fills in flight.  As
-    there, the parameter set is ``param_file`` (or the default) for every
-    sequence, with no DNA auto-selection for the bucketed ones.
+    bucket and each is filled at its bucket's length and traced back
+    through ``LazyMats``.  Within a group, as in the JAX package, the fill
+    of sequence k+1 is dispatched before the traceback of sequence k, with
+    at most ``depth = max(1, min(batch_limit, 2))`` fill states live at
+    once: ``batch_limit=1`` fills and traces back one sequence after the
+    other.  (The JAX loop traces back only once depth + 1 fills are
+    pending; here the state traced back counts among the depth, so
+    ``batch_limit`` caps the states live, as its docstring says.)  On CUDA
+    the fills run on a side stream (:class:`_FillPipeline`).  As there, the
+    parameter set is ``param_file`` (or the default) for every sequence,
+    with no DNA auto-selection for the bucketed ones.
     """
     dev = resolve_device(device)
     prepped = [_prepare(seq, no_conv) for seq in seqs]
@@ -199,17 +264,26 @@ def fold_many(
 
     tables = _load_tables(param_file, False)
     sp = scale_parameters(tables, temperature=temperature, dangles=dangles)
+    depth = max(1, min(batch_limit, 2))     # fill states live at once
+    pipe = _FillPipeline(dev)
+
+    def finish(b, pending):
+        idx, seq, tabs, (st, done) = pending.popleft()
+        e_dcal, structure = pipe.traceback(tabs, sp, pk, b, st, done)
+        results[idx] = FoldResult(seq=seq, structure=structure,
+                                  energy=e_dcal / 100.0, energy_dcal=e_dcal)
+
     for b in sorted(groups):
+        pending = collections.deque()       # (idx, seq, tabs, (state, event))
         for idx, seq in groups[b]:
+            if len(pending) == depth:
+                finish(b, pending)          # frees its state before the next fill
             tabs = build_seq_tables(seq, sp, pk, no_gu=no_gu)
             tabs_fill = pad_seq_tables(tabs, b, sp, pk, no_gu=no_gu)
-            st = fill_state(tabs_fill, sp, pk, dev)
-            mats = LazyMats(st, b, segs=state_segments(st, b))
-            e_dcal, structure = Traceback(tabs, sp, pk, mats).run()
-            del st, mats    # free this state before the next fill allocates
-            results[idx] = FoldResult(seq=seq, structure=structure,
-                                      energy=e_dcal / 100.0,
-                                      energy_dcal=e_dcal)
+            pending.append((idx, seq, tabs, pipe.fill(tabs_fill, sp, pk)))
+        while pending:
+            finish(b, pending)
+    pipe.close()
     return results
 
 

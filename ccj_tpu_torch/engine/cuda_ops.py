@@ -1,5 +1,9 @@
 """Hand-written Hopper kernels of the port, with their plain PyTorch twins.
 
+Two kernels, both run once per step of the serial tt loop
+(``ttloop.run_tt_loop``): :func:`minplus_group`, the step's 13 min-plus
+reductions, then :func:`tt_step`, the rest of the step.
+
 Counterpart of ``ccj_tpu/engine/pallas_ops.py``.  Its one TPU kernel,
 ``_minplus_kernel`` (launched by ``minplus_suffix``), is a masked min-plus
 suffix reduction; the same function is the serial tt loop's k-shrink and
@@ -14,13 +18,22 @@ over slabs and weights with a leading batch axis reduces every element of
 the batch in the same launch (output ``[B, G, I, J]``), so a batched fill
 makes one launch per step for the whole batch.
 
+:func:`tt_step` (``csrc/ttstep.cu``) is the counterpart of the XLA fusion
+of the JAX loop body after its reductions (``ccj_tpu/engine/ttloop.py:457-551``,
+no Pallas kernel): from the step's reductions and the span's operands it
+assembles the 14 families' row tt, with the PM interior stencil at the
+columns the step keeps, and writes it back into the span's slabs.  Its
+operands travel in a :class:`StepTable`, built and checked once per span;
+:func:`tt_step_ref` is its plain version, the loop body as it was.
+
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
-back.  The library is built with ``nvcc`` into ``build/`` beside the
-package at first use and loaded with ``ctypes``.  ``LAUNCHES`` counts
-kernel launches and ``WINDOWS`` the windows those launches reduced (a
-batch of B counts each window B times), and nothing else, so a run can
-show that its main path went through the kernel.
+back.  The library is built with ``nvcc`` (one process per source, then one
+link) into ``build/`` beside the package at first use and loaded with
+``ctypes``.  ``LAUNCHES`` counts ``minplus_group`` launches and ``WINDOWS``
+the windows those launches reduced (a batch of B counts each window B
+times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches; nothing else
+moves them, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,17 +49,19 @@ from pathlib import Path
 
 import torch
 
-from .common import INF
+from .common import INF, SAT16, mmin
+from .gapped import DS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIB_NAME = "libccj_minplus.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_WINDOWS = 16        # csrc/minplus.cu kMaxWindows
 
 LAUNCHES = 0            # minplus kernel launches (CUDA only)
 WINDOWS = 0             # windows reduced by those launches (B per batched window)
+TT_STEP_LAUNCHES = 0    # tt_step kernel launches (CUDA only)
 MAX_GRID_Z = 65535      # CUDA's grid.z limit: descriptors x batch
 
 _lib = None
@@ -95,7 +110,8 @@ def nvcc_path() -> str:
 
 def build_library(force: bool = False) -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` into ``build/libccj_minplus.so`` unless the
-    library is newer than every source (``force`` builds regardless).
+    library is newer than every source (``force`` builds regardless): one
+    ``nvcc -c`` per source, all started together, then one link.
     Returns (path, compiler log); the log holds ``-Xptxas -v``'s register
     and spill report of a fresh build."""
     out = BUILD_DIR / LIB_NAME
@@ -104,15 +120,24 @@ def build_library(force: bool = False) -> tuple[Path, str]:
             out.stat().st_mtime >= s.stat().st_mtime for s in srcs):
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / (src.stem + ".o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        tmp = Path(tmpdir) / LIB_NAME
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return out, "".join(logs) + link.stdout + link.stderr
 
 
 def _library():
@@ -136,6 +161,14 @@ def _library():
                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            if lib.ccj_tt_step_table_bytes() != ctypes.sizeof(StepTable):
+                raise RuntimeError(
+                    f"cuda_ops.StepTable ({ctypes.sizeof(StepTable)} B) does not "
+                    f"mirror csrc/ttstep.cu ({lib.ccj_tt_step_table_bytes()} B)")
+            if lib.ccj_tt_step_ds() != DS:
+                raise RuntimeError("gapped.DS does not match csrc/ttstep.cu kDS")
+            lib.ccj_tt_step.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            lib.ccj_tt_step.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -414,3 +447,307 @@ def minplus_suffix(slab, w, lo):
     """out[i, j] = min over tp > lo of slab[tp, i, j] + w[tp, j], INF when
     no row survives — ``pallas_ops.minplus_suffix``'s function."""
     return minplus_window(slab, w, 0, 0, max(int(lo) + 1, 0))
+
+
+# ---------------------------------------------------------------------------
+# tt_step: the rest of the tt loop's step, after its 13 reductions
+# ---------------------------------------------------------------------------
+
+# csrc/ttstep.cu's operand order.  STEP_FAMILIES are the loop's 14 families
+# (``ttloop.LOOP_MATS_ALL``), STEP_B_SLABS those that also keep a u-skewed
+# (B) slab for the j-shrink reductions (``ttloop.B4_MATS_ALL``), STEP_BASES
+# the 7 span-constant cross-span reduction bases; the step's reductions are
+# ``ttloop.REDUCTIONS``, in that order.
+STEP_FAMILIES = ("PLmloop00", "PLmloop01", "PLmloop10", "PRmloop00",
+                 "PRmloop10", "PMmloop00", "PMmloop01", "PMmloop10",
+                 "PM", "PfromL", "PfromR", "PfromM", "PfromMprime", "PK")
+STEP_B_SLABS = ("PK", "PLmloop00", "PLmloop10", "PMmloop00", "PfromL",
+                "PfromMprime")
+STEP_BASES = ("PLmloop00", "PLmloop10", "PRmloop00", "PMmloop01",
+              "PMmloop10", "PfromL", "PfromR")
+STEP_REDUCTIONS = 13
+MAX_GRID_Y = 65535      # CUDA's grid.y limit: the step's batch
+
+
+class Plane(ctypes.Structure):
+    """One operand of the step: csrc/ttstep.cu's ``struct Plane``, its base
+    pointer and its element strides over (batch, row, i, j); a null
+    pointer where a family has no B slab."""
+    _fields_ = [("p", ctypes.c_void_p), ("s", ctypes.c_longlong * 4)]
+
+
+class StepTable(ctypes.Structure):
+    """One span's operands of :func:`tt_step`, valid for every tt in
+    [0, s - 2]: csrc/ttstep.cu's ``struct StepTable``, field for field, built
+    and checked once per span and passed to the kernel by value.
+
+    ``red``: the step's reductions, ``[B, 13, IB, n2]`` (what
+    :func:`minplus_group` writes at each step); ``bases``: the 7
+    :data:`STEP_BASES` planes ``[B, >= s - 1, IB, n2]``, read at row tt;
+    ``cur``: the 14 families' A slabs ``[B, >= s + 1, IB, n2]`` (rows tt + 1
+    and tt + 2 read, row tt written) and, as ``"B_" + name``, the 6 B slabs
+    ``[B, >= s - 1, IB, >= n2 + s - 2]`` (row tt written at columns
+    [tt, tt + n2)); ``stm``: the same-span PM slab ``[B, >= s - 1 + 2 DS, IB,
+    UB + DS]`` (rows tt + 2 .. tt + 2 DS read, row tt written at columns
+    [tt, tt + n2)); ``dpm``: the PM stencil weights ``[B, DS, DS, >= s - 1,
+    >= UB]``; ``jk``: the (canp, ptype, ESTP) diagonal rows ``[B, >= s - 1,
+    n2]``; ``valid``: ``[>= s - 1, IB, n2]`` bool, shared by the batch;
+    ``pl``, ``pr``, ``po``: the span's PL / PR / PO planes ``[B, >= s - 1,
+    IB, n2]``.  Every operand is int32 but ``valid``, all on one CUDA device
+    or all on the CPU; raises otherwise.  Slab row r is i = ``i0`` + r.  The
+    tensors stay alive with the table (``ops``), which the plain version
+    reads."""
+    _fields_ = [("red", Plane), ("base", Plane * len(STEP_BASES)),
+                ("cur", Plane * len(STEP_FAMILIES)),
+                ("bslab", Plane * len(STEP_FAMILIES)),
+                ("stm", Plane), ("jk", Plane * 3), ("valid", Plane),
+                ("pl", Plane), ("pr", Plane), ("po", Plane),
+                ("dpm", ctypes.c_void_p), ("dpm_s", ctypes.c_longlong * 5),
+                ("B", ctypes.c_int), ("s", ctypes.c_int), ("i0", ctypes.c_int),
+                ("IB", ctypes.c_int), ("n2", ctypes.c_int), ("bp", ctypes.c_int),
+                ("cp", ctypes.c_int), ("ap", ctypes.c_int), ("PB", ctypes.c_int),
+                ("SAT16", ctypes.c_int), ("INF", ctypes.c_int)]
+
+    def __init__(self, red, bases, cur, stm, dpm, jk, valid, pl, pr, po, *,
+                 s: int, i0: int, bp: int, cp: int, ap: int, PB: int):
+        super().__init__()
+        if s < 2:
+            raise ValueError(f"span {s} has no tt step")
+        if red.dim() != 4 or red.shape[1] != STEP_REDUCTIONS:
+            raise ValueError(f"red must be [B, {STEP_REDUCTIONS}, IB, n2], "
+                             f"got {tuple(red.shape)}")
+        B, _, IB, n2 = red.shape
+        self.ops = ops = {"red": red, "bases": dict(bases), "cur": dict(cur),
+                          "stm": stm, "dpm": dpm, "jk": tuple(jk), "valid": valid,
+                          "pl": pl, "pr": pr, "po": po}
+        self.tt_lo, self.tt_hi = 0, s - 2
+        self.pm_bounds = None             # the plain stencil's, at its first call
+        T = s - 1                             # rows [0, s - 2] are read
+        UB = stm.shape[-1] - DS
+
+        def need(name, x, shape, dtype=torch.int32):
+            """x has len(shape) axes, each at least its entry (an int) or
+            exactly it (a 1-tuple), and ``dtype``."""
+            ok = x.dim() == len(shape) and all(
+                (d == w[0]) if isinstance(w, tuple) else d >= w
+                for d, w in zip(x.shape, shape))
+            if not ok:
+                raise ValueError(f"{name}: shape {tuple(x.shape)} does not fit {shape} "
+                                 f"(an int is a least size, a 1-tuple an exact one)")
+            if x.dtype != dtype:
+                raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+
+        E = (B,), (IB,), (n2,)
+        need("red", red, (*E[:1], (STEP_REDUCTIONS,), *E[1:]))
+        if set(bases) != set(STEP_BASES):
+            raise ValueError(f"bases must be {STEP_BASES}, got {sorted(bases)}")
+        for name in STEP_BASES:
+            need(f"bases[{name}]", bases[name], (E[0], T, *E[1:]))
+        want = set(STEP_FAMILIES) | {"B_" + nm for nm in STEP_B_SLABS}
+        if not want <= set(cur):
+            raise ValueError(f"cur lacks {sorted(want - set(cur))}")
+        for name in STEP_FAMILIES:
+            need(f"cur[{name}]", cur[name], (E[0], s + 1, *E[1:]))
+        for name in STEP_B_SLABS:
+            need(f"cur[B_{name}]", cur["B_" + name], (E[0], T, E[1], n2 + s - 2))
+        need("stm", stm, (E[0], T + 2 * DS, E[1], n2 + s - 2 + DS))
+        if not stm.is_contiguous():
+            raise ValueError("stm must be contiguous (the plain stencil views it "
+                             "through its own strides)")
+        need("dpm", dpm, (E[0], (DS,), (DS,), T, UB))
+        if len(ops["jk"]) != 3:
+            raise ValueError("jk must be (canp, ptype, ESTP) rows")
+        for k, x in enumerate(ops["jk"]):
+            need(f"jk[{k}]", x, (E[0], T, E[2]))
+        need("valid", valid, (T, *E[1:]), torch.bool)
+        for name in ("pl", "pr", "po"):
+            need(name, ops[name], (E[0], T, *E[1:]))
+
+        tensors = [red, *bases.values(), *(cur[nm] for nm in want), stm, dpm,
+                   *ops["jk"], valid, pl, pr, po]
+        if all(t.device.type == "cpu" for t in tensors):
+            self.device = torch.device("cpu")
+        else:
+            self.device = _check_devices(tensors)
+            if B > MAX_GRID_Y:
+                raise ValueError(f"batch {B} exceeds the grid's {MAX_GRID_Y} y blocks")
+            self._fn = _library().ccj_tt_step
+
+        def plane(x, lead=True):
+            """A Plane of x over (batch, row, i, j): a 3-D x is [batch,
+            row, j] with lead, [row, i, j] without."""
+            st = list(x.stride())
+            if not lead:
+                st = [0] + st
+            elif x.dim() == 3:
+                st = st[:2] + [0] + st[2:]
+            return Plane(x.data_ptr(), (ctypes.c_longlong * 4)(*st))
+
+        self.red = plane(red)
+        for k, name in enumerate(STEP_BASES):
+            self.base[k] = plane(bases[name])
+        for k, name in enumerate(STEP_FAMILIES):
+            self.cur[k] = plane(cur[name])
+            if name in STEP_B_SLABS:
+                self.bslab[k] = plane(cur["B_" + name])
+        self.stm = plane(stm)
+        for k, x in enumerate(ops["jk"]):
+            self.jk[k] = plane(x)
+        self.valid = plane(valid, lead=False)
+        self.pl, self.pr, self.po = plane(pl), plane(pr), plane(po)
+        self.dpm = dpm.data_ptr()
+        self.dpm_s = (ctypes.c_longlong * 5)(*dpm.stride())
+        self.B, self.s, self.i0, self.IB, self.n2 = B, s, i0, IB, n2
+        self.bp, self.cp, self.ap, self.PB = bp, cp, ap, PB
+        self.SAT16, self.INF = SAT16, INF
+
+    def check_tt(self, tt: int):
+        if not self.tt_lo <= tt <= self.tt_hi:
+            raise ValueError(f"tt={tt} outside the table's range "
+                             f"[{self.tt_lo}, {self.tt_hi}]")
+
+
+def _enc(v, vmask):
+    """Store-encode a plane: int16-clamped value on valid cells, INF on
+    invalid ones."""
+    return torch.where(vmask, v.clamp(-32768, SAT16), INF)
+
+
+def pm_bounds(s, IB, UB, dev, i0=0):
+    """The span-constant parts of the PM stencil's loop bounds: d1 (as
+    [1, DS, 1, 1]), the d1 bound's tt-free part u - i - 1, and the whole
+    d2 mask d2 <= (i + s - u - 2) - 1 ([DS, 1, IB, UB]); rows are
+    i = i0 + r."""
+    d = torch.arange(1, DS + 1, device=dev)
+    i = torch.arange(i0, i0 + IB, device=dev)[:, None]
+    u = torch.arange(UB, device=dev)[None, :]
+    return (d[None, :, None, None], u - i - 1,
+            d[:, None, None, None] <= (i + s - u - 2) - 1)
+
+
+def pm_stencil(STM, DPM, tt, bounds):
+    """The PM interior-loop stencil over the same-span STM slab, in u
+    coordinates: pm_acc[i, u] = min(INF, min over d1, d2 in [1, DS] of
+    STM[tt + d1 + d2, i, u + d2] + DPM[d1 - 1, d2 - 1, tt, u]) under the
+    d1 <= (u - tt) - i - 1 and d2 <= (i + s - u - 2) - 1 bounds
+    (:func:`pm_bounds`).
+
+    The JAX loop over d2 becomes one strided view X[b, d2, d1, i, u] of the
+    slab: row tt + 2 + (d1 - 1) + (d2 - 1), column u + d2, of batch element
+    b.  STM is [B, rows, IB, UB + DS], contiguous, its last DS columns INF
+    (the reads past u = UB - 1); DPM is [B, DS, DS, T, U].
+    """
+    d1, lim1, mask2 = bounds
+    B, _, IB, W = STM.shape
+    UB = W - DS
+    sR = IB * W
+    X = STM.as_strided((B, DS, DS, IB, UB), (STM.stride(0), sR + 1, sR, W, 1),
+                       STM.storage_offset() + (tt + 2) * sR + 1)
+    dpm = DPM.select(3, tt).narrow(-1, 0, UB)                # [B, d1, d2, u]
+    mask = (d1 <= lim1 - tt) & mask2
+    vals = torch.where(mask, X + dpm.transpose(1, 2)[:, :, :, None, :], INF)
+    return vals.amin(dim=(1, 2)).clamp(max=INF)
+
+
+def tt_step_ref(table: StepTable, tt: int):
+    """Plain PyTorch version of :func:`tt_step`: the tt loop's step body
+    after its reductions, on ``table``'s tensors in place."""
+    table.check_tt(tt)
+    o = table.ops
+    cur, bases, valid4 = o["cur"], o["bases"], o["valid"]
+    bp, cp, ap, PB = table.bp, table.cp, table.ap, table.PB
+    s, i0, n2 = table.s, table.i0, table.n2
+    STM = o["stm"]
+    if table.pm_bounds is None:
+        table.pm_bounds = pm_bounds(s, table.IB, STM.shape[-1] - DS, STM.device, i0)
+    (r_pl00, r_pl01, r_pl10, r_pr00, r_pr10, r_pm00_j, r_pm00_k, r_fl,
+     r_fr, r_fm, r_fmp, r_pk_j, r_pk_k) = o["red"].unbind(1)
+
+    def plane_cur(slab, c, dj):
+        sl = slab.select(1, tt + c)
+        if dj == -1:
+            sl = torch.nn.functional.pad(sl, (1, 0), value=INF).narrow(-1, 0, n2)
+        return sl
+
+    def base_at(name):
+        return bases[name].select(1, tt)
+
+    out = {}
+    out["PLmloop00"] = mmin(SAT16 + bp, base_at("PLmloop00"), r_pl00)
+    out["PLmloop01"] = r_pl01
+    out["PLmloop10"] = torch.minimum(base_at("PLmloop10"), r_pl10)
+    out["PRmloop00"] = mmin(SAT16 + bp, base_at("PRmloop00"), r_pr00)
+    out["PRmloop10"] = torch.minimum(
+        plane_cur(cur["PRmloop10"], 1, 0) + cp, r_pr10)
+    out["PMmloop00"] = mmin(SAT16 + bp, r_pm00_j, r_pm00_k)
+    out["PMmloop01"] = torch.minimum(
+        plane_cur(cur["PMmloop01"], 1, 0) + cp, base_at("PMmloop01"))
+    out["PMmloop10"] = torch.minimum(
+        plane_cur(cur["PMmloop10"], 1, -1) + cp, base_at("PMmloop10"))
+
+    # PM interior stencil over the same-span STM slab (u-coordinates)
+    pm_acc = pm_stencil(STM, o["dpm"], tt, table.pm_bounds)
+    pm_int = pm_acc.narrow(-1, tt, n2)
+
+    CJK, PJK, EJK = o["jk"]
+    canp_jk = CJK.narrow(1, tt, 1)
+    pt_jk = PJK.narrow(1, tt, 1)
+    estp_jk = EJK.narrow(1, tt, 1)
+    pm_stack = plane_cur(cur["PM"], 2, -1) + estp_jk
+    PMiloop = torch.where(canp_jk > 0, torch.minimum(pm_stack, pm_int), INF)
+    PMmloop_v = torch.minimum(plane_cur(cur["PMmloop10"], 2, -1),
+                              plane_cur(cur["PMmloop01"], 2, -1)) + ap + bp
+    PM_b3 = plane_cur(cur["PfromM"], 2, -1)  # k >= j+TURN-1 always holds
+    # PM's base case (i == j and k == l) meets (i, j) at tt = s - 2
+    ir = torch.arange(i0, i0 + table.IB, device=STM.device)[:, None]
+    jr = torch.arange(n2, device=STM.device)[None, :]
+    PM_b4 = torch.where((ir == jr) & (tt == s - 2), 0, INF)
+    PMv = torch.where(pt_jk > 0,
+                      mmin(PMiloop, PMmloop_v + bp, PM_b3, PM_b4), INF)
+    out["PM"] = PMv
+
+    vmask = valid4[tt]
+    PMs_t = _enc(PMv, vmask)
+    PLs_t = o["pl"].select(1, tt)
+    PRs_t = o["pr"].select(1, tt)
+    POs_t = o["po"].select(1, tt)
+
+    out["PfromL"] = mmin(base_at("PfromL"), r_fl,
+                         PRs_t + PB, PMs_t + PB, POs_t + PB)
+    out["PfromR"] = mmin(base_at("PfromR"), r_fr, PMs_t + PB, POs_t + PB)
+    out["PfromM"] = r_fm
+    out["PfromMprime"] = r_fmp
+    out["PK"] = mmin(r_pk_j, r_pk_k,
+                     PLs_t + PB, PMs_t + PB, PRs_t + PB, POs_t + PB)
+
+    # write-back of row tt (the B slabs store it at columns u = j + tt)
+    for name in STEP_FAMILIES:
+        encp = PMs_t if name == "PM" else _enc(out[name], vmask)
+        cur[name].select(1, tt).copy_(encp)
+        if name in STEP_B_SLABS:
+            cur["B_" + name].select(1, tt).narrow(-1, tt, n2).copy_(encp)
+    STM.select(1, tt).narrow(-1, tt, n2).copy_(PMs_t)
+
+
+def tt_step(table: StepTable, tt: int):
+    """Step ``tt`` of the tt loop after its reductions (``table.ops["red"]``,
+    written by this step's :func:`minplus_group`): assemble the 14 families'
+    row tt, the PM interior stencil at the columns the step keeps (u = j +
+    tt), store-encode it and write it into row tt of every ``cur`` slab,
+    columns [tt, tt + n2) of row tt of every B slab and of ``stm``.  One
+    kernel launch on CUDA, in stream order after the reductions; the plain
+    version (:func:`tt_step_ref`) for CPU tensors."""
+    global TT_STEP_LAUNCHES
+    table.check_tt(tt)
+    if table.device.type == "cpu":
+        return tt_step_ref(table, tt)
+    args = (ctypes.addressof(table), tt,
+            torch.cuda.current_stream(table.device).cuda_stream)
+    if table.device.index == torch.cuda.current_device():
+        rc = table._fn(*args)
+    else:   # a launch goes to the stream's own device only
+        with torch.cuda.device(table.device):
+            rc = table._fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"tt_step launch failed: cudaError {rc}")
+    TT_STEP_LAUNCHES += 1

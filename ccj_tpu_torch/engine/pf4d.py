@@ -285,7 +285,7 @@ def _pm_stencil(STM, DPM, s, tt, IB, UB):
 
     The JAX loop over d2 becomes one strided view X[d2, d1, i, u] of the
     column-padded slab: row tt + 2 + (d1 - 1) + (d2 - 1), column u + d2
-    (as ``ttloop._pm_stencil`` does for the MFE fill).
+    (as ``cuda_ops.pm_stencil`` does for the MFE fill).
     """
     dev = STM.device
     slPM = dynamic_slice(STM, (tt + 2, 0, 0), (2 * DS, IB, UB))

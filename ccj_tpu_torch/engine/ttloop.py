@@ -4,10 +4,12 @@ Counterpart of ``ccj_tpu/engine/ttloop.py``: the gather-free table
 builders and ``run_tt_loop_unstacked`` (ported here as :func:`run_tt_loop`;
 the parked stacked experiment of the JAX module is not ported).  For each
 span s the loop runs s-1 sequential steps, each updating the 14
-same-span-dependent families from the previous tt rows.  Every step's 13
-k-shrink / j-shrink min-plus reductions run as one launch of
-:func:`cuda_ops.minplus_group`, the port's hand-written Hopper kernel, from
-a descriptor table built once per span (:func:`reduction_table`).
+same-span-dependent families from the previous tt rows, in two launches
+of the port's hand-written Hopper kernels: the step's 13 k-shrink /
+j-shrink min-plus reductions as one :func:`cuda_ops.minplus_group`, then
+the rest of the step (the assembly, the PM interior stencil and the
+write-back of row tt) as one :func:`cuda_ops.tt_step`, each from a table
+built once per span (:func:`reduction_table`, :class:`cuda_ops.StepTable`).
 
 Recurrences and tie-breaking order are unchanged (reference:
 src/pseudo_loop.cc:181-679; per-branch citations in
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_ops
-from .common import I32, INF, SAT16, dynamic_slice, mmin, pad_axis
+from .common import I32, INF, SAT16, dynamic_slice, pad_axis
 from .gapped import DS, PADT
 from .skew import skew_right, unskew_right
 
@@ -88,12 +90,9 @@ def diag_il(X, s, TB, IB, n2, fill=INF, i0=0):
     return d[..., None, :, None].expand(*d.shape[:-1], TB, IB, n2)
 
 
-LOOP_MATS_ALL = ("PLmloop00", "PLmloop01", "PLmloop10", "PRmloop00",
-                 "PRmloop10", "PMmloop00", "PMmloop01", "PMmloop10",
-                 "PM", "PfromL", "PfromR", "PfromM", "PfromMprime", "PK")
+LOOP_MATS_ALL = cuda_ops.STEP_FAMILIES
 # families that also keep a u-skewed (B) slab for the j-shrink reductions
-B4_MATS_ALL = ("PK", "PLmloop00", "PLmloop10", "PMmloop00", "PfromL",
-               "PfromMprime")
+B4_MATS_ALL = cuda_ops.STEP_B_SLABS
 
 
 # The step's 13 k-shrink / j-shrink reductions, in the order the step reads
@@ -138,48 +137,6 @@ def reduction_table(slabs, WKX, WJX, s, n2, i0=0):
     return cuda_ops.WindowTable(wins, n2, (0, s - 2))
 
 
-def _enc(v, vmask):
-    """Store-encode a plane: int16-clamped value on valid cells, INF on
-    invalid ones."""
-    return torch.where(vmask, v.clamp(-32768, SAT16), INF)
-
-
-def _pm_bounds(s, IB, UB, dev, i0=0):
-    """The span-constant parts of the PM stencil's loop bounds: d1 (as
-    [1, DS, 1, 1]), the d1 bound's tt-free part u - i - 1, and the whole
-    d2 mask d2 <= (i + s - u - 2) - 1 ([DS, 1, IB, UB]); rows are
-    i = i0 + r."""
-    d = torch.arange(1, DS + 1, device=dev)
-    i = torch.arange(i0, i0 + IB, device=dev)[:, None]
-    u = torch.arange(UB, device=dev)[None, :]
-    return (d[None, :, None, None], u - i - 1,
-            d[:, None, None, None] <= (i + s - u - 2) - 1)
-
-
-def _pm_stencil(STM, DPM, tt, bounds):
-    """The PM interior-loop stencil over the same-span STM slab, in u
-    coordinates: pm_acc[i, u] = min(INF, min over d1, d2 in [1, DS] of
-    STM[tt + d1 + d2, i, u + d2] + DPM[d1, d2, tt, u]) under the
-    d1 <= (u - tt) - i - 1 and d2 <= (i + s - u - 2) - 1 bounds
-    (:func:`_pm_bounds`).
-
-    The JAX loop over d2 becomes one strided view X[b, d2, d1, i, u] of the
-    slab: row tt + 2 + (d1 - 1) + (d2 - 1), column u + d2, of batch element
-    b.  STM is [B, rows, IB, UB + DS], contiguous, its last DS columns INF
-    (the reads past u = UB - 1); DPM is [B, DS, DS, T, U].
-    """
-    d1, lim1, mask2 = bounds
-    B, _, IB, W = STM.shape
-    UB = W - DS
-    sR = IB * W
-    X = STM.as_strided((B, DS, DS, IB, UB), (STM.stride(0), sR + 1, sR, W, 1),
-                       STM.storage_offset() + (tt + 2) * sR + 1)
-    dpm = DPM.select(3, tt).narrow(-1, 0, UB)                # [B, d1, d2, u]
-    mask = (d1 <= lim1 - tt) & mask2
-    vals = torch.where(mask, X + dpm.transpose(1, 2)[:, :, :, None, :], INF)
-    return vals.amin(dim=(1, 2)).clamp(max=INF)
-
-
 def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
                 valid4, s, TB: int, IB: int, i0: int = 0):
     """Run the serial tt loop for span ``s`` over rows i in
@@ -190,13 +147,14 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     Returns {name: [B, TB, IB, n2] int32} for every LOOP_MATS family.  The
     span slabs it carries are updated in place, one tt row per step, after
     every read of the step.  ``valid4`` ([TB, IB, n2]) is shared by the
-    batch; every other operand has the leading batch axis.
+    batch; every other operand has the leading batch axis.  Each step is
+    two launches: :func:`cuda_ops.minplus_group` (the 13 reductions) and
+    :func:`cuda_ops.tt_step` (the rest), from tables built once here.
     """
     n = C["n"]
     n2 = n + 2
     UB = n2 + TB
     UK = n2 + TB + 1
-    bp, cp, ap, PB = C["bp"], C["cp"], C["ap"], C["PB"]
     canp, pt, ESTP = C["can_pair"], C["ptype"], C["ESTP"]
     dev = valid4.device
     B = PLs.shape[0]
@@ -213,10 +171,9 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     # A-layout / B-layout slabs carry TB pad rows beyond the live range so
     # the q-window [tt+1, tt+1+TB) never leaves them; pad rows hold INF and
     # can only lose (INF + weight <= 2e7 << int32 max, and every consumer
-    # clamps through _enc() exactly as the reference's int16 store).
+    # clamps through the step's store encoding exactly as the reference's
+    # int16 store).  The step reads PL/PR/PO at row tt <= s - 2 < TB only.
     validp = pad_axis(valid4, 0, 0, TB + 2, False)
-    PLpad = pad_axis(PLs, -3, 0, 2, INF)
-    PRpad = pad_axis(PRs, -3, 0, 2, INF)
     mdp = pad_axis(mdp0, -3, 0, TB + 2, INF)              # PfromMdoubleprime
 
     init = torch.where(validp, SAT16, INF).to(I32)
@@ -227,90 +184,20 @@ def run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
     # the same-span PM slab, with the DS INF columns its stencil reads past
     # u = UB - 1 (rows tt + 2 .. tt + 2 * DS stay inside TB + 2 * PADT)
     STM = torch.full((B, TB + 2 * PADT, IB, UB + DS), INF, dtype=I32, device=dev)
-    DPM = SC4["DPM"]
-    pm_bounds = _pm_bounds(s, IB, UB, dev, i0)
-
-    # PM's base case (i == j and k == l): the step tt at which each (i, j)
-    # meets it, -1 where i != j
-    jr = torch.arange(n2, device=dev)[None, :]
-    ir = torch.arange(i0, i0 + IB, device=dev)[:, None]
-    b4_tt = torch.where(ir == jr, ir + s - jr - 2, -1)
 
     if s >= 2:
         table = reduction_table({**cur, "mdp": mdp}, WKX, WJX, s, n2, i0)
         red_out = torch.empty(table.shape, dtype=I32, device=dev)
+        step = cuda_ops.StepTable(red_out, bases, cur, STM, SC4["DPM"],
+                                  (CJK, PJK, EJK), valid4, PLs, PRs, POs, s=s,
+                                  i0=i0, bp=C["bp"], cp=C["cp"], ap=C["ap"],
+                                  PB=C["PB"])
 
+    # Each step's reductions land in red_out, which the same step's tt_step
+    # reads; the next step's minplus_group overwrites it only after, in
+    # stream order.  tt_step reads rows > tt of the slabs and writes row tt.
     for tt in range(s - 2, -1, -1):
-        # One launch reduces the step's 13 windows into red_out.  Reusing
-        # red_out across steps is safe in stream order only: every read of
-        # these views below is enqueued in this step, before the next
-        # step's launch overwrites them (no result outlives its step).
-        (r_pl00, r_pl01, r_pl10, r_pr00, r_pr10, r_pm00_j, r_pm00_k, r_fl,
-         r_fr, r_fm, r_fmp, r_pk_j, r_pk_k) = cuda_ops.minplus_group(
-            table, tt, red_out).unbind(1)
-
-        # per-step rows are select / narrow views: the leading batch axis
-        # makes them tuple indexes, whose Python parsing costs host time
-        # on every one of the loop's dispatch-bound steps
-        def plane_cur(slab, c, dj):
-            sl = slab.select(1, tt + c)
-            if dj == -1:
-                sl = torch.nn.functional.pad(sl, (1, 0), value=INF).narrow(-1, 0, n2)
-            return sl
-
-        def base_at(name):
-            return bases[name].select(1, tt)
-
-        out = {}
-        out["PLmloop00"] = mmin(SAT16 + bp, base_at("PLmloop00"), r_pl00)
-        out["PLmloop01"] = r_pl01
-        out["PLmloop10"] = torch.minimum(base_at("PLmloop10"), r_pl10)
-        out["PRmloop00"] = mmin(SAT16 + bp, base_at("PRmloop00"), r_pr00)
-        out["PRmloop10"] = torch.minimum(
-            plane_cur(cur["PRmloop10"], 1, 0) + cp, r_pr10)
-        out["PMmloop00"] = mmin(SAT16 + bp, r_pm00_j, r_pm00_k)
-        out["PMmloop01"] = torch.minimum(
-            plane_cur(cur["PMmloop01"], 1, 0) + cp, base_at("PMmloop01"))
-        out["PMmloop10"] = torch.minimum(
-            plane_cur(cur["PMmloop10"], 1, -1) + cp, base_at("PMmloop10"))
-
-        # PM interior stencil over the same-span STM slab (u-coordinates)
-        pm_acc = _pm_stencil(STM, DPM, tt, pm_bounds)
-        pm_int = pm_acc.narrow(-1, tt, n2)
-
-        canp_jk = CJK.narrow(1, tt, 1)
-        pt_jk = PJK.narrow(1, tt, 1)
-        estp_jk = EJK.narrow(1, tt, 1)
-        pm_stack = plane_cur(cur["PM"], 2, -1) + estp_jk
-        PMiloop = torch.where(canp_jk > 0, torch.minimum(pm_stack, pm_int), INF)
-        PMmloop_v = torch.minimum(plane_cur(cur["PMmloop10"], 2, -1),
-                                  plane_cur(cur["PMmloop01"], 2, -1)) + ap + bp
-        PM_b3 = plane_cur(cur["PfromM"], 2, -1)  # k >= j+TURN-1 always holds
-        PM_b4 = torch.where(b4_tt == tt, 0, INF)
-        PMv = torch.where(pt_jk > 0,
-                          mmin(PMiloop, PMmloop_v + bp, PM_b3, PM_b4), INF)
-        out["PM"] = PMv
-
-        vmask = valid4[tt]
-        PMs_t = _enc(PMv, vmask)
-        PLs_t = PLpad.select(1, tt)
-        PRs_t = PRpad.select(1, tt)
-        POs_t = POs.select(1, tt)
-
-        out["PfromL"] = mmin(base_at("PfromL"), r_fl,
-                             PRs_t + PB, PMs_t + PB, POs_t + PB)
-        out["PfromR"] = mmin(base_at("PfromR"), r_fr, PMs_t + PB, POs_t + PB)
-        out["PfromM"] = r_fm
-        out["PfromMprime"] = r_fmp
-        out["PK"] = mmin(r_pk_j, r_pk_k,
-                         PLs_t + PB, PMs_t + PB, PRs_t + PB, POs_t + PB)
-
-        # write-back of row tt (the B slabs store it at columns u = j + tt)
-        for name in LOOP_MATS_ALL:
-            encp = PMs_t if name == "PM" else _enc(out[name], vmask)
-            cur[name].select(1, tt).copy_(encp)
-            if name in B4_MATS_ALL:
-                cur["B_" + name].select(1, tt).narrow(-1, tt, n2).copy_(encp)
-        STM.select(1, tt).narrow(-1, tt, n2).copy_(PMs_t)
+        cuda_ops.minplus_group(table, tt, red_out)
+        cuda_ops.tt_step(step, tt)
 
     return {nm: cur[nm][:, :TB] for nm in LOOP_MATS_ALL}

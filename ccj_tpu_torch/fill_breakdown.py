@@ -21,8 +21,8 @@ same way for both engines, in this order:
   twice (re-running spans whose inputs are final rewrites the same
   values): once for the wall, once under torch.profiler.  Device kernel
   time over that wall is the device's busy share; the kernels and PyTorch
-  ops that take the most device time and the port's min-plus kernel are
-  listed.
+  ops that take the most device time and the port's own kernels
+  (``minplus_group``, ``tt_step``) are listed.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     for key in ("fill_s_first", "fill_s"):
         torch.cuda.synchronize()
-        cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+        cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
         t0 = time.perf_counter()
         st = run_fill()
         torch.cuda.synchronize()
@@ -103,6 +103,7 @@ def main(argv=None):
         del st
     out["launches"] = cuda_ops.LAUNCHES
     out["windows"] = cuda_ops.WINDOWS
+    out["tt_step_launches"] = cuda_ops.TT_STEP_LAUNCHES
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     # ---- per-part walls: wrap the span functions where the fill and the
@@ -172,7 +173,8 @@ def main(argv=None):
         "top_kernels": _top(kernels),
         "top_ops": _top(ops),
         # the port's own kernels (csrc/), wherever they rank
-        "port_kernels": _top([e for e in kernels if "minplus" in e.key]),
+        "port_kernels": _top([e for e in kernels
+                              if "minplus" in e.key or "tt_step" in e.key]),
     }
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)

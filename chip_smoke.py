@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
-   ``ccj_tpu_torch/csrc/`` and report the build time;
+   ``ccj_tpu_torch/csrc/`` (both kernels, one ``nvcc`` per source, run
+   together) and report the build time;
 2. the min-plus kernel against its plain PyTorch version on the card,
    exactly (tolerance zero: integer data): single windows
    (``minplus_window``, a group of one) in all three mask modes, at the CPU
@@ -33,13 +34,25 @@ Phases; any failure exits non-zero and prints no result:
    weight element the group needs once, and the row adds ``ms_l2cold``:
    graph replay cycling through copies of the operands that together
    overflow L2, so the reads come from HBM as the bound assumes; it also
-   gives its times per window;
+   gives its times per window; then (2b) ``tt_step``, the rest of the tt
+   step, against its plain version (``tt_step_ref``) exactly, on random
+   operands at the same seven steps (dense n=100 and n=128, packed n=200,
+   batched 100 x 4 and 64 x 8, the dense and the packed row shard) and at
+   the n=100 fill's step with the most stencil terms (span 69, tt 0), each at
+   tt = s - 2, the main step and 0 with every slab compared after each:
+   L2-hot (graph replay) and L2-cold (a 100 MB buffer zeroed before each
+   call, the call between CUDA events) device times, eager call times, the
+   plain version's, and the byte bound (every element the step needs read
+   once, the STM and DPM elements its admissible stencil terms use counted
+   once; no library yardstick);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
    (bench.py, seed 42; the lazy traceback, the default on CUDA) with the
    kernel's launch and window counts reset just before and read just
-   after (one launch of 13 windows per tt step: 4,851 and 63,063); then
+   after (one launch of 13 windows per tt step: 4,851 and 63,063, and
+   4,851 ``tt_step`` launches; every later phase checks the two kernels'
+   launches equal); then
    the fill alone (V(1, 100) must be -1528, bench.py's golden) and, on
    that one fill, the lazy traceback (``LazyMats`` + ``Traceback.run``,
    with its bytes and slabs fetched) against the eager host copy plus
@@ -91,13 +104,16 @@ Phases; any failure exits non-zero and prints no result:
 9. ``batched_fill6`` of eight seed-made sequences of lengths 49-64 at
    bucket 64: 1,953 launches, every element bit-equal on every array to its
    own ``fill6``; the batched wall against the eight single walls (tables
-   built inside both) and the peak memory;
+   built inside both) and the peak memory; then (9b) ``fold_many`` of those
+   eight and phase 4c's four bucket-100 sequences with ``batch_limit=1``
+   and with the default (fill k+1 before traceback k), in turns 1,
+   default, default, 1: equal results, both walls and peaks;
 10. ``python -m ccj_tpu_torch.dist.corpus`` over the 15 default-argument
    entries of ``tests/golden/corpus.json``: two processes merging through a
    loopback ``TCPStore`` (one per card where there are two, else both on
    cuda:0), then one process alone; both outputs equal the goldens in order
-   with no ``error``; each process's wall, fold wall and min-plus launches
-   (the CLI prints them);
+   with no ``error``; each process's wall, fold wall and both kernels'
+   launches (the CLI prints them);
 11. the partition function: the float64 device fill on the card against
    the host float64 engine at n=16 (rtol 1e-9); float32 against float64
    on the card at n=64 (Z within a relative 1e-5); the n=64 float32 fill's
@@ -145,6 +161,7 @@ BENCH_V100 = -1528          # bench.py BENCH_V[100]
 REF_SECONDS_200 = 1467.2    # bench.py REF_SECONDS[200]: the reference binary
 #                             at n=200 on one CPU core (BASELINE.md)
 REPLACES = "ccj_tpu/engine/pallas_ops.py:38"
+STEP_REPLACES = "ccj_tpu/engine/ttloop.py:436"   # an XLA fusion, no Pallas kernel
 CLI_SEQ = "GGGAAACGGGCGAUCCUUCCCGAAAGGGAUCGGGUUU"
 CLI_LINE = "(((([[[...[[[[[[[))))....]]]]]]].]]]. (-9.94)"
 
@@ -181,6 +198,20 @@ def cells4d(n):
 def tt_steps(n_fill):
     """tt steps (one min-plus launch each) of a dense fill of length n_fill."""
     return sum(max(s - 1, 0) for s in range(n_fill))
+
+
+def reset_counts(cuda_ops):
+    """Set every kernel's launch count to 0, just before a path is driven."""
+    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
+
+
+def step_launches(cuda_ops, launches, what):
+    """``tt_step``'s launches since :func:`reset_counts`, checked equal to
+    ``minplus_group``'s: the tt loop makes one of each per step."""
+    got = cuda_ops.TT_STEP_LAUNCHES
+    check(got == launches, f"{what}: tt_step launches {got} != minplus_group "
+          f"launches {launches}")
+    return got
 
 
 def cuda_ms(fn, reps):
@@ -485,6 +516,192 @@ def group_row(cuda_ops, REDUCTIONS, reduction_table, INF, gen, dev, n, s, TB, IB
     return row
 
 
+def flushed_ms(fn, reps=50):
+    """Device time of one call with L2 flushed before it: a buffer of twice
+    the L2 is zeroed, then the call runs between two CUDA events; the mean
+    over ``reps`` calls.  The step's operands are too large to cycle
+    through copies of them, as :func:`group_row` does."""
+    buf = torch.empty(int(2 * L2_BYTES) // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(reps)]
+    for a, b in evs:
+        buf.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+
+def step_operands(n, s, TB, IB, gen, dev, B=1):
+    """Random operands of one span's ``tt_step`` in the shapes
+    ``ttloop.run_tt_loop`` gives them, for a batch of B (DPM cut to the
+    rows and columns the span reads)."""
+    from ccj_tpu_torch.engine import cuda_ops
+    from ccj_tpu_torch.engine.common import INF
+    from ccj_tpu_torch.engine.gapped import DS, PADT
+
+    def small(shape):           # weights: small energies, or INF
+        x = rand_i32(shape, gen, dev)
+        return torch.where(x == INF, INF, x.clamp(-400, 400))
+
+    n2 = n + 2
+    UB = n2 + TB
+    plane = lambda: rand_i32((B, TB, IB, n2), gen, dev)          # noqa: E731
+    red = rand_i32((B, cuda_ops.STEP_REDUCTIONS, IB, n2), gen, dev)
+    bases = {k: plane() for k in cuda_ops.STEP_BASES}
+    cur = {k: rand_i32((B, 2 * TB + 2, IB, n2), gen, dev) for k in cuda_ops.STEP_FAMILIES}
+    cur.update({"B_" + k: rand_i32((B, 2 * TB + 2, IB, UB), gen, dev)
+                for k in cuda_ops.STEP_B_SLABS})
+    stm = rand_i32((B, TB + 2 * PADT, IB, UB + DS), gen, dev)
+    dpm = small((B, DS, DS, TB, UB))
+    bits = lambda: torch.randint(0, 2, (B, TB, n2), generator=gen, dtype=torch.int32).to(dev)  # noqa: E731
+    jk = (bits(), bits(), small((B, TB, n2)))
+    valid = (torch.rand((TB, IB, n2), generator=gen) < 0.8).to(dev)
+    return red, bases, cur, stm, dpm, jk, valid, plane(), plane(), plane()
+
+
+def clone_operands(ops):
+    def cl(x):
+        if isinstance(x, dict):
+            return {k: v.clone() for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(v.clone() for v in x)
+        return x.clone()
+    return tuple(cl(x) for x in ops)
+
+
+def step_bound(table, tt, dev):
+    """The least time of one ``tt_step`` at ``tt`` on this card: the bytes
+    it must move (each input element it needs read once: the 13 reduction
+    planes, 7 base planes, 7 slab rows, the PL / PR / PO planes, 3 jk rows,
+    the valid plane, and the STM and DPM elements that some admissible
+    stencil term uses, counted once each; 21 planes written) against its
+    operations (an add and a min per admissible term, and 70 per cell for
+    the assembly and the store encoding) over the int32 rate.  Returns
+    (terms, bytes, t_bytes ms, t_ops ms)."""
+    from ccj_tpu_torch.engine.gapped import DS
+
+    B, IB, n2, s, i0 = table.B, table.IB, table.n2, table.s, table.i0
+    ar = lambda m: torch.arange(m, device=dev)                     # noqa: E731
+    r = ar(IB)[:, None, None, None]
+    j = ar(n2)[None, :, None, None]
+    d1 = ar(DS)[None, None, :, None] + 1
+    d2 = ar(DS)[None, None, None, :] + 1
+    i = i0 + r
+    keep = (d1 <= j - i - 1) & (d2 <= i + s - j - tt - 3)        # [IB, n2, DS, DS]
+    terms = int(keep.sum())
+    W = n2 + tt + 2 * DS + 1
+    stm_lin = ((tt + d1 + d2) * IB + r) * W + (j + tt + d2)
+    dpm_lin = ((d1 - 1) * DS + (d2 - 1)) * W + (j + tt) + 0 * r
+    stm_used = int(torch.unique(stm_lin.expand_as(keep)[keep]).numel())
+    dpm_used = int(torch.unique(dpm_lin.expand_as(keep)[keep]).numel())
+    plane = IB * n2
+    nbytes = (B * 4 * ((13 + 7 + 7 + 3) * plane + 3 * n2 + stm_used + dpm_used)
+              + plane + B * 4 * 21 * plane)
+    ops = B * (2 * terms + 70 * plane)
+    return (B * terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / FP32_OPS_PER_S * 1e3)
+
+
+def step_row(cuda_ops, gen, dev, n, s, TB, IB, tt, label, B=1, i0=0):
+    """One ``tt_step`` at the tt step ``tt`` of span ``s`` on random
+    operands (batch B, rows from ``i0``): the kernel on one copy of them and
+    the plain version on another, at tt = s - 2, ``tt`` and 0 in that
+    order, every slab compared after each; then timed L2-hot (graph
+    replay), L2-cold (:func:`flushed_ms`) and eagerly; returns its row."""
+    ops_k = step_operands(n, s, TB, IB, gen, dev, B)
+    ops_p = clone_operands(ops_k)
+    kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
+    tk = cuda_ops.StepTable(*ops_k, **kw)
+    tp = cuda_ops.StepTable(*ops_p, **kw)
+    err = 0
+    for t in sorted({s - 2, tt, 0}, reverse=True):
+        before = cuda_ops.TT_STEP_LAUNCHES
+        cuda_ops.tt_step(tk, t)
+        cuda_ops.tt_step_ref(tp, t)
+        torch.cuda.synchronize()
+        check(cuda_ops.TT_STEP_LAUNCHES == before + 1, "a tt_step made more than one launch")
+        for name, x in (*ops_k[2].items(), ("STM", ops_k[3])):
+            y = ops_p[2][name] if name != "STM" else ops_p[3]
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    name = f"tt_step n={n} s={s} tt={tt} TB={TB} IB={IB}{label}"
+    check(err == 0, f"tt_step != plain on {name}: max |err| = {err}")
+    terms, nbytes, t_bytes, t_ops = step_bound(tk, tt, dev)
+
+    def kern():
+        cuda_ops.tt_step(tk, tt)
+
+    def plain():
+        cuda_ops.tt_step_ref(tp, tt)
+
+    row = {
+        "case": name, "batch": B, "i0": i0, "cells": B * IB * (n + 2),
+        "stencil_terms": terms, "bytes": nbytes, "max_abs_err": err,
+        "ms": graph_ms(kern), "ms_l2cold": flushed_ms(kern),
+        "plain_ms": graph_ms(plain, reps=10),
+        "call_ms": cuda_ms(kern, 200), "plain_call_ms": cuda_ms(plain, 10),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+    del ops_k, ops_p, tk, tp
+    torch.cuda.empty_cache()
+    return row
+
+
+def heaviest_step(n, bucket_dims):
+    """The (span, tt) of a dense fill of length n whose PM stencil has the
+    most admissible (cell, d1, d2) terms: d1 <= j - i - 1 and
+    d2 <= i + s - j - tt - 3, both in [1, DS]."""
+    from ccj_tpu_torch.engine.gapped import DS
+
+    def terms(s, tt):
+        IB = bucket_dims(n, s)[1]
+        k = torch.arange(n + 2)[None, :] - torch.arange(IB)[:, None]     # j - i
+        a = (k - 1).clamp(0, DS)
+        b = (s - tt - 3 - k).clamp(0, DS)
+        return int((a * b).sum())
+
+    return max(((s, tt) for s in range(3, n) for tt in range(s - 1)),
+               key=lambda st: (terms(*st), st))
+
+
+def phase_tt_step(cuda_ops, bucket_dims, dev):
+    """Phase 2b: ``tt_step`` against its plain version at the main path's
+    shapes; returns (rows, the dense n=100 row)."""
+    from ccj_tpu_torch.engine.gapped5 import segments7
+
+    gen = torch.Generator().manual_seed(1)
+    emit({"phase": "tt_step", "library": "none: no single PyTorch call computes "
+          "the step's assembly and stencil, so library_ms is null"})
+    cases = [(n, *main_span(n, bucket_dims), "", 1, 0) for n in (100, 128)]
+    s, TB, IB, tt, g = packed_main_span(200, segments7)
+    cases.append((200, s, TB, IB, tt, f" packed segment {g}", 1, 0))
+    cases += [(n, *main_span(n, bucket_dims), f" batch of {B}", B, 0)
+              for n, B in ((100, 4), (64, 8))]
+    s, TB, _, tt = main_span(100, bucket_dims)
+    R = -(-102 // 4)
+    cases.append((100, s, TB, R, tt, f" row shard 1 of 4, i0={R}", 1, R))
+    s, TB, IB, tt, p, i0 = widest_packed_shard_step(200, 4, 3, segments7)
+    cases.append((200, s, TB, IB, tt, f" packed segment 3, row shard {p} of 4, i0={i0}",
+                  1, i0))
+    # the n=100 fill's step with the most stencil terms (1,831,698; the main
+    # step's has 63,240): a thread walks its cell's terms one after another
+    s, tt = heaviest_step(100, bucket_dims)
+    TB, IB = bucket_dims(100, s)
+    cases.append((100, s, TB, IB, tt, " the most stencil terms", 1, 0))
+    rows = []
+    for n, s, TB, IB, tt, label, B, i0 in cases:
+        rows.append(step_row(cuda_ops, gen, dev, n, s, TB, IB, tt, label, B, i0))
+        emit({"phase": "tt_step", **rows[-1]})
+    return rows, rows[0]
+
+
 def max_rel_err(got, want):
     """Largest |got - want| / max(|got|, |want|) over two arrays (0 where
     both are 0)."""
@@ -509,7 +726,7 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     from ccj_tpu_torch.precompute import build_seq_tables
 
     out = {}
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    reset_counts(cuda_ops)
     # float64 on the card against the host float64 engine at n=16
     tabs = build_seq_tables("GCGCUUCGCCGCGCCA", sp, DEFAULT_PK)
     host = pfmod.pf_fill(tabs, sp, DEFAULT_PK)
@@ -560,7 +777,9 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     pf = partition(seq, num_samples=1000, device=dev)
     out["n64_partition_s"] = time.perf_counter() - t0
     out["minplus_launches"] = cuda_ops.LAUNCHES
-    check(cuda_ops.LAUNCHES == 0, "the partition function launched the min-plus kernel")
+    out["tt_step_launches"] = cuda_ops.TT_STEP_LAUNCHES
+    check(cuda_ops.LAUNCHES == 0 and cuda_ops.TT_STEP_LAUNCHES == 0,
+          "the partition function launched a tt-loop kernel")
     mfe = fold(seq, device=dev)
     check(abs(pf.Z - z32) / z32 < 1e-5, f"partition Z {pf.Z!r} != fill Z {z32!r}")
     check(pf.ensemble_energy <= mfe.energy + 1e-6,
@@ -647,7 +866,7 @@ def fold_anchor(api, fold, LazyMats, cuda_ops, n):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    reset_counts(cuda_ops)
     try:
         t0 = time.perf_counter()
         res = fold(seq)
@@ -660,7 +879,8 @@ def fold_anchor(api, fold, LazyMats, cuda_ops, n):
     check(len(seen) == 1 and len(fills) == 1, f"the n={n} fold did not take the lazy traceback")
     n_fill = api._fill_length(n)
     check(launches == tt_steps(n_fill), f"n={n} launches {launches} != {tt_steps(n_fill)}")
-    out = {"n": n, "n_fill": n_fill, "packed": seen[0]._segs is not None,
+    tt_launches = step_launches(cuda_ops, launches, f"fold n={n}")
+    out = {"n": n, "n_fill": n_fill, "tt_step_launches": tt_launches, "packed": seen[0]._segs is not None,
            "segments": len(seen[0]._segs or ()), "fold_s": fold_s, "fill_s": fills[0],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "bytes_fetched": seen[0].bytes_fetched, "slab_fetches": seen[0].slab_fetches,
@@ -770,7 +990,7 @@ def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63))
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    reset_counts(cuda_ops)
     t0 = time.perf_counter()
     st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
     torch.cuda.synchronize()
@@ -782,6 +1002,7 @@ def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63))
     check(launches == tt_steps(n_pad), f"batched fill x{B} launches {launches} != "
           f"1 per tt step ({tt_steps(n_pad)})")
     check(windows == 13 * B * tt_steps(n_pad), f"batched fill windows {windows}")
+    tt_launches = step_launches(cuda_ops, launches, f"batched fill x{B}")
     singles, singles_fill = [], []
     for b, seq in enumerate(seqs):
         torch.cuda.synchronize()
@@ -806,7 +1027,7 @@ def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63))
             "single_fill_only_sum_s": sum(singles_fill),
             "speedup_vs_singles": sum(singles) / batched_s,
             "max_memory_allocated": peak, "memory_before": base,
-            "launches": launches, "windows": windows,
+            "launches": launches, "windows": windows, "tt_step_launches": tt_launches,
             "arrays_compared": arrays * B}, seqs
 
 
@@ -864,7 +1085,7 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    reset_counts(cuda_ops)
     t0 = time.perf_counter()
     st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
     torch.cuda.synchronize()
@@ -875,6 +1096,7 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
     check(n_pad == 100, f"the bucket-100 batch padded to {n_pad}")
     check(launches == tt_steps(n_pad), f"batched fill x{B} launches {launches} != "
           f"1 per tt step ({tt_steps(n_pad)})")
+    tt_launches = step_launches(cuda_ops, launches, f"batched fill x{B}")
     check(int(st["V"][0, 1, 100]) == BENCH_V100, "batched element 0: V(1,100) != -1528")
     for k, v in st100.items():
         check(torch.equal(st[k][0], v), f"batched element 0 != the main path's fill6 on {k}")
@@ -911,6 +1133,7 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
             "per_sequence_throughput_vs_single": B * fill100_s / batched_s,
             "max_memory_allocated": peak, "memory_before": base,
             "peak_above_before": peak - base, "launches": launches, "windows": windows,
+            "tt_step_launches": tt_launches,
             "lazy_traceback_s": traceback_s, "elements": results}, seqs
 
 
@@ -947,7 +1170,7 @@ def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    reset_counts(cuda_ops)
     t0 = time.perf_counter()
     if segs is None:
         st = fill6_sharded(C, SC4, n, dangles, devices=["cuda:0"] * P)
@@ -959,6 +1182,7 @@ def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
     peak = torch.cuda.max_memory_allocated()
     check(launches == sharded_tt_steps(n, P),
           f"{what}: launches {launches} != {sharded_tt_steps(n, P)}")
+    tt_launches = step_launches(cuda_ops, launches, what)
     compared = 0
     if plain is not None:
         check(set(st.keys()) == set(plain), f"{what}: keys differ")
@@ -994,7 +1218,8 @@ def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
            "segments": None if segs is None else len(segs), "fill_s": wall,
            f"{unsharded}_s": plain_fill_s,
            f"wall_vs_{unsharded}": None if plain_fill_s is None else wall / plain_fill_s,
-           "launches": launches, "arrays_compared": compared,
+           "launches": launches, "tt_step_launches": tt_launches,
+           "arrays_compared": compared,
            "lazy_traceback_s": traceback_s, "slab_fetches": mats.slab_fetches,
            "bytes_fetched": mats.bytes_fetched,
            "max_memory_allocated": peak, "memory_before": base,
@@ -1061,13 +1286,51 @@ def phase_wavefront_packed(cuda_ops, sp, report):
     return out
 
 
+def phase_fold_many_pipeline(fold_many, cuda_ops, seqs64, seqs100, bucket_for,
+                             order=(1, None, None, 1)):
+    """Phase 9b: ``fold_many`` of phase 9's eight bucket-64 sequences and
+    phase 4c's four bucket-100 ones, with ``batch_limit=1`` (one fill and
+    its traceback at a time) and with the default (fill k+1 dispatched
+    before traceback k), in the turns ``order`` gives (None: the default);
+    every run's results equal the first's, one launch of each kernel per tt
+    step.  Returns each mode's walls and peak memory."""
+    seqs = [*seqs64, *seqs100]
+    want = sum(tt_steps(bucket_for(len(q))) for q in seqs)
+    first, out = None, {"n": [len(q) for q in seqs], "order": [
+        "batch_limit=1" if b == 1 else "default" for b in order]}
+    for b in order:
+        key = "batch_limit_1" if b == 1 else "default"
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(cuda_ops)
+        t0 = time.perf_counter()
+        res = fold_many(seqs) if b is None else fold_many(seqs, batch_limit=b)
+        wall = time.perf_counter() - t0
+        launches = cuda_ops.LAUNCHES
+        check(launches == want, f"fold_many ({key}) launches {launches} != {want}")
+        out["tt_step_launches"] = step_launches(cuda_ops, launches, f"fold_many ({key})")
+        line = [(r.seq, r.structure, r.energy_dcal) for r in res]
+        check([r.seq for r in res] == seqs, f"fold_many ({key}) lost the input order")
+        if first is None:
+            first = line
+        check(line == first, f"fold_many ({key}) differs from the {out['order'][0]} run")
+        out.setdefault(f"{key}_wall_s", []).append(wall)
+        out.setdefault(f"{key}_peak_bytes", []).append(torch.cuda.max_memory_allocated())
+    out["launches"] = want
+    out["energies_dcal"] = [e for *_, e in first]
+    return out
+
+
 def phase_corpus_processes(entries, nproc=2):
     """Phase 10: ``python -m ccj_tpu_torch.dist.corpus`` over ``entries``
     with ``nproc`` processes merging through a loopback TCPStore (one per
     card where there are enough, else all on cuda:0), then one process
     alone; both outputs must be the goldens in corpus order with no
     ``error``.  Returns each process's wall, its own fold wall and its
-    min-plus launches (which the CLI prints), and the one-process ones."""
+    min-plus and tt_step launches (which the CLI prints), and the
+    one-process ones."""
     import socket
 
     work = ROOT / "build" / "corpus_smoke"
@@ -1106,10 +1369,12 @@ def phase_corpus_processes(entries, nproc=2):
             check(p.returncode == 0, f"corpus process {pid} exited {p.returncode}: "
                   f"{err[-2000:]}")
             vals = dict(ln.split() for ln in err.splitlines()
-                        if ln.startswith(("corpus-fold-seconds", "corpus-minplus-launches")))
+                        if ln.startswith(("corpus-fold-seconds", "corpus-minplus-launches",
+                                          "corpus-tt-step-launches")))
             reports.append({"wall_s": walls[pid],
                             "fold_s": float(vals["corpus-fold-seconds"]),
-                            "launches": int(vals["corpus-minplus-launches"])})
+                            "launches": int(vals["corpus-minplus-launches"]),
+                            "tt_step_launches": int(vals["corpus-tt-step-launches"])})
         res = json.loads(out.read_text())
         check([r["seq"] for r in res] == [e["seq"] for e in entries],
               f"the {n}-process corpus is out of order")
@@ -1134,9 +1399,12 @@ def phase_corpus_processes(entries, nproc=2):
     for label, reps in (("two-process", multi), ("one-process", solo)):
         got = sum(r["launches"] for r in reps)
         check(got == want, f"{label} corpus launches {got} != {want}")
+        got = sum(r["tt_step_launches"] for r in reps)
+        check(got == want, f"{label} corpus tt_step launches {got} != {want}")
     return {"n": [len(e["seq"]) for e in entries], "processes": nproc,
             "placement": placement, "process_reports": multi,
             "launches": sum(r["launches"] for r in multi),
+            "tt_step_launches": sum(r["tt_step_launches"] for r in multi),
             "one_process": solo[0]}
 
 
@@ -1175,6 +1443,8 @@ def main():
     rows, main_row, packed_row, batched_rows, shard_row, packed_shard_row = phase_kernel(
         cuda_ops, bucket_dims, torch.device("cuda"))
     report["kernel"] = rows
+    step_rows, step_main = phase_tt_step(cuda_ops, bucket_dims, torch.device("cuda"))
+    report["tt_step"] = step_rows
 
     # ---- 3: corpus goldens -----------------------------------------------
     corpus = json.loads((ROOT / "tests" / "golden" / "corpus.json").read_text())
@@ -1192,7 +1462,7 @@ def main():
     # ---- 4: the main path at n=100 -----------------------------------------
     n = 100
     seq = bench_seq(n)
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    reset_counts(cuda_ops)
     t0 = time.perf_counter()
     res = fold(seq)
     fold_s = time.perf_counter() - t0
@@ -1201,6 +1471,7 @@ def main():
     check(launches == tt_steps(n), f"launches {launches} != 1 per tt step ({tt_steps(n)})")
     check(windows == 13 * tt_steps(n),
           f"windows {windows} != 13 per tt step ({13 * tt_steps(n)})")
+    tt_launches = step_launches(cuda_ops, launches, "the main path")
 
     sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
@@ -1234,7 +1505,8 @@ def main():
                       "slab_fetches": lazy.slab_fetches, "state_bytes": state_bytes,
                       "copy_s": copy_s, "copy_bytes": sum(x.nbytes for x in mats.values()),
                       "traceback_s": tb_s, "cells_per_s": cells4d(n) / fill_s,
-                      "launches": launches, "windows": windows, "V_1_n": v, "energy": res.energy,
+                      "launches": launches, "windows": windows,
+                      "tt_step_launches": tt_launches, "V_1_n": v, "energy": res.energy,
                       "structure": res.structure}
     emit({"phase": "main_path_n100", **report["n100"]})
 
@@ -1297,7 +1569,7 @@ def main():
     # ---- 6: fold_many -------------------------------------------------------
     entries = [next(e for e in corpus if len(e["seq"]) == m and not e["args"])
                for m in (37, 60, 16)]
-    cuda_ops.LAUNCHES = cuda_ops.WINDOWS = 0
+    reset_counts(cuda_ops)
     t0 = time.perf_counter()
     many = fold_many([e["seq"] for e in entries])
     many_s = time.perf_counter() - t0
@@ -1309,8 +1581,9 @@ def main():
               f"{e['structure']} ({e['energy']})")
     want = sum(tt_steps(bucket_for(len(e["seq"]))) for e in entries)
     check(many_launches == want, f"fold_many launches {many_launches} != {want}")
+    many_tt = step_launches(cuda_ops, many_launches, "fold_many")
     report["fold_many"] = {"n": [len(e["seq"]) for e in entries], "wall_s": many_s,
-                           "launches": many_launches}
+                           "launches": many_launches, "tt_step_launches": many_tt}
     emit({"phase": "fold_many", **report["fold_many"]})
 
     # ---- 7: the CLI ---------------------------------------------------------
@@ -1331,6 +1604,11 @@ def main():
     # ---- 9: the batched fill at bucket 64, eight sequences of 49-64 -----------
     report["batched_fill_n64_x8"], seqs64 = phase_batched_fill64(sp, cuda_ops)
     emit({"phase": "batched_fill_n64_x8", **report["batched_fill_n64_x8"]})
+
+    # ---- 9b: fold_many's fill-ahead pipeline against one fill at a time -------
+    report["fold_many_pipeline"] = phase_fold_many_pipeline(
+        fold_many, cuda_ops, seqs64, seqs100, bucket_for)
+    emit({"phase": "fold_many_pipeline", **report["fold_many_pipeline"]})
 
     # ---- 10: the corpus driver, two processes, on the 15 default goldens ------
     report["corpus_processes"] = phase_corpus_processes(
@@ -1392,6 +1670,40 @@ def main():
                                 for m, P in ((134, 2), (134, 4), (200, 2))},
                              "partition n=16,64": report["partition"]["minplus_launches"]},
     }]
+    step_keys = ("case", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms", "bound_by",
+                 "share_of_bound", "share_of_bound_l2cold", "max_abs_err")
+    kernels.append({
+        "name": "tt_step", "route": "cuda",
+        "source": "ccj_tpu_torch/csrc/ttstep.cu", "replaces": STEP_REPLACES,
+        "replaces_what": "the XLA fusion of run_tt_loop_unstacked.t_body after its "
+                         "reductions (ttloop.py:436-551); no Pallas kernel",
+        "launches": tt_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in step_rows),
+        "ms": step_main["ms"], "plain_ms": step_main["plain_ms"],
+        "bound_ms": step_main["bound_ms"], "bound_by": step_main["bound_by"],
+        "library_ms": None, "call_ms": step_main["call_ms"],
+        "ms_l2cold": step_main["ms_l2cold"],
+        "share_of_bound": step_main["share_of_bound"],
+        "share_of_bound_l2cold": step_main["share_of_bound_l2cold"],
+        "matches_plain": True, "shape": step_main["case"],
+        "other_shapes": [{k: r[k] for k in step_keys} for r in step_rows[1:]],
+        "launches_by_path": {
+            "fold n=100": tt_launches,
+            **{f"fold n={m}": report[f"n{m}"]["tt_step_launches"] for m in (126, 134, 200)},
+            "fold_many n=37,60,16": report["fold_many"]["tt_step_launches"],
+            "fold_many bucket 64 x8 + 100 x4, per run":
+                report["fold_many_pipeline"]["tt_step_launches"],
+            "batched fill bucket 64 x8": report["batched_fill_n64_x8"]["tt_step_launches"],
+            "batched fill bucket 100 x4": report["batched_fill_n100_x4"]["tt_step_launches"],
+            "corpus": report["corpus_processes"]["tt_step_launches"],
+            **{f"wavefront dense P{P} n{m}":
+               report[f"wavefront_dense_P{P}_n{m}"]["tt_step_launches"]
+               for m, P in ((100, 2), (100, 4), (126, 2))},
+            **{f"wavefront packed P{P} n{m}":
+               report[f"wavefront_packed_P{P}_n{m}"]["tt_step_launches"]
+               for m, P in ((134, 2), (134, 4), (200, 2))},
+            "partition n=16,64": report["partition"]["tt_step_launches"]},
+    })
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,5 +1,6 @@
-"""The CUDA kernel against its plain PyTorch version, on the card (exact:
-integer data), the card's lazy traceback, P-split argmin and float64
+"""The CUDA kernels (``minplus_group``, ``tt_step``) against their plain
+PyTorch versions, on the card (exact: integer data), ``fold_many``'s
+fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
 partition function against the CPU's, the long reference anchors
 (n = 134 ... 200) through the packed fill, the batched and the row-sharded
 fills (dense and packed) against single fills.  Marked ``gpu``; each test skips
@@ -172,13 +173,14 @@ def test_long_anchor_folds_on_cuda(cuda, n):
         .read_text().splitlines()[:2]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    before = cuda_ops.LAUNCHES
+    before = (cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
     res = fold(seq)
     peak = torch.cuda.max_memory_allocated()
     got = f"{res.structure} ({_format_energy(res.energy)})"   # the CLI's line
     assert got == line, f"n={n}: {got!r} != {line!r} (peak device memory {peak} B)"
-    assert cuda_ops.LAUNCHES - before == (n - 1) * (n - 2) // 2, \
-        f"n={n}: launches (peak device memory {peak} B)"
+    steps = (n - 1) * (n - 2) // 2
+    assert (cuda_ops.LAUNCHES - before[0], cuda_ops.TT_STEP_LAUNCHES - before[1]) == \
+        (steps, steps), f"n={n}: launches (peak device memory {peak} B)"
 
 
 def _bench_seq(n, seed):
@@ -334,3 +336,79 @@ def test_two_process_corpus_on_cuda(cuda, tmp_path):
     for r, e in zip(merged, golden):
         assert r["error"] is None, r
         assert r["structure"] == e["structure"] and abs(r["energy"] - e["energy"]) < 1e-9, r
+
+
+def _step_operands(n, s, TB, IB, gen, dev, B):
+    """Random operands of one span's tt_step in run_tt_loop's shapes."""
+    from ccj_tpu_torch.engine.gapped import DS, PADT
+
+    def small(shape):
+        x = _rand(shape, gen, dev)
+        return torch.where(x == INF, INF, x.clamp(-400, 400))
+
+    n2 = n + 2
+    UB = n2 + TB
+    plane = lambda: _rand((B, TB, IB, n2), gen, dev)              # noqa: E731
+    bits = lambda: torch.randint(0, 2, (B, TB, n2), generator=gen,  # noqa: E731
+                                 dtype=torch.int32).to(dev)
+    cur = {k: _rand((B, 2 * TB + 2, IB, n2), gen, dev) for k in cuda_ops.STEP_FAMILIES}
+    cur.update({"B_" + k: _rand((B, 2 * TB + 2, IB, UB), gen, dev)
+                for k in cuda_ops.STEP_B_SLABS})
+    return (_rand((B, cuda_ops.STEP_REDUCTIONS, IB, n2), gen, dev),
+            {k: plane() for k in cuda_ops.STEP_BASES}, cur,
+            _rand((B, TB + 2 * PADT, IB, UB + DS), gen, dev),
+            small((B, DS, DS, TB, UB)), (bits(), bits(), small((B, TB, n2))),
+            (torch.rand((TB, IB, n2), generator=gen) < 0.8).to(dev),
+            plane(), plane(), plane())
+
+
+# (n, s, TB, IB, B, i0): the main steps of the dense fill at n=100 and 128,
+# the packed fill at n=200 (segment 3), the batched fills (100 x 4, 64 x 8),
+# a dense row shard (n=100, P=4, shard 1) and a packed one (n=200, P=4,
+# segment 3, shard 1), and the n=100 step with the most stencil terms
+STEP_CASES = [(100, 37, 64, 102, 1, 0), (128, 65, 64, 128, 1, 0),
+              (200, 135, 134, 100, 1, 0), (100, 37, 64, 102, 4, 0),
+              (64, 33, 32, 64, 8, 0), (100, 37, 64, 26, 1, 26),
+              (200, 102, 134, 48, 1, 51), (100, 69, 99, 64, 1, 0)]
+
+
+@pytest.mark.parametrize("n,s,TB,IB,B,i0", STEP_CASES)
+def test_tt_step_kernel_matches_plain(cuda, n, s, TB, IB, B, i0):
+    """tt_step on one copy of random operands, tt_step_ref on another, at
+    the last, a middle and the first tt step in the loop's order; every
+    slab equal after each, one launch each."""
+    gen = torch.Generator().manual_seed(n * 31 + B + i0)
+    ops_k = _step_operands(n, s, TB, IB, gen, cuda, B)
+    ops_p = tuple({k: v.clone() for k, v in x.items()} if isinstance(x, dict)
+                  else tuple(v.clone() for v in x) if isinstance(x, tuple)
+                  else x.clone() for x in ops_k)
+    kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
+    tk, tp = cuda_ops.StepTable(*ops_k, **kw), cuda_ops.StepTable(*ops_p, **kw)
+    for tt in (s - 2, (s - 2) // 2, 0):
+        before = (cuda_ops.TT_STEP_LAUNCHES, cuda_ops.LAUNCHES)
+        cuda_ops.tt_step(tk, tt)
+        cuda_ops.tt_step_ref(tp, tt)
+        torch.cuda.synchronize()
+        assert (cuda_ops.TT_STEP_LAUNCHES, cuda_ops.LAUNCHES) == (before[0] + 1, before[1])
+        for name, x in ops_k[2].items():
+            assert torch.equal(x, ops_p[2][name]), (tt, name)
+        assert torch.equal(ops_k[3], ops_p[3]), (tt, "STM")
+
+
+def test_fold_many_pipeline_on_cuda_matches_fold(cuda):
+    """fold_many over two buckets at batch_limit 1, 2 and the default
+    equals each sequence's own fold, with one launch of each kernel per
+    tt step."""
+    from ccj_tpu_torch import fold, fold_many
+    from ccj_tpu_torch.api import bucket_for
+
+    seqs = [_bench_seq(n, seed) for seed, n in enumerate((30, 47, 41, 26, 45, 31))]
+    want = [(r.structure, r.energy_dcal) for r in map(fold, seqs)]
+    steps = sum((bucket_for(len(q)) - 1) * (bucket_for(len(q)) - 2) // 2 for q in seqs)
+    for kw in ({"batch_limit": 1}, {"batch_limit": 2}, {}):
+        before = (cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+        got = fold_many(seqs, **kw)
+        assert [r.seq for r in got] == seqs
+        assert [(r.structure, r.energy_dcal) for r in got] == want, kw
+        assert (cuda_ops.LAUNCHES - before[0], cuda_ops.TT_STEP_LAUNCHES - before[1]) == \
+            (steps, steps), kw
