@@ -6,8 +6,8 @@ tables are built and padded (``precompute.pad_seq_tables``: the
 true-length window of a padded fill is bit-identical to an unpadded one)
 and stacked with a leading batch axis, and the dense fill runs the whole
 batch in one span loop (``fold.fill6_batched``).  Every operation of the
-fill is issued once for the B sequences, among them one ``minplus_group``
-launch per tt step, where the single fill issues it once per sequence.
+fill is issued once for the B sequences, among them one ``tt_span``
+launch per span, where the single fill issues it once per sequence.
 
 The JAX function's ``mesh`` argument (the batch axis sharded over a
 ``data`` mesh of devices) has no counterpart here.  Data parallelism over

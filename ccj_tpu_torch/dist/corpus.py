@@ -214,6 +214,7 @@ def main(argv=None):
     # machine-readable fold wall (a process-scaling probe reads it) and the
     # tt-loop kernels' launches this process made (chip_smoke.py reads them)
     print(f"corpus-fold-seconds {time.time() - t0:.3f}", file=sys.stderr)
+    print(f"corpus-tt-span-launches {cuda_ops.TT_SPAN_LAUNCHES}", file=sys.stderr)
     print(f"corpus-minplus-launches {cuda_ops.LAUNCHES}", file=sys.stderr)
     print(f"corpus-tt-step-launches {cuda_ops.TT_STEP_LAUNCHES}", file=sys.stderr)
     if args.process_id == 0:

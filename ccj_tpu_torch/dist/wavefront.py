@@ -564,8 +564,8 @@ def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
     the 2-D recurrences on every replica; the P split on each shard's
     rows, all-gathered into every replica's P diagonal; the gapped step on
     each shard with a span-s row (``gapped4.span_families`` over the
-    layout's sharded reads with its row offset, one ``minplus_group``
-    launch per tt step and shard on CUDA); then the write-back."""
+    layout's sharded reads with its row offset, one ``tt_span`` launch
+    per span and shard on CUDA); then the write-back."""
     n, tr = st.n, st.transport
     Cd = {dev: {**_on(C, dev), "n": n} for dev in st.replicas}
     SC4d = {dev: _on(SC4, dev) for dev in st.replicas}

@@ -1,22 +1,24 @@
 """Hand-written Hopper kernels of the port, with their plain PyTorch twins.
 
-Two kernels, both run once per step of the serial tt loop
-(``ttloop.run_tt_loop``): :func:`minplus_group`, the step's 13 min-plus
-reductions, then :func:`tt_step`, the rest of the step.
+Three kernels of the serial tt loop.  :func:`tt_span` runs a span's whole
+loop, every tt step, in one launch; it is what every fill runs
+(``ttloop.run_tt_loop``).  :func:`minplus_group`, the step's 13 min-plus
+reductions, and :func:`tt_step`, the rest of the step, are the same loop
+one step and two launches at a time: the card-side comparator of
+:func:`tt_span` (:func:`tt_span_steps`, ``ttloop.run_tt_loop_steps``), and
+the pieces of its plain version.
 
 Counterpart of ``ccj_tpu/engine/pallas_ops.py``.  Its one TPU kernel,
 ``_minplus_kernel`` (launched by ``minplus_suffix``), is a masked min-plus
 suffix reduction; the same function is the serial tt loop's k-shrink and
 j-shrink reductions ``red_k`` / ``red_j`` (``ccj_tpu/engine/ttloop.py:442-455``),
-13 windows per tt step.  Here it is one CUDA C++ kernel for ``sm_90a``
-(``csrc/minplus.cu``, whose header notes its bound and design) that reduces
-a *group* of windows in one launch: :func:`minplus_group` takes a
-:class:`WindowTable`, built once per span, and the step's ``tt``, and the
-port's tt loop (``ttloop.run_tt_loop``) makes one launch per step.
+13 windows per tt step (:data:`REDUCTIONS`).  :func:`minplus_group`
+(``csrc/minplus.cu``, whose header notes its bound and design) reduces a
+*group* of windows in one launch from a :class:`WindowTable`, built once
+per span (:func:`reduction_table`), and the step's ``tt``.
 :func:`minplus_window` is a group of one through the same kernel.  A table
 over slabs and weights with a leading batch axis reduces every element of
-the batch in the same launch (output ``[B, G, I, J]``), so a batched fill
-makes one launch per step for the whole batch.
+the batch in the same launch (output ``[B, G, I, J]``).
 
 :func:`tt_step` (``csrc/ttstep.cu``) is the counterpart of the XLA fusion
 of the JAX loop body after its reductions (``ccj_tpu/engine/ttloop.py:457-551``,
@@ -26,14 +28,21 @@ columns the step keeps, and writes it back into the span's slabs.  Its
 operands travel in a :class:`StepTable`, built and checked once per span;
 :func:`tt_step_ref` is its plain version, the loop body as it was.
 
+:func:`tt_span` (``csrc/ttspan.cu``) computes both for every tt step of a
+span, one block (or thread-block cluster) per (b, i) row, from a
+:class:`SpanTable` built and checked once per span; its plain version
+:func:`tt_span_ref` is the loop of :func:`minplus_group_ref` and
+:func:`tt_step_ref`.
+
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
 back.  The library is built with ``nvcc`` (one process per source, then one
 link) into ``build/`` beside the package at first use and loaded with
 ``ctypes``.  ``LAUNCHES`` counts ``minplus_group`` launches and ``WINDOWS``
 the windows those launches reduced (a batch of B counts each window B
-times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches; nothing else
-moves them, so a run can show that its main path went through the kernels.
+times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches and
+``TT_SPAN_LAUNCHES`` ``tt_span`` launches; nothing else moves them, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ MAX_WINDOWS = 16        # csrc/minplus.cu kMaxWindows
 LAUNCHES = 0            # minplus kernel launches (CUDA only)
 WINDOWS = 0             # windows reduced by those launches (B per batched window)
 TT_STEP_LAUNCHES = 0    # tt_step kernel launches (CUDA only)
+TT_SPAN_LAUNCHES = 0    # tt_span kernel launches (CUDA only)
 MAX_GRID_Z = 65535      # CUDA's grid.z limit: descriptors x batch
 
 _lib = None
@@ -169,6 +179,16 @@ def _library():
                 raise RuntimeError("gapped.DS does not match csrc/ttstep.cu kDS")
             lib.ccj_tt_step.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.ccj_tt_step.restype = ctypes.c_int
+            if lib.ccj_tt_span_table_bytes() != ctypes.sizeof(SpanTable):
+                raise RuntimeError(
+                    f"cuda_ops.SpanTable ({ctypes.sizeof(SpanTable)} B) does not "
+                    f"mirror csrc/ttspan.cu ({lib.ccj_tt_span_table_bytes()} B)")
+            if (lib.ccj_tt_span_max_n2() != MAX_SPAN_N2
+                    or lib.ccj_tt_span_max_jobs() != MAX_SPAN_JOBS):
+                raise RuntimeError("MAX_SPAN_N2 / MAX_SPAN_JOBS do not match csrc/ttspan.cu")
+            lib.ccj_tt_span.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_void_p]
+            lib.ccj_tt_span.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -342,6 +362,48 @@ class WindowTable:
                              f"[{self.tt_lo}, {self.tt_hi}]")
 
 
+# The tt step's 13 k-shrink / j-shrink reductions, in the order the step
+# reads them: (slab, weight table, kind, masked).  Kind "k" is red_k: rows
+# tt+1.. of an A slab, weights WKX[:, tt+2: tt+2+n2], mask mode 1
+# (d <= G - 1, i.e. q <= s - 4 - tt - (j - i)).  Kind "j" is red_j: rows
+# tt+1.. and columns tt.. of a u-skewed B slab ("B_" + family), weights
+# WJX, mask mode 2 (d <= (j - i) - 1, i.e. q <= j - i - 2).
+REDUCTIONS = (
+    ("B_PLmloop00", "WB", "j", False),       # PLmloop00
+    ("B_PLmloop00", "WBP", "j", False),      # PLmloop01
+    ("B_PLmloop10", "WB", "j", True),        # PLmloop10
+    ("PRmloop00", "WB", "k", False),         # PRmloop00
+    ("PRmloop00", "WBP", "k", False),        # PRmloop10
+    ("B_PMmloop00", "WB", "j", False),       # PMmloop00
+    ("PMmloop00", "WB", "k", False),         # PMmloop00
+    ("B_PfromL", "WP", "j", True),           # PfromL
+    ("PfromR", "WP", "k", True),             # PfromR
+    ("B_PfromMprime", "WP", "j", True),      # PfromM
+    ("mdp", "WP", "k", True),                # PfromMprime
+    ("B_PK", "WP", "j", True),               # PK
+    ("PK", "WP", "k", True),                 # PK
+)
+
+
+def reduction_table(slabs, WKX, WJX, s, n2, i0=0):
+    """The descriptor table of one span's :data:`REDUCTIONS`, valid for
+    every tt in [0, s - 2]; ``slabs`` maps the slab names to the span's
+    A / B slabs (and ``mdp``), ``WKX`` / ``WJX`` the weight names to their
+    tables, all with or all without a leading batch axis.  Slab row r is
+    i = i0 + r: both masks read i - c, so the row offset moves into c."""
+    wins = []
+    for slab, wn, kind, masked in REDUCTIONS:
+        if kind == "k":
+            wins.append(WindowSpec(
+                slabs[slab], WKX[wn], row0=(1, 1), wcol=(2, 1),
+                mode=1 if masked else 0, c=(s - 4 + i0, -1)))
+        else:
+            wins.append(WindowSpec(
+                slabs[slab], WJX[wn], row0=(1, 1), col0=(0, 1),
+                mode=2 if masked else 0, c=(2 + i0, 0)))
+    return WindowTable(wins, n2, (0, s - 2))
+
+
 def minplus_window_ref(slab, w, row0, col0=0, q_lo=0, mode=0, c=0):
     """Plain PyTorch version of :func:`minplus_window` (same arguments;
     ``slab`` and ``w`` may carry a leading batch axis, which the result
@@ -455,9 +517,9 @@ def minplus_suffix(slab, w, lo):
 
 # csrc/ttstep.cu's operand order.  STEP_FAMILIES are the loop's 14 families
 # (``ttloop.LOOP_MATS_ALL``), STEP_B_SLABS those that also keep a u-skewed
-# (B) slab for the j-shrink reductions (``ttloop.B4_MATS_ALL``), STEP_BASES
+# (B) slab for the j-shrink reductions of the step-by-step loop, STEP_BASES
 # the 7 span-constant cross-span reduction bases; the step's reductions are
-# ``ttloop.REDUCTIONS``, in that order.
+# :data:`REDUCTIONS`, in that order.
 STEP_FAMILIES = ("PLmloop00", "PLmloop01", "PLmloop10", "PRmloop00",
                  "PRmloop10", "PMmloop00", "PMmloop01", "PMmloop10",
                  "PM", "PfromL", "PfromR", "PfromM", "PfromMprime", "PK")
@@ -465,7 +527,7 @@ STEP_B_SLABS = ("PK", "PLmloop00", "PLmloop10", "PMmloop00", "PfromL",
                 "PfromMprime")
 STEP_BASES = ("PLmloop00", "PLmloop10", "PRmloop00", "PMmloop01",
               "PMmloop10", "PfromL", "PfromR")
-STEP_REDUCTIONS = 13
+STEP_REDUCTIONS = len(REDUCTIONS)
 MAX_GRID_Y = 65535      # CUDA's grid.y limit: the step's batch
 
 
@@ -474,6 +536,30 @@ class Plane(ctypes.Structure):
     pointer and its element strides over (batch, row, i, j); a null
     pointer where a family has no B slab."""
     _fields_ = [("p", ctypes.c_void_p), ("s", ctypes.c_longlong * 4)]
+
+
+def _plane(x, lead=True):
+    """A Plane of x over (batch, row, i, j): a 3-D x is [batch, row, j]
+    with lead, [row, i, j] without."""
+    st = list(x.stride())
+    if not lead:
+        st = [0] + st
+    elif x.dim() == 3:
+        st = st[:2] + [0] + st[2:]
+    return Plane(x.data_ptr(), (ctypes.c_longlong * 4)(*st))
+
+
+def _need(name, x, shape, dtype=torch.int32):
+    """Raise unless x has len(shape) axes, each at least its entry (an int)
+    or exactly it (a 1-tuple), and ``dtype``."""
+    ok = x.dim() == len(shape) and all(
+        (d == w[0]) if isinstance(w, tuple) else d >= w
+        for d, w in zip(x.shape, shape))
+    if not ok:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} does not fit {shape} "
+                         f"(an int is a least size, a 1-tuple an exact one)")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
 
 
 class StepTable(ctypes.Structure):
@@ -525,43 +611,31 @@ class StepTable(ctypes.Structure):
         T = s - 1                             # rows [0, s - 2] are read
         UB = stm.shape[-1] - DS
 
-        def need(name, x, shape, dtype=torch.int32):
-            """x has len(shape) axes, each at least its entry (an int) or
-            exactly it (a 1-tuple), and ``dtype``."""
-            ok = x.dim() == len(shape) and all(
-                (d == w[0]) if isinstance(w, tuple) else d >= w
-                for d, w in zip(x.shape, shape))
-            if not ok:
-                raise ValueError(f"{name}: shape {tuple(x.shape)} does not fit {shape} "
-                                 f"(an int is a least size, a 1-tuple an exact one)")
-            if x.dtype != dtype:
-                raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-
         E = (B,), (IB,), (n2,)
-        need("red", red, (*E[:1], (STEP_REDUCTIONS,), *E[1:]))
+        _need("red", red, (*E[:1], (STEP_REDUCTIONS,), *E[1:]))
         if set(bases) != set(STEP_BASES):
             raise ValueError(f"bases must be {STEP_BASES}, got {sorted(bases)}")
         for name in STEP_BASES:
-            need(f"bases[{name}]", bases[name], (E[0], T, *E[1:]))
+            _need(f"bases[{name}]", bases[name], (E[0], T, *E[1:]))
         want = set(STEP_FAMILIES) | {"B_" + nm for nm in STEP_B_SLABS}
         if not want <= set(cur):
             raise ValueError(f"cur lacks {sorted(want - set(cur))}")
         for name in STEP_FAMILIES:
-            need(f"cur[{name}]", cur[name], (E[0], s + 1, *E[1:]))
+            _need(f"cur[{name}]", cur[name], (E[0], s + 1, *E[1:]))
         for name in STEP_B_SLABS:
-            need(f"cur[B_{name}]", cur["B_" + name], (E[0], T, E[1], n2 + s - 2))
-        need("stm", stm, (E[0], T + 2 * DS, E[1], n2 + s - 2 + DS))
+            _need(f"cur[B_{name}]", cur["B_" + name], (E[0], T, E[1], n2 + s - 2))
+        _need("stm", stm, (E[0], T + 2 * DS, E[1], n2 + s - 2 + DS))
         if not stm.is_contiguous():
             raise ValueError("stm must be contiguous (the plain stencil views it "
                              "through its own strides)")
-        need("dpm", dpm, (E[0], (DS,), (DS,), T, UB))
+        _need("dpm", dpm, (E[0], (DS,), (DS,), T, UB))
         if len(ops["jk"]) != 3:
             raise ValueError("jk must be (canp, ptype, ESTP) rows")
         for k, x in enumerate(ops["jk"]):
-            need(f"jk[{k}]", x, (E[0], T, E[2]))
-        need("valid", valid, (T, *E[1:]), torch.bool)
+            _need(f"jk[{k}]", x, (E[0], T, E[2]))
+        _need("valid", valid, (T, *E[1:]), torch.bool)
         for name in ("pl", "pr", "po"):
-            need(name, ops[name], (E[0], T, *E[1:]))
+            _need(name, ops[name], (E[0], T, *E[1:]))
 
         tensors = [red, *bases.values(), *(cur[nm] for nm in want), stm, dpm,
                    *ops["jk"], valid, pl, pr, po]
@@ -573,28 +647,18 @@ class StepTable(ctypes.Structure):
                 raise ValueError(f"batch {B} exceeds the grid's {MAX_GRID_Y} y blocks")
             self._fn = _library().ccj_tt_step
 
-        def plane(x, lead=True):
-            """A Plane of x over (batch, row, i, j): a 3-D x is [batch,
-            row, j] with lead, [row, i, j] without."""
-            st = list(x.stride())
-            if not lead:
-                st = [0] + st
-            elif x.dim() == 3:
-                st = st[:2] + [0] + st[2:]
-            return Plane(x.data_ptr(), (ctypes.c_longlong * 4)(*st))
-
-        self.red = plane(red)
+        self.red = _plane(red)
         for k, name in enumerate(STEP_BASES):
-            self.base[k] = plane(bases[name])
+            self.base[k] = _plane(bases[name])
         for k, name in enumerate(STEP_FAMILIES):
-            self.cur[k] = plane(cur[name])
+            self.cur[k] = _plane(cur[name])
             if name in STEP_B_SLABS:
-                self.bslab[k] = plane(cur["B_" + name])
-        self.stm = plane(stm)
+                self.bslab[k] = _plane(cur["B_" + name])
+        self.stm = _plane(stm)
         for k, x in enumerate(ops["jk"]):
-            self.jk[k] = plane(x)
-        self.valid = plane(valid, lead=False)
-        self.pl, self.pr, self.po = plane(pl), plane(pr), plane(po)
+            self.jk[k] = _plane(x)
+        self.valid = _plane(valid, lead=False)
+        self.pl, self.pr, self.po = _plane(pl), _plane(pr), _plane(po)
         self.dpm = dpm.data_ptr()
         self.dpm_s = (ctypes.c_longlong * 5)(*dpm.stride())
         self.B, self.s, self.i0, self.IB, self.n2 = B, s, i0, IB, n2
@@ -751,3 +815,227 @@ def tt_step(table: StepTable, tt: int):
     if rc != 0:
         raise RuntimeError(f"tt_step launch failed: cudaError {rc}")
     TT_STEP_LAUNCHES += 1
+
+
+# ---------------------------------------------------------------------------
+# tt_span: a span's whole tt loop in one launch
+# ---------------------------------------------------------------------------
+
+MAX_SPAN_N2 = 512       # csrc/ttspan.cu kMaxN2: a block's shared memory
+MAX_SPAN_JOBS = 16      # csrc/ttspan.cu kMaxJobs
+SPAN_WEIGHTS = ("WP", "WB", "WBP")
+SPAN_CLUSTERS = (1, 2, 4)       # blocks per (b, i) row the library holds
+
+
+class SpanJob(ctypes.Structure):
+    """One reduction descriptor of :func:`tt_span`: csrc/ttspan.cu's
+    ``struct Job``.  ``src`` indexes :data:`STEP_FAMILIES` (its length:
+    mdp); ``kind`` 0 is red_k, 1 red_j (read through the family's A slab);
+    ``w`` / ``w2`` index the six weight planes (WKX's :data:`SPAN_WEIGHTS`,
+    then WJX's), ``w2`` -1 for none; ``out`` / ``out2`` are reductions of
+    :data:`REDUCTIONS`."""
+    _fields_ = [(nm, ctypes.c_int)
+                for nm in ("src", "kind", "masked", "w", "out", "w2", "out2")]
+
+
+def span_jobs():
+    """The kernel's descriptors for :data:`REDUCTIONS`: one per (family,
+    kind, mask), a red_j window's B slab read through its family's A slab;
+    two windows that differ only in their weights share one."""
+    jobs, index = [], {}
+    for g, (slab, wn, kind, masked) in enumerate(REDUCTIONS):
+        fam = slab[2:] if slab.startswith("B_") else slab
+        src = len(STEP_FAMILIES) if fam == "mdp" else STEP_FAMILIES.index(fam)
+        w = SPAN_WEIGHTS.index(wn) + (0 if kind == "k" else len(SPAN_WEIGHTS))
+        key = (src, kind, masked)
+        if key in index:
+            job = jobs[index[key]]
+            job.w2, job.out2 = w, g
+        else:
+            index[key] = len(jobs)
+            jobs.append(SpanJob(src, int(kind == "j"), int(masked), w, g, -1, -1))
+    return jobs
+
+
+class SpanTable(ctypes.Structure):
+    """One span's operands of :func:`tt_span`, valid for its whole loop
+    (tt = s - 2 .. 0): csrc/ttspan.cu's ``struct SpanTable``, field for
+    field, built and checked once per span and passed to the kernel by
+    value.
+
+    ``cur``: the 14 families' A slabs ``[B, >= s - 1 + Q, IB, n2]`` (rows
+    from s - 1 on hold the loop's initial values and are read; rows
+    [0, s - 2] are written, one a step); ``mdp``: the PfromMdoubleprime
+    slab, the same shape, read only; ``WKX`` / ``WJX``: the k-shrink and
+    j-shrink weight tables by :data:`SPAN_WEIGHTS` name, ``[B, Q, >= n2 +
+    s]`` and ``[B, Q, >= n2]`` (Q, the weight rows, is the span's TB);
+    ``bases``: the 7 :data:`STEP_BASES` planes ``[B, >= s - 1, IB, n2]``;
+    ``dpm``: ``[B, DS, DS, >= s - 1, >= n2 + s - 2]``; ``jk``: the (canp,
+    ptype, ESTP) rows ``[B, >= s - 1, n2]``; ``valid``: ``[>= s - 1, IB,
+    n2]`` bool, shared by the batch; ``pl``, ``pr``, ``po``: ``[B, >= s -
+    1, IB, n2]``.  Slab row r is i = ``i0`` + r.  Every operand is int32
+    but ``valid``, all on one CUDA device or all on the CPU; raises
+    otherwise, and past the kernel's limits (n2 <= :data:`MAX_SPAN_N2`,
+    a batch within the grid's y blocks).  There is no B slab and no STM:
+    the kernel reads red_j's terms from the A slabs and PM's earlier rows
+    from its own shared memory, and the plain version makes both
+    (:func:`span_step_tables`).  The tensors stay alive with the table
+    (``ops``)."""
+    _fields_ = [("cur", Plane * len(STEP_FAMILIES)), ("mdp", Plane),
+                ("wt", Plane * (2 * len(SPAN_WEIGHTS))),
+                ("base", Plane * len(STEP_BASES)), ("jk", Plane * 3),
+                ("valid", Plane), ("pl", Plane), ("pr", Plane), ("po", Plane),
+                ("dpm", ctypes.c_void_p), ("dpm_s", ctypes.c_longlong * 5),
+                ("jobs", SpanJob * MAX_SPAN_JOBS),
+                *((nm, ctypes.c_int) for nm in (
+                    "njobs", "B", "s", "i0", "IB", "n2", "Q", "bp", "cp", "ap",
+                    "PB", "SAT16", "INF"))]
+
+    def __init__(self, cur, mdp, WKX, WJX, bases, dpm, jk, valid, pl, pr, po, *,
+                 s: int, i0: int, bp: int, cp: int, ap: int, PB: int):
+        super().__init__()
+        if s < 2:
+            raise ValueError(f"span {s} has no tt step")
+        if not set(STEP_FAMILIES) <= set(cur):
+            raise ValueError(f"cur lacks {sorted(set(STEP_FAMILIES) - set(cur))}")
+        for what, x in (("bases", bases), ("WKX", WKX), ("WJX", WJX)):
+            want = STEP_BASES if what == "bases" else SPAN_WEIGHTS
+            if set(x) != set(want):
+                raise ValueError(f"{what} must be {want}, got {sorted(x)}")
+        first = cur[STEP_FAMILIES[0]]
+        if first.dim() != 4:
+            raise ValueError(f"cur slabs must be [B, R, IB, n2], got {tuple(first.shape)}")
+        B, _, IB, n2 = first.shape
+        if n2 > MAX_SPAN_N2:
+            raise ValueError(f"n2 = {n2} is past tt_span's limit MAX_SPAN_N2 = "
+                             f"{MAX_SPAN_N2} (a block's shared memory)")
+        if B > MAX_GRID_Y:
+            raise ValueError(f"batch {B} is past tt_span's limit of {MAX_GRID_Y} "
+                             "(the grid's y blocks)")
+        Q = WKX["WP"].shape[-2]
+        T = s - 1                                 # rows [0, s - 2] are read
+        R = max(s + 1, s - 1 + Q)                 # slab rows the loop reads
+        E = (B,), (IB,), (n2,)
+        for name in STEP_FAMILIES:
+            _need(f"cur[{name}]", cur[name], (E[0], R, *E[1:]))
+        _need("mdp", mdp, (E[0], R, *E[1:]))
+        for nm in SPAN_WEIGHTS:
+            _need(f"WKX[{nm}]", WKX[nm], (E[0], (Q,), n2 + s))
+            _need(f"WJX[{nm}]", WJX[nm], (E[0], (Q,), n2))
+        for name in STEP_BASES:
+            _need(f"bases[{name}]", bases[name], (E[0], T, *E[1:]))
+        _need("dpm", dpm, (E[0], (DS,), (DS,), T, n2 + s - 2))
+        jk = tuple(jk)
+        if len(jk) != 3:
+            raise ValueError("jk must be (canp, ptype, ESTP) rows")
+        for k, x in enumerate(jk):
+            _need(f"jk[{k}]", x, (E[0], T, E[2]))
+        _need("valid", valid, (T, *E[1:]), torch.bool)
+        for name, x in (("pl", pl), ("pr", pr), ("po", po)):
+            _need(name, x, (E[0], T, *E[1:]))
+
+        weights = [WKX[nm] for nm in SPAN_WEIGHTS] + [WJX[nm] for nm in SPAN_WEIGHTS]
+        tensors = [*(cur[nm] for nm in STEP_FAMILIES), mdp, *weights,
+                   *bases.values(), dpm, *jk, valid, pl, pr, po]
+        if all(t.device.type == "cpu" for t in tensors):
+            self.device = torch.device("cpu")
+        else:
+            self.device = _check_devices(tensors)
+            self._fn = _library().ccj_tt_span
+        self.ops = {"cur": dict(cur), "mdp": mdp, "WKX": dict(WKX), "WJX": dict(WJX),
+                    "bases": dict(bases), "dpm": dpm, "jk": jk, "valid": valid,
+                    "pl": pl, "pr": pr, "po": po}
+        for k, name in enumerate(STEP_FAMILIES):
+            self.cur[k] = _plane(cur[name])
+        self.mdp = _plane(mdp)
+        for k, x in enumerate(weights):
+            self.wt[k] = _plane(x)
+        for k, name in enumerate(STEP_BASES):
+            self.base[k] = _plane(bases[name])
+        for k, x in enumerate(jk):
+            self.jk[k] = _plane(x)
+        self.valid = _plane(valid, lead=False)
+        self.pl, self.pr, self.po = _plane(pl), _plane(pr), _plane(po)
+        self.dpm = dpm.data_ptr()
+        self.dpm_s = (ctypes.c_longlong * 5)(*dpm.stride())
+        jobs = span_jobs()
+        for k, job in enumerate(jobs):
+            self.jobs[k] = job
+        self.njobs = len(jobs)
+        self.B, self.s, self.i0, self.IB, self.n2, self.Q = B, s, i0, IB, n2, Q
+        self.bp, self.cp, self.ap, self.PB = bp, cp, ap, PB
+        self.SAT16, self.INF = SAT16, INF
+
+
+def span_step_tables(table: SpanTable):
+    """The step-by-step loop's tables on ``table``'s operands, as
+    ``ttloop.run_tt_loop`` built them before :func:`tt_span`: the six B
+    slabs and STM, fresh and INF, beside the A slabs; returns
+    (:class:`WindowTable` of :data:`REDUCTIONS`, :class:`StepTable`, the
+    step's reduction buffer)."""
+    o = table.ops
+    B, IB, n2, s = table.B, table.IB, table.n2, table.s
+    cur = dict(o["cur"])
+    dev = cur["PM"].device
+    for name in STEP_B_SLABS:
+        cur["B_" + name] = torch.full((B, cur[name].shape[1], IB, n2 + s - 2), INF,
+                                      dtype=torch.int32, device=dev)
+    stm = torch.full((B, s - 1 + 2 * DS, IB, n2 + s - 2 + DS), INF,
+                     dtype=torch.int32, device=dev)
+    wins = reduction_table({**cur, "mdp": o["mdp"]}, o["WKX"], o["WJX"], s, n2,
+                           table.i0)
+    red = torch.empty(wins.shape, dtype=torch.int32, device=dev)
+    step = StepTable(red, o["bases"], cur, stm, o["dpm"], o["jk"], o["valid"],
+                     o["pl"], o["pr"], o["po"], s=s, i0=table.i0, bp=table.bp,
+                     cp=table.cp, ap=table.ap, PB=table.PB)
+    return wins, step, red
+
+
+def tt_span_steps(table: SpanTable, plain: bool = False):
+    """The span's tt loop one step at a time, on ``table``'s operands in
+    place: per tt, the 13 reductions (:func:`minplus_group`) and the rest of
+    the step (:func:`tt_step`), two launches a step on CUDA; with ``plain``
+    their plain versions on any device.  What ``ttloop.run_tt_loop`` ran
+    before :func:`tt_span`, which it replaces; kept as its comparator."""
+    wins, step, red = span_step_tables(table)
+    for tt in range(table.s - 2, -1, -1):
+        if plain:
+            red.copy_(minplus_group_ref(wins, tt))
+            tt_step_ref(step, tt)
+        else:
+            minplus_group(wins, tt, red)
+            tt_step(step, tt)
+
+
+def tt_span_ref(table: SpanTable):
+    """Plain PyTorch version of :func:`tt_span`: the loop of
+    :func:`minplus_group_ref` and :func:`tt_step_ref` over tt = s - 2 .. 0."""
+    tt_span_steps(table, plain=True)
+
+
+def tt_span(table: SpanTable, cluster: int | None = None):
+    """Run the span's whole tt loop, tt = s - 2 .. 0, on ``table``'s
+    operands in place: each step's 13 reductions, assembly, PM interior
+    stencil and store encoding, and row tt written into every ``cur`` slab.
+    One kernel launch on CUDA, with ``cluster`` blocks per (b, i) row (one
+    of :data:`SPAN_CLUSTERS`; None lets the kernel choose from the grid and
+    the card's SMs, csrc/ttspan.cu's ``ccj_tt_span``), after which
+    ``table.plan`` holds the (cluster, threads per block) it launched; the
+    plain version (:func:`tt_span_ref`) for CPU tensors."""
+    global TT_SPAN_LAUNCHES
+    if table.device.type == "cpu":
+        return tt_span_ref(table)
+    if cluster is not None and cluster not in SPAN_CLUSTERS:
+        raise ValueError(f"cluster must be one of {SPAN_CLUSTERS}, got {cluster}")
+    plan = (ctypes.c_int * 2)()
+    args = (ctypes.addressof(table), cluster or 0,
+            torch.cuda.current_stream(table.device).cuda_stream, plan)
+    if table.device.index == torch.cuda.current_device():
+        rc = table._fn(*args)
+    else:   # a launch goes to the stream's own device only
+        with torch.cuda.device(table.device):
+            rc = table._fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"tt_span launch failed: cudaError {rc}")
+    table.plan = tuple(plan)
+    TT_SPAN_LAUNCHES += 1

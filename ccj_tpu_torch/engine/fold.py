@@ -224,8 +224,8 @@ def _init_dense(n: int, device, batch: int = 1):
 def fill6_batched(Cb, SC4b, n: int, dangles: int):
     """The dense fill of a batch: ``Cb`` / ``SC4b`` carry a leading batch
     axis on every table (:func:`stack_consts`), all padded to length ``n``.
-    One span loop fills every element, one ``minplus_group`` launch per tt
-    step for the whole batch.  Returns the state dict, every array
+    One span loop fills every element, one ``tt_span`` launch per span for
+    the whole batch.  Returns the state dict, every array
     ``[B, ...]``; element b equals :func:`fill6` of sequence b."""
     st = _init_dense(n, Cb["H"].device, Cb["H"].shape[0])
     for _ in _run_spans(Cb, SC4b, n, dangles, st, _dense_steps(n)):

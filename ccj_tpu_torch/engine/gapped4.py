@@ -455,7 +455,7 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
         "PfromR": RL("PfromR", WPt, 1),
     }
 
-    # ---- serial loop over tt (descending): one minplus_group per step ----
+    # ---- serial loop over tt (descending): one tt_span per span ----------
     mdp0 = torch.minimum(PLs, PRs) + PB       # PfromMdoubleprime base
     cur = run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
                       valid4, s, TB, IB, i0)

@@ -17,12 +17,17 @@ same way for both engines, in this order:
 * ``parts_s``: a third fill with a device synchronise around each span
   function, so each part's wall is summed apart (V, P split, WBP/WPP, the
   cross-span phase of the gapped step, its serial tt loop, WM/WMv/WMp);
+* ``tt_loop_turns``: that fill and two more taken the same way, in turns:
+  the tt loop as the fills run it (one ``tt_span`` a span), as the
+  two-launch loop it replaced (``ttloop.run_tt_loop_steps``), and as the
+  fills run it again; each one's synced wall and its tt loop's;
 * ``profile``: a fill stopped before span lo, then spans [lo, hi) run
   twice (re-running spans whose inputs are final rewrites the same
   values): once for the wall, once under torch.profiler.  Device kernel
   time over that wall is the device's busy share; the kernels and PyTorch
   ops that take the most device time and the port's own kernels
-  (``minplus_group``, ``tt_step``) are listed.
+  (``tt_span``; ``minplus_group`` and ``tt_step`` where anything runs them)
+  are listed.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from pathlib import Path
 
 import torch
 
-from .engine import cuda_ops, fold, gapped4, gapped5
+from .engine import cuda_ops, fold, gapped4, gapped5, ttloop
 from .params import DEFAULT_PK, parse_par, scale_parameters
 from .precompute import build_seq_tables
 
@@ -95,37 +100,52 @@ def main(argv=None):
     for key in ("fill_s_first", "fill_s"):
         torch.cuda.synchronize()
         cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
+        cuda_ops.TT_SPAN_LAUNCHES = 0
         t0 = time.perf_counter()
         st = run_fill()
         torch.cuda.synchronize()
         out[key] = time.perf_counter() - t0
         out["V_1_n"] = int(st["V"][1, n])
         del st
-    out["launches"] = cuda_ops.LAUNCHES
-    out["windows"] = cuda_ops.WINDOWS
+    out["launches"] = cuda_ops.TT_SPAN_LAUNCHES
+    out["minplus_launches"] = cuda_ops.LAUNCHES
     out["tt_step_launches"] = cuda_ops.TT_STEP_LAUNCHES
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     # ---- per-part walls: wrap the span functions where the fill and the
-    # gapped step look them up, run one fill, restore ------------------------
-    acc = defaultdict(float)
+    # gapped step look them up, run one fill, restore.  The tt loop runs as
+    # the fills run it (one tt_span a span), then, in turns, as the
+    # two-launch loop it replaced (ttloop.run_tt_loop_steps) ----------------
     step = "span_gapped7" if packed else "span_gapped4"
-    names = {"compute_V_span": fold, "compute_P_span3": fold,
-             "compute_WBP_WPP_span": fold, step: fold,
-             "compute_WMv_WMp_WM_span": fold, "run_tt_loop": gapped4}
-    saved = {k: getattr(m, k) for k, m in names.items()}
-    try:
-        for k, m in names.items():
-            setattr(m, k, _timed(saved[k], acc, k))
-        t0 = time.perf_counter()
-        run_fill()
-        torch.cuda.synchronize()
-        out["fill_synced_s"] = time.perf_counter() - t0
-    finally:
-        for k, m in names.items():
-            setattr(m, k, saved[k])
-    acc[f"{step} (cross-span phase)"] = acc.pop(step) - acc["run_tt_loop"]
-    out["parts_s"] = dict(sorted(acc.items(), key=lambda kv: -kv[1]))
+
+    def parts(loop):
+        acc = defaultdict(float)
+        names = {"compute_V_span": fold, "compute_P_span3": fold,
+                 "compute_WBP_WPP_span": fold, step: fold,
+                 "compute_WMv_WMp_WM_span": fold, "run_tt_loop": gapped4}
+        saved = {k: getattr(m, k) for k, m in names.items()}
+        try:
+            for k, m in names.items():
+                setattr(m, k, _timed(loop if k == "run_tt_loop" else saved[k], acc, k))
+            t0 = time.perf_counter()
+            run_fill()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for k, m in names.items():
+                setattr(m, k, saved[k])
+        acc[f"{step} (cross-span phase)"] = acc.pop(step) - acc["run_tt_loop"]
+        return wall, dict(sorted(acc.items(), key=lambda kv: -kv[1]))
+
+    turns = []
+    for name, loop in (("tt_span", gapped4.run_tt_loop),
+                       ("two-launch", ttloop.run_tt_loop_steps),
+                       ("tt_span", gapped4.run_tt_loop)):
+        wall, acc = parts(loop)
+        if not turns:
+            out["fill_synced_s"], out["parts_s"] = wall, acc
+        turns.append({"loop": name, "fill_synced_s": wall, "tt_loop_s": acc["run_tt_loop"]})
+    out["tt_loop_turns"] = turns
 
     # ---- device busy share over spans [lo, hi) of a fill stopped at lo ----
     # (the span loop runs batches: this fill is a batch of one)
@@ -174,7 +194,7 @@ def main(argv=None):
         "top_ops": _top(ops),
         # the port's own kernels (csrc/), wherever they rank
         "port_kernels": _top([e for e in kernels
-                              if "minplus" in e.key or "tt_step" in e.key]),
+                              if any(k in e.key for k in ("minplus", "tt_step", "tt_span"))]),
     }
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)

@@ -8,8 +8,8 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
-   ``ccj_tpu_torch/csrc/`` (both kernels, one ``nvcc`` per source, run
-   together) and report the build time;
+   ``ccj_tpu_torch/csrc/`` (the three kernels, one ``nvcc`` per source,
+   run together) and report the build time;
 2. the min-plus kernel against its plain PyTorch version on the card,
    exactly (tolerance zero: integer data): single windows
    (``minplus_window``, a group of one) in all three mask modes, at the CPU
@@ -44,15 +44,27 @@ Phases; any failure exits non-zero and prints no result:
    call, the call between CUDA events) device times, eager call times, the
    plain version's, and the byte bound (every element the step needs read
    once, the STM and DPM elements its admissible stencil terms use counted
-   once; no library yardstick);
+   once; no library yardstick); then (2c) ``tt_span``, a span's whole tt
+   loop in one launch (the kernel every fill runs), against its plain
+   version ``tt_span_ref`` and the two-launch loop it replaces
+   (``tt_span_steps``: ``minplus_group`` + ``tt_step`` a step) exactly, on
+   random operands at the n=100 main span (37), n=128's (65), the packed
+   n=200 one (135), a row shard (n=100, 26 rows from i0 = 26) and the n=100
+   fill's heaviest span (69), at every cluster size the library holds (1,
+   2, 4 blocks per row): L2-hot, L2-cold and eager times, each cluster
+   size's, the two-launch loop's device (graph) and eager times on the same
+   operands, the plain version's, and two bounds: the span's loop as one
+   function (:func:`span_bound`) and, the two-launch loop's yardstick, the
+   sum over the span's steps of the two kernels' bounds
+   (:func:`two_kernel_bound`);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
    (bench.py, seed 42; the lazy traceback, the default on CUDA) with the
-   kernel's launch and window counts reset just before and read just
-   after (one launch of 13 windows per tt step: 4,851 and 63,063, and
-   4,851 ``tt_step`` launches; every later phase checks the two kernels'
-   launches equal); then
+   kernels' launch counts reset just before and read just after: one
+   ``tt_span`` per span with a tt step (98), no ``minplus_group`` and no
+   ``tt_step``; every later path is checked the same way (``tt_span`` once
+   per span, or per span and row shard with a span-s row); then
    the fill alone (V(1, 100) must be -1528, bench.py's golden) and, on
    that one fill, the lazy traceback (``LazyMats`` + ``Traceback.run``,
    with its bytes and slabs fetched) against the eager host copy plus
@@ -63,12 +75,12 @@ Phases; any failure exits non-zero and prints no result:
    extents, each ``C_name@g`` row by row, PKD, PKE, the 2-D matrices),
    with both fill walls; then (4c) ``dist.batch.batched_fill6`` of four
    sequences at bucket 100 (lengths 100, 97, 90, 83; the first the bench
-   sequence) in one span loop: 4,851 launches for the whole batch, element
+   sequence) in one span loop: 98 launches for the whole batch, element
    0 bit-equal to 4's fill, elements 1-3 to the fill inside their own
    ``fold``, each element's ``LazyMats`` traceback equal to ``fold``; its
    wall against 4's single fill and its peak memory; then (4d) ``dist.wavefront.fill6_sharded`` of the same sequence with
-   P=2 and P=4 row shards on cuda:0: launches one per tt step and shard
-   with a span-s row (``sharded_tt_steps``), every array of ``gather()``
+   P=2 and P=4 row shards on cuda:0: launches one per span and shard
+   with a span-s row (``sharded_tt_spans``), every array of ``gather()``
    bit-equal to 4's fill, ``LazyMats`` over the sharded state giving
    ``fold``'s structure and energy; the wall against 4's fill, the peak
    memory, the state bytes per shard and the bytes exchanged per class
@@ -77,7 +89,7 @@ Phases; any failure exits non-zero and prints no result:
    (n=126: dense at the bucket of 128; n=134, the first length past
    ``DENSE_MAX_N``, and n=200: the packed fill, 5 and 6 segments; all
    through the lazy traceback) and match structure and energy byte for
-   byte; each one's launches (one per tt step: 8,001, 8,778 and 19,701),
+   byte; each one's launches (one per span: 126, 132 and 198),
    fold and fill walls, peak device memory, bytes and slabs fetched; at
    n=200 cells/s beside the reference binary's 1467.2 s; then (5b) the
    n=126 anchor filled by ``fill6_sharded`` with P=2 at the bucket of 128
@@ -88,8 +100,8 @@ Phases; any failure exits non-zero and prints no result:
    in the phase, one array at a time) and the anchor byte for byte through
    ``LazyMats(.., segs)``; the n=200 anchor with P=2, byte for byte (no
    whole-state comparison: two copies come too close to 80 GB); each with
-   4d's figures (launches against ``sharded_tt_steps``: 10,923, 16,369 and
-   24,552; the wall against the unsharded fill's; peak above what was
+   4d's figures (launches against ``sharded_tt_spans``; the wall against
+   the unsharded fill's; peak above what was
    held; bytes per shard and exchanged per class; the traceback's bytes
    between shards);
 6. ``fold_many`` of the corpus entries at n=37, 60 and 16 in one call
@@ -102,7 +114,7 @@ Phases; any failure exits non-zero and prints no result:
    equals an uninterrupted ``fill6`` on every array and the snapshot is
    gone; the snapshot's bytes and its save and load walls;
 9. ``batched_fill6`` of eight seed-made sequences of lengths 49-64 at
-   bucket 64: 1,953 launches, every element bit-equal on every array to its
+   bucket 64: 62 launches, every element bit-equal on every array to its
    own ``fill6``; the batched wall against the eight single walls (tables
    built inside both) and the peak memory; then (9b) ``fold_many`` of those
    eight and phase 4c's four bucket-100 sequences with ``batch_limit=1``
@@ -112,8 +124,8 @@ Phases; any failure exits non-zero and prints no result:
    entries of ``tests/golden/corpus.json``: two processes merging through a
    loopback ``TCPStore`` (one per card where there are two, else both on
    cuda:0), then one process alone; both outputs equal the goldens in order
-   with no ``error``; each process's wall, fold wall and both kernels'
-   launches (the CLI prints them);
+   with no ``error``; each process's wall, fold wall and the tt-loop
+   kernels' launches (the CLI prints them);
 11. the partition function: the float64 device fill on the card against
    the host float64 engine at n=16 (rtol 1e-9); float32 against float64
    on the card at n=64 (Z within a relative 1e-5); the n=64 float32 fill's
@@ -122,7 +134,7 @@ Phases; any failure exits non-zero and prints no result:
    ``partition`` at n=64 with 1000 samples end to end, its ensemble
    energy at or below the MFE.  The fill reaches no Pallas
    kernel in the JAX package, so it is plain PyTorch here and launches no
-   min-plus kernel (checked);
+   tt-loop kernel (checked);
 12. the device's busy share of the batched fills: spans 40-41 of phase
    9's batch (a batched fill stopped at span 40) and spans 70-71 of phase
    4c's (the window PERF.md gives for the single n=100 fill), their
@@ -195,23 +207,27 @@ def cells4d(n):
     return 22 * n * (n + 1) * (n + 2) * (n + 3) // 24
 
 
-def tt_steps(n_fill):
-    """tt steps (one min-plus launch each) of a dense fill of length n_fill."""
-    return sum(max(s - 1, 0) for s in range(n_fill))
+def tt_spans(n_fill):
+    """Spans with a tt step (one ``tt_span`` launch each) of a fill of
+    length n_fill (dense or packed)."""
+    return sum(1 for s in range(n_fill) if s >= 2)
 
 
 def reset_counts(cuda_ops):
     """Set every kernel's launch count to 0, just before a path is driven."""
     cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
+    cuda_ops.TT_SPAN_LAUNCHES = 0
 
 
-def step_launches(cuda_ops, launches, what):
-    """``tt_step``'s launches since :func:`reset_counts`, checked equal to
-    ``minplus_group``'s: the tt loop makes one of each per step."""
-    got = cuda_ops.TT_STEP_LAUNCHES
-    check(got == launches, f"{what}: tt_step launches {got} != minplus_group "
-          f"launches {launches}")
-    return got
+def loop_launches(cuda_ops, spans, what):
+    """The tt-loop kernels' launches since :func:`reset_counts`, checked:
+    ``tt_span`` once per span with a tt step (``spans``), ``minplus_group``
+    and ``tt_step`` never (no fill runs the step-by-step loop).  Returns
+    ``tt_span``'s count."""
+    got = (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+    check(got == (spans, 0, 0), f"{what}: tt_span / minplus_group / tt_step "
+          f"launches {got} != ({spans}, 0, 0)")
+    return spans
 
 
 def cuda_ms(fn, reps):
@@ -702,6 +718,221 @@ def phase_tt_step(cuda_ops, bucket_dims, dev):
     return rows, rows[0]
 
 
+def span_operands(n, s, TB, IB, gen, dev, B=1):
+    """Random operands of one span's ``tt_span`` in the shapes
+    ``ttloop.run_tt_loop`` gives them (A slabs and mdp with 2 TB + 2 rows,
+    DPM cut to the rows and columns the span reads)."""
+    from ccj_tpu_torch.engine import cuda_ops
+    from ccj_tpu_torch.engine.common import INF
+    from ccj_tpu_torch.engine.gapped import DS
+
+    def small(shape):           # weights: small energies, or INF
+        x = rand_i32(shape, gen, dev)
+        return torch.where(x == INF, INF, x.clamp(-400, 400))
+
+    n2 = n + 2
+    R = 2 * TB + 2
+    plane = lambda: rand_i32((B, TB, IB, n2), gen, dev)          # noqa: E731
+    bits = lambda: torch.randint(0, 2, (B, TB, n2), generator=gen, dtype=torch.int32).to(dev)  # noqa: E731
+    cur = {k: rand_i32((B, R, IB, n2), gen, dev) for k in cuda_ops.STEP_FAMILIES}
+    return (cur, rand_i32((B, R, IB, n2), gen, dev),
+            {k: rand_i32((B, TB, n2 + TB + 1), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
+            {k: rand_i32((B, TB, n2), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
+            {k: plane() for k in cuda_ops.STEP_BASES}, small((B, DS, DS, TB, n2 + TB)),
+            (bits(), bits(), small((B, TB, n2))),
+            (torch.rand((TB, IB, n2), generator=gen) < 0.8).to(dev), plane(), plane(), plane())
+
+
+def span_bound(cuda_ops, table, dev):
+    """The least time of a span's whole loop on this card, as one function
+    of its inputs: each input element that some step needs read once and
+    each output element written once, over the memory rate, against an add
+    and a min per needed reduction or stencil term and 70 operations per
+    valid cell (the assembly and the store encoding) over the int32 rate.
+
+    Needed is what this run's data needs.  Only a valid cell's results are
+    stored (enc maps the others to INF), so only its terms count, and a
+    stencil term only where canp and ptype admit PM.  The inputs: the slab
+    rows >= s - 1 (the loop's initial values) and mdp, at the reduction
+    terms and the previous-row reads that touch them; the weight elements
+    those terms use; DPM at the stencil terms (the same for every row); the
+    bases and PL / PR / PO at the valid cells; the jk rows at the columns
+    with a valid cell; valid itself, one byte each, once for the batch.
+    The outputs: rows [0, s - 2] of the 14 families.  The rows the loop
+    writes and then reads again (every later step's reductions and PM
+    stencil) are outputs, not inputs: they count once, as written.
+    Returns (bytes, t_bytes ms, t_ops ms)."""
+    from ccj_tpu_torch.engine.gapped import DS
+
+    o = table.ops
+    B, IB, n2, s, Q, i0 = table.B, table.IB, table.n2, table.s, table.Q, table.i0
+    fams = cuda_ops.STEP_FAMILIES
+    F = {nm: k for k, nm in enumerate(fams)}
+    wts = [o["WKX"][nm] for nm in cuda_ops.SPAN_WEIGHTS] + [
+        o["WJX"][nm] for nm in cuda_ops.SPAN_WEIGHTS]
+    R = o["mdp"].shape[1]
+    ar = lambda m: torch.arange(m, device=dev)                     # noqa: E731
+    q = ar(Q)[:, None, None]
+    i = (i0 + ar(IB))[:, None]
+    j = ar(n2)[None, :]
+    d1 = ar(DS)[:, None, None] + 1
+    elems = terms = cells = 0
+    for b in range(B):
+        slab = [torch.zeros((R, IB, n2), dtype=torch.bool, device=dev)
+                for _ in range(len(fams) + 1)]                    # mdp last
+        wmask = [torch.zeros(w.shape[1:], dtype=torch.bool, device=dev) for w in wts]
+        for tt in range(s - 2, -1, -1):
+            V = o["valid"][tt].to(dev)                             # [IB, n2]
+            canp, pt, _ = (x[b, tt] > 0 for x in o["jk"])           # [n2]
+            for job in cuda_ops.span_jobs():
+                if job.kind == 0:         # red_k: slab row tt + 1 + q, column j
+                    keep = V & (q >= 0)
+                    if job.masked:
+                        keep = keep & (q <= s - 4 - tt - j + i)
+                    slab[job.src][tt + 1:tt + 1 + Q] |= keep
+                    col = slice(tt + 2, tt + 2 + n2)
+                else:                     # red_j: rows tt + 1 + q <= s - 2, the loop's own
+                    assert job.src < len(fams)
+                    keep = V & (q <= j - 1) & (q <= s - 3 - tt)
+                    if job.masked:
+                        keep = keep & (q <= j - i - 2)
+                    col = slice(0, n2)
+                used = keep.any(dim=1)
+                ws = [job.w] + ([job.w2] if job.w2 >= 0 else [])
+                for w in ws:
+                    wmask[w][:, col] |= used
+                terms = terms + len(ws) * keep.sum()
+            # the PM stencil: terms d1 <= j - i - 1, d2 <= i + s - j - tt - 3
+            G = V & canp & pt
+            a = torch.where(G, (j - i - 1).clamp(0, DS), 0)
+            c = (i + s - j - tt - 3).clamp(0, DS)
+            terms = terms + (a * c).sum()
+            elems = elems + torch.where(a[None] >= d1, c[None], 0).amax(dim=1).sum()
+            # the assembly: 7 bases, PL / PR / PO; canp, ptype and ESTP
+            nv = V.sum()
+            cells = cells + nv
+            elems = elems + 10 * nv + 2 * V.any(dim=0).sum() + G.any(dim=0).sum()
+            # previous rows that hold the loop's initial values
+            if tt + 1 >= s - 1:
+                for nm in ("PRmloop10", "PMmloop01"):
+                    slab[F[nm]][tt + 1] |= V
+                slab[F["PMmloop10"]][tt + 1, :, :-1] |= V[:, 1:]
+            if tt + 2 >= s - 1:
+                for nm in ("PMmloop10", "PMmloop01", "PfromM"):
+                    slab[F[nm]][tt + 2, :, :-1] |= (V & pt)[:, 1:]
+                slab[F["PM"]][tt + 2, :, :-1] |= G[:, 1:]
+        elems = (elems + sum(m[s - 1:].sum() for m in slab[:-1]) + slab[-1].sum()
+                 + sum(m.sum() for m in wmask))
+    nbytes = 4 * int(elems) + (s - 1) * IB * n2 + 4 * B * len(fams) * (s - 1) * IB * n2
+    ops = 2 * int(terms) + 70 * int(cells)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+
+
+def two_kernel_bound(cuda_ops, table, dev):
+    """The span's loop as the two kernels it replaced are held: the sum over
+    its steps of :func:`group_bound` and :func:`step_bound` (each step's
+    every needed element read once per step, its outputs, the reductions,
+    the B slab rows and STM included, written once per step).  The
+    yardstick of the two-launch loop, above :func:`span_bound`.  Returns
+    (bytes, t_bytes ms, t_ops ms)."""
+    wins, step, _ = cuda_ops.span_step_tables(table)
+    nbytes = t_bytes = t_ops = 0
+    for tt in range(table.s - 2, -1, -1):
+        for _, b, tb, to in (group_bound(wins, tt, dev), step_bound(step, tt, dev)):
+            nbytes, t_bytes, t_ops = nbytes + b, t_bytes + tb, t_ops + to
+    return nbytes, t_bytes, t_ops
+
+
+def span_row(cuda_ops, gen, dev, n, s, TB, IB, label, B=1, i0=0):
+    """One span's loop on random operands (batch B, rows from ``i0``):
+    ``tt_span`` (one launch, at every cluster size the library holds),
+    its plain version ``tt_span_ref`` and the two-launch loop
+    ``tt_span_steps`` it replaces, each on its own copy, every slab
+    compared; then timed L2-hot (graph replay), L2-cold (:func:`flushed_ms`)
+    and eagerly, beside the two-launch loop's device and eager times and
+    the plain version's; returns its row."""
+    ops = span_operands(n, s, TB, IB, gen, dev, B)
+    kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
+    copies = {k: clone_operands(ops)
+              for k in ("plain", "steps", "auto", *cuda_ops.SPAN_CLUSTERS)}
+    tables = {k: cuda_ops.SpanTable(*v, **kw) for k, v in copies.items()}
+    cuda_ops.tt_span_ref(tables["plain"])
+    before = (cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+    cuda_ops.tt_span_steps(tables["steps"])
+    torch.cuda.synchronize()
+    check((cuda_ops.LAUNCHES - before[0], cuda_ops.TT_STEP_LAUNCHES - before[1])
+          == (s - 1, s - 1), "the two-launch loop made other than two launches a step")
+    want = copies["plain"][0]
+    err = 0
+    for k in ("steps", "auto", *cuda_ops.SPAN_CLUSTERS):
+        if k != "steps":
+            before = cuda_ops.TT_SPAN_LAUNCHES
+            cuda_ops.tt_span(tables[k], None if k == "auto" else k)
+            torch.cuda.synchronize()
+            check(cuda_ops.TT_SPAN_LAUNCHES == before + 1, "a tt_span made other than one launch")
+        for name, x in copies[k][0].items():
+            err = max(err, int((x.long() - want[name].long()).abs().max()))
+    name = f"tt_span n={n} s={s} TB={TB} IB={IB}{label}"
+    check(err == 0, f"tt_span or the two-launch loop != plain on {name}: max |err| = {err}")
+    nbytes, t_bytes, t_ops = span_bound(cuda_ops, tables["plain"], dev)
+    nbytes2, t_bytes2, t_ops2 = two_kernel_bound(cuda_ops, tables["plain"], dev)
+    wins, step, red = cuda_ops.span_step_tables(tables["steps"])
+
+    def kern(cluster=None):
+        cuda_ops.tt_span(tables["auto" if cluster is None else cluster], cluster)
+
+    def steps():
+        for tt in range(s - 2, -1, -1):
+            cuda_ops.minplus_group(wins, tt, red)
+            cuda_ops.tt_step(step, tt)
+
+    row = {
+        "case": name, "batch": B, "i0": i0, "steps": s - 1, "cells": B * IB * (n + 2),
+        "bytes": nbytes, "max_abs_err": err,
+        "plan": dict(zip(("cluster", "threads"), tables["auto"].plan)),
+        "ms": graph_ms(kern, reps=5, replays=4), "ms_l2cold": flushed_ms(kern, reps=10),
+        "call_ms": cuda_ms(kern, 10),
+        "cluster_ms": {c: graph_ms(lambda c=c: kern(c), reps=5, replays=4)
+                       for c in cuda_ops.SPAN_CLUSTERS},
+        "steps_ms": graph_ms(steps, reps=2, replays=3), "steps_call_ms": cuda_ms(steps, 3),
+        "plain_ms": cuda_ms(lambda: cuda_ops.tt_span_ref(tables["plain"]), 2),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "two_kernel_bytes": nbytes2, "two_kernel_bound_ms": max(t_bytes2, t_ops2),
+        "library_ms": None,
+    }
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+    row["steps_share_of_two_kernel_bound"] = row["two_kernel_bound_ms"] / row["steps_ms"]
+    row["steps_ms_over_ms"] = row["steps_ms"] / row["ms"]
+    del ops, copies, tables, wins, step, red
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_tt_span(cuda_ops, bucket_dims, dev):
+    """Phase 2c: ``tt_span`` against its plain version and the two-launch
+    loop at the main path's spans; returns (rows, the dense n=100 row)."""
+    from ccj_tpu_torch.engine.gapped5 import segments7
+
+    gen = torch.Generator().manual_seed(2)
+    emit({"phase": "tt_span", "library": "none: no single PyTorch call computes "
+          "the tt loop of a span, so library_ms is null"})
+    cases = [(n, *main_span(n, bucket_dims)[:3], "") for n in (100, 128)]
+    s, TB, IB, _, g = packed_main_span(200, segments7)
+    cases.append((200, s, TB, IB, f" packed segment {g}"))
+    s, TB, _, _ = main_span(100, bucket_dims)
+    R = -(-102 // 4)
+    cases.append((100, s, TB, R, f" row shard 1 of 4, i0={R}", R))
+    s, _ = heaviest_step(100, bucket_dims)
+    cases.append((100, s, *bucket_dims(100, s), " the most stencil terms"))
+    rows = []
+    for n, s, TB, IB, label, *i0 in cases:
+        rows.append(span_row(cuda_ops, gen, dev, n, s, TB, IB, label, i0=i0[0] if i0 else 0))
+        emit({"phase": "tt_span", **rows[-1]})
+    return rows, rows[0]
+
+
 def max_rel_err(got, want):
     """Largest |got - want| / max(|got|, |want|) over two arrays (0 where
     both are 0)."""
@@ -776,10 +1007,7 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     t0 = time.perf_counter()
     pf = partition(seq, num_samples=1000, device=dev)
     out["n64_partition_s"] = time.perf_counter() - t0
-    out["minplus_launches"] = cuda_ops.LAUNCHES
-    out["tt_step_launches"] = cuda_ops.TT_STEP_LAUNCHES
-    check(cuda_ops.LAUNCHES == 0 and cuda_ops.TT_STEP_LAUNCHES == 0,
-          "the partition function launched a tt-loop kernel")
+    out["launches"] = loop_launches(cuda_ops, 0, "the partition function")
     mfe = fold(seq, device=dev)
     check(abs(pf.Z - z32) / z32 < 1e-5, f"partition Z {pf.Z!r} != fill Z {z32!r}")
     check(pf.ensemble_energy <= mfe.energy + 1e-6,
@@ -873,18 +1101,16 @@ def fold_anchor(api, fold, LazyMats, cuda_ops, n):
         fold_s = time.perf_counter() - t0
     finally:
         api.LazyMats, api.fill_state = LazyMats, real_fill_state
-    launches = cuda_ops.LAUNCHES
     got = f"{res.structure} ({_format_energy(res.energy)})"   # the CLI's line
     check(got == line, f"n={n}: {got!r} != {line!r}")
     check(len(seen) == 1 and len(fills) == 1, f"the n={n} fold did not take the lazy traceback")
     n_fill = api._fill_length(n)
-    check(launches == tt_steps(n_fill), f"n={n} launches {launches} != {tt_steps(n_fill)}")
-    tt_launches = step_launches(cuda_ops, launches, f"fold n={n}")
-    out = {"n": n, "n_fill": n_fill, "tt_step_launches": tt_launches, "packed": seen[0]._segs is not None,
+    launches = loop_launches(cuda_ops, tt_spans(n_fill), f"fold n={n}")
+    out = {"n": n, "n_fill": n_fill, "packed": seen[0]._segs is not None,
            "segments": len(seen[0]._segs or ()), "fold_s": fold_s, "fill_s": fills[0],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "bytes_fetched": seen[0].bytes_fetched, "slab_fetches": seen[0].slab_fetches,
-           "launches": launches, "windows": cuda_ops.WINDOWS, "energy": res.energy,
+           "launches": launches, "energy": res.energy,
            "cells_per_s": cells4d(n_fill) / fills[0]}
     seen.clear()     # the recording class, a reference cycle, holds the list
     torch.cuda.empty_cache()
@@ -975,7 +1201,7 @@ def device_busy_s(fn):
 def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63)):
     """Phase 9: ``batched_fill6`` of eight seed-made sequences of lengths
     49-64 at bucket 64, with the launch counts reset just before and read
-    just after (one launch per tt step for the whole batch: 1,953); every
+    just after (one launch per span for the whole batch: 62); every
     element bit-equal on every array to its own ``fill6``; the batched
     wall against the eight single walls (tables built inside both) and the
     peak memory.  Returns the report and the sequences."""
@@ -995,14 +1221,10 @@ def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63))
     st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
     torch.cuda.synchronize()
     batched_s = time.perf_counter() - t0
-    launches, windows = cuda_ops.LAUNCHES, cuda_ops.WINDOWS
     peak = torch.cuda.max_memory_allocated()
     B = len(seqs)
     check(n_pad == bucket_for(max(lengths)), f"the batch padded to {n_pad}")
-    check(launches == tt_steps(n_pad), f"batched fill x{B} launches {launches} != "
-          f"1 per tt step ({tt_steps(n_pad)})")
-    check(windows == 13 * B * tt_steps(n_pad), f"batched fill windows {windows}")
-    tt_launches = step_launches(cuda_ops, launches, f"batched fill x{B}")
+    launches = loop_launches(cuda_ops, tt_spans(n_pad), f"batched fill x{B}")
     singles, singles_fill = [], []
     for b, seq in enumerate(seqs):
         torch.cuda.synchronize()
@@ -1027,8 +1249,7 @@ def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63))
             "single_fill_only_sum_s": sum(singles_fill),
             "speedup_vs_singles": sum(singles) / batched_s,
             "max_memory_allocated": peak, "memory_before": base,
-            "launches": launches, "windows": windows, "tt_step_launches": tt_launches,
-            "arrays_compared": arrays * B}, seqs
+            "launches": launches, "arrays_compared": arrays * B}, seqs
 
 
 def phase_batched_busy(sp, seqs, lo, hi):
@@ -1067,8 +1288,8 @@ def phase_batched_busy(sp, seqs, lo, hi):
 def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill100_s,
                           lengths=(97, 90, 83)):
     """Phase 4c: ``batched_fill6`` at bucket 100 for a batch of four whose
-    element 0 is the main path's n=100 sequence: launches 4,851 (one per tt
-    step for the whole batch); element 0 bit-equal to the main path's
+    element 0 is the main path's n=100 sequence: launches 98 (one per span
+    for the whole batch); element 0 bit-equal to the main path's
     ``fill6`` state ``st100``; elements 1-3 bit-equal to the ``fill6`` state
     inside their own ``fold``; each element's ``LazyMats`` traceback gives
     ``fold``'s structure and energy; the wall against the single fill's
@@ -1090,13 +1311,10 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
     st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
     torch.cuda.synchronize()
     batched_s = time.perf_counter() - t0
-    launches, windows = cuda_ops.LAUNCHES, cuda_ops.WINDOWS
     peak = torch.cuda.max_memory_allocated()
     B = len(seqs)
     check(n_pad == 100, f"the bucket-100 batch padded to {n_pad}")
-    check(launches == tt_steps(n_pad), f"batched fill x{B} launches {launches} != "
-          f"1 per tt step ({tt_steps(n_pad)})")
-    tt_launches = step_launches(cuda_ops, launches, f"batched fill x{B}")
+    launches = loop_launches(cuda_ops, tt_spans(n_pad), f"batched fill x{B}")
     check(int(st["V"][0, 1, 100]) == BENCH_V100, "batched element 0: V(1,100) != -1528")
     for k, v in st100.items():
         check(torch.equal(st[k][0], v), f"batched element 0 != the main path's fill6 on {k}")
@@ -1132,17 +1350,16 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
             "wall_vs_single": batched_s / fill100_s,
             "per_sequence_throughput_vs_single": B * fill100_s / batched_s,
             "max_memory_allocated": peak, "memory_before": base,
-            "peak_above_before": peak - base, "launches": launches, "windows": windows,
-            "tt_step_launches": tt_launches,
+            "peak_above_before": peak - base, "launches": launches,
             "lazy_traceback_s": traceback_s, "elements": results}, seqs
 
 
-def sharded_tt_steps(n, P):
-    """Launches of a dense fill of length n split over P row shards: each
-    span's tt steps once per shard that owns a span-s row (1 <= i <= n - s),
+def sharded_tt_spans(n, P):
+    """Launches of a fill of length n split over P row shards: each span
+    with a tt step once per shard that owns a span-s row (1 <= i <= n - s),
     with R = ceil((n + 2) / P) rows a shard."""
     R = -(-(n + 2) // P)
-    return sum(max(s - 1, 0) * sum(1 for p in range(P) if p * R <= n - s and (p + 1) * R > 1)
+    return sum((s >= 2) * sum(1 for p in range(P) if p * R <= n - s and (p + 1) * R > 1)
                for s in range(n))
 
 
@@ -1150,7 +1367,7 @@ def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
                     plain=None, plain_fill_s=None, segs=None):
     """Phases 4d, 5b (dense) and 5c (packed, ``segs`` its segment schedule):
     ``dist.wavefront.fill6_sharded`` / ``fill7_sharded`` with P row shards on
-    cuda:0.  Launches equal :func:`sharded_tt_steps`; every array the state
+    cuda:0.  Launches equal :func:`sharded_tt_spans`; every array the state
     holds equals ``plain`` (the unsharded ``fill6`` / ``fill7`` state,
     where given), read one array at a time; ``LazyMats`` over the sharded
     state traces back to ``want_line`` (structure, energy in dcal).
@@ -1178,11 +1395,8 @@ def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
         st = fill7_sharded(C, SC4, n, dangles, segs, devices=["cuda:0"] * P)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_ops.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    check(launches == sharded_tt_steps(n, P),
-          f"{what}: launches {launches} != {sharded_tt_steps(n, P)}")
-    tt_launches = step_launches(cuda_ops, launches, what)
+    launches = loop_launches(cuda_ops, sharded_tt_spans(n, P), what)
     compared = 0
     if plain is not None:
         check(set(st.keys()) == set(plain), f"{what}: keys differ")
@@ -1218,8 +1432,7 @@ def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
            "segments": None if segs is None else len(segs), "fill_s": wall,
            f"{unsharded}_s": plain_fill_s,
            f"wall_vs_{unsharded}": None if plain_fill_s is None else wall / plain_fill_s,
-           "launches": launches, "tt_step_launches": tt_launches,
-           "arrays_compared": compared,
+           "launches": launches, "arrays_compared": compared,
            "lazy_traceback_s": traceback_s, "slab_fetches": mats.slab_fetches,
            "bytes_fetched": mats.bytes_fetched,
            "max_memory_allocated": peak, "memory_before": base,
@@ -1292,10 +1505,10 @@ def phase_fold_many_pipeline(fold_many, cuda_ops, seqs64, seqs100, bucket_for,
     phase 4c's four bucket-100 ones, with ``batch_limit=1`` (one fill and
     its traceback at a time) and with the default (fill k+1 dispatched
     before traceback k), in the turns ``order`` gives (None: the default);
-    every run's results equal the first's, one launch of each kernel per tt
-    step.  Returns each mode's walls and peak memory."""
+    every run's results equal the first's, one ``tt_span`` per span.
+    Returns each mode's walls and peak memory."""
     seqs = [*seqs64, *seqs100]
-    want = sum(tt_steps(bucket_for(len(q))) for q in seqs)
+    want = sum(tt_spans(bucket_for(len(q))) for q in seqs)
     first, out = None, {"n": [len(q) for q in seqs], "order": [
         "batch_limit=1" if b == 1 else "default" for b in order]}
     for b in order:
@@ -1308,9 +1521,7 @@ def phase_fold_many_pipeline(fold_many, cuda_ops, seqs64, seqs100, bucket_for,
         t0 = time.perf_counter()
         res = fold_many(seqs) if b is None else fold_many(seqs, batch_limit=b)
         wall = time.perf_counter() - t0
-        launches = cuda_ops.LAUNCHES
-        check(launches == want, f"fold_many ({key}) launches {launches} != {want}")
-        out["tt_step_launches"] = step_launches(cuda_ops, launches, f"fold_many ({key})")
+        loop_launches(cuda_ops, want, f"fold_many ({key})")
         line = [(r.seq, r.structure, r.energy_dcal) for r in res]
         check([r.seq for r in res] == seqs, f"fold_many ({key}) lost the input order")
         if first is None:
@@ -1329,7 +1540,7 @@ def phase_corpus_processes(entries, nproc=2):
     card where there are enough, else all on cuda:0), then one process
     alone; both outputs must be the goldens in corpus order with no
     ``error``.  Returns each process's wall, its own fold wall and its
-    min-plus and tt_step launches (which the CLI prints), and the
+    tt_span, min-plus and tt_step launches (which the CLI prints), and the
     one-process ones."""
     import socket
 
@@ -1369,11 +1580,13 @@ def phase_corpus_processes(entries, nproc=2):
             check(p.returncode == 0, f"corpus process {pid} exited {p.returncode}: "
                   f"{err[-2000:]}")
             vals = dict(ln.split() for ln in err.splitlines()
-                        if ln.startswith(("corpus-fold-seconds", "corpus-minplus-launches",
+                        if ln.startswith(("corpus-fold-seconds", "corpus-tt-span-launches",
+                                          "corpus-minplus-launches",
                                           "corpus-tt-step-launches")))
             reports.append({"wall_s": walls[pid],
                             "fold_s": float(vals["corpus-fold-seconds"]),
-                            "launches": int(vals["corpus-minplus-launches"]),
+                            "launches": int(vals["corpus-tt-span-launches"]),
+                            "minplus_launches": int(vals["corpus-minplus-launches"]),
                             "tt_step_launches": int(vals["corpus-tt-step-launches"])})
         res = json.loads(out.read_text())
         check([r["seq"] for r in res] == [e["seq"] for e in entries],
@@ -1395,16 +1608,15 @@ def phase_corpus_processes(entries, nproc=2):
     solo = run(1, [])
     from ccj_tpu_torch.api import bucket_for
 
-    want = sum(tt_steps(bucket_for(len(e["seq"]))) for e in entries)
+    want = sum(tt_spans(bucket_for(len(e["seq"]))) for e in entries)
     for label, reps in (("two-process", multi), ("one-process", solo)):
-        got = sum(r["launches"] for r in reps)
-        check(got == want, f"{label} corpus launches {got} != {want}")
-        got = sum(r["tt_step_launches"] for r in reps)
-        check(got == want, f"{label} corpus tt_step launches {got} != {want}")
+        got = tuple(sum(r[k] for r in reps)
+                    for k in ("launches", "minplus_launches", "tt_step_launches"))
+        check(got == (want, 0, 0), f"{label} corpus tt_span / minplus_group / "
+              f"tt_step launches {got} != ({want}, 0, 0)")
     return {"n": [len(e["seq"]) for e in entries], "processes": nproc,
             "placement": placement, "process_reports": multi,
             "launches": sum(r["launches"] for r in multi),
-            "tt_step_launches": sum(r["tt_step_launches"] for r in multi),
             "one_process": solo[0]}
 
 
@@ -1445,6 +1657,8 @@ def main():
     report["kernel"] = rows
     step_rows, step_main = phase_tt_step(cuda_ops, bucket_dims, torch.device("cuda"))
     report["tt_step"] = step_rows
+    span_rows, span_main = phase_tt_span(cuda_ops, bucket_dims, torch.device("cuda"))
+    report["tt_span"] = span_rows
 
     # ---- 3: corpus goldens -----------------------------------------------
     corpus = json.loads((ROOT / "tests" / "golden" / "corpus.json").read_text())
@@ -1466,12 +1680,10 @@ def main():
     t0 = time.perf_counter()
     res = fold(seq)
     fold_s = time.perf_counter() - t0
-    launches, windows = cuda_ops.LAUNCHES, cuda_ops.WINDOWS
-    check(launches > 0, "the main path launched the min-plus kernel no time")
-    check(launches == tt_steps(n), f"launches {launches} != 1 per tt step ({tt_steps(n)})")
-    check(windows == 13 * tt_steps(n),
-          f"windows {windows} != 13 per tt step ({13 * tt_steps(n)})")
-    tt_launches = step_launches(cuda_ops, launches, "the main path")
+    check(cuda_ops.TT_SPAN_LAUNCHES > 0, "the main path launched tt_span no time")
+    main_counts = {"minplus_launches": cuda_ops.LAUNCHES,
+                   "tt_step_launches": cuda_ops.TT_STEP_LAUNCHES}
+    launches = loop_launches(cuda_ops, tt_spans(n), "the main path")
 
     sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
@@ -1505,8 +1717,7 @@ def main():
                       "slab_fetches": lazy.slab_fetches, "state_bytes": state_bytes,
                       "copy_s": copy_s, "copy_bytes": sum(x.nbytes for x in mats.values()),
                       "traceback_s": tb_s, "cells_per_s": cells4d(n) / fill_s,
-                      "launches": launches, "windows": windows,
-                      "tt_step_launches": tt_launches, "V_1_n": v, "energy": res.energy,
+                      "launches": launches, **main_counts, "V_1_n": v, "energy": res.energy,
                       "structure": res.structure}
     emit({"phase": "main_path_n100", **report["n100"]})
 
@@ -1573,17 +1784,15 @@ def main():
     t0 = time.perf_counter()
     many = fold_many([e["seq"] for e in entries])
     many_s = time.perf_counter() - t0
-    many_launches = cuda_ops.LAUNCHES
     for e, r in zip(entries, many):
         check((r.seq, r.structure) == (e["seq"], e["structure"])
               and abs(r.energy - e["energy"]) < 1e-9,
               f"fold_many n={len(e['seq'])}: {r.structure} ({r.energy}) != "
               f"{e['structure']} ({e['energy']})")
-    want = sum(tt_steps(bucket_for(len(e["seq"]))) for e in entries)
-    check(many_launches == want, f"fold_many launches {many_launches} != {want}")
-    many_tt = step_launches(cuda_ops, many_launches, "fold_many")
+    many_launches = loop_launches(cuda_ops, sum(tt_spans(bucket_for(len(e["seq"])))
+                                                for e in entries), "fold_many")
     report["fold_many"] = {"n": [len(e["seq"]) for e in entries], "wall_s": many_s,
-                           "launches": many_launches, "tt_step_launches": many_tt}
+                           "launches": many_launches}
     emit({"phase": "fold_many", **report["fold_many"]})
 
     # ---- 7: the CLI ---------------------------------------------------------
@@ -1624,10 +1833,50 @@ def main():
         report[f"batched_fill_{key}_busy"] = phase_batched_busy(sp, seqs_b, lo, lo + 2)
         emit({"phase": f"batched_fill_{key}_busy", **report[f"batched_fill_{key}_busy"]})
 
+    launches_by_path = {
+        "fold n=100": launches,
+        **{f"fold n={m}": report[f"n{m}"]["launches"] for m in (126, 134, 200)},
+        "fold_many n=37,60,16": report["fold_many"]["launches"],
+        "fold_many bucket 64 x8 + 100 x4, per run": report["fold_many_pipeline"]["launches"],
+        "batched fill bucket 64 x8": report["batched_fill_n64_x8"]["launches"],
+        "batched fill bucket 100 x4": report["batched_fill_n100_x4"]["launches"],
+        "corpus": report["corpus_processes"]["launches"],
+        **{f"wavefront dense P{P} n{m}": report[f"wavefront_dense_P{P}_n{m}"]["launches"]
+           for m, P in ((100, 2), (100, 4), (126, 2))},
+        **{f"wavefront packed P{P} n{m}": report[f"wavefront_packed_P{P}_n{m}"]["launches"]
+           for m, P in ((134, 2), (134, 4), (200, 2))},
+        "partition n=16,64": report["partition"]["launches"]}
+    off_path = ("0 on every path of tt_span's launches_by_path (checked on each): the "
+                "fills run tt_span; this kernel is its step-by-step comparator")
     kernels = [{
+        "name": "tt_span", "route": "cuda",
+        "source": "ccj_tpu_torch/csrc/ttspan.cu", "replaces": REPLACES,
+        "replaces_what": "on every MFE path, the tt loop's 13 red_k / red_j windows "
+                         "(the function of pallas_ops.py:_minplus_kernel) and the XLA "
+                         "fusion of the rest of run_tt_loop_unstacked.t_body "
+                         "(ttloop.py:436-551), every step of a span in one launch",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in span_rows),
+        "ms": span_main["ms"], "plain_ms": span_main["plain_ms"],
+        "bound_ms": span_main["bound_ms"], "bound_by": span_main["bound_by"],
+        "two_kernel_bound_ms": span_main["two_kernel_bound_ms"],
+        "library_ms": None, "call_ms": span_main["call_ms"],
+        "ms_l2cold": span_main["ms_l2cold"], "steps_ms": span_main["steps_ms"],
+        "steps_call_ms": span_main["steps_call_ms"],
+        "plan": span_main["plan"], "cluster_ms": span_main["cluster_ms"],
+        "share_of_bound": span_main["share_of_bound"],
+        "share_of_bound_l2cold": span_main["share_of_bound_l2cold"],
+        "matches_plain": True, "shape": span_main["case"],
+        "other_shapes": [{k: r[k] for k in (
+            "case", "ms", "ms_l2cold", "plain_ms", "call_ms", "steps_ms", "steps_call_ms",
+            "plan", "cluster_ms", "bound_ms", "bound_by", "two_kernel_bound_ms",
+            "share_of_bound", "share_of_bound_l2cold",
+            "max_abs_err")} for r in span_rows[1:]],
+        "launches_by_path": launches_by_path,
+    }, {
         "name": "minplus_group", "route": "cuda",
         "source": "ccj_tpu_torch/csrc/minplus.cu", "replaces": REPLACES,
-        "launches": launches, "windows": windows,
+        "launches": report["n100"]["minplus_launches"], "launches_by_path": off_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1649,26 +1898,6 @@ def main():
             "share_of_bound", "share_of_bound_l2cold", "max_abs_err")}
            for key, r in (("row_shard_n100_P4", shard_row),
                           ("row_shard_packed_n200_P4", packed_shard_row))},
-        "launches_by_path": {"fold n=100": launches,
-                             "fold n=126": report["n126"]["launches"],
-                             "fold n=134 (packed)": report["n134"]["launches"],
-                             "fold n=200 (packed)": report["n200"]["launches"],
-                             "fold_many n=37,60,16": report["fold_many"]["launches"],
-                             "batched fill bucket 64 x8":
-                                 report["batched_fill_n64_x8"]["launches"],
-                             "batched fill bucket 100 x4":
-                                 report["batched_fill_n100_x4"]["launches"],
-                             "corpus": report["corpus_processes"]["launches"],
-                             "wavefront dense P2 n100":
-                                 report["wavefront_dense_P2_n100"]["launches"],
-                             "wavefront dense P4 n100":
-                                 report["wavefront_dense_P4_n100"]["launches"],
-                             "wavefront dense P2 n126":
-                                 report["wavefront_dense_P2_n126"]["launches"],
-                             **{f"wavefront packed P{P} n{m}":
-                                report[f"wavefront_packed_P{P}_n{m}"]["launches"]
-                                for m, P in ((134, 2), (134, 4), (200, 2))},
-                             "partition n=16,64": report["partition"]["minplus_launches"]},
     }]
     step_keys = ("case", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms", "bound_by",
                  "share_of_bound", "share_of_bound_l2cold", "max_abs_err")
@@ -1677,7 +1906,7 @@ def main():
         "source": "ccj_tpu_torch/csrc/ttstep.cu", "replaces": STEP_REPLACES,
         "replaces_what": "the XLA fusion of run_tt_loop_unstacked.t_body after its "
                          "reductions (ttloop.py:436-551); no Pallas kernel",
-        "launches": tt_launches,
+        "launches": report["n100"]["tt_step_launches"], "launches_by_path": off_path,
         "max_abs_err": max(r["max_abs_err"] for r in step_rows),
         "ms": step_main["ms"], "plain_ms": step_main["plain_ms"],
         "bound_ms": step_main["bound_ms"], "bound_by": step_main["bound_by"],
@@ -1687,22 +1916,6 @@ def main():
         "share_of_bound_l2cold": step_main["share_of_bound_l2cold"],
         "matches_plain": True, "shape": step_main["case"],
         "other_shapes": [{k: r[k] for k in step_keys} for r in step_rows[1:]],
-        "launches_by_path": {
-            "fold n=100": tt_launches,
-            **{f"fold n={m}": report[f"n{m}"]["tt_step_launches"] for m in (126, 134, 200)},
-            "fold_many n=37,60,16": report["fold_many"]["tt_step_launches"],
-            "fold_many bucket 64 x8 + 100 x4, per run":
-                report["fold_many_pipeline"]["tt_step_launches"],
-            "batched fill bucket 64 x8": report["batched_fill_n64_x8"]["tt_step_launches"],
-            "batched fill bucket 100 x4": report["batched_fill_n100_x4"]["tt_step_launches"],
-            "corpus": report["corpus_processes"]["tt_step_launches"],
-            **{f"wavefront dense P{P} n{m}":
-               report[f"wavefront_dense_P{P}_n{m}"]["tt_step_launches"]
-               for m, P in ((100, 2), (100, 4), (126, 2))},
-            **{f"wavefront packed P{P} n{m}":
-               report[f"wavefront_packed_P{P}_n{m}"]["tt_step_launches"]
-               for m, P in ((134, 2), (134, 4), (200, 2))},
-            "partition n=16,64": report["partition"]["tt_step_launches"]},
     })
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"

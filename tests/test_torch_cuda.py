@@ -1,5 +1,6 @@
-"""The CUDA kernels (``minplus_group``, ``tt_step``) against their plain
-PyTorch versions, on the card (exact: integer data), ``fold_many``'s
+"""The CUDA kernels (``tt_span``, ``minplus_group``, ``tt_step``) against
+their plain PyTorch versions, on the card (exact: integer data), ``tt_span``
+against the two-launch loop it replaces, ``fold_many``'s
 fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
 partition function against the CPU's, the long reference anchors
 (n = 134 ... 200) through the packed fill, the batched and the row-sharded
@@ -19,6 +20,15 @@ from ccj_tpu_torch.engine.common import INF
 from ccj_tpu_torch.engine.ttloop import REDUCTIONS, reduction_table
 
 pytestmark = pytest.mark.gpu
+
+
+def _loop_counts():
+    return (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+
+
+def _loop_launches(before):
+    """(tt_span, minplus_group, tt_step) launches since ``before``."""
+    return tuple(a - b for a, b in zip(_loop_counts(), before))
 
 
 @pytest.fixture
@@ -110,9 +120,11 @@ def test_fold_on_cuda_matches_cpu(cuda):
     from ccj_tpu_torch import fold
 
     seq = "GGGAAACGGGCGAUCCUUCCCGAAAGGGAUCGGGUUU"
-    before = cuda_ops.LAUNCHES
+    from ccj_tpu_torch.api import _fill_length
+
+    before = _loop_counts()
     res = fold(seq)
-    assert cuda_ops.LAUNCHES > before
+    assert _loop_launches(before) == (_fill_length(len(seq)) - 2, 0, 0)   # one a span
     assert (res.structure, res.energy) == ("(((([[[...[[[[[[[))))....]]]]]]].]]].", -9.94)
 
 
@@ -163,7 +175,7 @@ LONG_ANCHORS = (134, 140, 150, 160, 170, 180, 200)
 @pytest.mark.parametrize("n", LONG_ANCHORS)
 def test_long_anchor_folds_on_cuda(cuda, n):
     """Every long reference anchor past the dense reach, byte for byte,
-    through the packed fill (one min-plus launch per tt step)."""
+    through the packed fill (one tt_span launch per span)."""
     from pathlib import Path
 
     from ccj_tpu_torch import fold
@@ -173,14 +185,13 @@ def test_long_anchor_folds_on_cuda(cuda, n):
         .read_text().splitlines()[:2]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    before = (cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+    before = _loop_counts()
     res = fold(seq)
     peak = torch.cuda.max_memory_allocated()
     got = f"{res.structure} ({_format_energy(res.energy)})"   # the CLI's line
     assert got == line, f"n={n}: {got!r} != {line!r} (peak device memory {peak} B)"
-    steps = (n - 1) * (n - 2) // 2
-    assert (cuda_ops.LAUNCHES - before[0], cuda_ops.TT_STEP_LAUNCHES - before[1]) == \
-        (steps, steps), f"n={n}: launches (peak device memory {peak} B)"
+    assert _loop_launches(before) == (n - 2, 0, 0), \
+        f"n={n}: launches (peak device memory {peak} B)"
 
 
 def _bench_seq(n, seed):
@@ -220,7 +231,7 @@ def test_batched_group_kernel_matches_plain(cuda):
 def test_batched_fill_on_cuda_equals_single_fills(cuda):
     """batched_fill6 at bucket 48 with B=4 (lengths 41-48, padding inside
     the batch), bit-equal on every array to each sequence's own fill6, with
-    one launch per tt step for the whole batch."""
+    one tt_span launch per span for the whole batch."""
     from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
     from ccj_tpu_torch.dist.batch import batched_fill6
     from ccj_tpu_torch.engine import fold as tfold
@@ -229,11 +240,11 @@ def test_batched_fill_on_cuda_equals_single_fills(cuda):
 
     sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
     seqs = [_bench_seq(n, seed) for seed, n in enumerate((48, 41, 45, 47))]
-    before = cuda_ops.LAUNCHES
+    before = _loop_counts()
     st, n_pad = batched_fill6(seqs, sp, DEFAULT_PK)
     torch.cuda.synchronize()
     assert n_pad == 48
-    assert cuda_ops.LAUNCHES - before == (n_pad - 1) * (n_pad - 2) // 2
+    assert _loop_launches(before) == (n_pad - 2, 0, 0)
     for b, seq in enumerate(seqs):
         tabs = pad_seq_tables(build_seq_tables(seq, sp, DEFAULT_PK), n_pad, sp, DEFAULT_PK)
         C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
@@ -258,12 +269,12 @@ def test_sharded_fill_on_cuda_equals_fill6(cuda):
     tabs = build_seq_tables(_bench_seq(n, 3), sp, DEFAULT_PK)
     C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
     single = tfold.fill6(C, SC4, n, sp.dangles)
-    before = cuda_ops.LAUNCHES
+    before = _loop_counts()
     st = fill6_sharded(C, SC4, n, sp.dangles, devices=[cuda] * P)
     torch.cuda.synchronize()
     R = -(-(n + 2) // P)
-    want = sum(max(s - 1, 0) * sum(p * R <= n - s for p in range(P)) for s in range(n))
-    assert cuda_ops.LAUNCHES - before == want
+    want = sum((s >= 2) * sum(p * R <= n - s for p in range(P)) for s in range(n))
+    assert _loop_launches(before) == (want, 0, 0)
     got = st.gather()
     assert set(got) == set(single)
     for k, v in single.items():
@@ -272,8 +283,8 @@ def test_sharded_fill_on_cuda_equals_fill6(cuda):
 
 def test_sharded_packed_fill_on_cuda_equals_fill7(cuda):
     """fill7_sharded at n=64 (3 segments) with P=3 shards on cuda:0:
-    gather() bit-equal to fill7 on every array, with one launch per tt step
-    and shard with a span-s row."""
+    gather() bit-equal to fill7 on every array, with one tt_span launch per
+    span and shard with a span-s row."""
     from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
     from ccj_tpu_torch.dist.wavefront import fill7_sharded
     from ccj_tpu_torch.engine import fold as tfold
@@ -288,12 +299,12 @@ def test_sharded_packed_fill_on_cuda_equals_fill7(cuda):
     tabs = build_seq_tables(_bench_seq(n, 5), sp, DEFAULT_PK)
     C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
     single = tfold.fill7(C, SC4, n, sp.dangles, SEGS)
-    before = cuda_ops.LAUNCHES
+    before = _loop_counts()
     st = fill7_sharded(C, SC4, n, sp.dangles, SEGS, devices=[cuda] * P)
     torch.cuda.synchronize()
     R = -(-(n + 2) // P)
-    want = sum(max(s - 1, 0) * sum(p * R <= n - s for p in range(P)) for s in range(n))
-    assert cuda_ops.LAUNCHES - before == want
+    want = sum((s >= 2) * sum(p * R <= n - s for p in range(P)) for s in range(n))
+    assert _loop_launches(before) == (want, 0, 0)
     got = st.gather()
     assert set(got) == set(single)
     for k, v in single.items():
@@ -397,18 +408,84 @@ def test_tt_step_kernel_matches_plain(cuda, n, s, TB, IB, B, i0):
 
 def test_fold_many_pipeline_on_cuda_matches_fold(cuda):
     """fold_many over two buckets at batch_limit 1, 2 and the default
-    equals each sequence's own fold, with one launch of each kernel per
-    tt step."""
+    equals each sequence's own fold, with one tt_span launch per span."""
     from ccj_tpu_torch import fold, fold_many
     from ccj_tpu_torch.api import bucket_for
 
     seqs = [_bench_seq(n, seed) for seed, n in enumerate((30, 47, 41, 26, 45, 31))]
     want = [(r.structure, r.energy_dcal) for r in map(fold, seqs)]
-    steps = sum((bucket_for(len(q)) - 1) * (bucket_for(len(q)) - 2) // 2 for q in seqs)
+    spans = sum(bucket_for(len(q)) - 2 for q in seqs)
     for kw in ({"batch_limit": 1}, {"batch_limit": 2}, {}):
-        before = (cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+        before = _loop_counts()
         got = fold_many(seqs, **kw)
         assert [r.seq for r in got] == seqs
         assert [(r.structure, r.energy_dcal) for r in got] == want, kw
-        assert (cuda_ops.LAUNCHES - before[0], cuda_ops.TT_STEP_LAUNCHES - before[1]) == \
-            (steps, steps), kw
+        assert _loop_launches(before) == (spans, 0, 0), kw
+
+
+def _span_operands(n, s, TB, IB, gen, dev, B):
+    """Random operands of one span's tt_span in run_tt_loop's shapes."""
+    from ccj_tpu_torch.engine.gapped import DS
+
+    def small(shape):
+        x = _rand(shape, gen, dev)
+        return torch.where(x == INF, INF, x.clamp(-400, 400))
+
+    n2 = n + 2
+    R = 2 * TB + 2
+    plane = lambda: _rand((B, TB, IB, n2), gen, dev)              # noqa: E731
+    bits = lambda: torch.randint(0, 2, (B, TB, n2), generator=gen,  # noqa: E731
+                                 dtype=torch.int32).to(dev)
+    return ({k: _rand((B, R, IB, n2), gen, dev) for k in cuda_ops.STEP_FAMILIES},
+            _rand((B, R, IB, n2), gen, dev),
+            {k: _rand((B, TB, n2 + TB + 1), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
+            {k: _rand((B, TB, n2), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
+            {k: plane() for k in cuda_ops.STEP_BASES}, small((B, DS, DS, TB, n2 + TB)),
+            (bits(), bits(), small((B, TB, n2))),
+            (torch.rand((TB, IB, n2), generator=gen) < 0.8).to(dev), plane(), plane(), plane())
+
+
+@pytest.mark.parametrize("n,s,TB,IB,B,i0", STEP_CASES)
+def test_tt_span_kernel_matches_plain(cuda, n, s, TB, IB, B, i0):
+    """tt_span (one launch) on one copy of a span's random operands, its
+    plain version tt_span_ref on another and the two-launch loop it
+    replaces (tt_span_steps: minplus_group + tt_step a step) on a third:
+    every slab equal."""
+    gen = torch.Generator().manual_seed(n * 37 + B + i0 + s)
+    ops = _span_operands(n, s, TB, IB, gen, cuda, B)
+    kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
+    copies = [tuple({k: v.clone() for k, v in x.items()} if isinstance(x, dict)
+                    else tuple(v.clone() for v in x) if isinstance(x, tuple)
+                    else x.clone() for x in ops) for _ in range(3)]
+    tk, tp, ts = (cuda_ops.SpanTable(*c, **kw) for c in copies)
+    before = _loop_counts()
+    cuda_ops.tt_span(tk)
+    torch.cuda.synchronize()
+    assert _loop_launches(before) == (1, 0, 0)
+    cuda_ops.tt_span_ref(tp)
+    before = _loop_counts()
+    cuda_ops.tt_span_steps(ts)
+    torch.cuda.synchronize()
+    assert _loop_launches(before) == (0, s - 1, s - 1)
+    for name in cuda_ops.STEP_FAMILIES:
+        assert torch.equal(copies[0][0][name], copies[1][0][name]), (name, "plain")
+        assert torch.equal(copies[0][0][name], copies[2][0][name]), (name, "two-launch")
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_tt_span_cluster_variants_match_plain(cuda, cluster):
+    """The thread-block-cluster variants (several blocks per row, their
+    partial minima and PM rows through distributed shared memory) at the
+    n=100 fill's heaviest span and a row shard of the main one."""
+    for n, s, TB, IB, B, i0 in ((100, 69, 99, 64, 1, 0), (100, 37, 64, 26, 1, 26)):
+        gen = torch.Generator().manual_seed(cluster * 101 + s)
+        ops = _span_operands(n, s, TB, IB, gen, cuda, B)
+        kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
+        got = tuple({k: v.clone() for k, v in x.items()} if isinstance(x, dict)
+                    else tuple(v.clone() for v in x) if isinstance(x, tuple)
+                    else x.clone() for x in ops)
+        cuda_ops.tt_span(cuda_ops.SpanTable(*got, **kw), cluster)
+        cuda_ops.tt_span_ref(cuda_ops.SpanTable(*ops, **kw))
+        torch.cuda.synchronize()
+        for name in cuda_ops.STEP_FAMILIES:
+            assert torch.equal(got[0][name], ops[0][name]), (n, s, name)

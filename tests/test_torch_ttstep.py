@@ -1,6 +1,9 @@
-"""The port's tt loop through its step's plain version (``cuda_ops.tt_step_ref``)
-against the JAX package's ``ttloop.run_tt_loop_unstacked``, bit for bit
-(tolerance zero: integer data):
+"""The port's step-by-step tt loop (``ttloop.run_tt_loop_steps``, two
+launches a step on the card) through its step's plain version
+(``cuda_ops.tt_step_ref``) against the JAX package's
+``ttloop.run_tt_loop_unstacked``, bit for bit (tolerance zero: integer
+data); ``tests/test_torch_ttspan.py`` holds the fills' loop
+(``ttloop.run_tt_loop``, one ``tt_span`` a span) the same way:
 
 * on the operands of a span in the middle of an n=24 fill (dangles 2),
   taken from the port's ``fill6`` as it calls ``run_tt_loop`` (both
@@ -29,7 +32,7 @@ from ccj_tpu_torch.engine import cuda_ops, gapped4
 from ccj_tpu_torch.engine import fold as tfold
 from ccj_tpu_torch.engine.common import INF, SAT16
 from ccj_tpu_torch.engine.gapped import DS
-from ccj_tpu_torch.engine.ttloop import LOOP_MATS_ALL, run_tt_loop
+from ccj_tpu_torch.engine.ttloop import LOOP_MATS_ALL, run_tt_loop, run_tt_loop_steps
 
 from oracle_util import REPO
 
@@ -96,12 +99,13 @@ def jax_loops(spans):
     return [_jax_loop(C_np, sc4_np, a) for C_np, sc4_np, a in spans]
 
 
-def _port_loop(a, i0=0, rows=None):
-    """The port's run_tt_loop on the captured arguments a (with rows
-    [i0, i0 + rows) of the row planes where rows is given)."""
+def _port_loop(a, i0=0, rows=None, loop=run_tt_loop_steps):
+    """The port's ``loop`` (the step-by-step one by default) on the
+    captured arguments a (with rows [i0, i0 + rows) of the row planes where
+    rows is given)."""
     IB = a["IB"] if rows is None else rows
     cut = (lambda x: x) if rows is None else (lambda x: x[..., i0:i0 + rows, :])
-    got = run_tt_loop(a["C"], a["SC4"], a["WBt"], a["WPt"], a["WBPg"],
+    got = loop(a["C"], a["SC4"], a["WBt"], a["WPt"], a["WBPg"],
                       {k: cut(v) for k, v in a["bases"].items()}, cut(a["PLs"]),
                       cut(a["PRs"]), cut(a["POs"]), cut(a["mdp0"]),
                       cut(a["valid4"]), a["s"], a["TB"], IB, i0)
