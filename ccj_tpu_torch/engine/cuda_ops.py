@@ -29,10 +29,10 @@ operands travel in a :class:`StepTable`, built and checked once per span;
 :func:`tt_step_ref` is its plain version, the loop body as it was.
 
 :func:`tt_span` (``csrc/ttspan.cu``) computes both for every tt step of a
-span, one block (or thread-block cluster) per (b, i) row, from a
-:class:`SpanTable` built and checked once per span; its plain version
-:func:`tt_span_ref` is the loop of :func:`minplus_group_ref` and
-:func:`tt_step_ref`.
+span, one block (or a cluster of 2 or 4) per live (b, i) row holding the
+row's valid band in shared memory, from a :class:`SpanTable` built and
+checked once per span; its plain version :func:`tt_span_ref` is the loop of
+:func:`minplus_group_ref` and :func:`tt_step_ref`.
 
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
@@ -186,9 +186,14 @@ def _library():
             if (lib.ccj_tt_span_max_n2() != MAX_SPAN_N2
                     or lib.ccj_tt_span_max_jobs() != MAX_SPAN_JOBS):
                 raise RuntimeError("MAX_SPAN_N2 / MAX_SPAN_JOBS do not match csrc/ttspan.cu")
-            lib.ccj_tt_span.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            if lib.ccj_tt_span_plan_bytes() != ctypes.sizeof(SpanPlan):
+                raise RuntimeError("cuda_ops.SpanPlan does not mirror csrc/ttspan.cu")
+            lib.ccj_tt_span.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_void_p]
             lib.ccj_tt_span.restype = ctypes.c_int
+            lib.ccj_tt_span_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_void_p, ctypes.c_void_p]
+            lib.ccj_tt_span_phases.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -821,10 +826,34 @@ def tt_step(table: StepTable, tt: int):
 # tt_span: a span's whole tt loop in one launch
 # ---------------------------------------------------------------------------
 
-MAX_SPAN_N2 = 512       # csrc/ttspan.cu kMaxN2: a block's shared memory
+MAX_SPAN_N2 = 512       # csrc/ttspan.cu kMaxN2
 MAX_SPAN_JOBS = 16      # csrc/ttspan.cu kMaxJobs
 SPAN_WEIGHTS = ("WP", "WB", "WBP")
-SPAN_CLUSTERS = (1, 2, 4)       # blocks per (b, i) row the library holds
+
+
+def span_valid(n, s, i0, T, IB, n2, device="cpu"):
+    """The span's valid cells, ``[T, IB, n2]`` bool: (tt, i0 + r, j) with
+    i >= 1, j >= i, j + tt + 2 <= i + s and i + s <= n: the fills' ``valid4``
+    (``gapped4.span_families``, ``pf4d``) and the plain loop's mask; the
+    kernel computes the same from ``n``."""
+    tt = torch.arange(T, device=device)[:, None, None]
+    i = torch.arange(i0, i0 + IB, device=device)[None, :, None]
+    j = torch.arange(n2, device=device)[None, None, :]
+    return (i >= 1) & (j >= i) & (j + tt + 2 <= i + s) & (i + s <= n)
+
+
+class SpanPlan(ctypes.Structure):
+    """The knobs of one :func:`tt_span` launch and what it launched:
+    csrc/ttspan.cu's ``struct SpanPlan``.  In: ``threads`` a block (0: the
+    plan's), ``cluster`` blocks a row (1, 2 or 4, each holding the whole
+    band and a share of the step's tasks; 0: the plan's), ``rows`` of the
+    band held on chip at most (0: all that fit), ``stage`` the weights in
+    shared memory (1), through ``__ldg`` (0) or the plan's choice (-1).
+    Out: the same as launched, ``live`` rows a batch element, ``smem``
+    bytes a block and ``active`` clusters of the launched size the card
+    runs at once."""
+    KNOBS = ("threads", "cluster", "rows", "stage")
+    _fields_ = [(nm, ctypes.c_int) for nm in (*KNOBS, "live", "smem", "active")]
 
 
 class SpanJob(ctypes.Structure):
@@ -863,36 +892,41 @@ class SpanTable(ctypes.Structure):
     field, built and checked once per span and passed to the kernel by
     value.
 
-    ``cur``: the 14 families' A slabs ``[B, >= s - 1 + Q, IB, n2]`` (rows
-    from s - 1 on hold the loop's initial values and are read; rows
-    [0, s - 2] are written, one a step); ``mdp``: the PfromMdoubleprime
-    slab, the same shape, read only; ``WKX`` / ``WJX``: the k-shrink and
-    j-shrink weight tables by :data:`SPAN_WEIGHTS` name, ``[B, Q, >= n2 +
-    s]`` and ``[B, Q, >= n2]`` (Q, the weight rows, is the span's TB);
-    ``bases``: the 7 :data:`STEP_BASES` planes ``[B, >= s - 1, IB, n2]``;
-    ``dpm``: ``[B, DS, DS, >= s - 1, >= n2 + s - 2]``; ``jk``: the (canp,
-    ptype, ESTP) rows ``[B, >= s - 1, n2]``; ``valid``: ``[>= s - 1, IB,
-    n2]`` bool, shared by the batch; ``pl``, ``pr``, ``po``: ``[B, >= s -
-    1, IB, n2]``.  Slab row r is i = ``i0`` + r.  Every operand is int32
-    but ``valid``, all on one CUDA device or all on the CPU; raises
-    otherwise, and past the kernel's limits (n2 <= :data:`MAX_SPAN_N2`,
-    a batch within the grid's y blocks).  There is no B slab and no STM:
-    the kernel reads red_j's terms from the A slabs and PM's earlier rows
-    from its own shared memory, and the plain version makes both
-    (:func:`span_step_tables`).  The tensors stay alive with the table
-    (``ops``)."""
+    ``cur``: the 14 families' slabs ``[B, >= s - 1 + Q, IB, n2]``; ``mdp``:
+    the PfromMdoubleprime slab, the same shape, read only; ``WKX`` /
+    ``WJX``: the k-shrink and j-shrink weight tables by
+    :data:`SPAN_WEIGHTS` name, ``[B, Q, >= n2 + s]`` and ``[B, Q, >= n2]``
+    (Q >= s - 2, the weight rows, is the span's TB); ``bases``: the 7
+    :data:`STEP_BASES` planes ``[B, >= s - 1, IB, n2]``; ``dpm``: ``[B, DS,
+    DS, >= s - 1, >= n2 + s - 2]``; ``jk``: the (canp, ptype, ESTP) rows
+    ``[B, >= s - 1, n2]``; ``pl``, ``pr``, ``po``: ``[B, >= s - 1, IB,
+    n2]``.  Slab row r is i = ``i0`` + r; ``n`` (s <= n <= n2 + 1) is the
+    fill's length, from which the kernel and the plain version alike derive
+    the valid cells (:func:`span_valid`).  Every operand is int32, all on
+    one CUDA device or all on the CPU; raises otherwise, and past the
+    kernel's limits (n2 <= :data:`MAX_SPAN_N2`, a batch within the grid's
+    y blocks).
+
+    The families' cells outside the valid band (dead rows, rows [0, s - 2]
+    outside it, rows >= s - 1) must hold INF, as ``ttloop._run_span``
+    initialises them: the kernel neither reads nor writes them, and the
+    plain loop writes INF there (``tests/test_torch_ttspan.py`` holds
+    both).  There is no B slab and no STM: the kernel reads red_j's terms
+    and PM's earlier rows from the band it keeps in shared memory, and the
+    plain version makes both (:func:`span_step_tables`).  The tensors stay
+    alive with the table (``ops``)."""
     _fields_ = [("cur", Plane * len(STEP_FAMILIES)), ("mdp", Plane),
                 ("wt", Plane * (2 * len(SPAN_WEIGHTS))),
                 ("base", Plane * len(STEP_BASES)), ("jk", Plane * 3),
-                ("valid", Plane), ("pl", Plane), ("pr", Plane), ("po", Plane),
+                ("pl", Plane), ("pr", Plane), ("po", Plane),
                 ("dpm", ctypes.c_void_p), ("dpm_s", ctypes.c_longlong * 5),
                 ("jobs", SpanJob * MAX_SPAN_JOBS),
                 *((nm, ctypes.c_int) for nm in (
-                    "njobs", "B", "s", "i0", "IB", "n2", "Q", "bp", "cp", "ap",
+                    "njobs", "B", "n", "s", "i0", "IB", "n2", "Q", "bp", "cp", "ap",
                     "PB", "SAT16", "INF"))]
 
-    def __init__(self, cur, mdp, WKX, WJX, bases, dpm, jk, valid, pl, pr, po, *,
-                 s: int, i0: int, bp: int, cp: int, ap: int, PB: int):
+    def __init__(self, cur, mdp, WKX, WJX, bases, dpm, jk, pl, pr, po, *,
+                 n: int, s: int, i0: int, bp: int, cp: int, ap: int, PB: int):
         super().__init__()
         if s < 2:
             raise ValueError(f"span {s} has no tt step")
@@ -914,7 +948,7 @@ class SpanTable(ctypes.Structure):
                              "(the grid's y blocks)")
         Q = WKX["WP"].shape[-2]
         T = s - 1                                 # rows [0, s - 2] are read
-        R = max(s + 1, s - 1 + Q)                 # slab rows the loop reads
+        R = max(s + 1, s - 1 + Q)                 # slab rows the plain loop reads
         E = (B,), (IB,), (n2,)
         for name in STEP_FAMILIES:
             _need(f"cur[{name}]", cur[name], (E[0], R, *E[1:]))
@@ -930,21 +964,25 @@ class SpanTable(ctypes.Structure):
             raise ValueError("jk must be (canp, ptype, ESTP) rows")
         for k, x in enumerate(jk):
             _need(f"jk[{k}]", x, (E[0], T, E[2]))
-        _need("valid", valid, (T, *E[1:]), torch.bool)
         for name, x in (("pl", pl), ("pr", pr), ("po", po)):
             _need(name, x, (E[0], T, *E[1:]))
+        if not s <= n <= n2 + 1:
+            raise ValueError(f"n = {n} must lie in [s, n2 + 1] = [{s}, {n2 + 1}] "
+                             "(a live row's band within the slabs' columns)")
+        if Q < s - 2:
+            raise ValueError(f"the weights' {Q} rows do not reach q = s - 3 = {s - 3}")
 
         weights = [WKX[nm] for nm in SPAN_WEIGHTS] + [WJX[nm] for nm in SPAN_WEIGHTS]
         tensors = [*(cur[nm] for nm in STEP_FAMILIES), mdp, *weights,
-                   *bases.values(), dpm, *jk, valid, pl, pr, po]
+                   *bases.values(), dpm, *jk, pl, pr, po]
         if all(t.device.type == "cpu" for t in tensors):
             self.device = torch.device("cpu")
         else:
             self.device = _check_devices(tensors)
             self._fn = _library().ccj_tt_span
         self.ops = {"cur": dict(cur), "mdp": mdp, "WKX": dict(WKX), "WJX": dict(WJX),
-                    "bases": dict(bases), "dpm": dpm, "jk": jk, "valid": valid,
-                    "pl": pl, "pr": pr, "po": po}
+                    "bases": dict(bases), "dpm": dpm, "jk": jk, "pl": pl, "pr": pr,
+                    "po": po}
         for k, name in enumerate(STEP_FAMILIES):
             self.cur[k] = _plane(cur[name])
         self.mdp = _plane(mdp)
@@ -954,7 +992,6 @@ class SpanTable(ctypes.Structure):
             self.base[k] = _plane(bases[name])
         for k, x in enumerate(jk):
             self.jk[k] = _plane(x)
-        self.valid = _plane(valid, lead=False)
         self.pl, self.pr, self.po = _plane(pl), _plane(pr), _plane(po)
         self.dpm = dpm.data_ptr()
         self.dpm_s = (ctypes.c_longlong * 5)(*dpm.stride())
@@ -962,15 +999,20 @@ class SpanTable(ctypes.Structure):
         for k, job in enumerate(jobs):
             self.jobs[k] = job
         self.njobs = len(jobs)
-        self.B, self.s, self.i0, self.IB, self.n2, self.Q = B, s, i0, IB, n2, Q
+        self.B, self.n, self.s, self.i0, self.IB, self.n2, self.Q = B, n, s, i0, IB, n2, Q
         self.bp, self.cp, self.ap, self.PB = bp, cp, ap, PB
         self.SAT16, self.INF = SAT16, INF
+
+    def live_rows(self):
+        """The rows [lo, hi] with a valid cell: i >= 1 and i + s <= n."""
+        return max(1, self.i0), min(self.i0 + self.IB - 1, self.n - self.s)
 
 
 def span_step_tables(table: SpanTable):
     """The step-by-step loop's tables on ``table``'s operands, as
     ``ttloop.run_tt_loop`` built them before :func:`tt_span`: the six B
-    slabs and STM, fresh and INF, beside the A slabs; returns
+    slabs and STM, fresh and INF, beside the A slabs, and the valid cells
+    from ``table.n`` (:func:`span_valid`); returns
     (:class:`WindowTable` of :data:`REDUCTIONS`, :class:`StepTable`, the
     step's reduction buffer)."""
     o = table.ops
@@ -985,7 +1027,8 @@ def span_step_tables(table: SpanTable):
     wins = reduction_table({**cur, "mdp": o["mdp"]}, o["WKX"], o["WJX"], s, n2,
                            table.i0)
     red = torch.empty(wins.shape, dtype=torch.int32, device=dev)
-    step = StepTable(red, o["bases"], cur, stm, o["dpm"], o["jk"], o["valid"],
+    valid = span_valid(table.n, s, table.i0, s - 1, IB, n2, dev)
+    step = StepTable(red, o["bases"], cur, stm, o["dpm"], o["jk"], valid,
                      o["pl"], o["pr"], o["po"], s=s, i0=table.i0, bp=table.bp,
                      cp=table.cp, ap=table.ap, PB=table.PB)
     return wins, step, red
@@ -1013,29 +1056,56 @@ def tt_span_ref(table: SpanTable):
     tt_span_steps(table, plain=True)
 
 
-def tt_span(table: SpanTable, cluster: int | None = None):
+def tt_span(table: SpanTable, plan: dict | None = None):
     """Run the span's whole tt loop, tt = s - 2 .. 0, on ``table``'s
     operands in place: each step's 13 reductions, assembly, PM interior
-    stencil and store encoding, and row tt written into every ``cur`` slab.
-    One kernel launch on CUDA, with ``cluster`` blocks per (b, i) row (one
-    of :data:`SPAN_CLUSTERS`; None lets the kernel choose from the grid and
-    the card's SMs, csrc/ttspan.cu's ``ccj_tt_span``), after which
-    ``table.plan`` holds the (cluster, threads per block) it launched; the
-    plain version (:func:`tt_span_ref`) for CPU tensors."""
+    stencil and store encoding, and row tt written into every ``cur`` slab
+    at its valid cells.  One kernel launch on CUDA, a block or a
+    thread-block cluster per live (b, i) row; ``plan`` sets
+    :class:`SpanPlan`'s knobs by name (None: the kernel's own plan,
+    csrc/ttspan.cu's ``ccj_tt_span``), and afterwards
+    ``table.plan`` holds what it launched.  A span with no live row
+    launches nothing (and counts none).  The plain version
+    (:func:`tt_span_ref`) for CPU tensors."""
     global TT_SPAN_LAUNCHES
     if table.device.type == "cpu":
         return tt_span_ref(table)
-    if cluster is not None and cluster not in SPAN_CLUSTERS:
-        raise ValueError(f"cluster must be one of {SPAN_CLUSTERS}, got {cluster}")
-    plan = (ctypes.c_int * 2)()
-    args = (ctypes.addressof(table), cluster or 0,
-            torch.cuda.current_stream(table.device).cuda_stream, plan)
+    if _launch_span(table, plan, table._fn):
+        TT_SPAN_LAUNCHES += 1
+
+
+def tt_span_phases(table: SpanTable, skip: int, plan: dict | None = None):
+    """Timing only: :func:`tt_span` with the phases ``skip`` names left out
+    of every step (1 the reductions, 2 the PM stencil, 4 the assembly; 7
+    times the empty steps, their barriers alone), at the same plan.  Its
+    results are wrong; no fill calls it.  CUDA tensors only; counted in
+    :data:`TT_SPAN_LAUNCHES` like every launch of the kernel."""
+    global TT_SPAN_LAUNCHES
+    if table.device.type == "cpu":
+        raise ValueError("tt_span_phases times the kernel: it needs CUDA tensors")
+    fn = _library().ccj_tt_span_phases
+    if _launch_span(table, plan, lambda t, k, st, out: fn(t, k, skip, st, out)):
+        TT_SPAN_LAUNCHES += 1
+
+
+def _launch_span(table: SpanTable, plan, fn):
+    """One launch of the kernel through ``fn`` with ``plan``'s knobs by
+    name; sets ``table.plan`` to what launched and returns whether a row
+    was live; raises on a failed launch."""
+    knobs = SpanPlan(stage=-1)
+    for name, value in (plan or {}).items():
+        if name not in SpanPlan.KNOBS:
+            raise ValueError(f"tt_span has no knob {name!r}")
+        setattr(knobs, name, value)
+    out = SpanPlan()
+    args = (ctypes.addressof(table), ctypes.addressof(knobs),
+            torch.cuda.current_stream(table.device).cuda_stream, ctypes.addressof(out))
     if table.device.index == torch.cuda.current_device():
-        rc = table._fn(*args)
+        rc = fn(*args)
     else:   # a launch goes to the stream's own device only
         with torch.cuda.device(table.device):
-            rc = table._fn(*args)
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"tt_span launch failed: cudaError {rc}")
-    table.plan = tuple(plan)
-    TT_SPAN_LAUNCHES += 1
+    table.plan = {name: getattr(out, name) for name, _ in SpanPlan._fields_}
+    return bool(out.live)

@@ -37,6 +37,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import cuda_ops
 from .common import (I16, I32, INF, MAXLOOP, SAT16, TURN, dynamic_slice,
                      dynamic_update_slice, mmin, pad_axis)
 from .gapped import C_MATS, DS, M4_NAMES, _wx_tables, dims
@@ -324,7 +325,7 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
     jv = torch.arange(n2, device=dev)[None, None, :]      # j
     kv = jv + tv + 2
     lv = iv + s
-    valid4 = (iv >= 1) & (jv >= iv) & (kv <= lv) & (lv <= n)
+    valid4 = cuda_ops.span_valid(n, s, i0, TB, IB, n2, dev)
 
     WBt, WPt, WBPg, WPPg = _wx_tables(C, st)
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..params.io_par import MAXLOOP, TURN
+from . import cuda_ops
 from .common import dynamic_slice, dynamic_update_slice
 from .common import pad_axis as _pad
 from .gapped import C_MATS, DS, M4_NAMES, dims
@@ -329,7 +330,7 @@ def pf_span_gapped(C, st, s, TB, IB):
     lv = iv + s
     Gv = lv - kv
     sjv = jv - iv
-    valid4 = (iv >= 1) & (jv >= iv) & (kv <= lv) & (lv <= n)
+    valid4 = cuda_ops.span_valid(n, s, 0, TB, IB, n2, dev)
 
     WB, WP, WBPg, WPPg = _wx_pf(C, st)
     canp, pt = C["can_pair"], C["ptype"]

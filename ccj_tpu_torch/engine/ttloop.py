@@ -102,7 +102,10 @@ def _run_span(loop, C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0, valid4,
               s, TB, IB, i0):
     """``loop`` (:func:`cuda_ops.tt_span` or :func:`cuda_ops.tt_span_steps`)
     on the span's :class:`cuda_ops.SpanTable`, over fresh A slabs holding
-    the loop's initial values; returns the final families."""
+    the loop's initial values (SAT16 on the valid cells, INF elsewhere, as
+    the kernel requires); returns the final families.  ``valid4`` is
+    :func:`cuda_ops.span_valid` of ``C["n"]``, from which the table derives
+    the same cells."""
     n2 = C["n"] + 2
     UK = n2 + TB + 1
     canp, pt, ESTP = C["can_pair"], C["ptype"], C["ESTP"]
@@ -128,9 +131,9 @@ def _run_span(loop, C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0, valid4,
     mdp = pad_axis(mdp0, -3, 0, TB + 2, INF)              # PfromMdoubleprime
     init = torch.where(validp, SAT16, INF).to(I32)
     cur = {name: init.repeat(B, 1, 1, 1) for name in LOOP_MATS_ALL}
-    loop(cuda_ops.SpanTable(cur, mdp, WKX, WJX, bases, SC4["DPM"], jk, valid4,
-                            PLs, PRs, POs, s=s, i0=i0, bp=C["bp"], cp=C["cp"],
-                            ap=C["ap"], PB=C["PB"]))
+    loop(cuda_ops.SpanTable(cur, mdp, WKX, WJX, bases, SC4["DPM"], jk, PLs, PRs, POs,
+                            n=C["n"], s=s, i0=i0, bp=C["bp"], cp=C["cp"], ap=C["ap"],
+                            PB=C["PB"]))
     return {nm: cur[nm][:, :TB] for nm in LOOP_MATS_ALL}
 
 

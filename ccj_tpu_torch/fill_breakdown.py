@@ -21,6 +21,13 @@ same way for both engines, in this order:
   the tt loop as the fills run it (one ``tt_span`` a span), as the
   two-launch loop it replaced (``ttloop.run_tt_loop_steps``), and as the
   fills run it again; each one's synced wall and its tt loop's;
+* ``tt_loop_split``: one more such fill with each ``tt_span`` call also
+  synchronised before and after and timed by CUDA events: the tt loop's
+  synced wall split into the kernel calls' walls (``tt_span_call_s``),
+  their device time (``tt_span_device_s``) and the rest, the per-span
+  table build (``wk_table`` / ``wj_table`` / ``jk_table``, the initial
+  slabs, ``SpanTable``'s checks, ``ttloop._run_span``), as
+  ``tables_s``;
 * ``profile``: a fill stopped before span lo, then spans [lo, hi) run
   twice (re-running spans whose inputs are final rewrites the same
   values): once for the wall, once under torch.profiler.  Device kernel
@@ -118,15 +125,30 @@ def main(argv=None):
     # two-launch loop it replaced (ttloop.run_tt_loop_steps) ----------------
     step = "span_gapped7" if packed else "span_gapped4"
 
-    def parts(loop):
+    def parts(loop, split=False):
         acc = defaultdict(float)
         names = {"compute_V_span": fold, "compute_P_span3": fold,
                  "compute_WBP_WPP_span": fold, step: fold,
                  "compute_WMv_WMp_WM_span": fold, "run_tt_loop": gapped4}
         saved = {k: getattr(m, k) for k, m in names.items()}
+        real_span, events = cuda_ops.tt_span, []
+
+        def span_split(table, plan=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            real_span(table, plan)
+            b.record()
+            b.synchronize()
+            acc["tt_span_call_s"] += time.perf_counter() - t0
+            events.append((a, b))
+
         try:
             for k, m in names.items():
                 setattr(m, k, _timed(loop if k == "run_tt_loop" else saved[k], acc, k))
+            if split:
+                cuda_ops.tt_span = span_split
             t0 = time.perf_counter()
             run_fill()
             torch.cuda.synchronize()
@@ -134,7 +156,12 @@ def main(argv=None):
         finally:
             for k, m in names.items():
                 setattr(m, k, saved[k])
+            cuda_ops.tt_span = real_span
         acc[f"{step} (cross-span phase)"] = acc.pop(step) - acc["run_tt_loop"]
+        if split:
+            acc["tt_span_device_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+            acc["tables_s"] = acc["run_tt_loop"] - acc["tt_span_call_s"]
+            acc["tt_span_launches"] = len(events)
         return wall, dict(sorted(acc.items(), key=lambda kv: -kv[1]))
 
     turns = []
@@ -146,6 +173,9 @@ def main(argv=None):
             out["fill_synced_s"], out["parts_s"] = wall, acc
         turns.append({"loop": name, "fill_synced_s": wall, "tt_loop_s": acc["run_tt_loop"]})
     out["tt_loop_turns"] = turns
+    wall, acc = parts(gapped4.run_tt_loop, split=True)
+    out["tt_loop_split"] = {"fill_synced_s": wall, **{k: acc[k] for k in (
+        "run_tt_loop", "tt_span_call_s", "tt_span_device_s", "tables_s", "tt_span_launches")}}
 
     # ---- device busy share over spans [lo, hi) of a fill stopped at lo ----
     # (the span loop runs batches: this fill is a batch of one)

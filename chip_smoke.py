@@ -48,15 +48,21 @@ Phases; any failure exits non-zero and prints no result:
    loop in one launch (the kernel every fill runs), against its plain
    version ``tt_span_ref`` and the two-launch loop it replaces
    (``tt_span_steps``: ``minplus_group`` + ``tt_step`` a step) exactly, on
-   random operands at the n=100 main span (37), n=128's (65), the packed
-   n=200 one (135), a row shard (n=100, 26 rows from i0 = 26) and the n=100
-   fill's heaviest span (69), at every cluster size the library holds (1,
-   2, 4 blocks per row): L2-hot, L2-cold and eager times, each cluster
-   size's, the two-launch loop's device (graph) and eager times on the same
-   operands, the plain version's, and two bounds: the span's loop as one
-   function (:func:`span_bound`) and, the two-launch loop's yardstick, the
-   sum over the span's steps of the two kernels' bounds
-   (:func:`two_kernel_bound`);
+   random operands under the fills' contract (the family slabs SAT16 on the
+   span's valid cells, INF elsewhere) at the n=100 main span (37), n=128's
+   (65), the packed n=200 one (135), a row shard (n=100, 26 rows from i0 =
+   26) and the n=100 fill's heaviest span (69), at the kernel's own plan
+   and every plan of :data:`SPAN_PLANS` (blocks a row, threads, weights
+   staged or not, half the band's rows in device memory): L2-hot, L2-cold
+   and eager times, at 1, 2 and 4 blocks a row, with the weights staged and
+   through __ldg, the empty steps' time (every phase left out, through the
+   timing-only ``tt_span_phases``), the live rows, the valid cells, the
+   kernel's add-min terms against the needed ones (and those of a kernel
+   over the whole grid, :func:`span_terms`), the two-launch loop's device
+   (graph) and eager times on the same operands, the plain version's, and two bounds:
+   the span's loop as one function (:func:`span_bound`) and, the two-launch
+   loop's yardstick, the sum over the span's steps of the two kernels'
+   bounds (:func:`two_kernel_bound`);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -718,12 +724,16 @@ def phase_tt_step(cuda_ops, bucket_dims, dev):
     return rows, rows[0]
 
 
-def span_operands(n, s, TB, IB, gen, dev, B=1):
+def span_operands(n, s, TB, IB, gen, dev, B=1, i0=0):
     """Random operands of one span's ``tt_span`` in the shapes
     ``ttloop.run_tt_loop`` gives them (A slabs and mdp with 2 TB + 2 rows,
-    DPM cut to the rows and columns the span reads)."""
+    DPM cut to the rows and columns the span reads) and under its contract:
+    the family slabs hold SAT16 on the span's valid cells
+    (``cuda_ops.span_valid`` of n and i0) and INF elsewhere, as
+    ``ttloop._run_span`` initialises them; mdp, the bases, PL / PR / PO,
+    the weights, DPM and jk are random."""
     from ccj_tpu_torch.engine import cuda_ops
-    from ccj_tpu_torch.engine.common import INF
+    from ccj_tpu_torch.engine.common import INF, SAT16
     from ccj_tpu_torch.engine.gapped import DS
 
     def small(shape):           # weights: small energies, or INF
@@ -732,98 +742,123 @@ def span_operands(n, s, TB, IB, gen, dev, B=1):
 
     n2 = n + 2
     R = 2 * TB + 2
+    validp = cuda_ops.span_valid(n, s, i0, R, IB, n2, dev)
+    init = torch.where(validp, SAT16, INF).to(torch.int32)
     plane = lambda: rand_i32((B, TB, IB, n2), gen, dev)          # noqa: E731
     bits = lambda: torch.randint(0, 2, (B, TB, n2), generator=gen, dtype=torch.int32).to(dev)  # noqa: E731
-    cur = {k: rand_i32((B, R, IB, n2), gen, dev) for k in cuda_ops.STEP_FAMILIES}
+    cur = {k: init.repeat(B, 1, 1, 1) for k in cuda_ops.STEP_FAMILIES}
     return (cur, rand_i32((B, R, IB, n2), gen, dev),
             {k: rand_i32((B, TB, n2 + TB + 1), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
             {k: rand_i32((B, TB, n2), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
             {k: plane() for k in cuda_ops.STEP_BASES}, small((B, DS, DS, TB, n2 + TB)),
-            (bits(), bits(), small((B, TB, n2))),
-            (torch.rand((TB, IB, n2), generator=gen) < 0.8).to(dev), plane(), plane(), plane())
+            (bits(), bits(), small((B, TB, n2))), plane(), plane(), plane())
 
 
-def span_bound(cuda_ops, table, dev):
-    """The least time of a span's whole loop on this card, as one function
-    of its inputs: each input element that some step needs read once and
-    each output element written once, over the memory rate, against an add
-    and a min per needed reduction or stencil term and 70 operations per
-    valid cell (the assembly and the store encoding) over the int32 rate.
-
-    Needed is what this run's data needs.  Only a valid cell's results are
-    stored (enc maps the others to INF), so only its terms count, and a
-    stencil term only where canp and ptype admit PM.  The inputs: the slab
-    rows >= s - 1 (the loop's initial values) and mdp, at the reduction
-    terms and the previous-row reads that touch them; the weight elements
-    those terms use; DPM at the stencil terms (the same for every row); the
-    bases and PL / PR / PO at the valid cells; the jk rows at the columns
-    with a valid cell; valid itself, one byte each, once for the batch.
-    The outputs: rows [0, s - 2] of the 14 families.  The rows the loop
-    writes and then reads again (every later step's reductions and PM
-    stencil) are outputs, not inputs: they count once, as written.
-    Returns (bytes, t_bytes ms, t_ops ms)."""
+def span_terms(cuda_ops, table, dev):
+    """The span's add-min terms, counted from its shapes and this run's
+    jk: the kernel's (the 13 reductions' in-band terms and the PM stencil's
+    at the valid cells of the live rows), the needed ones (the same, the
+    stencil only where canp and ptype admit PM, as :func:`span_bound`
+    counts) and those of a kernel over the whole grid, as ttspan.cu was
+    at commit ddd5516 (every row and column, red_k up to q = Q - 1, red_j
+    down to column 0).  Returns (live rows, valid cells, kernel terms,
+    needed terms, whole-grid terms), each over the batch."""
     from ccj_tpu_torch.engine.gapped import DS
 
     o = table.ops
     B, IB, n2, s, Q, i0 = table.B, table.IB, table.n2, table.s, table.Q, table.i0
-    fams = cuda_ops.STEP_FAMILIES
-    F = {nm: k for k, nm in enumerate(fams)}
+    i = torch.arange(i0, i0 + IB, device=dev)[:, None]
+    j = torch.arange(n2, device=dev)[None, :]
+    d = j - i
+    lo, hi = table.live_rows()
+    valid = cuda_ops.span_valid(table.n, s, i0, s - 1, IB, n2, dev)
+    kern = need = old = cells = 0
+    for tt in range(s - 1):
+        V = valid[tt]
+        k_u, k_m = s - 2 - tt - d, (s - 3 - tt - d).clamp(min=0)
+        red = 3 * k_u + 3 * k_m + 3 * d + 4 * (d - 1).clamp(min=0)   # by REDUCTIONS' kinds
+        st = (d - 1).clamp(0, DS) * (s - 3 - tt - d).clamp(0, DS)
+        G = V & (o["jk"][0][:, tt, None, :] > 0) & (o["jk"][1][:, tt, None, :] > 0)
+        cells += B * int(V.sum())
+        kern += B * int((red + st)[V].sum())
+        need += B * int(red[V].sum()) + int(st.expand_as(G)[G].sum())
+        # the whole grid's bounds: ttspan.cu at ddd5516, reduce_task and stencil_task
+        ok_m = (s - 4 - tt - j + i + 1).clamp(0, Q)
+        rj_u = torch.minimum(j - 1, torch.full_like(j, s - 3 - tt)).clamp(min=-1) + 1
+        rj_m = torch.minimum(rj_u - 1, (j - i - 2).clamp(min=-1)) + 1
+        old_st = torch.where((j - i - 1 >= 1), (j - i - 1).clamp(0, DS), 0) * \
+            (i + s - j - tt - 3).clamp(0, DS)
+        old += B * int((3 * Q + 3 * ok_m + 3 * rj_u + 4 * rj_m.clamp(min=0) + old_st).sum())
+    return B * max(0, hi - lo + 1), cells, kern, need, old
+
+
+def span_bound(cuda_ops, table, dev):
+    """The least time of a span's whole loop on this card, as one function
+    of its inputs under the kernel's contract (the families hold INF
+    outside the valid band and keep it): each input element that an
+    in-band term or a valid cell needs read once and each valid cell of the
+    14 families written once, over the memory rate, against an add and a
+    min per needed term and 70 operations per valid cell (the assembly and
+    the store encoding) over the int32 rate.
+
+    Needed is what this run's data needs: the valid cells of the live rows
+    (``span_valid`` of the span's n); a reduction's terms whose source cell
+    lies in the band (red_k q <= s - 3 - tt - d, red_j q <= d - 1, one less
+    where masked; d = j - i), and a stencil term only where canp and ptype
+    admit PM.  The inputs: mdp at the masked red_k's terms; the weight
+    elements those terms use; DPM at the stencil terms (the same for every
+    row); the bases and PL / PR / PO at the valid cells; canp and ptype at
+    the columns with a valid cell, ESTP where PM is admitted.  The family
+    cells the loop reads are its own outputs (rows >= s - 1 lie outside the
+    band and are never read): they count once, as written.  Returns
+    (bytes, t_bytes ms, t_ops ms)."""
+    from ccj_tpu_torch.engine.gapped import DS
+
+    o = table.ops
+    B, IB, n2, s, Q, i0 = table.B, table.IB, table.n2, table.s, table.Q, table.i0
+    nf = len(cuda_ops.STEP_FAMILIES)
     wts = [o["WKX"][nm] for nm in cuda_ops.SPAN_WEIGHTS] + [
         o["WJX"][nm] for nm in cuda_ops.SPAN_WEIGHTS]
-    R = o["mdp"].shape[1]
+    valid = cuda_ops.span_valid(table.n, s, i0, s - 1, IB, n2, dev)
     ar = lambda m: torch.arange(m, device=dev)                     # noqa: E731
     q = ar(Q)[:, None, None]
     i = (i0 + ar(IB))[:, None]
     j = ar(n2)[None, :]
+    d = j - i
     d1 = ar(DS)[:, None, None] + 1
     elems = terms = cells = 0
     for b in range(B):
-        slab = [torch.zeros((R, IB, n2), dtype=torch.bool, device=dev)
-                for _ in range(len(fams) + 1)]                    # mdp last
+        mdp = torch.zeros(o["mdp"].shape[1:], dtype=torch.bool, device=dev)
         wmask = [torch.zeros(w.shape[1:], dtype=torch.bool, device=dev) for w in wts]
         for tt in range(s - 2, -1, -1):
-            V = o["valid"][tt].to(dev)                             # [IB, n2]
+            V = valid[tt]                                          # [IB, n2]
             canp, pt, _ = (x[b, tt] > 0 for x in o["jk"])           # [n2]
             for job in cuda_ops.span_jobs():
-                if job.kind == 0:         # red_k: slab row tt + 1 + q, column j
-                    keep = V & (q >= 0)
-                    if job.masked:
-                        keep = keep & (q <= s - 4 - tt - j + i)
-                    slab[job.src][tt + 1:tt + 1 + Q] |= keep
+                if job.kind == 0:         # red_k: family row tt + 1 + q, column j
+                    keep = V & (q <= s - 3 - tt - d - job.masked)
+                    if job.src == nf:
+                        mdp[tt + 1:tt + 1 + Q] |= keep
                     col = slice(tt + 2, tt + 2 + n2)
-                else:                     # red_j: rows tt + 1 + q <= s - 2, the loop's own
-                    assert job.src < len(fams)
-                    keep = V & (q <= j - 1) & (q <= s - 3 - tt)
-                    if job.masked:
-                        keep = keep & (q <= j - i - 2)
+                else:                     # red_j: family row tt + 1 + q, column j - 1 - q
+                    keep = V & (q <= d - 1 - job.masked)
                     col = slice(0, n2)
                 used = keep.any(dim=1)
                 ws = [job.w] + ([job.w2] if job.w2 >= 0 else [])
                 for w in ws:
                     wmask[w][:, col] |= used
                 terms = terms + len(ws) * keep.sum()
-            # the PM stencil: terms d1 <= j - i - 1, d2 <= i + s - j - tt - 3
+            # the PM stencil: terms d1 <= d - 1, d2 <= s - 3 - tt - d
             G = V & canp & pt
-            a = torch.where(G, (j - i - 1).clamp(0, DS), 0)
-            c = (i + s - j - tt - 3).clamp(0, DS)
+            a = torch.where(G, (d - 1).clamp(0, DS), 0)
+            c = (s - 3 - tt - d).clamp(0, DS)
             terms = terms + (a * c).sum()
             elems = elems + torch.where(a[None] >= d1, c[None], 0).amax(dim=1).sum()
             # the assembly: 7 bases, PL / PR / PO; canp, ptype and ESTP
             nv = V.sum()
             cells = cells + nv
             elems = elems + 10 * nv + 2 * V.any(dim=0).sum() + G.any(dim=0).sum()
-            # previous rows that hold the loop's initial values
-            if tt + 1 >= s - 1:
-                for nm in ("PRmloop10", "PMmloop01"):
-                    slab[F[nm]][tt + 1] |= V
-                slab[F["PMmloop10"]][tt + 1, :, :-1] |= V[:, 1:]
-            if tt + 2 >= s - 1:
-                for nm in ("PMmloop10", "PMmloop01", "PfromM"):
-                    slab[F[nm]][tt + 2, :, :-1] |= (V & pt)[:, 1:]
-                slab[F["PM"]][tt + 2, :, :-1] |= G[:, 1:]
-        elems = (elems + sum(m[s - 1:].sum() for m in slab[:-1]) + slab[-1].sum()
-                 + sum(m.sum() for m in wmask))
-    nbytes = 4 * int(elems) + (s - 1) * IB * n2 + 4 * B * len(fams) * (s - 1) * IB * n2
+        elems = elems + mdp.sum() + sum(m.sum() for m in wmask)
+    nbytes = 4 * int(elems) + 4 * nf * int(cells)
     ops = 2 * int(terms) + 70 * int(cells)
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
 
@@ -843,18 +878,29 @@ def two_kernel_bound(cuda_ops, table, dev):
     return nbytes, t_bytes, t_ops
 
 
+# Launch plans phase 2c checks against the plain version, beside the
+# kernel's own: blocks a row, threads a block, the weights staged or
+# through __ldg, half of the band's rows read back from device memory.
+SPAN_PLANS = ({"cluster": 1}, {"cluster": 2}, {"cluster": 4}, {"threads": 256},
+              {"threads": 512}, {"threads": 1024}, {"stage": 0}, {"stage": 1},
+              {"rows": "half"}, {"rows": "half", "threads": 512, "cluster": 2})
+
+
 def span_row(cuda_ops, gen, dev, n, s, TB, IB, label, B=1, i0=0):
     """One span's loop on random operands (batch B, rows from ``i0``):
-    ``tt_span`` (one launch, at every cluster size the library holds),
-    its plain version ``tt_span_ref`` and the two-launch loop
-    ``tt_span_steps`` it replaces, each on its own copy, every slab
-    compared; then timed L2-hot (graph replay), L2-cold (:func:`flushed_ms`)
-    and eagerly, beside the two-launch loop's device and eager times and
-    the plain version's; returns its row."""
-    ops = span_operands(n, s, TB, IB, gen, dev, B)
-    kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
-    copies = {k: clone_operands(ops)
-              for k in ("plain", "steps", "auto", *cuda_ops.SPAN_CLUSTERS)}
+    ``tt_span`` (one launch, at its own plan and at every plan of
+    :data:`SPAN_PLANS`, each on a fresh copy), its plain version
+    ``tt_span_ref`` and the two-launch loop ``tt_span_steps`` it replaces,
+    every slab compared; then timed L2-hot (graph replay), L2-cold
+    (:func:`flushed_ms`) and eagerly, with the weights staged and through
+    __ldg, and with every phase left out (the empty steps), beside the
+    two-launch loop's device and eager times and the plain version's;
+    returns its row."""
+    ops = span_operands(n, s, TB, IB, gen, dev, B, i0)
+    kw = dict(n=n, s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
+    plans = [{k: (s - 1) // 2 if v == "half" else v for k, v in p.items()}
+             for p in SPAN_PLANS]
+    copies = {k: clone_operands(ops) for k in ("plain", "steps", "auto")}
     tables = {k: cuda_ops.SpanTable(*v, **kw) for k, v in copies.items()}
     cuda_ops.tt_span_ref(tables["plain"])
     before = (cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
@@ -863,37 +909,56 @@ def span_row(cuda_ops, gen, dev, n, s, TB, IB, label, B=1, i0=0):
     check((cuda_ops.LAUNCHES - before[0], cuda_ops.TT_STEP_LAUNCHES - before[1])
           == (s - 1, s - 1), "the two-launch loop made other than two launches a step")
     want = copies["plain"][0]
-    err = 0
-    for k in ("steps", "auto", *cuda_ops.SPAN_CLUSTERS):
-        if k != "steps":
-            before = cuda_ops.TT_SPAN_LAUNCHES
-            cuda_ops.tt_span(tables[k], None if k == "auto" else k)
-            torch.cuda.synchronize()
-            check(cuda_ops.TT_SPAN_LAUNCHES == before + 1, "a tt_span made other than one launch")
-        for name, x in copies[k][0].items():
-            err = max(err, int((x.long() - want[name].long()).abs().max()))
+
+    def err_of(got):
+        return max(int((x.long() - want[name].long()).abs().max()) for name, x in got.items())
+
+    err = err_of(copies["steps"][0])
+    before = cuda_ops.TT_SPAN_LAUNCHES
+    cuda_ops.tt_span(tables["auto"])
+    torch.cuda.synchronize()
+    check(cuda_ops.TT_SPAN_LAUNCHES == before + 1, "a tt_span made other than one launch")
+    err = max(err, err_of(copies["auto"][0]))
+    launched = []
+    for plan in plans:
+        cp = clone_operands(ops)
+        table = cuda_ops.SpanTable(*cp, **kw)
+        cuda_ops.tt_span(table, plan)
+        torch.cuda.synchronize()
+        launched.append({"asked": plan, "launched": table.plan, "max_abs_err": err_of(cp[0])})
+        err = max(err, launched[-1]["max_abs_err"])
+        del cp, table
     name = f"tt_span n={n} s={s} TB={TB} IB={IB}{label}"
     check(err == 0, f"tt_span or the two-launch loop != plain on {name}: max |err| = {err}")
     nbytes, t_bytes, t_ops = span_bound(cuda_ops, tables["plain"], dev)
     nbytes2, t_bytes2, t_ops2 = two_kernel_bound(cuda_ops, tables["plain"], dev)
+    live, cells, kern_terms, need_terms, old_terms = span_terms(cuda_ops, tables["plain"], dev)
     wins, step, red = cuda_ops.span_step_tables(tables["steps"])
 
-    def kern(cluster=None):
-        cuda_ops.tt_span(tables["auto" if cluster is None else cluster], cluster)
+    def kern(plan=None):
+        cuda_ops.tt_span(tables["auto"], plan)
 
     def steps():
         for tt in range(s - 2, -1, -1):
             cuda_ops.minplus_group(wins, tt, red)
             cuda_ops.tt_step(step, tt)
 
+    kern()
+    auto_plan = dict(tables["auto"].plan)
     row = {
         "case": name, "batch": B, "i0": i0, "steps": s - 1, "cells": B * IB * (n + 2),
-        "bytes": nbytes, "max_abs_err": err,
-        "plan": dict(zip(("cluster", "threads"), tables["auto"].plan)),
+        "live_rows": live, "valid_cells": cells, "kernel_terms": kern_terms,
+        "needed_terms": need_terms, "kernel_terms_over_needed": kern_terms / need_terms,
+        "whole_grid_terms": old_terms, "bytes": nbytes, "max_abs_err": err,
+        "plan": auto_plan, "plans_checked": launched,
         "ms": graph_ms(kern, reps=5, replays=4), "ms_l2cold": flushed_ms(kern, reps=10),
         "call_ms": cuda_ms(kern, 10),
-        "cluster_ms": {c: graph_ms(lambda c=c: kern(c), reps=5, replays=4)
-                       for c in cuda_ops.SPAN_CLUSTERS},
+        "cluster_ms": {c: graph_ms(lambda c=c: kern({"cluster": c}), reps=5, replays=4)
+                       for c in (1, 2, 4)},
+        "weights_ldg_ms": graph_ms(lambda: kern({"stage": 0}), reps=5, replays=4),
+        "weights_staged_ms": graph_ms(lambda: kern({"stage": 1}), reps=5, replays=4),
+        "empty_ms": graph_ms(lambda: cuda_ops.tt_span_phases(tables["auto"], 7),
+                             reps=5, replays=4),
         "steps_ms": graph_ms(steps, reps=2, replays=3), "steps_call_ms": cuda_ms(steps, 3),
         "plain_ms": cuda_ms(lambda: cuda_ops.tt_span_ref(tables["plain"]), 2),
         "bound_ms": max(t_bytes, t_ops),
@@ -901,6 +966,9 @@ def span_row(cuda_ops, gen, dev, n, s, TB, IB, label, B=1, i0=0):
         "two_kernel_bytes": nbytes2, "two_kernel_bound_ms": max(t_bytes2, t_ops2),
         "library_ms": None,
     }
+    kern({"stage": 1})
+    row["weights_staged_launched"] = bool(tables["auto"].plan["stage"])
+    row["empty_step_us"] = row["empty_ms"] * 1e3 / (s - 1)
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
     row["steps_share_of_two_kernel_bound"] = row["two_kernel_bound_ms"] / row["steps_ms"]
@@ -1864,12 +1932,17 @@ def main():
         "ms_l2cold": span_main["ms_l2cold"], "steps_ms": span_main["steps_ms"],
         "steps_call_ms": span_main["steps_call_ms"],
         "plan": span_main["plan"], "cluster_ms": span_main["cluster_ms"],
+        "empty_step_us": span_main["empty_step_us"],
+        "weights_ldg_ms": span_main["weights_ldg_ms"],
+        "weights_staged_ms": span_main["weights_staged_ms"],
+        "kernel_terms_over_needed": span_main["kernel_terms_over_needed"],
         "share_of_bound": span_main["share_of_bound"],
         "share_of_bound_l2cold": span_main["share_of_bound_l2cold"],
         "matches_plain": True, "shape": span_main["case"],
         "other_shapes": [{k: r[k] for k in (
             "case", "ms", "ms_l2cold", "plain_ms", "call_ms", "steps_ms", "steps_call_ms",
-            "plan", "cluster_ms", "bound_ms", "bound_by", "two_kernel_bound_ms",
+            "plan", "cluster_ms", "empty_step_us", "weights_ldg_ms", "weights_staged_ms",
+            "kernel_terms_over_needed", "bound_ms", "bound_by", "two_kernel_bound_ms",
             "share_of_bound", "share_of_bound_l2cold",
             "max_abs_err")} for r in span_rows[1:]],
         "launches_by_path": launches_by_path,

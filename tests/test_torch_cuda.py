@@ -423,8 +423,12 @@ def test_fold_many_pipeline_on_cuda_matches_fold(cuda):
         assert _loop_launches(before) == (spans, 0, 0), kw
 
 
-def _span_operands(n, s, TB, IB, gen, dev, B):
-    """Random operands of one span's tt_span in run_tt_loop's shapes."""
+def _span_operands(n, s, TB, IB, gen, dev, B, i0):
+    """Random operands of one span's tt_span in run_tt_loop's shapes and
+    under its contract: the family slabs SAT16 on the span's valid cells
+    (``cuda_ops.span_valid`` of n and i0) and INF elsewhere; mdp, the
+    bases, PL / PR / PO, the weights, DPM and jk random."""
+    from ccj_tpu_torch.engine.common import SAT16
     from ccj_tpu_torch.engine.gapped import DS
 
     def small(shape):
@@ -433,16 +437,23 @@ def _span_operands(n, s, TB, IB, gen, dev, B):
 
     n2 = n + 2
     R = 2 * TB + 2
+    validp = cuda_ops.span_valid(n, s, i0, R, IB, n2, dev)
+    init = torch.where(validp, SAT16, INF).to(torch.int32)
     plane = lambda: _rand((B, TB, IB, n2), gen, dev)              # noqa: E731
     bits = lambda: torch.randint(0, 2, (B, TB, n2), generator=gen,  # noqa: E731
                                  dtype=torch.int32).to(dev)
-    return ({k: _rand((B, R, IB, n2), gen, dev) for k in cuda_ops.STEP_FAMILIES},
+    return ({k: init.repeat(B, 1, 1, 1) for k in cuda_ops.STEP_FAMILIES},
             _rand((B, R, IB, n2), gen, dev),
             {k: _rand((B, TB, n2 + TB + 1), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
             {k: _rand((B, TB, n2), gen, dev) for k in cuda_ops.SPAN_WEIGHTS},
             {k: plane() for k in cuda_ops.STEP_BASES}, small((B, DS, DS, TB, n2 + TB)),
-            (bits(), bits(), small((B, TB, n2))),
-            (torch.rand((TB, IB, n2), generator=gen) < 0.8).to(dev), plane(), plane(), plane())
+            (bits(), bits(), small((B, TB, n2))), plane(), plane(), plane())
+
+
+def _clone_ops(ops):
+    return tuple({k: v.clone() for k, v in x.items()} if isinstance(x, dict)
+                 else tuple(v.clone() for v in x) if isinstance(x, tuple)
+                 else x.clone() for x in ops)
 
 
 @pytest.mark.parametrize("n,s,TB,IB,B,i0", STEP_CASES)
@@ -452,11 +463,9 @@ def test_tt_span_kernel_matches_plain(cuda, n, s, TB, IB, B, i0):
     replaces (tt_span_steps: minplus_group + tt_step a step) on a third:
     every slab equal."""
     gen = torch.Generator().manual_seed(n * 37 + B + i0 + s)
-    ops = _span_operands(n, s, TB, IB, gen, cuda, B)
-    kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
-    copies = [tuple({k: v.clone() for k, v in x.items()} if isinstance(x, dict)
-                    else tuple(v.clone() for v in x) if isinstance(x, tuple)
-                    else x.clone() for x in ops) for _ in range(3)]
+    ops = _span_operands(n, s, TB, IB, gen, cuda, B, i0)
+    kw = dict(n=n, s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
+    copies = [_clone_ops(ops) for _ in range(3)]
     tk, tp, ts = (cuda_ops.SpanTable(*c, **kw) for c in copies)
     before = _loop_counts()
     cuda_ops.tt_span(tk)
@@ -474,18 +483,25 @@ def test_tt_span_kernel_matches_plain(cuda, n, s, TB, IB, B, i0):
 
 @pytest.mark.parametrize("cluster", [2, 4])
 def test_tt_span_cluster_variants_match_plain(cuda, cluster):
-    """The thread-block-cluster variants (several blocks per row, their
-    partial minima and PM rows through distributed shared memory) at the
-    n=100 fill's heaviest span and a row shard of the main one."""
+    """The thread-block-cluster plans (several blocks per row, each with the
+    whole band and a share of the step's tasks, their partial minima met
+    through distributed shared memory) at the n=100 fill's heaviest span
+    and a row shard of the main one; alone, with only 1 / ``cluster`` of
+    the band's rows on chip (the rest read back from device memory, as a
+    band too large for shared memory is), and with 512 threads a block and
+    the weights through __ldg."""
     for n, s, TB, IB, B, i0 in ((100, 69, 99, 64, 1, 0), (100, 37, 64, 26, 1, 26)):
-        gen = torch.Generator().manual_seed(cluster * 101 + s)
-        ops = _span_operands(n, s, TB, IB, gen, cuda, B)
-        kw = dict(s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
-        got = tuple({k: v.clone() for k, v in x.items()} if isinstance(x, dict)
-                    else tuple(v.clone() for v in x) if isinstance(x, tuple)
-                    else x.clone() for x in ops)
-        cuda_ops.tt_span(cuda_ops.SpanTable(*got, **kw), cluster)
+        seed = cluster * 101 + s
+        ops = _span_operands(n, s, TB, IB, torch.Generator().manual_seed(seed), cuda, B, i0)
+        kw = dict(n=n, s=s, i0=i0, bp=-90, cp=-60, ap=340, PB=960)
         cuda_ops.tt_span_ref(cuda_ops.SpanTable(*ops, **kw))
-        torch.cuda.synchronize()
-        for name in cuda_ops.STEP_FAMILIES:
-            assert torch.equal(got[0][name], ops[0][name]), (n, s, name)
+        for plan in ({"cluster": cluster}, {"cluster": cluster, "rows": (s - 1) // cluster},
+                     {"cluster": cluster, "stage": 0, "threads": 512}):
+            got = _span_operands(n, s, TB, IB, torch.Generator().manual_seed(seed), cuda, B, i0)
+            table = cuda_ops.SpanTable(*got, **kw)
+            cuda_ops.tt_span(table, plan)
+            torch.cuda.synchronize()
+            assert table.plan["cluster"] == cluster
+            assert table.plan["rows"] == plan.get("rows", s - 1), table.plan
+            for name in cuda_ops.STEP_FAMILIES:
+                assert torch.equal(got[0][name], ops[0][name]), (n, s, name, plan)

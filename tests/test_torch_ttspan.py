@@ -6,11 +6,15 @@ span on the card, its plain version ``tt_span_ref`` here), bit for bit
   ``tests/test_torch_ttstep.py`` captures from an n=24 ``fill6``: B=1, B=2
   and a row slice from ``i0 > 0``; and against the step-by-step loop
   (``run_tt_loop_steps``, two launches a step on the card);
-* the kernel's reads restated in PyTorch (red_j through the A slabs, the
-  PM stencil through PM's own earlier rows, no B slab and no STM) against
-  ``tt_span_ref`` on random operands;
+* the kernel's reads restated in PyTorch (only the live rows' valid band
+  of the families and mdp, each reduction's in-band terms, red_j and the
+  PM stencil through the band itself, no B slab and no STM) against
+  ``tt_span_ref``: equal on the band, with every cell outside it left as
+  it was (the plain loop leaves INF there, the caller's initial value);
 * the design's premise: a row's loop reads only its own row, so random
   values in every other row's operands leave its results unchanged;
+* the valid cells the kernel computes from ``n`` (``cuda_ops.span_valid``)
+  are the fill's ``valid4``;
 * ``SpanTable`` refuses operands of the wrong shape, type or device, a span
   past the kernel's limits and missing slabs; ``tt_span`` on CPU tensors
   counts no launch, and CUDA operands without the kernel library raise.
@@ -82,11 +86,16 @@ def _small(shape, rng):
     return torch.where(x == INF, INF, x.clamp(-400, 400))
 
 
-def _operands(B, TB, IB, n2, rng):
+def _operands(B, TB, IB, n2, rng, s, i0, n):
     """Random operands of one span's SpanTable for a batch of B, in the
-    shapes run_tt_loop gives them (A slabs and mdp with 2 TB + 2 rows)."""
+    shapes and under the contract run_tt_loop gives them: A slabs with
+    2 TB + 2 rows holding SAT16 on the valid cells of the fill's formula
+    for n and i0 and INF elsewhere (``ttloop._run_span``); mdp, the bases,
+    PL / PR / PO, the weights, DPM and jk random."""
     R = 2 * TB + 2
-    cur = {k: _rand((B, R, IB, n2), rng) for k in cuda_ops.STEP_FAMILIES}
+    validp = cuda_ops.span_valid(n, s, i0, R, IB, n2)
+    init = torch.where(validp, SAT16, INF).to(torch.int32)
+    cur = {k: init.repeat(B, 1, 1, 1) for k in cuda_ops.STEP_FAMILIES}
     return (cur, _rand((B, R, IB, n2), rng),
             {k: _rand((B, TB, n2 + TB + 1), rng) for k in cuda_ops.SPAN_WEIGHTS},
             {k: _rand((B, TB, n2), rng) for k in cuda_ops.SPAN_WEIGHTS},
@@ -95,8 +104,15 @@ def _operands(B, TB, IB, n2, rng):
             (torch.from_numpy(rng.integers(0, 2, (B, TB, n2), dtype=np.int32)),
              torch.from_numpy(rng.integers(0, 2, (B, TB, n2), dtype=np.int32)),
              _small((B, TB, n2), rng)),
-            torch.from_numpy(rng.random((TB, IB, n2)) < 0.8),
             *(_rand((B, TB, IB, n2), rng) for _ in range(3)))
+
+
+def _span(B, TB, IB, n2, rng, s, i0):
+    """(operands, SpanTable keywords) of a span of a fill of length n =
+    n2 - 2, as the fills run it, raised to n2 + 1 (the longest the kernel
+    takes) where that leaves the rows from i0 none live."""
+    n = max(n2 - 2, min(n2 + 1, i0 + s))
+    return _operands(B, TB, IB, n2, rng, s, i0, n), dict(n=n, s=s, i0=i0, **KW)
 
 
 def _clone(ops):
@@ -106,22 +122,35 @@ def _clone(ops):
 
 
 def _kernel_reads(table):
-    """csrc/ttspan.cu's loop restated in PyTorch: each job of
-    ``cuda_ops.span_jobs()`` reduced over the A slab (red_j at column
-    j - 1 - q of rows <= s - 2, its INF terms skipped), the PM stencil over
-    PM's own rows (STM[tt + d1 + d2, r, u + d2] = PM[tt + d1 + d2, r,
-    j - d1]); the assembly is the plain step's, fed those values."""
+    """csrc/ttspan.cu's loop restated in PyTorch, reading what the kernel
+    reads and writing what it writes.  Before each step every cell outside
+    the live rows' valid band (``span_valid`` over all the slab rows, so
+    rows >= s - 1 too) is masked to INF in what the step reads, so no value
+    there can matter.  Each job of ``cuda_ops.span_jobs()`` is reduced over
+    its in-band terms only: red_k at column j for q <= s - 3 - tt - d (s - 4
+    - tt - d masked), red_j at column j - 1 - q for q <= d - 1 (d - 2
+    masked), d = j - i; the PM stencil over PM's own band rows (STM[tt + d1
+    + d2, r, u + d2] = PM[tt + d1 + d2, r, j - d1]), no B slab and no STM.
+    The assembly is the plain step's, fed those values, and only the valid
+    cells of row tt are written back."""
     o = table.ops
     cur = o["cur"]
-    B, IB, n2, s, i0, Q = table.B, table.IB, table.n2, table.s, table.i0, table.Q
+    B, IB, n2, s, i0 = table.B, table.IB, table.n2, table.s, table.i0
+    band = cuda_ops.span_valid(table.n, s, i0, cur["PM"].shape[1], IB, n2)
     weights = [o["WKX"][k] for k in cuda_ops.SPAN_WEIGHTS] + \
               [o["WJX"][k] for k in cuda_ops.SPAN_WEIGHTS]
-    srcs = [cur[k] for k in cuda_ops.STEP_FAMILIES] + [o["mdp"]]
-    i = torch.arange(i0, i0 + IB)[:, None]
-    j = torch.arange(n2)[None, :]
-    _, step, red = cuda_ops.span_step_tables(table)
+    work = {k: torch.full_like(cur[k], INF) for k in cuda_ops.STEP_FAMILIES}
+    srcs = [work[k] for k in cuda_ops.STEP_FAMILIES] + [torch.where(band, o["mdp"], INF)]
+    inner = cuda_ops.SpanTable(work, srcs[-1], o["WKX"], o["WJX"], o["bases"], o["dpm"],
+                               o["jk"], o["pl"], o["pr"], o["po"], n=table.n, s=s, i0=i0,
+                               bp=table.bp, cp=table.cp, ap=table.ap, PB=table.PB)
+    _, step, red = cuda_ops.span_step_tables(inner)
     UB = step.ops["stm"].shape[-1] - DS
+    d = torch.arange(n2)[None, :] - torch.arange(i0, i0 + IB)[:, None]
     for tt in range(s - 2, -1, -1):
+        for k in cuda_ops.STEP_FAMILIES:
+            work[k].copy_(torch.where(band, cur[k], INF))
+        V = band[tt]
         red.fill_(INF)
         for job in cuda_ops.span_jobs():
             S = srcs[job.src]
@@ -129,24 +158,23 @@ def _kernel_reads(table):
                 if w < 0:
                     continue
                 acc = red[:, out]
-                for q in range(Q):
+                for q in range(s - 2 - tt):
                     if job.kind == 0:
-                        ok = (q <= s - 4 - tt - j + i) if job.masked else torch.ones(IB, n2, dtype=torch.bool)
+                        ok = V & (q <= s - 3 - tt - d - job.masked)
                         v = S[:, tt + 1 + q] + weights[w][:, q, None, tt + 2: tt + 2 + n2]
                     else:
-                        if q > s - 3 - tt:
-                            break
-                        ok = (q <= j - 1) & (q <= j - i - 2) if job.masked else q <= j - 1
-                        col = (j - 1 - q).clamp(min=0).expand(B, IB, n2)
-                        v = S[:, tt + 1 + q].gather(-1, col) + weights[w][:, q, None, :]
+                        ok = V & (q <= d - 1 - job.masked)
+                        col = (d + torch.arange(i0, i0 + IB)[:, None] - 1 - q).clamp(min=0)
+                        v = S[:, tt + 1 + q].gather(-1, col.expand(B, IB, n2)) + \
+                            weights[w][:, q, None, :]
                     acc.copy_(torch.where(ok, torch.minimum(acc, v), acc))
         pm = torch.full((B, IB, UB), INF, dtype=torch.int32)
         for d1 in range(1, DS + 1):
-            for d2 in range(1, DS + 1):
-                ok = (d1 <= j - i - 1) & (d2 <= i + s - j - tt - 3)
+            for d2 in range(1, min(DS, s - 3 - tt) + 1):
+                ok = V & (d1 <= d - 1) & (d2 <= s - 3 - tt - d)
                 if bool(ok.any()):
-                    col = (j - d1).clamp(min=0).expand(B, IB, n2)
-                    v = cur["PM"][:, tt + d1 + d2].gather(-1, col) + \
+                    col = (d + torch.arange(i0, i0 + IB)[:, None] - d1).clamp(min=0)
+                    v = work["PM"][:, tt + d1 + d2].gather(-1, col.expand(B, IB, n2)) + \
                         o["dpm"][:, d1 - 1, d2 - 1, tt, None, tt: tt + n2]
                     win = pm[..., tt: tt + n2]
                     win.copy_(torch.where(ok, torch.minimum(win, v), win))
@@ -156,38 +184,58 @@ def _kernel_reads(table):
             cuda_ops.tt_step_ref(step, tt)
         finally:
             cuda_ops.pm_stencil = real
+        for k in cuda_ops.STEP_FAMILIES:
+            cur[k][:, tt] = torch.where(V, work[k][:, tt], cur[k][:, tt])
 
 
 @pytest.mark.parametrize("B,s,TB,IB,n2,i0", [(1, 12, 16, 9, 18, 0), (2, 20, 24, 8, 30, 3),
                                              (1, 40, 40, 6, 44, 5)])
 def test_kernel_reads_match_the_plain_loop(B, s, TB, IB, n2, i0):
-    """The two facts the kernel rests on hold: red_j through the A slabs
-    (skipping INF terms) and the stencil through PM's rows give the plain
-    loop's slabs bit for bit."""
-    ops = _operands(B, TB, IB, n2, np.random.default_rng(s))
+    """The facts the kernel rests on hold: the live rows' valid band, each
+    reduction's in-band terms, red_j and the stencil through the band give
+    the plain loop's slabs bit for bit there; every cell outside the band
+    (dead rows, rows [0, s - 2] outside it, rows >= s - 1), here random, is
+    neither read nor written, and the plain loop leaves INF there, the value
+    the caller initialises it to."""
+    rng = np.random.default_rng(s)
+    ops, kw = _span(B, TB, IB, n2, rng, s, i0)
     want, got = _clone(ops), _clone(ops)
-    cuda_ops.tt_span_ref(cuda_ops.SpanTable(*want, s=s, i0=i0, **KW))
-    _kernel_reads(cuda_ops.SpanTable(*got, s=s, i0=i0, **KW))
+    band = cuda_ops.span_valid(kw["n"], s, i0, 2 * TB + 2, IB, n2)
+    assert bool(band.any()) and not bool(band.all(dim=-1).all(dim=0).any())  # live and dead
     for name in cuda_ops.STEP_FAMILIES:
-        assert torch.equal(got[0][name], want[0][name]), name
+        got[0][name].copy_(torch.where(band, got[0][name], _rand(tuple(band.shape), rng)))
+    poison = {k: v.clone() for k, v in got[0].items()}
+    cuda_ops.tt_span_ref(cuda_ops.SpanTable(*want, **kw))
+    _kernel_reads(cuda_ops.SpanTable(*got, **kw))
+    for name in cuda_ops.STEP_FAMILIES:
+        assert torch.equal(got[0][name][:, band], want[0][name][:, band]), name
+        assert torch.equal(got[0][name][:, ~band], poison[name][:, ~band]), name
+        assert bool((want[0][name][:, ~band] == INF).all()), name
+
+
+def test_span_valid_is_the_fills_valid4(spans):
+    """The cells the kernel computes from n are those the fill marks valid."""
+    for _, _, a in spans:
+        n2 = a["PLs"].shape[-1]
+        got = cuda_ops.span_valid(a["C"]["n"], a["s"], a["i0"], a["TB"], a["IB"], n2)
+        assert torch.equal(got, a["valid4"])
 
 
 def _scramble_other_rows(ops, r, rng):
-    """ops with every row-dependent operand (A slabs, mdp, bases, valid,
-    PL / PR / PO) random in every row but r."""
+    """ops with every row-dependent operand (A slabs, mdp, bases, PL / PR /
+    PO) random in every row but r."""
     def row_axis(x, axis):
         y = x.clone()
-        fresh = (torch.from_numpy(rng.random(tuple(x.shape)) < 0.5) if x.dtype == torch.bool
-                 else _rand(tuple(x.shape), rng))
+        fresh = _rand(tuple(x.shape), rng)
         keep = torch.zeros(x.shape[axis], dtype=torch.bool)
         keep[r] = True
         shape = [1] * x.dim()
         shape[axis] = -1
         return torch.where(keep.view(shape), y, fresh)
 
-    cur, mdp, WKX, WJX, bases, dpm, jk, valid, pl, pr, po = ops
+    cur, mdp, WKX, WJX, bases, dpm, jk, pl, pr, po = ops
     return ({k: row_axis(v, 2) for k, v in cur.items()}, row_axis(mdp, 2), WKX, WJX,
-            {k: row_axis(v, 2) for k, v in bases.items()}, dpm, jk, row_axis(valid, 1),
+            {k: row_axis(v, 2) for k, v in bases.items()}, dpm, jk,
             row_axis(pl, 2), row_axis(pr, 2), row_axis(po, 2))
 
 
@@ -197,10 +245,10 @@ def test_a_row_reads_only_its_own_row(B, r, i0):
     every step of it, depends only on row r of the row-dependent operands."""
     s, TB, IB, n2 = 22, 24, 9, 28
     rng = np.random.default_rng(40 + r)
-    ops = _operands(B, TB, IB, n2, rng)
+    ops, kw = _span(B, TB, IB, n2, rng, s, i0)
     other = _scramble_other_rows(_clone(ops), r, rng)
-    cuda_ops.tt_span_ref(cuda_ops.SpanTable(*ops, s=s, i0=i0, **KW))
-    cuda_ops.tt_span_ref(cuda_ops.SpanTable(*other, s=s, i0=i0, **KW))
+    cuda_ops.tt_span_ref(cuda_ops.SpanTable(*ops, **kw))
+    cuda_ops.tt_span_ref(cuda_ops.SpanTable(*other, **kw))
     for name in cuda_ops.STEP_FAMILIES:
         assert torch.equal(ops[0][name][:, :, r], other[0][name][:, :, r]), name
     assert not torch.equal(ops[0]["PK"], other[0]["PK"])   # the other rows did move
@@ -224,8 +272,8 @@ def test_span_jobs_cover_every_reduction_once():
 
 def test_tt_span_on_cpu_counts_no_launch():
     rng = np.random.default_rng(3)
-    ops = _operands(2, 16, 5, 18, rng)
-    table = cuda_ops.SpanTable(*ops, s=10, i0=2, **KW)
+    ops, kw = _span(2, 16, 5, 18, rng, 10, 2)
+    table = cuda_ops.SpanTable(*ops, **kw)
     before = (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.TT_STEP_LAUNCHES, cuda_ops.LAUNCHES)
     rows = {k: v[:, :9].clone() for k, v in ops[0].items()}
     cuda_ops.tt_span(table)
@@ -260,44 +308,63 @@ def _bad(ops, which, how):
 
 @pytest.mark.parametrize("how", ["shape", "dtype", "device"])
 @pytest.mark.parametrize("which", [(0, "PK"), 1, (2, "WB"), (3, "WP"), (4, "PfromR"), 5,
-                                   (6, 1), 7, 10])
+                                   (6, 1), 7, 9])
 def test_span_table_refuses_bad_operands(which, how):
-    ops = _operands(1, 16, 5, 18, np.random.default_rng(5))
-    cuda_ops.SpanTable(*ops, s=10, i0=0, **KW)                # the good one builds
+    ops, kw = _span(1, 16, 5, 18, np.random.default_rng(5), 10, 0)
+    cuda_ops.SpanTable(*ops, **kw)                            # the good one builds
     err = {"shape": ValueError, "dtype": TypeError, "device": ValueError}[how]
     with pytest.raises(err):
-        cuda_ops.SpanTable(*_bad(ops, which, how), s=10, i0=0, **KW)
+        cuda_ops.SpanTable(*_bad(ops, which, how), **kw)
+
+
+def test_tt_span_phases_needs_the_card():
+    """The timing-only entry (phases left out, wrong results) has no plain
+    version: on CPU tensors it raises and counts nothing."""
+    ops, kw = _span(1, 16, 5, 18, np.random.default_rng(4), 10, 0)
+    table = cuda_ops.SpanTable(*ops, **kw)
+    before = cuda_ops.TT_SPAN_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_ops.tt_span_phases(table, 7)
+    assert cuda_ops.TT_SPAN_LAUNCHES == before
 
 
 def test_span_table_refuses_a_short_span_and_missing_operands():
-    ops = _operands(1, 16, 5, 18, np.random.default_rng(6))
+    ops, kw = _span(1, 16, 5, 18, np.random.default_rng(6), 10, 0)
+    kw = {k: v for k, v in kw.items() if k != "s"}
     with pytest.raises(ValueError, match="tt step"):
-        cuda_ops.SpanTable(*ops, s=1, i0=0, **KW)
+        cuda_ops.SpanTable(*ops, s=1, **kw)
     with pytest.raises(ValueError, match="least size"):       # weights' TB = 16 < s
-        cuda_ops.SpanTable(*ops, s=20, i0=0, **KW)
+        cuda_ops.SpanTable(*ops, s=20, **kw)
+    with pytest.raises(ValueError, match="must lie in"):      # n past n2 + 1, or below s
+        cuda_ops.SpanTable(*ops, s=10, **{**kw, "n": 20})
+    with pytest.raises(ValueError, match="must lie in"):
+        cuda_ops.SpanTable(*ops, s=10, **{**kw, "n": 9})
+    few = [{k: v[:, :7] for k, v in ops[m].items()} for m in (2, 3)]   # q <= 6 < s - 3
+    with pytest.raises(ValueError, match="do not reach"):
+        cuda_ops.SpanTable(*ops[:2], *few, *ops[4:], s=10, **kw)
     cur = {k: v for k, v in ops[0].items() if k != "PfromL"}
     with pytest.raises(ValueError, match="PfromL"):
-        cuda_ops.SpanTable(cur, *ops[1:], s=10, i0=0, **KW)
+        cuda_ops.SpanTable(cur, *ops[1:], s=10, **kw)
     WKX = {k: v for k, v in ops[2].items() if k != "WBP"}
     with pytest.raises(ValueError, match="WKX"):
-        cuda_ops.SpanTable(ops[0], ops[1], WKX, *ops[3:], s=10, i0=0, **KW)
+        cuda_ops.SpanTable(ops[0], ops[1], WKX, *ops[3:], s=10, **kw)
     bases = {k: v for k, v in ops[4].items() if k != "PLmloop10"}
     with pytest.raises(ValueError, match="bases"):
-        cuda_ops.SpanTable(*ops[:4], bases, *ops[5:], s=10, i0=0, **KW)
+        cuda_ops.SpanTable(*ops[:4], bases, *ops[5:], s=10, **kw)
 
 
 def test_span_table_refuses_a_span_past_the_kernels_limits():
     """n2 past MAX_SPAN_N2 (a block's shared memory) and a batch past the
     grid's y blocks raise and name the limit."""
     n2 = cuda_ops.MAX_SPAN_N2 + 2
-    ops = _operands(1, 4, 1, n2, np.random.default_rng(7))
+    ops, kw = _span(1, 4, 1, n2, np.random.default_rng(7), 3, 0)
     with pytest.raises(ValueError, match="MAX_SPAN_N2"):
-        cuda_ops.SpanTable(*ops, s=3, i0=0, **KW)
-    ops = _operands(1, 4, 1, 8, np.random.default_rng(8))
+        cuda_ops.SpanTable(*ops, **kw)
+    ops, kw = _span(1, 4, 1, 8, np.random.default_rng(8), 3, 0)
     B = cuda_ops.MAX_GRID_Y + 1
     wide = {k: v.expand(B, *v.shape[1:]) for k, v in ops[0].items()}
     with pytest.raises(ValueError, match=f"limit of {cuda_ops.MAX_GRID_Y}"):
-        cuda_ops.SpanTable(wide, *ops[1:], s=3, i0=0, **KW)
+        cuda_ops.SpanTable(wide, *ops[1:], **kw)
 
 
 class _CudaTyped:
@@ -320,11 +387,11 @@ def test_span_table_on_cuda_raises_without_the_library(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_ops, "_lib", None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
-    ops = _operands(1, 16, 5, 18, np.random.default_rng(9))
+    ops, kw = _span(1, 16, 5, 18, np.random.default_rng(9), 10, 0)
     fake = tuple({k: _CudaTyped(v) for k, v in x.items()} if isinstance(x, dict)
                  else tuple(map(_CudaTyped, x)) if isinstance(x, tuple)
                  else _CudaTyped(x) for x in ops)
     before = cuda_ops.TT_SPAN_LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc"):
-        cuda_ops.SpanTable(*fake, s=10, i0=0, **KW)
+        cuda_ops.SpanTable(*fake, **kw)
     assert cuda_ops.TT_SPAN_LAUNCHES == before
