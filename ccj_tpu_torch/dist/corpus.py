@@ -212,11 +212,13 @@ def main(argv=None):
                       process_id=args.process_id, dangles=args.dangles,
                       batch_limit=args.batch_limit, device=dev)
     # machine-readable fold wall (a process-scaling probe reads it) and the
-    # tt-loop kernels' launches this process made (chip_smoke.py reads them)
+    # fill kernels' launches this process made (chip_smoke.py reads them)
     print(f"corpus-fold-seconds {time.time() - t0:.3f}", file=sys.stderr)
     print(f"corpus-tt-span-launches {cuda_ops.TT_SPAN_LAUNCHES}", file=sys.stderr)
     print(f"corpus-minplus-launches {cuda_ops.LAUNCHES}", file=sys.stderr)
     print(f"corpus-tt-step-launches {cuda_ops.TT_STEP_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-history-launches {cuda_ops.HISTORY_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-psplit-launches {cuda_ops.PSPLIT_LAUNCHES}", file=sys.stderr)
     if args.process_id == 0:
         with open(args.out, "w") as fh:
             json.dump([dataclasses.asdict(r) for r in res], fh, indent=1)

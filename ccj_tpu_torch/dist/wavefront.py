@@ -67,8 +67,8 @@ import torch
 from ..engine.common import I16, I32, INF, SAT16, dynamic_slice, pad_axis
 from ..engine.fold import add_batch, init_state_2d
 from ..engine.gapped import C_MATS, DS, M4_NAMES, _set_P_diag, compute_WBP_WPP_span, dims
-from ..engine.gapped3 import p_split_rows
-from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, g2, ri_min,
+from ..engine import cuda_ops
+from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, g2, per_table,
                               span_families, update_pk_skews4)
 from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_spans
 from ..engine.nested import compute_V_span, compute_WMv_WMp_WM_span
@@ -379,23 +379,22 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanRea
     sp0 = max(s - TB, 0)
     spv = sp0 + torch.arange(TB, device=dev)
     i_val = torch.arange(i0, i0 + IB, device=dev)
+    weights = per_table(lambda X: g2(X, i_val[None, :].expand(TB, IB),
+                                     i_val[None, :] + s - spv[:, None] - 1))  # [B, sp, i]
 
     def RI(name, X, g1):
         """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
-        for rows i (l = i + s): each owner of rows l reduces its own."""
-        wi = g2(X, i_val[None, :].expand(TB, IB),
-                i_val[None, :] + s - spv[:, None] - 1)     # [B, sp, i]
-        out = torch.full((sh["PKD"].shape[0], TB, IB, n2), INF, dtype=I32,
-                         device=dev)                      # l >= n2: INF
+        for rows i (l = i + s): each owner of rows l reduces its own (one
+        ``cuda_ops.history_min`` on its device)."""
+        wi = weights(X)
+        B = sh["PKD"].shape[0]
+        out = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)  # l >= n2: INF
         for q, lo, hi in tr.owners(i0 + s, i0 + s + IB):
-            devq = st.devices[q]
             win = dynamic_slice(st.shards[q]["C_" + name],
-                                (0, sp0, lo - q * R, 0),
-                                (TB, TB, hi - lo, n2)).to(I32)
-            d = (s - sp0 - torch.arange(TB, device=devq))[None, :, None, None]
-            red = ri_min(win, tr.move(wi[..., lo - i0 - s: hi - i0 - s], p, q, "shift"),
-                         torch.arange(lo - s, hi - s, device=devq), d,
-                         torch.arange(n2, device=devq), g1)
+                                (0, sp0, lo - q * R, 0), (TB, TB, hi - lo, n2))
+            wq = tr.move(wi[..., lo - i0 - s: hi - i0 - s], p, q, "shift")
+            red = torch.full((B, TB, hi - lo, n2), INF, dtype=I32, device=st.devices[q])
+            cuda_ops.history_min(red, [(win, wq, s - sp0)], cuda_ops.RI, s, g1, lo - s)
             out[:, :, lo - i0 - s: hi - i0 - s] = tr.move(red, q, p, "shift")
         return out
 
@@ -451,6 +450,10 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
     i_val = torch.arange(i0, i0 + IB, device=dev)
     hist = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
     hist = [(h, loh, nsh) for h, loh, nsh in hist if nsh > 0]
+    u = (torch.cat([loh + torch.arange(nsh, device=dev) for _, loh, nsh in hist])
+         if hist else None)
+    weights = per_table(lambda X: g2(X, i_val[None, :].expand(len(u), IB),
+                                     i_val[None, :] + s - u[:, None] - 1))   # [B, u, i]
 
     def RI(name, X, g1):
         """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
@@ -459,23 +462,17 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
         out = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)  # l >= n2: INF
         if not hist:
             return out
-        u = torch.cat([loh + torch.arange(nsh, device=dev) for _, loh, nsh in hist])
-        wi = g2(X, i_val[None, :].expand(len(u), IB),
-                i_val[None, :] + s - u[:, None] - 1)       # [B, u, i]
+        wi = weights(X)
         for q, a, b in tr.owners(i0 + s, i0 + s + IB):
-            devq = st.devices[q]
             wq = tr.move(wi[..., a - i0 - s: b - i0 - s], p, q, "shift")
-            iq = torch.arange(a - s, b - s, device=devq)
-            jq = torch.arange(n2, device=devq)
-            red = torch.full((B, TB, b - a, n2), INF, dtype=I32, device=devq)
-            k = 0
+            parts, k = [], 0
             for h, loh, nsh in hist:
                 win = st.fetch(q, f"C_{name}@{h}", lambda t, m=nsh: t.narrow(2, 0, m),
-                               a, b, "shift").to(I32)         # q's own rows
-                win = pad_axis(win, -4, 0, TB - SEGS[h][2], SAT16)
-                d = (s - loh - torch.arange(nsh, device=devq))[None, :, None, None]
-                red = torch.minimum(red, ri_min(win, wq[:, k:k + nsh], iq, d, jq, g1))
+                               a, b, "shift")                 # q's own rows
+                parts.append((win, wq[:, k:k + nsh], s - loh))
                 k += nsh
+            red = torch.full((B, TB, b - a, n2), INF, dtype=I32, device=st.devices[q])
+            cuda_ops.history_min(red, parts, cuda_ops.RI, s, g1, a - s)
             out[:, :, a - i0 - s: b - i0 - s] = tr.move(red, q, p, "shift")
         return out
 
@@ -567,6 +564,7 @@ def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
     layout's sharded reads with its row offset, one ``tt_span`` launch
     per span and shard on CUDA); then the write-back."""
     n, tr = st.n, st.transport
+    n2, T, S, U = dims(n)
     Cd = {dev: {**_on(C, dev), "n": n} for dev in st.replicas}
     SC4d = {dev: _on(SC4, dev) for dev in st.replicas}
     for s, TB, gi in _spans(st):
@@ -578,12 +576,15 @@ def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
         for p, i0, IB in active:
             dev = st.devices[p]
 
-            def pkd_rows(span, r0, rows, p=p):
-                return st.fetch(p, "PKD", lambda t: t.select(2, span), r0,
-                                r0 + rows, "gather")
-
-            pieces[p] = (i0, p_split_rows(Cd[dev], st.shards[p]["PKE"], pkd_rows,
-                                          s, i0, IB))
+            # factor 2's PKD rows i + a + 1 at span s - a - 1 for every a,
+            # fetched from their owners into one operand
+            pkd = torch.empty((st.shards[p]["PKD"].shape[0], max(s - 1, 1), T, IB, n2),
+                              dtype=I16, device=dev)
+            for a in range(s - 1):
+                pkd[:, a] = st.fetch(p, "PKD", lambda t, u=s - a - 1: t.select(2, u),
+                                     i0 + a + 1, i0 + a + 1 + IB, "gather")
+            pieces[p] = (i0, cuda_ops.p_split(st.shards[p]["PKE"], pkd, s=s, n=n, i0=i0,
+                                              R=IB, sp=(0, 1), ro=(0, 0)))
         for dev, p_min in tr.allgather(pieces, st.replicas).items():
             _set_P_diag(st.replicas[dev], n, s, p_min)
         for dev, rep in st.replicas.items():

@@ -34,15 +34,25 @@ row's valid band in shared memory, from a :class:`SpanTable` built and
 checked once per span; its plain version :func:`tt_span_ref` is the loop of
 :func:`minplus_group_ref` and :func:`tt_step_ref`.
 
+Two kernels of the rest of the span, each the counterpart of an XLA
+fusion of the JAX fills (no Pallas kernel): :func:`history_min`
+(``csrc/history.cu``), the gapped step's l-shrink / i-shrink history scans
+RL / RI over int16 views of the state (``ccj_tpu/engine/gapped4.py:306-341``,
+``gapped5.py:313-365``), and :func:`p_split` (``csrc/psplit.cu``), the P
+split contraction over PKE / PKD (``ccj_tpu/engine/gapped3.py:69-123``);
+their plain versions are :func:`history_min_ref` and :func:`p_split_ref`.
+
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
 back.  The library is built with ``nvcc`` (one process per source, then one
 link) into ``build/`` beside the package at first use and loaded with
 ``ctypes``.  ``LAUNCHES`` counts ``minplus_group`` launches and ``WINDOWS``
 the windows those launches reduced (a batch of B counts each window B
-times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches and
-``TT_SPAN_LAUNCHES`` ``tt_span`` launches; nothing else moves them, so a
-run can show that its main path went through the kernels.
+times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches,
+``TT_SPAN_LAUNCHES`` ``tt_span`` launches, ``HISTORY_LAUNCHES``
+``history_min`` launches and ``PSPLIT_LAUNCHES`` ``p_split`` launches;
+nothing else moves them, so a run can show that its main path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ from pathlib import Path
 
 import torch
 
-from .common import INF, SAT16, mmin
+from .common import INF, SAT16, mmin, pad_axis
 from .gapped import DS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -72,6 +82,8 @@ LAUNCHES = 0            # minplus kernel launches (CUDA only)
 WINDOWS = 0             # windows reduced by those launches (B per batched window)
 TT_STEP_LAUNCHES = 0    # tt_step kernel launches (CUDA only)
 TT_SPAN_LAUNCHES = 0    # tt_span kernel launches (CUDA only)
+HISTORY_LAUNCHES = 0    # history_min kernel launches (CUDA only)
+PSPLIT_LAUNCHES = 0     # p_split kernel launches (CUDA only)
 MAX_GRID_Z = 65535      # CUDA's grid.z limit: descriptors x batch
 
 _lib = None
@@ -194,6 +206,20 @@ def _library():
             lib.ccj_tt_span_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                                ctypes.c_void_p, ctypes.c_void_p]
             lib.ccj_tt_span_phases.restype = ctypes.c_int
+            if lib.ccj_history_table_bytes() != ctypes.sizeof(HistTable):
+                raise RuntimeError(
+                    f"cuda_ops.HistTable ({ctypes.sizeof(HistTable)} B) does not "
+                    f"mirror csrc/history.cu ({lib.ccj_history_table_bytes()} B)")
+            if lib.ccj_history_max_parts() != HISTORY_MAX_PARTS:
+                raise RuntimeError("HISTORY_MAX_PARTS does not match csrc/history.cu")
+            lib.ccj_history_min.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lib.ccj_history_min.restype = ctypes.c_int
+            if lib.ccj_p_split_table_bytes() != ctypes.sizeof(PSplitTable):
+                raise RuntimeError(
+                    f"cuda_ops.PSplitTable ({ctypes.sizeof(PSplitTable)} B) does not "
+                    f"mirror csrc/psplit.cu ({lib.ccj_p_split_table_bytes()} B)")
+            lib.ccj_p_split.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lib.ccj_p_split.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -235,9 +261,20 @@ def _check_devices(tensors):
     """The one CUDA device all ``tensors`` lie on; raises otherwise."""
     dev = tensors[0].device
     if not all(t.is_cuda and t.device == dev for t in tensors):
-        raise ValueError("minplus needs every slab and w on one CUDA device "
+        raise ValueError("a kernel needs every operand on one CUDA device "
                          f"(or all on the CPU), got {[str(t.device) for t in tensors]}")
     return dev
+
+
+def _launch(fn, dev, what, *args):
+    """``fn(*args)`` on ``dev``'s stream; raises on a failed launch."""
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:   # a launch goes to the stream's own device only
+        with torch.cuda.device(dev):
+            rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
 @dataclass(frozen=True)
@@ -468,16 +505,9 @@ def _minplus_group_cuda(table, tt, out):
     global LAUNCHES, WINDOWS
     G, I, J = table.shape[-3:]
     B = table.batch or 1
-    args = (table._descs, table._strides, len(table.jobs), B, G, tt,
-            out.data_ptr(), I, J, table.Q,
+    _launch(table._fn, table.device, "minplus_group", table._descs, table._strides,
+            len(table.jobs), B, G, tt, out.data_ptr(), I, J, table.Q,
             torch.cuda.current_stream(table.device).cuda_stream)
-    if table.device.index == torch.cuda.current_device():
-        rc = table._fn(*args)
-    else:   # a launch goes to the stream's own device only
-        with torch.cuda.device(table.device):
-            rc = table._fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"minplus_group launch failed: cudaError {rc}")
     LAUNCHES += 1
     WINDOWS += G * B
     return out
@@ -810,15 +840,8 @@ def tt_step(table: StepTable, tt: int):
     table.check_tt(tt)
     if table.device.type == "cpu":
         return tt_step_ref(table, tt)
-    args = (ctypes.addressof(table), tt,
+    _launch(table._fn, table.device, "tt_step", ctypes.addressof(table), tt,
             torch.cuda.current_stream(table.device).cuda_stream)
-    if table.device.index == torch.cuda.current_device():
-        rc = table._fn(*args)
-    else:   # a launch goes to the stream's own device only
-        with torch.cuda.device(table.device):
-            rc = table._fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"tt_step launch failed: cudaError {rc}")
     TT_STEP_LAUNCHES += 1
 
 
@@ -1098,14 +1121,225 @@ def _launch_span(table: SpanTable, plan, fn):
             raise ValueError(f"tt_span has no knob {name!r}")
         setattr(knobs, name, value)
     out = SpanPlan()
-    args = (ctypes.addressof(table), ctypes.addressof(knobs),
+    _launch(fn, table.device, "tt_span", ctypes.addressof(table), ctypes.addressof(knobs),
             torch.cuda.current_stream(table.device).cuda_stream, ctypes.addressof(out))
-    if table.device.index == torch.cuda.current_device():
-        rc = fn(*args)
-    else:   # a launch goes to the stream's own device only
-        with torch.cuda.device(table.device):
-            rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"tt_span launch failed: cudaError {rc}")
     table.plan = {name: getattr(out, name) for name, _ in SpanPlan._fields_}
     return bool(out.live)
+
+
+# ---------------------------------------------------------------------------
+# history_min: the gapped step's l-shrink / i-shrink history scans
+# ---------------------------------------------------------------------------
+
+HISTORY_MAX_PARTS = 8   # csrc/history.cu kMaxParts
+RL, RI = 0, 1           # history_min's modes
+
+
+class HistPart(ctypes.Structure):
+    """One history window of :func:`history_min`: csrc/history.cu's
+    ``struct HistPart``, field for field (pointers and element strides of
+    the int16 window [B, TBw, U, Rw, n2] and the int32 weights [B, U, R];
+    span u has distance d = d0 - u)."""
+    _fields_ = [("win", ctypes.c_void_p), ("ws", ctypes.c_longlong * 5),
+                ("w", ctypes.c_void_p), ("wws", ctypes.c_longlong * 3),
+                *((nm, ctypes.c_int) for nm in ("TBw", "U", "Rw", "d0"))]
+
+
+class HistTable(ctypes.Structure):
+    """The operands of one :func:`history_min` launch: csrc/history.cu's
+    ``struct HistTable``, field for field, passed to the kernel by value."""
+    _fields_ = [("part", HistPart * HISTORY_MAX_PARTS), ("acc", ctypes.c_void_p),
+                ("acc_s", ctypes.c_longlong * 4),
+                *((nm, ctypes.c_int) for nm in (
+                    "nparts", "B", "TB", "R", "n2", "s", "g1", "mode", "i0"))]
+
+
+def history_parts(acc, parts):
+    """``parts`` checked against ``acc`` and cut to their admissible spans
+    (u < d0: a span u >= d0 has d <= 0 and gives no term); parts left with
+    no span or no row are dropped.  Raises on a part that does not fit."""
+    B, TB, R, n2 = acc.shape
+    out = []
+    for win, w, d0 in parts:
+        if win.dim() != 5 or win.dtype != torch.int16:
+            raise ValueError(f"a history window must be int16 [B, TBw, U, Rw, n2], "
+                             f"got {win.dtype} {tuple(win.shape)}")
+        if w.dim() != 3 or w.dtype != torch.int32:
+            raise ValueError(f"history weights must be int32 [B, U, R], got "
+                             f"{w.dtype} {tuple(w.shape)}")
+        Bw, _TBw, U, Rw, nw = win.shape
+        if Bw != B or nw != n2 or Rw > R or tuple(w.shape[:2]) != (B, U) or w.shape[2] < R:
+            raise ValueError(f"history window {tuple(win.shape)} / weights "
+                             f"{tuple(w.shape)} do not fit acc {tuple(acc.shape)}")
+        U = min(U, int(d0))
+        if U > 0 and Rw > 0:
+            out.append((win[:, :, :U], w[:, :U], int(d0)))
+    if len(out) > HISTORY_MAX_PARTS:
+        raise ValueError(f"{len(out)} history parts, past the kernel's "
+                         f"{HISTORY_MAX_PARTS} (a launch's table)")
+    return out
+
+
+def history_min_ref(acc, parts, mode, s, g1, i0=0):
+    """Plain PyTorch version of :func:`history_min` (the scans as the fills
+    wrote them before the kernel: ``gapped4``'s RL body and ``ri_min``)."""
+    B, TB, R, n2 = acc.shape
+    dev = acc.device
+    tv = torch.arange(TB, device=dev)[:, None, None]          # tt
+    iv = torch.arange(i0, i0 + R, device=dev)[None, :, None]  # i
+    jv = torch.arange(n2, device=dev)[None, None, :]          # j
+    if mode == RL:
+        bound = (iv + s) - (jv + tv + 2) - g1                  # l - k - g1
+    else:
+        bound = torch.where(iv >= 1, (jv - iv) - g1, 0)        # sj - g1, i >= 1
+    acc.clamp_(max=INF)
+    for win, w, d0 in parts:
+        U, Rw = win.shape[2], win.shape[3]
+        x = win[:, :TB].to(torch.int32)
+        x = pad_axis(x, 1, 0, TB - x.shape[1], SAT16)   # tt rows past the part's
+        x = pad_axis(x, 3, 0, R - Rw, SAT16)            # rows past it: masked below
+        d = (d0 - torch.arange(U, device=dev))[None, :, None, None]
+        rows = (torch.arange(R, device=dev) < Rw)[:, None]
+        ok = (d >= 1) & (d <= bound[:, None]) & rows
+        vals = torch.where(ok, x + w[:, None, :, :R, None], INF)
+        torch.minimum(acc, vals.amin(dim=-3), out=acc)
+    return acc
+
+
+def history_min(acc, parts, mode, s, g1, i0=0):
+    """One history scan into ``acc`` in place; returns it.
+
+    acc[b, tt, r, j] = min(acc, INF, min over parts (win, w, d0) and spans u
+    of win[b, tt, u, r, j] + w[b, u, r]) over the terms with distance
+    d = d0 - u in [1, bound]: ``mode`` :data:`RL`, the l-shrink scan,
+    bound = (i + s) - (j + tt + 2) - g1; :data:`RI`, the i-shrink scan,
+    bound = (j - i) - g1 and i >= 1; row r is i = i0 + r.
+
+    ``acc``: int32 [B, TB, R, n2].  Each part: ``win`` an int16 view
+    [B, TBw, U, Rw, n2] straight into the state (its tt rows past TBw read
+    SAT16, its rows past Rw give no term), ``w`` int32 [B, U, >= R], ``d0``
+    an int; at most :data:`HISTORY_MAX_PARTS` parts with an admissible
+    span (``gapped5.segments7`` makes at most 6 segments).  One kernel
+    launch on CUDA for the whole batch, none where no part has an
+    admissible span.  The plain version (:func:`history_min_ref`) for CPU
+    tensors."""
+    global HISTORY_LAUNCHES
+    if acc.dim() != 4 or acc.dtype != torch.int32:
+        raise ValueError(f"acc must be int32 [B, TB, R, n2], got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    if mode not in (RL, RI):
+        raise ValueError(f"mode must be RL ({RL}) or RI ({RI}), got {mode}")
+    tensors = [acc, *(t for win, w, _ in parts for t in (win, w))]
+    if all(t.device.type == "cpu" for t in tensors):
+        return history_min_ref(acc, history_parts(acc, parts), mode, s, g1, i0)
+    dev = _check_devices(tensors)
+    fn = _library().ccj_history_min
+    parts = history_parts(acc, parts)
+    if not parts:
+        return acc.clamp_(max=INF)
+    B, TB, R, n2 = acc.shape
+    t = HistTable(acc=acc.data_ptr(), acc_s=(ctypes.c_longlong * 4)(*acc.stride()),
+                  nparts=len(parts), B=B, TB=TB, R=R, n2=n2, s=s, g1=g1, mode=mode, i0=i0)
+    for q, (win, w, d0) in enumerate(parts):
+        t.part[q] = HistPart(win.data_ptr(), (ctypes.c_longlong * 5)(*win.stride()),
+                             w.data_ptr(), (ctypes.c_longlong * 3)(*w.stride()),
+                             win.shape[1], win.shape[2], win.shape[3], d0)
+    _launch(fn, dev, "history_min", ctypes.addressof(t),
+            torch.cuda.current_stream(dev).cuda_stream)
+    HISTORY_LAUNCHES += 1
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# p_split: the P(i, i+s) split contraction
+# ---------------------------------------------------------------------------
+
+class PSplitTable(ctypes.Structure):
+    """The operands of one :func:`p_split` launch: csrc/psplit.cu's
+    ``struct PSplitTable``, field for field (``split``, the blocks a row,
+    is the kernel's choice, written back)."""
+    _fields_ = [("pke", ctypes.c_void_p), ("ks", ctypes.c_longlong * 5),
+                ("pkd", ctypes.c_void_p), ("ds", ctypes.c_longlong * 5),
+                ("out", ctypes.c_void_p), ("os", ctypes.c_longlong * 2),
+                *((nm, ctypes.c_int) for nm in (
+                    "sp0", "sp1", "ro0", "ro1", "nrows", "B", "R", "s", "n", "i0",
+                    "lo", "nlive", "split"))]
+
+
+def p_split_live(n, s, i0, R):
+    """The live rows [lo, hi] of a span-s P split over rows [i0, i0 + R):
+    i >= 1 and i + s <= n (empty where lo > hi)."""
+    return max(1, i0), min(i0 + R - 1, n - s)
+
+
+def p_split_ref(pke, pkd, s, n, i0, R, sp, ro):
+    """Plain PyTorch version of :func:`p_split` (the s - 1 passes over a
+    the fills ran before the kernel)."""
+    B, T = pke.shape[0], pke.shape[1]
+    dev = pke.device
+    bb = torch.arange(T, device=dev)[:, None, None]           # b-1
+    cc = torch.arange(T, device=dev)[None, :, None]           # c-1
+    iv = torch.arange(i0, i0 + R, device=dev)[None, None, :]  # i
+    row_ok = (iv >= 1) & (iv + s <= n)
+    p_min = torch.full((B, R), INF, dtype=torch.int32, device=dev)
+    for a in range(max(s - 1, 0)):
+        # F1[b-1, c-1, i] = PKE[b-1, (a+2)+(c-1), i, a]
+        F1 = pke[:, :, a + 2: a + 2 + T, :R, a]
+        # F2[b-1, c-1, i] = X[sp(a), c-1, ro(a) + r, b-1], rows past X's SAT16
+        r0 = ro[0] + ro[1] * a
+        F2 = pkd[:, sp[0] + sp[1] * a, :, r0:r0 + R, :T]
+        F2 = pad_axis(F2, -2, 0, R - F2.shape[-2], SAT16).movedim(-1, -3)
+        ok = (bb + cc + 2 <= s - 1 - a) & row_ok
+        vals = torch.where(ok, F1.to(torch.int32) + F2.to(torch.int32), INF)
+        p_min = torch.minimum(p_min, vals.amin(dim=(-3, -2)))
+    return p_min
+
+
+def p_split(pke, pkd, *, s, n, i0, R, sp, ro):
+    """The P-split minima of rows i in [i0, i0 + R), int32 [B, R] (INF where
+    no candidate, or i is not a span-s row: i >= 1, i + s <= n):
+
+      min over a >= 0, b, c >= 1 with a + b + c <= s - 1 of
+      PKE[b-1, a+c+1, i, a] + X[sp(a), c-1, ro(a) + r, b-1]
+
+    with sp(a) = sp[0] + sp[1] a and ro(a) = ro[0] + ro[1] a; X's rows past
+    its last read SAT16.  ``pke``: int16 [B, T, >= s + T, >= R, >= s - 1]
+    whose row r is i = i0 + r; ``pkd``: int16 X [B, A, T, NR, >= T], any
+    strides (the dense PKD as ``PKD.transpose(1, 2)`` with sp = (s - 1, -1),
+    ro = (i0 + 1, 1); a stack of fetched rows with sp = (0, 1), ro = (0, 0)).
+    The sum is plain int32, SAT16 cells taking part as values.  One kernel
+    launch on CUDA for the whole batch, none for a span with no live row or
+    no term (s < 3); the plain version (:func:`p_split_ref`) for CPU
+    tensors."""
+    global PSPLIT_LAUNCHES
+    if pke.dim() != 5 or pkd.dim() != 5 or pke.dtype != torch.int16 \
+            or pkd.dtype != torch.int16:
+        raise ValueError(f"pke and pkd must be 5-D int16, got {pke.dtype} "
+                         f"{tuple(pke.shape)}, {pkd.dtype} {tuple(pkd.shape)}")
+    B, T = pke.shape[:2]
+    A, NR = pkd.shape[1], pkd.shape[3]
+    xs = (sp[0], sp[0] + sp[1] * (s - 2)) if s >= 2 else (0,)   # a in [0, s - 2]
+    if (pkd.shape[0] != B or pkd.shape[2] != T or pkd.shape[4] < T
+            or pke.shape[2] < s + T or pke.shape[3] < R
+            or pke.shape[4] < s - 1 or min(xs) < 0 or max(xs) >= A
+            or ro[0] < 0 or ro[1] < 0):
+        raise ValueError(f"p_split operands pke {tuple(pke.shape)}, pkd "
+                         f"{tuple(pkd.shape)}, sp {sp}, ro {ro} do not fit span {s}, "
+                         f"{R} rows")
+    if pke.device.type == "cpu" and pkd.device.type == "cpu":
+        return p_split_ref(pke, pkd, s, n, i0, R, sp, ro)
+    dev = _check_devices([pke, pkd])
+    fn = _library().ccj_p_split
+    out = torch.full((B, R), INF, dtype=torch.int32, device=dev)
+    lo, hi = p_split_live(n, s, i0, R)
+    if hi < lo or s < 3:
+        return out
+    t = PSplitTable(pke=pke.data_ptr(), ks=(ctypes.c_longlong * 5)(*pke.stride()),
+                    pkd=pkd.data_ptr(), ds=(ctypes.c_longlong * 5)(*pkd.stride()),
+                    out=out.data_ptr(), os=(ctypes.c_longlong * 2)(*out.stride()),
+                    sp0=sp[0], sp1=sp[1], ro0=ro[0], ro1=ro[1], nrows=NR, B=B, R=R,
+                    s=s, n=n, i0=i0, lo=lo, nlive=hi - lo + 1)
+    _launch(fn, dev, "p_split", ctypes.addressof(t),
+            torch.cuda.current_stream(dev).cuda_stream)
+    PSPLIT_LAUNCHES += 1
+    return out

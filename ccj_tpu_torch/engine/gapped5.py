@@ -18,8 +18,9 @@ Cross-span reads are resolved per segment with Python-int span arithmetic:
 * fixed-offset reads at spans s-1 / s-2 and the MAXLOOP stencil windows read
   segment g or (for spans below lo_g) segment g-1; no overlap copies exist,
   so segments are at least ``MIN_SEG`` wide;
-* the l-shrink / i-shrink history scans (RL / RI) loop over ALL prior
-  segments, reducing each segment's exact-extent block in turn.
+* the l-shrink / i-shrink history scans (RL / RI) read ALL prior
+  segments, each segment's exact-extent block one part of the same
+  ``cuda_ops.history_min`` call.
 
 Rows beyond a segment's extents do not exist; every read pads them with the
 int16 unset value, the same losing candidates the dense layout holds there.
@@ -43,10 +44,11 @@ from __future__ import annotations
 
 import torch
 
+from . import cuda_ops
 from .common import (I16, I32, INF, SAT16, dynamic_slice,
                      dynamic_update_slice, pad_axis)
 from .gapped import C_MATS, DS, M4_NAMES, dims
-from .gapped4 import SpanReads, g2, span_families, update_pk_skews4
+from .gapped4 import SpanReads, g2, per_table, span_families, update_pk_skews4
 
 MIN_SEG = DS + 2   # every cross-span window must fit within one neighbor
 
@@ -114,36 +116,27 @@ def prior_spans(SEGS, h: int, s: int) -> int:
 def packed_rl(st, n, s, gi: int, SEGS, TB, IB, i0=0):
     """The packed layout's ``RL`` scan (``gapped4.SpanReads``) for span s
     of segment gi over rows i in [i0, i0 + IB), which are the first IB
-    rows of every ``name@h`` block in ``st``.  Row-local, it loops over
-    every prior segment; a row shard of dist/wavefront.py (its blocks'
-    rows from ``i0``) uses it as it is."""
+    rows of every ``name@h`` block in ``st``: one ``cuda_ops.history_min``
+    over every prior segment's block (a part each, its tt rows past the
+    segment's reading SAT16).  Row-local; a row shard of dist/wavefront.py
+    (its blocks' rows from ``i0``) uses it as it is."""
     n2 = n + 2
     dev = st["PKD"].device
     B = st["PKD"].shape[0]
-    tv = torch.arange(TB, device=dev)[:, None, None]          # tt
-    iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]  # i
-    jv = torch.arange(n2, device=dev)[None, None, :]          # j
-    Gv = (iv + s) - (jv + tv + 2)                             # l - k
-    i1 = iv[0, :, 0]
+    i1 = torch.arange(i0, i0 + IB, device=dev)
+    hist = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
+    hist = [(h, loh, nsh) for h, loh, nsh in hist if nsh > 0]
+    u = [loh + torch.arange(nsh, device=dev) for _h, loh, nsh in hist]
+    weights = per_table(lambda X: [g2(X, i1[None, :] + u_h[:, None] + 1,
+                                      (i1[None, :] + s).expand(len(u_h), IB))
+                                   for u_h in u])
 
     def RL(name, X, g1):
         """min over d in [1, G-g1] of name[tt, s-d, i, j] + X(l-d+1, l)."""
+        parts = [(st[f"{name}@{h}"][:, :, :nsh, :IB], wl, s - loh)
+                 for (h, loh, nsh), wl in zip(hist, weights(X))]
         acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
-        for h in range(gi + 1):
-            loh, hih, TBh, IBh, _ = SEGS[h]
-            nsh = prior_spans(SEGS, h, s)
-            if nsh <= 0:
-                continue
-            win = st[f"{name}@{h}"][:, :, :nsh, :IB, :].to(I32)
-            win = pad_axis(win, -4, 0, TB - TBh, SAT16)
-            u_h = loh + torch.arange(nsh, device=dev)
-            wl = g2(X, i1[None, :] + u_h[:, None] + 1,
-                    (i1[None, :] + s).expand(nsh, IB))
-            d_h = (s - u_h)[None, :, None, None]
-            ok = (d_h >= 1) & (d_h <= (Gv - g1)[:, None])
-            vals = torch.where(ok, win + wl[:, None, :, :, None], INF)
-            acc = torch.minimum(acc, vals.amin(dim=-3))
-        return acc
+        return cuda_ops.history_min(acc, parts, cuda_ops.RL, s, g1, i0)
 
     return RL
 
@@ -198,41 +191,26 @@ def packed_reads(st, n, s, gi: int, SEGS):
     def plane(name, c, b, di):
         return (plane_from_C if name in DROPPED else seg_plane)(name, c, b, di)
 
-    # ---- cross-span reductions: loop over ALL prior segments -------------
-    # (RL is row-local: packed_rl)
-    l_val = lo + torch.arange(IB, device=dev)            # actual l per C row
-    i_val = l_val - s                                    # i = l - s
-    sj_lr = torch.arange(n2, device=dev)[None, :] - i_val[:, None]  # [IB(lr), n2]
+    # ---- cross-span reductions: ALL prior segments (RL: packed_rl) --------
+    i1 = torch.arange(IB, device=dev)
+    rows = min(IB, n2 - s)                   # rows i with C row l = i + s < n2
+    hist = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
+    hist = [(h, loh, nsh) for h, loh, nsh in hist if nsh > 0]
+    u = [loh + torch.arange(nsh, device=dev) for _h, loh, nsh in hist]
+    weights = per_table(lambda X: [g2(X, i1[None, :].expand(len(u_h), IB),
+                                      i1[None, :] + s - u_h[:, None] - 1)  # [B, u, i]
+                                   for u_h in u])
 
     def RI(name, X, g1):
-        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1);
-        C rows l in [lo, lo+IB) (the dense engine's loff = min(s, n2-IB)
-        is lo for exact segment extents)."""
+        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1):
+        row i reads C row l = i + s (local row l - lo_h - 1 of segment h's
+        skew, s - lo_h - 1 >= 0 where the segment has a prior span; rows
+        l >= n2 have no term), one part a prior segment."""
+        parts = [(st[f"C_{name}@{h}"][:, :, :nsh, s - loh - 1:s - loh - 1 + rows], wi,
+                  s - loh)
+                 for (h, loh, nsh), wi in zip(hist, weights(X))]
         acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
-        for h in range(gi + 1):
-            loh, hih, TBh, IBh, _Lch = SEGS[h]
-            nsh = prior_spans(SEGS, h, s)
-            if nsh <= 0:
-                continue
-            A = st[f"C_{name}@{h}"]
-            off = lo - loh - 1
-            if off >= 0:
-                win = A[:, :, :nsh, off: off + IB, :].to(I32)
-            else:  # h == gi: row l = lo is older-span territory, unset here
-                win = pad_axis(A[:, :, :nsh, :IB - 1, :].to(I32), -2, 1, 0,
-                               SAT16)
-            win = pad_axis(win, -4, 0, TB - TBh, SAT16)
-            u_h = loh + torch.arange(nsh, device=dev)
-            wi = g2(X, i_val[None, :].expand(nsh, IB),
-                    l_val[None, :] - u_h[:, None] - 1)    # [B, u, lr]
-            d_h = (s - u_h)[None, :, None, None]
-            ok = ((d_h >= 1) & (d_h <= (sj_lr - g1)[None, None])
-                  & (i_val >= 1)[None, None, :, None])
-            vals = torch.where(ok, win + wi[:, None, :, :, None], INF)
-            acc = torch.minimum(acc, vals.amin(dim=-3))
-        # rows lr hold l = lo + lr; map to i rows (i = l - s) by shifting
-        return dynamic_slice(pad_axis(acc, -2, 0, IB, INF), (0, s - lo, 0),
-                             (TB, IB, n2))
+        return cuda_ops.history_min(acc, parts, cuda_ops.RI, s, g1)
 
     # ---- MAXLOOP stencil windows (PL / PR) -------------------------------
     def window(name, rows, halo=DS):

@@ -16,7 +16,12 @@ same way for both engines, in this order:
   ``max_memory_allocated`` over the two;
 * ``parts_s``: a third fill with a device synchronise around each span
   function, so each part's wall is summed apart (V, P split, WBP/WPP, the
-  cross-span phase of the gapped step, its serial tt loop, WM/WMv/WMp);
+  cross-span phase of the gapped step, its serial tt loop, WM/WMv/WMp),
+  and the cross-span phase split in three: the l-shrink / i-shrink
+  history scans (every ``RL`` / ``RI`` call of ``gapped4.span_families``),
+  the PL / PR interior-loop stencils (``gapped4.pl_stencil`` /
+  ``pr_stencil``, their windows' reads included) and the rest, the plane
+  reads and the assembly;
 * ``tt_loop_turns``: that fill and two more taken the same way, in turns:
   the tt loop as the fills run it (one ``tt_span`` a span), as the
   two-launch loop it replaced (``ttloop.run_tt_loop_steps``), and as the
@@ -33,8 +38,8 @@ same way for both engines, in this order:
   values): once for the wall, once under torch.profiler.  Device kernel
   time over that wall is the device's busy share; the kernels and PyTorch
   ops that take the most device time and the port's own kernels
-  (``tt_span``; ``minplus_group`` and ``tt_step`` where anything runs them)
-  are listed.
+  (``tt_span``, ``history_min``, ``p_split``; ``minplus_group`` and
+  ``tt_step`` where anything runs them) are listed.
 """
 
 from __future__ import annotations
@@ -129,9 +134,16 @@ def main(argv=None):
         acc = defaultdict(float)
         names = {"compute_V_span": fold, "compute_P_span3": fold,
                  "compute_WBP_WPP_span": fold, step: fold,
-                 "compute_WMv_WMp_WM_span": fold, "run_tt_loop": gapped4}
+                 "compute_WMv_WMp_WM_span": fold, "run_tt_loop": gapped4,
+                 "pl_stencil": gapped4, "pr_stencil": gapped4}
         saved = {k: getattr(m, k) for k, m in names.items()}
         real_span, events = cuda_ops.tt_span, []
+        real_families = gapped4.span_families
+
+        def families(C, SC4, st, s, TB, IB, reads, i0=0):
+            reads = reads._replace(RL=_timed(reads.RL, acc, "history"),
+                                   RI=_timed(reads.RI, acc, "history"))
+            return real_families(C, SC4, st, s, TB, IB, reads, i0)
 
         def span_split(table, plan=None):
             torch.cuda.synchronize()
@@ -147,6 +159,7 @@ def main(argv=None):
         try:
             for k, m in names.items():
                 setattr(m, k, _timed(loop if k == "run_tt_loop" else saved[k], acc, k))
+            gapped4.span_families = gapped5.span_families = families
             if split:
                 cuda_ops.tt_span = span_split
             t0 = time.perf_counter()
@@ -157,7 +170,13 @@ def main(argv=None):
             for k, m in names.items():
                 setattr(m, k, saved[k])
             cuda_ops.tt_span = real_span
-        acc[f"{step} (cross-span phase)"] = acc.pop(step) - acc["run_tt_loop"]
+            gapped4.span_families = gapped5.span_families = real_families
+        cross = acc.pop(step) - acc["run_tt_loop"]
+        acc[f"{step} (cross-span phase)"] = cross
+        acc["cross: history scans (RL/RI)"] = acc.pop("history")
+        acc["cross: PL/PR stencils"] = acc.pop("pl_stencil") + acc.pop("pr_stencil")
+        acc["cross: plane reads + assembly"] = (
+            cross - acc["cross: history scans (RL/RI)"] - acc["cross: PL/PR stencils"])
         if split:
             acc["tt_span_device_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
             acc["tables_s"] = acc["run_tt_loop"] - acc["tt_span_call_s"]
@@ -224,7 +243,8 @@ def main(argv=None):
         "top_ops": _top(ops),
         # the port's own kernels (csrc/), wherever they rank
         "port_kernels": _top([e for e in kernels
-                              if any(k in e.key for k in ("minplus", "tt_step", "tt_span"))]),
+                              if any(k in e.key for k in ("minplus", "tt_step", "tt_span",
+                                                          "history", "p_split"))]),
     }
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)

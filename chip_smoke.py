@@ -8,7 +8,7 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
-   ``ccj_tpu_torch/csrc/`` (the three kernels, one ``nvcc`` per source,
+   ``ccj_tpu_torch/csrc/`` (the five kernels, one ``nvcc`` per source,
    run together) and report the build time;
 2. the min-plus kernel against its plain PyTorch version on the card,
    exactly (tolerance zero: integer data): single windows
@@ -62,15 +62,25 @@ Phases; any failure exits non-zero and prints no result:
    (graph) and eager times on the same operands, the plain version's, and two bounds:
    the span's loop as one function (:func:`span_bound`) and, the two-launch
    loop's yardstick, the sum over the span's steps of the two kernels'
-   bounds (:func:`two_kernel_bound`);
+   bounds (:func:`two_kernel_bound`); then (2d) ``history_min`` (the
+   gapped step's RL / RI history scans) and ``p_split`` (the P split)
+   against their plain versions exactly, at the fills' own calls on a
+   random state (:func:`history_psplit_cases`: the n=100 main span, n=128's,
+   the packed n=200 span 135 over all four prior segments, bucket 100 x 4,
+   a dense row shard of 26 rows from i0 = 26 and a packed one of 48 rows
+   from i0 = 51), each with its L2-hot and L2-cold device times, the
+   fills' eager call's, the plain version's on the card and its byte bound
+   (:func:`history_bound`, :func:`psplit_bound`; no library yardstick);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
    (bench.py, seed 42; the lazy traceback, the default on CUDA) with the
    kernels' launch counts reset just before and read just after: one
-   ``tt_span`` per span with a tt step (98), no ``minplus_group`` and no
-   ``tt_step``; every later path is checked the same way (``tt_span`` once
-   per span, or per span and row shard with a span-s row); then
+   ``tt_span`` per span with a tt step (98), one ``history_min`` per RL /
+   RI call (16 a span, 1584), one ``p_split`` per span with a term (97),
+   no ``minplus_group`` and no ``tt_step``; every later path is checked the
+   same way (:func:`fill_counts`; per span and row shard with a span-s
+   row, :func:`sharded_counts`); then
    the fill alone (V(1, 100) must be -1528, bench.py's golden) and, on
    that one fill, the lazy traceback (``LazyMats`` + ``Traceback.run``,
    with its bytes and slabs fetched) against the eager host copy plus
@@ -222,18 +232,38 @@ def tt_spans(n_fill):
 def reset_counts(cuda_ops):
     """Set every kernel's launch count to 0, just before a path is driven."""
     cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
-    cuda_ops.TT_SPAN_LAUNCHES = 0
+    cuda_ops.TT_SPAN_LAUNCHES = cuda_ops.HISTORY_LAUNCHES = cuda_ops.PSPLIT_LAUNCHES = 0
 
 
-def loop_launches(cuda_ops, spans, what):
-    """The tt-loop kernels' launches since :func:`reset_counts`, checked:
-    ``tt_span`` once per span with a tt step (``spans``), ``minplus_group``
-    and ``tt_step`` never (no fill runs the step-by-step loop).  Returns
-    ``tt_span``'s count."""
-    got = (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
-    check(got == (spans, 0, 0), f"{what}: tt_span / minplus_group / tt_step "
-          f"launches {got} != ({spans}, 0, 0)")
-    return spans
+def fill_counts(*lengths):
+    """The launches of unsharded fills (dense or packed; a batch counts
+    once) of these lengths: (``tt_span``, ``history_min``, ``p_split``).
+    Every span with a tt step launches one ``tt_span``, every span s >= 1
+    one ``history_min`` per RL / RI call (16; the packed layout's prior
+    segments in one launch), every span with a live row and a term (3 <= s
+    <= n - 1) one ``p_split``."""
+    return (sum(tt_spans(m) for m in lengths),
+            sum(HISTORY_CALLS * max(m - 1, 0) for m in lengths),
+            sum(max(m - 3, 0) for m in lengths))
+
+
+# launches of each path's fills since :func:`reset_counts`, by path:
+# (tt_span, history_min, p_split), filled in by :func:`loop_launches`
+PATH_COUNTS = {}
+
+
+def loop_launches(cuda_ops, want, what):
+    """The fill kernels' launches since :func:`reset_counts`, checked
+    against ``want`` = (``tt_span``, ``history_min``, ``p_split``) (see
+    :func:`fill_counts`, :func:`sharded_counts`); ``minplus_group`` and
+    ``tt_step`` never (no fill runs the step-by-step loop).  Records them
+    in :data:`PATH_COUNTS` and returns ``tt_span``'s count."""
+    got = (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES,
+           cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+    check(got == (*want, 0, 0), f"{what}: tt_span / history_min / p_split / "
+          f"minplus_group / tt_step launches {got} != {(*want, 0, 0)}")
+    PATH_COUNTS[what] = tuple(want)
+    return want[0]
 
 
 def cuda_ms(fn, reps):
@@ -1001,6 +1031,286 @@ def phase_tt_span(cuda_ops, bucket_dims, dev):
     return rows, rows[0]
 
 
+# ---------------------------------------------------------------------------
+# 2d: history_min and p_split, the fill's history scans and P split
+# ---------------------------------------------------------------------------
+
+HISTORY_REPLACES = "ccj_tpu/engine/gapped4.py:306"   # XLA fusions of RL / RI
+PSPLIT_REPLACES = "ccj_tpu/engine/gapped3.py:69"     # XLA fusion of compute_P_span3
+HISTORY_CALLS = 16          # RL / RI calls a span (gapped4.span_families): 9 RL, 7 RI
+
+
+def rand_i16(shape, gen, dev):
+    """int16 state cells made on the card from ``gen``: energies in
+    [-3000, 3000), one in seven SAT16 (unset cells take part as values)."""
+    from ccj_tpu_torch.engine.common import SAT16
+
+    x = torch.randint(-3000, 4000, shape, generator=gen, dtype=torch.int16, device=dev)
+    return x.masked_fill_(x >= 3000, SAT16)
+
+
+def rand_weights(B, n2, gen, dev):
+    """[B, n2, n2] int32 weight tables: small energies, one in eleven INF."""
+    from ccj_tpu_torch.engine.common import INF
+
+    x = torch.randint(-500, 600, (B, n2, n2), generator=gen, dtype=torch.int32, device=dev)
+    return x.masked_fill_(x >= 500, INF)
+
+
+def history_calls(cuda_ops, case, gen, dev):
+    """The production RL and RI calls of one case on a random state, each
+    as (label, the closure call, its history_min arguments captured as it
+    ran): the dense or packed readers of the fills (``gapped4.dense_reads``,
+    ``gapped5.packed_reads``) on the whole state, or, for a row shard, the
+    row-local RL on the shard's rows (``dense_rl`` / ``packed_rl`` with
+    ``i0``) and the RI its rows' owner runs (``dist.wavefront``'s parts: C
+    rows l = i + s of every prior span, one owner holding them all)."""
+    from ccj_tpu_torch.engine import gapped4, gapped5
+    from ccj_tpu_torch.engine.gapped import dims
+
+    n, s, B, i0, rows = case["n"], case["s"], case["B"], case["i0"], case["rows"]
+    n2, T, S, _ = dims(n)
+    X = rand_weights(B, n2, gen, dev)
+    st = {"PKD": torch.zeros((B, 1, 1, 1, n2), dtype=torch.int16, device=dev)}
+    if case["packed"]:
+        segs = gapped5.segments7(n)
+        gi = next(g for g, (lo, hi, *_r) in enumerate(segs) if lo <= s < hi)
+        TB, IB = segs[gi][2], segs[gi][3]
+        for h in range(gi + 1):
+            lo, hi, TBh, IBh, Lc = segs[h]
+            st[f"PRmloop00@{h}"] = rand_i16((B, TBh, hi - lo, IBh, n2), gen, dev)
+            st[f"C_PLmloop00@{h}"] = rand_i16((B, TBh, hi - lo, Lc, n2), gen, dev)
+        if rows is None:
+            reads = gapped5.packed_reads(st, n, s, gi, segs)
+            RL, RI = reads.RL, reads.RI
+        else:
+            cut = {k: (v if k.startswith("C_") or k == "PKD" else v[..., i0:i0 + rows, :])
+                   for k, v in st.items()}
+            RL = gapped5.packed_rl(cut, n, s, gi, segs, TB, rows, i0)
+            hist = [(h, segs[h][0], gapped5.prior_spans(segs, h, s)) for h in range(gi + 1)]
+            hist = [x for x in hist if x[2] > 0]
+
+            def RI(name, X, g1):
+                iv = torch.arange(i0, i0 + rows, device=dev)
+                nr = min(rows, n2 - i0 - s)
+                parts = []
+                for h, loh, nsh in hist:
+                    u = loh + torch.arange(nsh, device=dev)
+                    w = gapped4.g2(X, iv[None, :].expand(nsh, rows),
+                                   iv[None, :] + s - u[:, None] - 1)
+                    off = i0 + s - loh - 1
+                    parts.append((st[f"C_{name}@{h}"][:, :, :nsh, off:off + nr], w, s - loh))
+                acc = torch.full((B, TB, rows, n2), 10_000_000, dtype=torch.int32, device=dev)
+                return cuda_ops.history_min(acc, parts, cuda_ops.RI, s, g1, i0)
+    else:
+        TB, IB = gapped4.bucket_dims(n, s)
+        st["PRmloop00"] = rand_i16((B, T, S, n2, n2), gen, dev)
+        st["C_PLmloop00"] = rand_i16((B, T, S, n2, n2), gen, dev)
+        if rows is None:
+            reads = gapped4.dense_reads(st, n, s, TB, IB)
+            RL, RI = reads.RL, reads.RI
+        else:
+            cut = {k: v[..., i0:i0 + rows, :] for k, v in st.items() if k != "C_PLmloop00"}
+            RL = gapped4.dense_rl(cut, n, s, TB, rows, i0)
+            sp0 = max(s - TB, 0)
+
+            def RI(name, X, g1):
+                iv = torch.arange(i0, i0 + rows, device=dev)
+                spv = sp0 + torch.arange(TB, device=dev)
+                w = gapped4.g2(X, iv[None, :].expand(TB, rows), iv[None, :] + s - spv[:, None] - 1)
+                win = st["C_" + name][:, :TB, sp0:sp0 + TB, i0 + s:min(i0 + s + rows, n2)]
+                acc = torch.full((B, TB, rows, n2), 10_000_000, dtype=torch.int32, device=dev)
+                return cuda_ops.history_min(acc, [(win, w, s - sp0)], cuda_ops.RI, s, g1, i0)
+    calls = []
+    real = cuda_ops.history_min
+    for mode, fn in (("RL", lambda: RL("PRmloop00", X, 0)), ("RI", lambda: RI("PLmloop00", X, 0))):
+        seen = []
+
+        def spy(acc, parts, mode_, s_, g1, i0_=0):
+            seen.append((acc.clone(), list(parts), mode_, s_, g1, i0_))
+            return real(acc, parts, mode_, s_, g1, i0_)
+
+        cuda_ops.history_min = spy
+        try:
+            fn()
+        finally:
+            cuda_ops.history_min = real
+        check(len(seen) == 1, f"{case['label']} {mode}: {len(seen)} history_min calls")
+        calls.append((mode, fn, seen[0]))
+    return calls
+
+
+def history_bound(acc, parts, mode, s, g1, i0):
+    """(terms, bytes, ms by bytes, ms by operations) of one history scan on
+    its data: the window elements its admissible terms read (tt rows past a
+    part's read SAT16 and no memory), the weights they use and acc read and
+    written once (4 + 4 bytes a cell); two int32 operations a term."""
+    B, TB, R, n2 = acc.shape
+    dev = acc.device
+    tv = torch.arange(TB, device=dev)[:, None, None]
+    iv = torch.arange(i0, i0 + R, device=dev)[None, :, None]
+    jv = torch.arange(n2, device=dev)[None, None, :]
+    if mode == 0:
+        bound = (iv + s) - (jv + tv + 2) - g1
+    else:
+        bound = torch.where(iv >= 1, (jv - iv) - g1, 0)
+    bound = bound.long().clamp(min=0).expand(TB, R, n2)
+    terms = win_elems = w_elems = 0
+    for win, _w, d0 in parts:
+        TBw, U, Rw = win.shape[1:4]
+        rows_ok = (torch.arange(R, device=dev) < Rw)
+        cnt = (min(U, d0) - (d0 - bound).clamp(min=0)).clamp(min=0)
+        cnt = cnt * rows_ok[None, :, None]
+        terms += B * int(cnt.sum())
+        win_elems += B * int(cnt[:TBw].sum())
+        d = d0 - torch.arange(U, device=dev)
+        maxb = bound.amax(dim=(0, 2))                           # [R]
+        used = (d[:, None] >= 1) & (d[:, None] <= maxb[None, :]) & rows_ok[None, :]
+        w_elems += B * int(used.sum())
+    nbytes = 2 * win_elems + 4 * w_elems + 8 * acc.numel()
+    return terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3, 2 * terms / FP32_OPS_PER_S * 1e3
+
+
+def psplit_operands(case, gen, dev):
+    """A case's P-split operands as the fills pass them: the whole PKE and
+    PKD read in place (``gapped3.compute_P_span3``) or, for a row shard,
+    its rows of PKE and the PKD rows each a needs stacked
+    (``dist.wavefront._fill_sharded``); returns (pke, pkd, keywords)."""
+    from ccj_tpu_torch.engine.common import SAT16
+    from ccj_tpu_torch.engine.gapped import dims
+
+    n, s, B, i0, rows = case["n"], case["s"], case["B"], case["i0"], case["rows"]
+    n2, T, S, _ = dims(n)
+    PKD = rand_i16((B, T, S, n2, n2), gen, dev)
+    PKE = rand_i16((B, T, S + T + 2, n2, n2), gen, dev)
+    if rows is None:
+        return PKE, PKD.transpose(1, 2), dict(s=s, n=n, i0=0, R=n2, sp=(s - 1, -1),
+                                              ro=(1, 1))
+    G = torch.full((B, s - 1, T, rows, n2), SAT16, dtype=torch.int16, device=dev)
+    for a in range(s - 1):
+        r0 = i0 + a + 1
+        got = PKD[:, :, s - a - 1, r0:r0 + rows]
+        G[:, a, :, :got.shape[2]] = got
+    del PKD
+    return PKE[..., i0:i0 + rows, :], G, dict(s=s, n=n, i0=i0, R=rows, sp=(0, 1), ro=(0, 0))
+
+
+def psplit_bound(cuda_ops, B, kw):
+    """(terms, bytes, ms by bytes, ms by operations) of one P split: every
+    admissible (a, b, c) term of a live row reads one PKE and one PKD
+    element no other term reads (the factor-2 rows of a live row lie within
+    the operand), and one int32 a row is written."""
+    s = kw["s"]
+    lo, hi = cuda_ops.p_split_live(kw["n"], s, kw["i0"], kw["R"])
+    terms = B * max(hi - lo + 1, 0) * (s * (s - 1) * (s - 2) // 6)
+    nbytes = 4 * terms + 4 * B * kw["R"]
+    return terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3, 2 * terms / FP32_OPS_PER_S * 1e3
+
+
+def history_psplit_cases(bucket_dims):
+    """Phase 2d's shapes: the n=100 main span, n=128's, the packed n=200
+    span 135 (segment 3, over all four prior segments), a batch of four at
+    bucket 100, a dense row shard (n=100, shard 1 of 4: 26 rows from i0 =
+    26) and a packed one (n=200, shard 1 of 4: 48 rows from i0 = 51 at span
+    102, the first of segment 3)."""
+    s100 = main_span(100, bucket_dims)[0]
+    base = dict(B=1, i0=0, rows=None, packed=False)
+    return [dict(base, label=f"n=100 s={s100}", n=100, s=s100),
+            dict(base, label=f"n=128 s={main_span(128, bucket_dims)[0]}", n=128,
+                 s=main_span(128, bucket_dims)[0]),
+            dict(base, label="n=200 packed s=135 (segment 3)", n=200, s=135, packed=True),
+            dict(base, label=f"bucket 100 x 4 s={s100}", n=100, s=s100, B=4),
+            dict(base, label=f"n=100 row shard 1 of 4 (26 rows from i0=26) s={s100}",
+                 n=100, s=s100, i0=26, rows=26),
+            dict(base, label="n=200 packed row shard 1 of 4 (48 rows from i0=51) s=102",
+                 n=200, s=102, i0=51, rows=48, packed=True)]
+
+
+def phase_history_psplit(cuda_ops, bucket_dims, dev):
+    """Phase 2d: ``history_min`` (both scans) and ``p_split`` against their
+    plain versions on the card, exactly, at :func:`history_psplit_cases`;
+    each row with the kernel's L2-hot (graph replay) and L2-cold
+    (:func:`flushed_ms`) device times, the eager call's (the fills' own
+    call: the RL / RI closure with its weight gather, or ``p_split``),
+    the plain version's on the card and the bound.  Returns (history rows,
+    p_split rows)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    emit({"phase": "history_psplit", "library": "none: no single PyTorch call takes a "
+          "min over a masked sum of two operands without materialising the sum, so "
+          "library_ms is null for both kernels"})
+    hist_rows, ps_rows = [], []
+    for case in history_psplit_cases(bucket_dims):
+        calls = history_calls(cuda_ops, case, gen, dev)
+        for mode, call, (acc0, parts, m, s, g1, i0) in calls:
+            parts = cuda_ops.history_parts(acc0, parts)
+            want = cuda_ops.history_min_ref(acc0.clone(), parts, m, s, g1, i0)
+            acc = acc0.clone()
+            before = cuda_ops.HISTORY_LAUNCHES
+            cuda_ops.history_min(acc, parts, m, s, g1, i0)
+            torch.cuda.synchronize()
+            check(cuda_ops.HISTORY_LAUNCHES == before + 1,
+                  "a history_min call made other than one launch")
+            err = int((acc.long() - want.long()).abs().max())
+            name = f"history_min {mode} {case['label']}"
+            check(err == 0, f"{name} != plain: max |err| = {err}")
+            terms, nbytes, t_bytes, t_ops = history_bound(acc0, parts, m, s, g1, i0)
+
+            def kern():
+                cuda_ops.history_min(acc, parts, m, s, g1, i0)
+
+            row = {"case": name, "mode": mode, "batch": case["B"], "i0": i0,
+                   "parts": len(parts), "acc_shape": list(acc.shape), "terms": terms,
+                   "bytes": nbytes, "max_abs_err": err,
+                   "ms": graph_ms(kern, reps=20, replays=5), "ms_l2cold": flushed_ms(kern, 20),
+                   "call_ms": cuda_ms(call, 10),
+                   "plain_ms": cuda_ms(lambda: cuda_ops.history_min_ref(
+                       acc0.clone(), parts, m, s, g1, i0), 2),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+            hist_rows.append(row)
+            emit({"phase": "history_psplit", **row})
+        del calls
+        pke, pkd, kw = psplit_operands(case, gen, dev)
+        want = cuda_ops.p_split_ref(pke, pkd, kw["s"], kw["n"], kw["i0"], kw["R"],
+                                    kw["sp"], kw["ro"])
+        before = cuda_ops.PSPLIT_LAUNCHES
+        got = cuda_ops.p_split(pke, pkd, **kw)
+        torch.cuda.synchronize()
+        check(cuda_ops.PSPLIT_LAUNCHES == before + 1, "a p_split made other than one launch")
+        err = int((got.long() - want.long()).abs().max())
+        name = f"p_split {case['label']}"
+        check(err == 0, f"{name} != plain: max |err| = {err}")
+        check(bool((want < 10_000_000).any()), f"{name}: no live row had a term")
+        terms, nbytes, t_bytes, t_ops = psplit_bound(cuda_ops, case["B"], kw)
+
+        def kern():
+            cuda_ops.p_split(pke, pkd, **kw)
+
+
+        lo, hi = cuda_ops.p_split_live(kw["n"], kw["s"], kw["i0"], kw["R"])
+        row = {"case": name, "batch": case["B"], "i0": kw["i0"], "rows": kw["R"],
+               "live_rows": max(hi - lo + 1, 0),
+               "operand": "PKD in place" if case["rows"] is None else "PKD rows stacked",
+               "terms": terms, "bytes": nbytes, "max_abs_err": err,
+               "ms": graph_ms(kern, reps=20, replays=5), "ms_l2cold": flushed_ms(kern, 20),
+               "call_ms": cuda_ms(kern, 10),
+               "plain_ms": cuda_ms(lambda: cuda_ops.p_split_ref(
+                   pke, pkd, kw["s"], kw["n"], kw["i0"], kw["R"], kw["sp"], kw["ro"]), 2),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+        ps_rows.append(row)
+        emit({"phase": "history_psplit", **row})
+        del pke, pkd, want, got
+        torch.cuda.empty_cache()
+    return hist_rows, ps_rows
+
+
 def max_rel_err(got, want):
     """Largest |got - want| / max(|got|, |want|) over two arrays (0 where
     both are 0)."""
@@ -1075,7 +1385,7 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     t0 = time.perf_counter()
     pf = partition(seq, num_samples=1000, device=dev)
     out["n64_partition_s"] = time.perf_counter() - t0
-    out["launches"] = loop_launches(cuda_ops, 0, "the partition function")
+    out["launches"] = loop_launches(cuda_ops, (0, 0, 0), "the partition function")
     mfe = fold(seq, device=dev)
     check(abs(pf.Z - z32) / z32 < 1e-5, f"partition Z {pf.Z!r} != fill Z {z32!r}")
     check(pf.ensemble_energy <= mfe.energy + 1e-6,
@@ -1173,7 +1483,7 @@ def fold_anchor(api, fold, LazyMats, cuda_ops, n):
     check(got == line, f"n={n}: {got!r} != {line!r}")
     check(len(seen) == 1 and len(fills) == 1, f"the n={n} fold did not take the lazy traceback")
     n_fill = api._fill_length(n)
-    launches = loop_launches(cuda_ops, tt_spans(n_fill), f"fold n={n}")
+    launches = loop_launches(cuda_ops, fill_counts(n_fill), f"fold n={n}")
     out = {"n": n, "n_fill": n_fill, "packed": seen[0]._segs is not None,
            "segments": len(seen[0]._segs or ()), "fold_s": fold_s, "fill_s": fills[0],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -1292,7 +1602,7 @@ def phase_batched_fill64(sp, cuda_ops, lengths=(64, 49, 52, 55, 57, 59, 61, 63))
     peak = torch.cuda.max_memory_allocated()
     B = len(seqs)
     check(n_pad == bucket_for(max(lengths)), f"the batch padded to {n_pad}")
-    launches = loop_launches(cuda_ops, tt_spans(n_pad), f"batched fill x{B}")
+    launches = loop_launches(cuda_ops, fill_counts(n_pad), f"batched fill x{B} bucket {n_pad}")
     singles, singles_fill = [], []
     for b, seq in enumerate(seqs):
         torch.cuda.synchronize()
@@ -1382,7 +1692,7 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
     peak = torch.cuda.max_memory_allocated()
     B = len(seqs)
     check(n_pad == 100, f"the bucket-100 batch padded to {n_pad}")
-    launches = loop_launches(cuda_ops, tt_spans(n_pad), f"batched fill x{B}")
+    launches = loop_launches(cuda_ops, fill_counts(n_pad), f"batched fill x{B} bucket {n_pad}")
     check(int(st["V"][0, 1, 100]) == BENCH_V100, "batched element 0: V(1,100) != -1528")
     for k, v in st100.items():
         check(torch.equal(st[k][0], v), f"batched element 0 != the main path's fill6 on {k}")
@@ -1422,13 +1732,26 @@ def phase_batched_fill100(sp, api, fold, cuda_ops, seq100, st100, res100, fill10
             "lazy_traceback_s": traceback_s, "elements": results}, seqs
 
 
-def sharded_tt_spans(n, P):
-    """Launches of a fill of length n split over P row shards: each span
-    with a tt step once per shard that owns a span-s row (1 <= i <= n - s),
-    with R = ceil((n + 2) / P) rows a shard."""
-    R = -(-(n + 2) // P)
-    return sum((s >= 2) * sum(1 for p in range(P) if p * R <= n - s and (p + 1) * R > 1)
-               for s in range(n))
+def sharded_counts(n, P):
+    """The launches of a fill of length n split over P row shards (dense or
+    packed), as :func:`fill_counts` gives them, per shard that owns a
+    span-s row (1 <= i <= n - s; R = ceil((n + 2) / P) rows a shard):
+    ``tt_span`` each span with a tt step; ``history_min`` each span s >= 1
+    9 times for RL and 7 times per owner of the shard's C rows l = i + s
+    (< n2) for RI (each owner reduces its own rows); ``p_split`` each span
+    with a term."""
+    from ccj_tpu_torch.dist.wavefront import row_partition, span_rows
+
+    R, _ = row_partition(n, P)
+    tt = hist = ps = 0
+    for s in range(n):
+        for _p, i0, IB in span_rows(n, R, P, s):
+            a, b = i0 + s, min(i0 + s + IB, n + 2)
+            owners = len({r // R for r in range(a, b)})
+            tt += s >= 2
+            hist += (s >= 1) * (9 + 7 * owners)
+            ps += s >= 3
+    return tt, hist, ps
 
 
 def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
@@ -1464,7 +1787,7 @@ def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = loop_launches(cuda_ops, sharded_tt_spans(n, P), what)
+    launches = loop_launches(cuda_ops, sharded_counts(n, P), what)
     compared = 0
     if plain is not None:
         check(set(st.keys()) == set(plain), f"{what}: keys differ")
@@ -1576,7 +1899,7 @@ def phase_fold_many_pipeline(fold_many, cuda_ops, seqs64, seqs100, bucket_for,
     every run's results equal the first's, one ``tt_span`` per span.
     Returns each mode's walls and peak memory."""
     seqs = [*seqs64, *seqs100]
-    want = sum(tt_spans(bucket_for(len(q))) for q in seqs)
+    want = fill_counts(*(bucket_for(len(q)) for q in seqs))
     first, out = None, {"n": [len(q) for q in seqs], "order": [
         "batch_limit=1" if b == 1 else "default" for b in order]}
     for b in order:
@@ -1589,7 +1912,7 @@ def phase_fold_many_pipeline(fold_many, cuda_ops, seqs64, seqs100, bucket_for,
         t0 = time.perf_counter()
         res = fold_many(seqs) if b is None else fold_many(seqs, batch_limit=b)
         wall = time.perf_counter() - t0
-        loop_launches(cuda_ops, want, f"fold_many ({key})")
+        loop_launches(cuda_ops, want, f"fold_many pipeline ({key})")
         line = [(r.seq, r.structure, r.energy_dcal) for r in res]
         check([r.seq for r in res] == seqs, f"fold_many ({key}) lost the input order")
         if first is None:
@@ -1597,7 +1920,7 @@ def phase_fold_many_pipeline(fold_many, cuda_ops, seqs64, seqs100, bucket_for,
         check(line == first, f"fold_many ({key}) differs from the {out['order'][0]} run")
         out.setdefault(f"{key}_wall_s", []).append(wall)
         out.setdefault(f"{key}_peak_bytes", []).append(torch.cuda.max_memory_allocated())
-    out["launches"] = want
+    out["launches"] = want[0]
     out["energies_dcal"] = [e for *_, e in first]
     return out
 
@@ -1650,10 +1973,14 @@ def phase_corpus_processes(entries, nproc=2):
             vals = dict(ln.split() for ln in err.splitlines()
                         if ln.startswith(("corpus-fold-seconds", "corpus-tt-span-launches",
                                           "corpus-minplus-launches",
-                                          "corpus-tt-step-launches")))
+                                          "corpus-tt-step-launches",
+                                          "corpus-history-launches",
+                                          "corpus-psplit-launches")))
             reports.append({"wall_s": walls[pid],
                             "fold_s": float(vals["corpus-fold-seconds"]),
                             "launches": int(vals["corpus-tt-span-launches"]),
+                            "history_launches": int(vals["corpus-history-launches"]),
+                            "psplit_launches": int(vals["corpus-psplit-launches"]),
                             "minplus_launches": int(vals["corpus-minplus-launches"]),
                             "tt_step_launches": int(vals["corpus-tt-step-launches"])})
         res = json.loads(out.read_text())
@@ -1676,15 +2003,18 @@ def phase_corpus_processes(entries, nproc=2):
     solo = run(1, [])
     from ccj_tpu_torch.api import bucket_for
 
-    want = sum(tt_spans(bucket_for(len(e["seq"]))) for e in entries)
+    want = fill_counts(*(bucket_for(len(e["seq"])) for e in entries))
+    keys = ("launches", "history_launches", "psplit_launches", "minplus_launches",
+            "tt_step_launches")
     for label, reps in (("two-process", multi), ("one-process", solo)):
-        got = tuple(sum(r[k] for r in reps)
-                    for k in ("launches", "minplus_launches", "tt_step_launches"))
-        check(got == (want, 0, 0), f"{label} corpus tt_span / minplus_group / "
-              f"tt_step launches {got} != ({want}, 0, 0)")
+        got = tuple(sum(r[k] for r in reps) for k in keys)
+        check(got == (*want, 0, 0), f"{label} corpus tt_span / history_min / p_split / "
+              f"minplus_group / tt_step launches {got} != {(*want, 0, 0)}")
+    PATH_COUNTS["corpus"] = want
     return {"n": [len(e["seq"]) for e in entries], "processes": nproc,
             "placement": placement, "process_reports": multi,
             "launches": sum(r["launches"] for r in multi),
+            "history_launches": want[1], "psplit_launches": want[2],
             "one_process": solo[0]}
 
 
@@ -1727,6 +2057,8 @@ def main():
     report["tt_step"] = step_rows
     span_rows, span_main = phase_tt_span(cuda_ops, bucket_dims, torch.device("cuda"))
     report["tt_span"] = span_rows
+    hist_rows, ps_rows = phase_history_psplit(cuda_ops, bucket_dims, torch.device("cuda"))
+    report["history_min"], report["p_split"] = hist_rows, ps_rows
 
     # ---- 3: corpus goldens -----------------------------------------------
     corpus = json.loads((ROOT / "tests" / "golden" / "corpus.json").read_text())
@@ -1751,7 +2083,7 @@ def main():
     check(cuda_ops.TT_SPAN_LAUNCHES > 0, "the main path launched tt_span no time")
     main_counts = {"minplus_launches": cuda_ops.LAUNCHES,
                    "tt_step_launches": cuda_ops.TT_STEP_LAUNCHES}
-    launches = loop_launches(cuda_ops, tt_spans(n), "the main path")
+    launches = loop_launches(cuda_ops, fill_counts(n), "the main path")
 
     sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
@@ -1857,8 +2189,8 @@ def main():
               and abs(r.energy - e["energy"]) < 1e-9,
               f"fold_many n={len(e['seq'])}: {r.structure} ({r.energy}) != "
               f"{e['structure']} ({e['energy']})")
-    many_launches = loop_launches(cuda_ops, sum(tt_spans(bucket_for(len(e["seq"])))
-                                                for e in entries), "fold_many")
+    many_launches = loop_launches(cuda_ops, fill_counts(*(bucket_for(len(e["seq"]))
+                                                          for e in entries)), "fold_many")
     report["fold_many"] = {"n": [len(e["seq"]) for e in entries], "wall_s": many_s,
                            "launches": many_launches}
     emit({"phase": "fold_many", **report["fold_many"]})
@@ -1990,6 +2322,27 @@ def main():
         "matches_plain": True, "shape": step_main["case"],
         "other_shapes": [{k: r[k] for k in step_keys} for r in step_rows[1:]],
     })
+    new_keys = ("case", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms", "bound_by",
+                "share_of_bound", "share_of_bound_l2cold", "terms", "bytes", "max_abs_err")
+    for name, source, replaces, what, rows_k, idx in (
+            ("history_min", "ccj_tpu_torch/csrc/history.cu", HISTORY_REPLACES,
+             "the XLA fusions of the RL / RI history scans (gapped4.py:306-341, "
+             "gapped5.py:313-365), one launch a call, 16 a span", hist_rows, 1),
+            ("p_split", "ccj_tpu_torch/csrc/psplit.cu", PSPLIT_REPLACES,
+             "the XLA fusion of compute_P_span3's split contraction (gapped3.py:69-123), "
+             "one launch a span (and row shard)", ps_rows, 2)):
+        main = rows_k[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "replaces_what": what, "launches": PATH_COUNTS["the main path"][idx],
+            "launches_by_path": {k: v[idx] for k, v in PATH_COUNTS.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "call_ms": main["call_ms"],
+            "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
+            "share_of_bound_l2cold": main["share_of_bound_l2cold"],
+            "matches_plain": True, "shape": main["case"],
+            "other_shapes": [{k: r[k] for k in new_keys} for r in rows_k[1:]]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

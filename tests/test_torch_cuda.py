@@ -505,3 +505,135 @@ def test_tt_span_cluster_variants_match_plain(cuda, cluster):
             assert table.plan["rows"] == plan.get("rows", s - 1), table.plan
             for name in cuda_ops.STEP_FAMILIES:
                 assert torch.equal(got[0][name], ops[0][name]), (n, s, name, plan)
+
+
+# ---------------------------------------------------------------------------
+# history_min and p_split (chip_smoke.py phase 2d's shapes)
+# ---------------------------------------------------------------------------
+
+# (n, s, B, i0, rows, packed): the n=100 main span, n=128's, the packed n=200
+# span 135 (segment 3, four prior segments), bucket 100 x 4, a dense row
+# shard (26 rows from i0 = 26) and a packed one (48 rows from i0 = 51)
+HP_CASES = [(100, 37, 1, 0, None, False), (128, 65, 1, 0, None, False),
+            (200, 135, 1, 0, None, True), (100, 37, 4, 0, None, False),
+            (100, 37, 1, 26, 26, False), (200, 102, 1, 51, 48, True)]
+
+
+def _rand16(shape, gen, dev):
+    x = torch.randint(-3000, 4000, shape, generator=gen, dtype=torch.int16, device=dev)
+    return x.masked_fill_(x >= 3000, 32767)
+
+
+def _history_parts(n, s, B, i0, rows, packed, gen, dev):
+    """(mode, acc, parts, i0) of the RL and RI calls the fills make at this
+    shape, on a random state (rows: a row shard's, i0 its first row)."""
+    from ccj_tpu_torch.engine import gapped4, gapped5
+
+    n2, T, S = n + 2, n - 1, n
+    X = torch.randint(-500, 600, (B, n2, n2), generator=gen, dtype=torch.int32, device=dev)
+    X.masked_fill_(X >= 500, INF)
+    R = n2 if rows is None else rows
+    iv = torch.arange(i0, i0 + R, device=dev)
+    if packed:
+        segs = gapped5.segments7(n)
+        gi = next(g for g, (lo, hi, *_r) in enumerate(segs) if lo <= s < hi)
+        TB, IB = segs[gi][2], (segs[gi][3] if rows is None else rows)
+        rl, ri = [], []
+        for h in range(gi + 1):
+            lo, hi, TBh, IBh, Lc = segs[h]
+            nsh = gapped5.prior_spans(segs, h, s)
+            if nsh <= 0:
+                continue
+            fam = _rand16((B, TBh, hi - lo, IBh, n2), gen, dev)
+            cs = _rand16((B, TBh, hi - lo, Lc, n2), gen, dev)
+            u = lo + torch.arange(nsh, device=dev)
+            wl = gapped4.g2(X, iv[:IB][None, :] + u[:, None] + 1,
+                            (iv[:IB][None, :] + s).expand(nsh, IB))
+            wi = gapped4.g2(X, iv[:IB][None, :].expand(nsh, IB),
+                            iv[:IB][None, :] + s - u[:, None] - 1)
+            off = i0 + s - lo - 1
+            rl.append((fam[:, :, :nsh, i0:i0 + IB], wl, s - lo))
+            ri.append((cs[:, :, :nsh, off:off + min(IB, n2 - i0 - s)], wi, s - lo))
+    else:
+        TB, IB = gapped4.bucket_dims(n, s)
+        IB = IB if rows is None else rows
+        sp0 = max(s - TB, 0)
+        spv = sp0 + torch.arange(TB, device=dev)
+        fam = _rand16((B, T, S, n2, n2), gen, dev)
+        cs = _rand16((B, T, S, n2, n2), gen, dev)
+        wl = gapped4.g2(X, iv[:IB][None, :] + spv[:, None] + 1,
+                        (iv[:IB][None, :] + s).expand(TB, IB))
+        wi = gapped4.g2(X, iv[:IB][None, :].expand(TB, IB),
+                        iv[:IB][None, :] + s - spv[:, None] - 1)
+        rl = [(fam[:, :TB, sp0:sp0 + TB, i0:i0 + IB], wl, s - sp0)]
+        ri = [(cs[:, :TB, sp0:sp0 + TB, i0 + s:min(i0 + s + IB, n2)], wi, s - sp0)]
+    acc = torch.full((B, TB, IB, n2), INF, dtype=torch.int32, device=dev)
+    return [(cuda_ops.RL, acc, rl, i0), (cuda_ops.RI, acc.clone(), ri, i0)]
+
+
+@pytest.mark.parametrize("n,s,B,i0,rows,packed", HP_CASES)
+def test_history_kernel_matches_plain(cuda, n, s, B, i0, rows, packed):
+    gen = torch.Generator(device=cuda).manual_seed(n + s + B + i0)
+    for mode, acc, parts, i0_ in _history_parts(n, s, B, i0, rows, packed, gen, cuda):
+        for g1 in (0, 1):
+            want = cuda_ops.history_min_ref(acc.clone(), cuda_ops.history_parts(acc, parts),
+                                            mode, s, g1, i0_)
+            got = acc.clone()
+            before = cuda_ops.HISTORY_LAUNCHES
+            cuda_ops.history_min(got, parts, mode, s, g1, i0_)
+            torch.cuda.synchronize()
+            assert cuda_ops.HISTORY_LAUNCHES == before + 1
+            assert torch.equal(got, want), (mode, g1)
+            assert bool((got < INF).any())
+
+
+@pytest.mark.parametrize("n,s,B,i0,rows,packed", HP_CASES)
+def test_p_split_kernel_matches_plain(cuda, n, s, B, i0, rows, packed):
+    """PKD in place (the unsharded fills) or its rows stacked per a (a row
+    shard's operand); exact against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(n * s + B + i0)
+    n2, T, S = n + 2, n - 1, n
+    PKD = _rand16((B, T, S, n2, n2), gen, cuda)
+    PKE = _rand16((B, T, S + T + 2, n2, n2), gen, cuda)
+    if rows is None:
+        pke, pkd, kw = PKE, PKD.transpose(1, 2), dict(s=s, n=n, i0=0, R=n2, sp=(s - 1, -1),
+                                                      ro=(1, 1))
+    else:
+        pkd = torch.full((B, s - 1, T, rows, n2), 32767, dtype=torch.int16, device=cuda)
+        for a in range(s - 1):
+            got = PKD[:, :, s - a - 1, i0 + a + 1:i0 + a + 1 + rows]
+            pkd[:, a, :, :got.shape[2]] = got
+        pke, kw = PKE[..., i0:i0 + rows, :], dict(s=s, n=n, i0=i0, R=rows, sp=(0, 1),
+                                                 ro=(0, 0))
+    want = cuda_ops.p_split_ref(pke, pkd, kw["s"], kw["n"], kw["i0"], kw["R"], kw["sp"],
+                                kw["ro"])
+    before = cuda_ops.PSPLIT_LAUNCHES
+    got = cuda_ops.p_split(pke, pkd, **kw)
+    torch.cuda.synchronize()
+    assert cuda_ops.PSPLIT_LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    assert bool((want < INF).any())
+
+
+@pytest.mark.parametrize("n,packed", [(100, False), (134, True)])
+def test_fill_launches_history_and_p_split(cuda, n, packed):
+    """A dense (n=100) and a packed (n=134) fill: one history_min per RL /
+    RI call (16 a span s >= 1), one p_split per span with a term (3 <= s
+    <= n - 1), one tt_span per span with a tt step."""
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.engine.gapped5 import segments7
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    tabs = build_seq_tables(_bench_seq(n, 42), sp, DEFAULT_PK)
+    C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
+    before = (*_loop_counts(), cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES)
+    st = (tfold.fill7(C, SC4, n, sp.dangles, segments7(n)) if packed
+          else tfold.fill6(C, SC4, n, sp.dangles))
+    torch.cuda.synchronize()
+    after = (*_loop_counts(), cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == (n - 2, 0, 0, 16 * (n - 1), n - 3)
+    if n == 100:
+        assert int(st["V"][1, n]) == -1528
