@@ -219,6 +219,8 @@ def main(argv=None):
     print(f"corpus-tt-step-launches {cuda_ops.TT_STEP_LAUNCHES}", file=sys.stderr)
     print(f"corpus-history-launches {cuda_ops.HISTORY_LAUNCHES}", file=sys.stderr)
     print(f"corpus-psplit-launches {cuda_ops.PSPLIT_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-stencil-pl-launches {cuda_ops.STENCIL_PL_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-stencil-pr-launches {cuda_ops.STENCIL_PR_LAUNCHES}", file=sys.stderr)
     if args.process_id == 0:
         with open(args.out, "w") as fh:
             json.dump([dataclasses.asdict(r) for r in res], fh, indent=1)

@@ -70,7 +70,7 @@ from ..engine.gapped import C_MATS, DS, M4_NAMES, _set_P_diag, compute_WBP_WPP_s
 from ..engine import cuda_ops
 from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, g2, per_table,
                               span_families, update_pk_skews4)
-from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_spans
+from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_spans, window_spans
 from ..engine.nested import compute_V_span, compute_WMv_WMp_WM_span
 
 # exchange classes the transport counts ("read": the traceback and gather())
@@ -398,15 +398,13 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanRea
             out[:, :, lo - i0 - s: hi - i0 - s] = tr.move(red, q, p, "shift")
         return out
 
-    def window(name, rows, halo=DS):
-        """[B, rows(tt'), DS, IB + halo, n2]: row r of axis 2 = span
-        s - DS + r (spans below 0 unset), rows from i0, unset past n2."""
+    def window(name, halo=DS):
+        """The stencil window (``gapped4.SpanReads``): the spans
+        max(s - DS, 0) .. s - 1 of rows [i0, i0 + IB + halo), fetched as a
+        halo (a view where shard p owns them all), unset past n2."""
         lo = max(s - DS, 0)
-        w = st.fetch(p, name, lambda t: t.narrow(2, lo, s - lo),
-                     i0, i0 + IB + halo, "halo")
-        w = pad_axis(w, -3, DS - (s - lo), 0, SAT16)
-        w = pad_axis(w, -4, 0, max(rows - T, 0), SAT16)
-        return w[:, :rows]
+        return [(st.fetch(p, name, lambda t: t.narrow(2, lo, s - lo),
+                          i0, i0 + IB + halo, "halo"), lo)]
 
     return SpanReads(plane, dense_rl(sh, n, s, TB, IB, i0), RI, window)
 
@@ -476,26 +474,15 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
             out[:, :, a - i0 - s: b - i0 - s] = tr.move(red, q, p, "shift")
         return out
 
-    def window(name, rows, halo=DS):
-        """[B, rows(tt'), DS, IB + halo, n2]: row r of axis 2 = span
-        s - DS + r, from segment gi - 1 below lo and gi from lo (spans
-        below 0 unset), rows from i0 (unset past the segment's)."""
-        u0 = s - DS
-        k = min(max(lo - u0, 0), DS)         # window rows below lo
-        parts = []
-        for h, a, b in ((gi - 1, 0, k), (gi, k, DS)):
-            if a == b:
-                continue
-            if h < 0:
-                parts.append(torch.full((B, rows, b - a, IB + halo, n2), SAT16,
-                                        dtype=I16, device=dev))
-                continue
-            loh, TBh = SEGS[h][0], SEGS[h][2]
-            w = st.fetch(p, f"{name}@{h}",
-                         lambda t, x=u0 + a - loh, y=u0 + b - loh: t[:, :, x:y],
-                         i0, i0 + IB + halo, "halo")
-            parts.append(pad_axis(w, -4, 0, max(rows - TBh, 0), SAT16)[:, :rows])
-        return torch.cat(parts, dim=-3)
+    def window(name, halo=DS):
+        """The stencil window (``gapped4.SpanReads``): the spans of
+        segments gi - 1 and gi that ``gapped5.window_spans`` names, rows
+        [i0, i0 + IB + halo) of each fetched as a halo (a view where shard
+        p owns them all), unset past the segment's rows."""
+        return [(st.fetch(p, f"{name}@{h}",
+                          lambda t, x=a - SEGS[h][0], y=b - SEGS[h][0]: t[:, :, x:y],
+                          i0, i0 + IB + halo, "halo"), a)
+                for h, a, b in window_spans(s, gi, SEGS)]
 
     return SpanReads(plane, packed_rl(sh, st.n, s, gi, SEGS, TB, IB, i0), RI, window)
 

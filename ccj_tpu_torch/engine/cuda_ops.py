@@ -34,13 +34,19 @@ row's valid band in shared memory, from a :class:`SpanTable` built and
 checked once per span; its plain version :func:`tt_span_ref` is the loop of
 :func:`minplus_group_ref` and :func:`tt_step_ref`.
 
-Two kernels of the rest of the span, each the counterpart of an XLA
+Four kernels of the rest of the span, each the counterpart of an XLA
 fusion of the JAX fills (no Pallas kernel): :func:`history_min`
 (``csrc/history.cu``), the gapped step's l-shrink / i-shrink history scans
 RL / RI over int16 views of the state (``ccj_tpu/engine/gapped4.py:306-341``,
-``gapped5.py:313-365``), and :func:`p_split` (``csrc/psplit.cu``), the P
+``gapped5.py:313-365``); :func:`p_split` (``csrc/psplit.cu``), the P
 split contraction over PKE / PKD (``ccj_tpu/engine/gapped3.py:69-123``);
-their plain versions are :func:`history_min_ref` and :func:`p_split_ref`.
+:func:`stencil_pl` and :func:`stencil_pr` (``csrc/stencil.cu``), the PL
+and PR MAXLOOP^2 interior-loop stencils (``ccj_tpu/engine/gapped4.py:340-375``
+and ``:392-414``), which read the family in place through a short list of
+int16 views into the state (the span layout's window, ``gapped4.SpanReads``)
+and skip every term whose weight is INF.  Their plain versions are
+:func:`history_min_ref`, :func:`p_split_ref`, :func:`stencil_pl_ref` and
+:func:`stencil_pr_ref`.
 
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
@@ -50,9 +56,10 @@ link) into ``build/`` beside the package at first use and loaded with
 the windows those launches reduced (a batch of B counts each window B
 times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches,
 ``TT_SPAN_LAUNCHES`` ``tt_span`` launches, ``HISTORY_LAUNCHES``
-``history_min`` launches and ``PSPLIT_LAUNCHES`` ``p_split`` launches;
-nothing else moves them, so a run can show that its main path went through
-the kernels.
+``history_min`` launches, ``PSPLIT_LAUNCHES`` ``p_split`` launches and
+``STENCIL_LAUNCHES`` the two stencils' (``STENCIL_PL_LAUNCHES`` and
+``STENCIL_PR_LAUNCHES`` each kernel's); nothing else moves them, so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ import torch
 
 from .common import INF, SAT16, mmin, pad_axis
 from .gapped import DS
+from .skew import skew_right, unskew_right
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -84,6 +92,9 @@ TT_STEP_LAUNCHES = 0    # tt_step kernel launches (CUDA only)
 TT_SPAN_LAUNCHES = 0    # tt_span kernel launches (CUDA only)
 HISTORY_LAUNCHES = 0    # history_min kernel launches (CUDA only)
 PSPLIT_LAUNCHES = 0     # p_split kernel launches (CUDA only)
+STENCIL_LAUNCHES = 0    # stencil_pl and stencil_pr kernel launches together (CUDA only)
+STENCIL_PL_LAUNCHES = 0   # of which stencil_pl's
+STENCIL_PR_LAUNCHES = 0   # of which stencil_pr's
 MAX_GRID_Z = 65535      # CUDA's grid.z limit: descriptors x batch
 
 _lib = None
@@ -220,6 +231,16 @@ def _library():
                     f"mirror csrc/psplit.cu ({lib.ccj_p_split_table_bytes()} B)")
             lib.ccj_p_split.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             lib.ccj_p_split.restype = ctypes.c_int
+            if lib.ccj_stencil_table_bytes() != ctypes.sizeof(StencilTable):
+                raise RuntimeError(
+                    f"cuda_ops.StencilTable ({ctypes.sizeof(StencilTable)} B) does not "
+                    f"mirror csrc/stencil.cu ({lib.ccj_stencil_table_bytes()} B)")
+            if lib.ccj_stencil_max_parts() != STENCIL_MAX_PARTS:
+                raise RuntimeError("STENCIL_MAX_PARTS does not match csrc/stencil.cu")
+            if lib.ccj_stencil_ds() != DS:
+                raise RuntimeError("gapped.DS does not match csrc/stencil.cu kDS")
+            lib.ccj_stencil.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lib.ccj_stencil.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -1343,3 +1364,195 @@ def p_split(pke, pkd, *, s, n, i0, R, sp, ro):
             torch.cuda.current_stream(dev).cuda_stream)
     PSPLIT_LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# stencil_pl / stencil_pr: the gapped step's PL / PR interior-loop stencils
+# ---------------------------------------------------------------------------
+
+STENCIL_MAX_PARTS = 2   # csrc/stencil.cu kMaxParts
+PL_KIND, PR_KIND = 0, 1
+
+
+class StencilPart(ctypes.Structure):
+    """One state view of a stencil: csrc/stencil.cu's ``struct StencilPart``,
+    field for field (pointer and element strides of the int16 view
+    [B, TTw, Uw, Rw, n2]; its span u row holds span u0 + u)."""
+    _fields_ = [("win", ctypes.c_void_p), ("ws", ctypes.c_longlong * 5),
+                *((nm, ctypes.c_int) for nm in ("TTw", "Uw", "Rw", "u0"))]
+
+
+class StencilTable(ctypes.Structure):
+    """The operands of one :func:`stencil_pl` / :func:`stencil_pr` launch:
+    csrc/stencil.cu's ``struct StencilTable``, field for field, passed to
+    the kernel by value (``ntx``, ``nty`` and ``split``, its tiles and
+    blocks a tile, are the launch's own)."""
+    _fields_ = [("part", StencilPart * STENCIL_MAX_PARTS), ("w", ctypes.c_void_p),
+                ("wst", ctypes.c_longlong * 5), ("out", ctypes.c_void_p),
+                ("os", ctypes.c_longlong * 4),
+                *((nm, ctypes.c_int) for nm in (
+                    "nparts", "kind", "B", "TB", "R", "n2", "s", "i0", "lo", "nlive",
+                    "WK", "WL", "ntx", "nty", "split"))]
+
+
+def stencil_parts(parts, B, n2, s):
+    """``parts`` ((view, u0) pairs) checked and cut to the spans a span-s
+    stencil reads, s - DS .. s - 1; parts left with no span, tt row or row
+    are dropped.  Raises on a view that is not int16 [B, TTw, Uw, Rw, n2],
+    on parts whose spans overlap, and past :data:`STENCIL_MAX_PARTS`."""
+    out = []
+    for win, u0 in parts:
+        if win.dim() != 5 or win.dtype != torch.int16:
+            raise ValueError(f"a stencil view must be int16 [B, TTw, Uw, Rw, n2], "
+                             f"got {win.dtype} {tuple(win.shape)}")
+        if win.shape[0] != B or win.shape[4] != n2:
+            raise ValueError(f"stencil view {tuple(win.shape)} does not fit batch {B}, "
+                             f"n2 {n2}")
+        u0 = int(u0)
+        a, b = max(u0, s - DS), min(u0 + win.shape[2], s)
+        if a < b and win.shape[1] > 0 and win.shape[3] > 0:
+            out.append((win[:, :, a - u0:b - u0], a))
+    out.sort(key=lambda p: p[1])
+    for (w1, a1), (_w2, a2) in zip(out, out[1:]):
+        if a1 + w1.shape[2] > a2:
+            raise ValueError(f"stencil views overlap at span {a2}")
+    if len(out) > STENCIL_MAX_PARTS:
+        raise ValueError(f"{len(out)} stencil views, past the kernel's "
+                         f"{STENCIL_MAX_PARTS}")
+    return out
+
+
+def _stencil_window(parts, s, B, rows, R, n2, dev):
+    """The parts as one int16 [B, rows, DS, R, n2] window, row q of axis 2
+    holding span s - DS + q; spans no part holds, tt rows and rows past a
+    part's read SAT16 (the windows the fills built before the kernels)."""
+    win = torch.full((B, rows, DS, R, n2), SAT16, dtype=torch.int16, device=dev)
+    for view, u0 in parts:
+        t, rr = min(rows, view.shape[1]), min(R, view.shape[3])
+        q = u0 - (s - DS)
+        win[:, :t, q:q + view.shape[2], :rr] = view[:, :t, :, :rr]
+    return win
+
+
+def stencil_pl_ref(parts, w4pl, s, n, i0, TB, R):
+    """Plain PyTorch version of :func:`stencil_pl`: the PL stencil's 29
+    passes over d2 as the fills ran them before the kernel, each over an
+    int32 [B, TB, DS, R, n2] temporary, its terms kept where W < INF."""
+    B, n2, dev = w4pl.shape[0], n + 2, w4pl.device
+    plw = _stencil_window(parts, s, B, TB + DS, R + DS, n2, dev)
+    plw = torch.flip(plw, dims=(-3,))                  # row d1-1 = span s-d1
+    # V1[b, tt', d1-1, i, j] = plw[b, tt', d1-1, i+d1, j]
+    V1 = torch.stack([plw[:, :, d1 - 1, d1: d1 + R, :]
+                      for d1 in range(1, DS + 1)], dim=2)
+    W = w4pl[..., i0:i0 + R, :]                          # [B, d1, d2, i, j]
+    out = torch.full((B, TB, R, n2), INF, dtype=torch.int32, device=dev)
+    for d2 in range(1, DS + 1):
+        sub = V1[:, d2: d2 + TB]                         # rows tt + d2
+        sub = torch.nn.functional.pad(sub, (d2, 0), value=SAT16)[..., :n2]
+        wd = W[:, None, :, d2 - 1]                       # [B, 1, d1, i, j]
+        vals = torch.where(wd < INF, sub.to(torch.int32) + wd, INF)
+        torch.minimum(out, vals.amin(dim=-3), out=out)
+    return out.masked_fill_(~span_valid(n, s, i0, TB, R, n2, dev), INF)
+
+
+def stencil_pr_ref(parts, w4pr, s, n, i0, TB, R):
+    """Plain PyTorch version of :func:`stencil_pr`: the PR stencil's 29
+    passes over d1 in u = j + tt coordinates as the fills ran them before
+    the kernel, each over an int32 [B, DS, R, TB, n2 + TB] temporary, its
+    terms kept where W < INF."""
+    B, n2, dev = w4pr.shape[0], n + 2, w4pr.device
+    UB = n2 + TB
+    prw = _stencil_window(parts, s, B, TB + DS, R, n2, dev)
+    prw = torch.flip(prw, dims=(-3,))                  # row d2-1 = span s-d2
+    pru = skew_right(prw.movedim(1, -2), SAT16)        # [B, d2, i, tt', u]
+    wpr = w4pr[..., 2:2 + UB, s + i0:s + i0 + R].transpose(-1, -2)  # [B, d1, d2, i, u]
+    acc = torch.full((B, R, TB, UB), INF, dtype=torch.int32, device=dev)
+    for d1 in range(1, DS + 1):
+        sub = pru[..., d1: d1 + TB, d1: d1 + UB]       # [B, d2, i, tt, u]
+        wd = wpr[:, d1 - 1, :, :, None, :]               # [B, d2, i, 1, u]
+        vals = torch.where(wd < INF, sub.to(torch.int32) + wd, INF)
+        torch.minimum(acc, vals.amin(dim=-4), out=acc)
+    out = unskew_right(acc, INF, n2).movedim(-3, -2)     # [B, tt, i, j]
+    return out.masked_fill_(~span_valid(n, s, i0, TB, R, n2, dev), INF)
+
+
+def _stencil(kind, parts, w, s, n, i0, TB, R):
+    global STENCIL_LAUNCHES, STENCIL_PL_LAUNCHES, STENCIL_PR_LAUNCHES
+    name = ("stencil_pl", "stencil_pr")[kind]
+    n2 = n + 2
+    if w.dim() != 5 or w.dtype != torch.int32 or tuple(w.shape[1:3]) != (DS, DS):
+        raise ValueError(f"{name}: weights must be int32 [B, {DS}, {DS}, ., .], got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    fits = (w.shape[3] >= i0 + R and w.shape[4] == n2) if kind == PL_KIND else (
+        w.shape[3] >= n2 + TB + 2 and w.shape[4] >= s + i0 + R)
+    if not fits or TB < 1 or R < 1 or i0 < 0 or s < 0:
+        raise ValueError(f"{name}: weights {tuple(w.shape)} do not fit span {s}, n {n}, "
+                         f"TB {TB}, rows [{i0}, {i0 + R})")
+    B = w.shape[0]
+    tensors = [w, *(v for v, _ in parts)]
+    if all(t.device.type == "cpu" for t in tensors):
+        ref = stencil_pl_ref if kind == PL_KIND else stencil_pr_ref
+        return ref(stencil_parts(parts, B, n2, s), w, s, n, i0, TB, R)
+    dev = _check_devices(tensors)
+    fn = _library().ccj_stencil
+    parts = stencil_parts(parts, B, n2, s)
+    for win, _u0 in parts:     # the kernel's offsets within a plane are int32
+        if (win.shape[1] - 1) * win.stride(1) + (n2 - 1) * win.stride(4) >= 2 ** 31:
+            raise ValueError(f"{name}: view {tuple(win.shape)} spans 2^31 elements "
+                             "or more along (tt, j)")
+    out = torch.full((B, TB, R, n2), INF, dtype=torch.int32, device=dev)
+    lo, hi = p_split_live(n, s, i0, R)
+    if hi < lo or s < 2:
+        return out
+    t = StencilTable(w=w.data_ptr(), wst=(ctypes.c_longlong * 5)(*w.stride()),
+                     out=out.data_ptr(), os=(ctypes.c_longlong * 4)(*out.stride()),
+                     nparts=len(parts), kind=kind, B=B, TB=TB, R=R, n2=n2, s=s, i0=i0,
+                     lo=lo, nlive=hi - lo + 1, WK=w.shape[3], WL=w.shape[4])
+    for q, (win, u0) in enumerate(parts):
+        t.part[q] = StencilPart(win.data_ptr(), (ctypes.c_longlong * 5)(*win.stride()),
+                                win.shape[1], win.shape[2], win.shape[3], u0)
+    _launch(fn, dev, name, ctypes.addressof(t), torch.cuda.current_stream(dev).cuda_stream)
+    STENCIL_LAUNCHES += 1
+    if kind == PL_KIND:
+        STENCIL_PL_LAUNCHES += 1
+    else:
+        STENCIL_PR_LAUNCHES += 1
+    return out
+
+
+def stencil_pl(parts, w4pl, *, s, n, i0, TB, R):
+    """PL's interior-loop stencil of span s for rows i in [i0, i0 + R),
+    int32 [B, TB, R, n + 2]:
+
+      out[b, tt, r, j] = min(INF, min over d1, d2 in [1, DS] with W < INF of
+                             PL[b, tt + d2, s - d1, i + d1, j - d2] + W)
+
+    with W = W4PL[b, d1 - 1, d2 - 1, i, j] and i = i0 + r
+    (pseudo_loop.cc:682-703) on the span's valid cells (:func:`span_valid`),
+    INF elsewhere.  ``parts``: (view, u0) pairs, each view an int16
+    [B, TTw, Uw, Rw, n2] straight into the PL state whose span u row holds
+    span u0 + u and whose row 0 is i = i0 (at most
+    :data:`STENCIL_MAX_PARTS` holding a span in [s - DS, s)); a span no
+    part holds, a tt row past a view's and a row past it read SAT16, which
+    take part as values.  ``w4pl``: int32 [B, DS, DS, >= i0 + R, n2]
+    (``gapped4.build_sc4``, INF outside every loop bound, so the kernel may
+    skip those terms).  One kernel launch on CUDA for the whole batch, none
+    for a span with no live row or no tt step (s < 2); the plain version
+    (:func:`stencil_pl_ref`) for CPU tensors."""
+    return _stencil(PL_KIND, parts, w4pl, s, n, i0, TB, R)
+
+
+def stencil_pr(parts, w4pr, *, s, n, i0, TB, R):
+    """PR's interior-loop stencil of span s for rows i in [i0, i0 + R),
+    int32 [B, TB, R, n + 2]:
+
+      out[b, tt, r, j] = min(INF, min over d1, d2 in [1, DS] with W < INF of
+                             PR[b, tt + d1, s - d2, i, j] + W)
+
+    with W = W4PR[b, d1 - 1, d2 - 1, j + tt + 2, i + s] and i = i0 + r
+    (pseudo_loop.cc:717-738) on the span's valid cells, INF elsewhere.
+    ``parts`` as :func:`stencil_pl` takes them (PR reads row i only);
+    ``w4pr``: int32 [B, DS, DS, >= n2 + TB + 2, >= s + i0 + R]
+    (``gapped4.build_sc4``).  One launch on CUDA, as :func:`stencil_pl`;
+    the plain version (:func:`stencil_pr_ref`) for CPU tensors."""
+    return _stencil(PR_KIND, parts, w4pr, s, n, i0, TB, R)

@@ -17,7 +17,9 @@ Cross-span reads are resolved per segment with Python-int span arithmetic:
 
 * fixed-offset reads at spans s-1 / s-2 and the MAXLOOP stencil windows read
   segment g or (for spans below lo_g) segment g-1; no overlap copies exist,
-  so segments are at least ``MIN_SEG`` wide;
+  so segments are at least ``MIN_SEG`` wide; a stencil window is one int16
+  view of each of the two segments, read in place by the kernel
+  (``cuda_ops.stencil_pl`` / ``stencil_pr``);
 * the l-shrink / i-shrink history scans (RL / RI) read ALL prior
   segments, each segment's exact-extent block one part of the same
   ``cuda_ops.history_min`` call.
@@ -213,33 +215,28 @@ def packed_reads(st, n, s, gi: int, SEGS):
         return cuda_ops.history_min(acc, parts, cuda_ops.RI, s, g1)
 
     # ---- MAXLOOP stencil windows (PL / PR) -------------------------------
-    def window(name, rows, halo=DS):
-        """[B, rows(tt'), DS, IB+DS, n2]: row r of axis 2 = span s - DS + r
-        (``halo`` <= DS rows past IB, whatever it is).
-        Spans below lo come from segment gi - 1 (which holds all of them:
-        segments are at least MIN_SEG wide), spans below 0 read as unset;
-        the JAX module's pad-and-select over both segments, reading only
-        the window's own spans."""
-        IW = IB + DS
-        u0 = s - DS
-        k = min(max(lo - u0, 0), DS)         # window rows below lo
-        parts = []
-        for h, a, b in ((gi - 1, 0, k), (gi, k, DS)):
-            if a == b:
-                continue
-            if h < 0:
-                parts.append(torch.full((B, rows, b - a, IW, n2), SAT16,
-                                        dtype=I16, device=dev))
-                continue
-            loh, hih, TBh, IBh, _ = SEGS[h]
-            w = st[f"{name}@{h}"][:, :, u0 + a - loh: u0 + b - loh,
-                                  :min(IW, IBh)]
-            w = pad_axis(w, -2, 0, IW - w.shape[-2], SAT16)
-            parts.append(pad_axis(w, -4, 0, max(rows - TBh, 0),
-                                  SAT16)[:, :rows])
-        return torch.cat(parts, dim=-3)
+    def window(name, halo=DS):
+        """The stencil window (``gapped4.SpanReads``), read in place: one
+        view of segment gi - 1 for the spans below lo (it holds all of
+        them: segments are at least MIN_SEG wide) and one of segment gi
+        from lo, every row the segment stores, whatever ``halo``; spans
+        below 0 are in neither."""
+        return [(st[f"{name}@{h}"][:, :, a - SEGS[h][0]:b - SEGS[h][0]], a)
+                for h, a, b in window_spans(s, gi, SEGS)]
 
     return SpanReads(plane, packed_rl(st, n, s, gi, SEGS, TB, IB), RI, window)
+
+
+def window_spans(s, gi: int, SEGS):
+    """[(h, a, b)]: the segments h a span-s stencil window reads and the
+    spans [a, b) of s - DS .. s - 1 each holds (segment gi - 1 below lo_gi,
+    gi from it; spans below 0 in neither)."""
+    lo = SEGS[gi][0]
+    out = []
+    for h, a, b in ((gi - 1, max(s - DS, 0), min(lo, s)), (gi, max(s - DS, lo), s)):
+        if h >= 0 and a < b:
+            out.append((h, a, b))
+    return out
 
 
 def span_gapped7(C, SC4, st, s, gi: int, SEGS):

@@ -18,10 +18,12 @@ same way for both engines, in this order:
   function, so each part's wall is summed apart (V, P split, WBP/WPP, the
   cross-span phase of the gapped step, its serial tt loop, WM/WMv/WMp),
   and the cross-span phase split in three: the l-shrink / i-shrink
-  history scans (every ``RL`` / ``RI`` call of ``gapped4.span_families``),
-  the PL / PR interior-loop stencils (``gapped4.pl_stencil`` /
-  ``pr_stencil``, their windows' reads included) and the rest, the plane
-  reads and the assembly;
+  history scans (every ``RL`` / ``RI`` call of ``gapped4.span_families``,
+  one ``history_min`` kernel each), the PL / PR interior-loop stencils
+  (``gapped4.pl_stencil`` / ``pr_stencil``: one ``stencil_pl`` /
+  ``stencil_pr`` kernel each over the layout's in-place window of int16
+  views, the views' making included) and the rest, the plane reads and
+  the assembly;
 * ``tt_loop_turns``: that fill and two more taken the same way, in turns:
   the tt loop as the fills run it (one ``tt_span`` a span), as the
   two-launch loop it replaced (``ttloop.run_tt_loop_steps``), and as the
@@ -38,8 +40,9 @@ same way for both engines, in this order:
   values): once for the wall, once under torch.profiler.  Device kernel
   time over that wall is the device's busy share; the kernels and PyTorch
   ops that take the most device time and the port's own kernels
-  (``tt_span``, ``history_min``, ``p_split``; ``minplus_group`` and
-  ``tt_step`` where anything runs them) are listed.
+  (``tt_span``, ``history_min``, ``p_split``, ``stencil_pl`` /
+  ``stencil_pr``; ``minplus_group`` and ``tt_step`` where anything runs
+  them) are listed.
 """
 
 from __future__ import annotations
@@ -112,7 +115,7 @@ def main(argv=None):
     for key in ("fill_s_first", "fill_s"):
         torch.cuda.synchronize()
         cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
-        cuda_ops.TT_SPAN_LAUNCHES = 0
+        cuda_ops.TT_SPAN_LAUNCHES = cuda_ops.STENCIL_LAUNCHES = 0
         t0 = time.perf_counter()
         st = run_fill()
         torch.cuda.synchronize()
@@ -122,6 +125,7 @@ def main(argv=None):
     out["launches"] = cuda_ops.TT_SPAN_LAUNCHES
     out["minplus_launches"] = cuda_ops.LAUNCHES
     out["tt_step_launches"] = cuda_ops.TT_STEP_LAUNCHES
+    out["stencil_launches"] = cuda_ops.STENCIL_LAUNCHES
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     # ---- per-part walls: wrap the span functions where the fill and the
@@ -244,7 +248,8 @@ def main(argv=None):
         # the port's own kernels (csrc/), wherever they rank
         "port_kernels": _top([e for e in kernels
                               if any(k in e.key for k in ("minplus", "tt_step", "tt_span",
-                                                          "history", "p_split"))]),
+                                                          "history", "p_split",
+                                                          "stencil"))]),
     }
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)

@@ -8,8 +8,8 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
-   ``ccj_tpu_torch/csrc/`` (the five kernels, one ``nvcc`` per source,
-   run together) and report the build time;
+   ``ccj_tpu_torch/csrc/`` (the seven kernels, one ``nvcc`` per source,
+   the six sources run together) and report the build time;
 2. the min-plus kernel against its plain PyTorch version on the card,
    exactly (tolerance zero: integer data): single windows
    (``minplus_window``, a group of one) in all three mask modes, at the CPU
@@ -71,6 +71,17 @@ Phases; any failure exits non-zero and prints no result:
    from i0 = 51), each with its L2-hot and L2-cold device times, the
    fills' eager call's, the plain version's on the card and its byte bound
    (:func:`history_bound`, :func:`psplit_bound`; no library yardstick);
+   then (2e) ``stencil_pl`` and ``stencil_pr`` (the PL / PR interior-loop
+   stencils, read in place from the state) against their plain versions
+   exactly, at the fills' own calls on a random PL / PR state with the
+   bench sequence's stencil weights (:func:`stencil_cases`: the n=100 main
+   span, n=128's, the packed n=200 span 135 and span 110, whose window
+   straddles two segments, bucket 100 x 4, a dense row shard of 26 rows
+   from i0 = 26 and a packed one of 48 rows from i0 = 51), each with its
+   L2-hot and L2-cold device times, the fills' eager call's, the plain
+   version's on the card and its bound (:func:`stencil_bound`: the
+   admissible terms at one int32 add-min a lane and cycle against the
+   bytes they need; no library yardstick);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -78,7 +89,9 @@ Phases; any failure exits non-zero and prints no result:
    kernels' launch counts reset just before and read just after: one
    ``tt_span`` per span with a tt step (98), one ``history_min`` per RL /
    RI call (16 a span, 1584), one ``p_split`` per span with a term (97),
-   no ``minplus_group`` and no ``tt_step``; every later path is checked the
+   one ``stencil_pl`` and one ``stencil_pr`` per span with a tt step (98
+   each, ``STENCIL_LAUNCHES`` 196), no ``minplus_group`` and no
+   ``tt_step``; every later path is checked the
    same way (:func:`fill_counts`; per span and row shard with a span-s
    row, :func:`sharded_counts`); then
    the fill alone (V(1, 100) must be -1528, bench.py's golden) and, on
@@ -233,35 +246,43 @@ def reset_counts(cuda_ops):
     """Set every kernel's launch count to 0, just before a path is driven."""
     cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
     cuda_ops.TT_SPAN_LAUNCHES = cuda_ops.HISTORY_LAUNCHES = cuda_ops.PSPLIT_LAUNCHES = 0
+    cuda_ops.STENCIL_LAUNCHES = cuda_ops.STENCIL_PL_LAUNCHES = cuda_ops.STENCIL_PR_LAUNCHES = 0
 
 
 def fill_counts(*lengths):
     """The launches of unsharded fills (dense or packed; a batch counts
-    once) of these lengths: (``tt_span``, ``history_min``, ``p_split``).
-    Every span with a tt step launches one ``tt_span``, every span s >= 1
-    one ``history_min`` per RL / RI call (16; the packed layout's prior
-    segments in one launch), every span with a live row and a term (3 <= s
-    <= n - 1) one ``p_split``."""
-    return (sum(tt_spans(m) for m in lengths),
-            sum(HISTORY_CALLS * max(m - 1, 0) for m in lengths),
-            sum(max(m - 3, 0) for m in lengths))
+    once) of these lengths: (``tt_span``, ``history_min``, ``p_split``,
+    ``stencil_pl``, ``stencil_pr``).  Every span with a tt step launches
+    one ``tt_span``, one ``stencil_pl`` and one ``stencil_pr`` (spans 0 and
+    1 have no valid cell), every span s >= 1 one ``history_min`` per RL /
+    RI call (16; the packed layout's prior segments in one launch), every
+    span with a live row and a term (3 <= s <= n - 1) one ``p_split``."""
+    tt = sum(tt_spans(m) for m in lengths)
+    return (tt, sum(HISTORY_CALLS * max(m - 1, 0) for m in lengths),
+            sum(max(m - 3, 0) for m in lengths), tt, tt)
 
 
 # launches of each path's fills since :func:`reset_counts`, by path:
-# (tt_span, history_min, p_split), filled in by :func:`loop_launches`
+# (tt_span, history_min, p_split, stencil_pl, stencil_pr), filled in by
+# :func:`loop_launches`
 PATH_COUNTS = {}
+FILL_KERNELS = ("tt_span", "history_min", "p_split", "stencil_pl", "stencil_pr")
 
 
 def loop_launches(cuda_ops, want, what):
     """The fill kernels' launches since :func:`reset_counts`, checked
-    against ``want`` = (``tt_span``, ``history_min``, ``p_split``) (see
-    :func:`fill_counts`, :func:`sharded_counts`); ``minplus_group`` and
-    ``tt_step`` never (no fill runs the step-by-step loop).  Records them
-    in :data:`PATH_COUNTS` and returns ``tt_span``'s count."""
+    against ``want`` (one count each of :data:`FILL_KERNELS`; see
+    :func:`fill_counts`, :func:`sharded_counts`), ``STENCIL_LAUNCHES``
+    against the two stencils' sum; ``minplus_group`` and ``tt_step`` never
+    (no fill runs the step-by-step loop).  Records them in
+    :data:`PATH_COUNTS` and returns ``tt_span``'s count."""
     got = (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES,
+           cuda_ops.STENCIL_PL_LAUNCHES, cuda_ops.STENCIL_PR_LAUNCHES,
            cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
-    check(got == (*want, 0, 0), f"{what}: tt_span / history_min / p_split / "
-          f"minplus_group / tt_step launches {got} != {(*want, 0, 0)}")
+    check(got == (*want, 0, 0), f"{what}: {' / '.join(FILL_KERNELS)} / minplus_group / "
+          f"tt_step launches {got} != {(*want, 0, 0)}")
+    check(cuda_ops.STENCIL_LAUNCHES == want[3] + want[4],
+          f"{what}: STENCIL_LAUNCHES {cuda_ops.STENCIL_LAUNCHES} != {want[3] + want[4]}")
     PATH_COUNTS[what] = tuple(want)
     return want[0]
 
@@ -1311,6 +1332,213 @@ def phase_history_psplit(cuda_ops, bucket_dims, dev):
     return hist_rows, ps_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 2e: the PL / PR interior-loop stencils
+# ---------------------------------------------------------------------------
+
+STENCIL_REPLACES = {"stencil_pl": "ccj_tpu/engine/gapped4.py:340",   # XLA fusions,
+                    "stencil_pr": "ccj_tpu/engine/gapped4.py:392"}   # no Pallas kernel
+INT32_LANES = 132 * 64      # H100 SXM: 132 SMs x 64 INT32 lanes (Hopper white paper)
+
+
+def sm_clock_hz():
+    """The card's largest SM clock as ``nvidia-smi`` reports it, in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def stencil_cases(bucket_dims):
+    """Phase 2e's shapes: the n=100 main span, n=128's, the packed n=200
+    span 135 (segment 3, one segment) and span 110 (its window straddles
+    segments 2 and 3), a batch of four at bucket 100, a dense row shard
+    (n=100, shard 1 of 4: 26 rows from i0 = 26) and a packed one (n=200,
+    shard 1 of 4: 48 rows from i0 = 51 at span 102)."""
+    s100 = main_span(100, bucket_dims)[0]
+    s128 = main_span(128, bucket_dims)[0]
+    base = dict(B=1, i0=0, rows=None, packed=False)
+    return [dict(base, label=f"n=100 s={s100}", n=100, s=s100),
+            dict(base, label=f"n=128 s={s128}", n=128, s=s128),
+            dict(base, label="n=200 packed s=135 (segment 3)", n=200, s=135, packed=True),
+            dict(base, label="n=200 packed s=110 (window over segments 2 and 3)", n=200,
+                 s=110, packed=True),
+            dict(base, label=f"bucket 100 x 4 s={s100}", n=100, s=s100, B=4),
+            dict(base, label=f"n=100 row shard 1 of 4 (26 rows from i0=26) s={s100}",
+                 n=100, s=s100, i0=26, rows=26),
+            dict(base, label="n=200 packed row shard 1 of 4 (48 rows from i0=51) s=102",
+                 n=200, s=102, i0=51, rows=48, packed=True)]
+
+
+def stencil_operands(cuda_ops, case, SC4, gen, dev):
+    """A case's stencil calls as the fills make them, on a random PL / PR
+    state: {"PL": (parts, W4PL), "PR": (parts, W4PR)}, the keywords, and
+    the fills' own call of each (``gapped4.pl_stencil`` / ``pr_stencil``
+    over the layout's reads; a row shard's window is the rows the
+    transport fetches, here a view of the state's)."""
+    from ccj_tpu_torch.engine import gapped4, gapped5
+    from ccj_tpu_torch.engine.gapped import DS, dims
+
+    n, s, B, i0, rows = case["n"], case["s"], case["B"], case["i0"], case["rows"]
+    n2, T, S, _ = dims(n)
+    st = {"PKD": torch.zeros((B, 1, 1, 1, n2), dtype=torch.int16, device=dev)}
+    if case["packed"]:
+        segs = gapped5.segments7(n)
+        gi = next(g for g, (lo, hi, *_r) in enumerate(segs) if lo <= s < hi)
+        TB, IB = segs[gi][2], segs[gi][3]
+        for name in ("PL", "PR"):
+            for h in range(gi + 1):
+                lo, hi, TBh, IBh, _ = segs[h]
+                st[f"{name}@{h}"] = rand_i16((B, TBh, hi - lo, IBh, n2), gen, dev)
+        reads = gapped5.packed_reads(st, n, s, gi, segs)
+    else:
+        TB, IB = gapped4.bucket_dims(n, s)
+        for name in ("PL", "PR"):
+            st[name] = rand_i16((B, T, S, n2, n2), gen, dev)
+        reads = gapped4.dense_reads(st, n, s, TB, IB)
+    SC4b = {k: v[None].expand(B, *v.shape) for k, v in SC4.items()}
+    R = IB if rows is None else rows
+    ops = {}
+    for name, halo, w in (("PL", DS, SC4b["W4PL"]), ("PR", 0, SC4b["W4PR"])):
+        parts = reads.window(name, halo)
+        if rows is not None:       # the shard's rows and halo
+            parts = [(v[..., i0:i0 + rows + halo, :], u0) for v, u0 in parts]
+        ops[name] = (parts, w)
+    kw = dict(s=s, n=n, i0=i0, TB=TB, R=R)
+    if rows is None:
+        calls = {"PL": lambda: gapped4.pl_stencil(reads, SC4b, s, n, TB, IB),
+                 "PR": lambda: gapped4.pr_stencil(reads, SC4b, s, n, TB, IB)}
+    else:
+        calls = {"PL": lambda: cuda_ops.stencil_pl(*ops["PL"], **kw),
+                 "PR": lambda: cuda_ops.stencil_pr(*ops["PR"], **kw)}
+    return ops, kw, calls
+
+
+def stencil_bound(name, parts, w, s, n, i0, TB, R, clock_hz):
+    """(terms, bytes, ms by bytes, ms by operations) of one stencil on its
+    data: every admissible term (a valid cell of a live row and a (d1, d2)
+    whose weight is below INF) is one fused add-min on one of the card's
+    132 x 64 int32 lanes at ``clock_hz``; the bytes are each window element
+    an admissible term reads once (a span, tt row or row no view holds
+    reads SAT16 and no memory), each finite weight those terms use once and
+    each valid output cell's int32 once."""
+    from ccj_tpu_torch.engine.common import INF
+    from ccj_tpu_torch.engine.cuda_ops import span_valid, stencil_parts
+    from ccj_tpu_torch.engine.gapped import DS
+
+    B, n2, dev = w.shape[0], n + 2, w.device
+    parts = stencil_parts(parts, B, n2, s)
+    valid = span_valid(n, s, i0, TB, R, n2, dev)                   # [TB, R, n2]
+    terms = win_elems = w_elems = 0
+    live_cols = valid.any(dim=0)                                    # [R, n2]
+    for d_out in range(1, DS + 1):
+        span = s - d_out
+        view = next((v for v, u0 in parts if u0 <= span < u0 + v.shape[2]), None)
+        used = torch.zeros((TB + DS, R + DS, n2), dtype=torch.bool, device=dev)
+        for d_in in range(1, DS + 1):
+            d1, d2 = (d_out, d_in) if name == "PL" else (d_in, d_out)
+            if name == "PL":       # W4PL[d1, d2, i, j], tt-free
+                fin = w[0, d1 - 1, d2 - 1, i0:i0 + R, :] < INF            # [R, n2]
+                cells = valid & fin
+                w_elems += int((fin & live_cols).sum())
+                # reads PL[tt + d2, s - d1, i + d1, j - d2]
+                if d2 < n2:
+                    used[d2:d2 + TB, d1:d1 + R, :n2 - d2] |= cells[:, :, d2:]
+            else:                  # W4PR[d1, d2, u + 2, i + s], u = j + tt
+                k = (torch.arange(TB, device=dev)[:, None, None]
+                     + torch.arange(n2, device=dev)[None, None, :] + 2)
+                l = torch.arange(i0, i0 + R, device=dev)[None, :, None] + s
+                ok = (k < w.shape[3]) & (l < w.shape[4])
+                fin = ok & (w[0, d1 - 1, d2 - 1][k.clamp(max=w.shape[3] - 1),
+                                                 l.clamp(max=w.shape[4] - 1)] < INF)
+                cells = valid & fin
+                uk = torch.zeros((n2 + TB + 2, R), dtype=torch.bool, device=dev)
+                uk[k.expand_as(cells)[cells], (l - s - i0).expand_as(cells)[cells]] = True
+                w_elems += int(uk.sum())
+                # reads PR[tt + d1, s - d2, i, j]
+                used[d1:d1 + TB, :R] |= cells
+            terms += int(cells.sum())
+        if view is not None:
+            TTw, Rw = view.shape[1], view.shape[3]
+            win_elems += int(used[:TTw, :Rw].sum())
+    terms, win_elems, w_elems = B * terms, B * win_elems, B * w_elems
+    nbytes = 2 * win_elems + 4 * w_elems + 4 * B * int(valid.sum())
+    return (terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
+            terms / (INT32_LANES * clock_hz) * 1e3)
+
+
+def phase_stencil(cuda_ops, sp, dev):
+    """Phase 2e: ``stencil_pl`` and ``stencil_pr`` against their plain
+    versions on the card, exactly, at :func:`stencil_cases` (the fills'
+    own calls on a random PL / PR state, the stencil weights of the bench
+    sequence of that length); each row with the kernel's L2-hot (graph
+    replay) and L2-cold (:func:`flushed_ms`) device times (the output's INF
+    fill included), the fills' eager call's, the plain version's on the
+    card and :func:`stencil_bound`.  Returns the rows by kernel."""
+    from ccj_tpu_torch.engine.common import INF
+    from ccj_tpu_torch.engine.fold import build_consts, consts_from_numpy
+    from ccj_tpu_torch.engine.gapped4 import bucket_dims
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    clock = sm_clock_hz()
+    emit({"phase": "stencil", "sm_clock_hz": clock,
+          "library": "none: no single PyTorch call takes a masked min over sums without "
+                     "materialising them, so library_ms is null for both kernels"})
+    rows = {"stencil_pl": [], "stencil_pr": []}
+    sc4_by_n = {}
+    for case in stencil_cases(bucket_dims):
+        n = case["n"]
+        if n not in sc4_by_n:
+            sc4_by_n.clear()
+            torch.cuda.empty_cache()
+            tabs = build_seq_tables(bench_seq(n), sp, DEFAULT_PK)
+            sc4_by_n[n] = consts_from_numpy(build_consts(tabs, sp, DEFAULT_PK), dev)[1]
+        ops, kw, calls = stencil_operands(cuda_ops, case, sc4_by_n[n], gen, dev)
+        for fam, kname in (("PL", "stencil_pl"), ("PR", "stencil_pr")):
+            parts, w = ops[fam]
+            fn = getattr(cuda_ops, kname)
+            ref = getattr(cuda_ops, kname + "_ref")
+            want = ref(cuda_ops.stencil_parts(parts, w.shape[0], n + 2, kw["s"]), w,
+                       kw["s"], n, kw["i0"], kw["TB"], kw["R"])
+            before = (cuda_ops.STENCIL_LAUNCHES, getattr(cuda_ops, f"STENCIL_{fam}_LAUNCHES"))
+            got = fn(parts, w, **kw)
+            torch.cuda.synchronize()
+            check((cuda_ops.STENCIL_LAUNCHES, getattr(cuda_ops, f"STENCIL_{fam}_LAUNCHES"))
+                  == (before[0] + 1, before[1] + 1), f"a {kname} made other than one launch")
+            err = int((got.long() - want.long()).abs().max())
+            label = f"{kname} {case['label']}"
+            check(err == 0, f"{label} != plain: max |err| = {err}")
+            check(bool((want < INF).any()), f"{label}: no cell had a term")
+            terms, nbytes, t_bytes, t_ops = stencil_bound(fam, parts, w, clock_hz=clock, **kw)
+
+            def kern(fn=fn, parts=parts, w=w):
+                fn(parts, w, **kw)
+
+            row = {"case": label, "batch": case["B"], "i0": kw["i0"], "rows": kw["R"],
+                   "TB": kw["TB"], "views": len(cuda_ops.stencil_parts(
+                       parts, w.shape[0], n + 2, kw["s"])),
+                   "out_shape": list(got.shape), "terms": terms, "bytes": nbytes,
+                   "max_abs_err": err,
+                   "ms": graph_ms(kern, reps=20, replays=5), "ms_l2cold": flushed_ms(kern, 20),
+                   "call_ms": cuda_ms(calls[fam], 10),
+                   "plain_ms": cuda_ms(lambda: ref(cuda_ops.stencil_parts(
+                       parts, w.shape[0], n + 2, kw["s"]), w, kw["s"], n, kw["i0"],
+                       kw["TB"], kw["R"]), 2),
+                   "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes, "ops_ms": t_ops,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+            rows[kname].append(row)
+            emit({"phase": "stencil", **row})
+            del want, got
+        del ops, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
 def max_rel_err(got, want):
     """Largest |got - want| / max(|got|, |want|) over two arrays (0 where
     both are 0)."""
@@ -1385,7 +1613,8 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     t0 = time.perf_counter()
     pf = partition(seq, num_samples=1000, device=dev)
     out["n64_partition_s"] = time.perf_counter() - t0
-    out["launches"] = loop_launches(cuda_ops, (0, 0, 0), "the partition function")
+    out["launches"] = loop_launches(cuda_ops, (0,) * len(FILL_KERNELS),
+                                    "the partition function")
     mfe = fold(seq, device=dev)
     check(abs(pf.Z - z32) / z32 < 1e-5, f"partition Z {pf.Z!r} != fill Z {z32!r}")
     check(pf.ensemble_energy <= mfe.energy + 1e-6,
@@ -1736,10 +1965,10 @@ def sharded_counts(n, P):
     """The launches of a fill of length n split over P row shards (dense or
     packed), as :func:`fill_counts` gives them, per shard that owns a
     span-s row (1 <= i <= n - s; R = ceil((n + 2) / P) rows a shard):
-    ``tt_span`` each span with a tt step; ``history_min`` each span s >= 1
-    9 times for RL and 7 times per owner of the shard's C rows l = i + s
-    (< n2) for RI (each owner reduces its own rows); ``p_split`` each span
-    with a term."""
+    ``tt_span``, ``stencil_pl`` and ``stencil_pr`` each span with a tt
+    step; ``history_min`` each span s >= 1 9 times for RL and 7 times per
+    owner of the shard's C rows l = i + s (< n2) for RI (each owner reduces
+    its own rows); ``p_split`` each span with a term."""
     from ccj_tpu_torch.dist.wavefront import row_partition, span_rows
 
     R, _ = row_partition(n, P)
@@ -1751,7 +1980,7 @@ def sharded_counts(n, P):
             tt += s >= 2
             hist += (s >= 1) * (9 + 7 * owners)
             ps += s >= 3
-    return tt, hist, ps
+    return tt, hist, ps, tt, tt
 
 
 def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
@@ -1975,12 +2204,16 @@ def phase_corpus_processes(entries, nproc=2):
                                           "corpus-minplus-launches",
                                           "corpus-tt-step-launches",
                                           "corpus-history-launches",
-                                          "corpus-psplit-launches")))
+                                          "corpus-psplit-launches",
+                                          "corpus-stencil-pl-launches",
+                                          "corpus-stencil-pr-launches")))
             reports.append({"wall_s": walls[pid],
                             "fold_s": float(vals["corpus-fold-seconds"]),
                             "launches": int(vals["corpus-tt-span-launches"]),
                             "history_launches": int(vals["corpus-history-launches"]),
                             "psplit_launches": int(vals["corpus-psplit-launches"]),
+                            "stencil_pl_launches": int(vals["corpus-stencil-pl-launches"]),
+                            "stencil_pr_launches": int(vals["corpus-stencil-pr-launches"]),
                             "minplus_launches": int(vals["corpus-minplus-launches"]),
                             "tt_step_launches": int(vals["corpus-tt-step-launches"])})
         res = json.loads(out.read_text())
@@ -2004,17 +2237,18 @@ def phase_corpus_processes(entries, nproc=2):
     from ccj_tpu_torch.api import bucket_for
 
     want = fill_counts(*(bucket_for(len(e["seq"])) for e in entries))
-    keys = ("launches", "history_launches", "psplit_launches", "minplus_launches",
-            "tt_step_launches")
+    keys = ("launches", "history_launches", "psplit_launches", "stencil_pl_launches",
+            "stencil_pr_launches", "minplus_launches", "tt_step_launches")
     for label, reps in (("two-process", multi), ("one-process", solo)):
         got = tuple(sum(r[k] for r in reps) for k in keys)
-        check(got == (*want, 0, 0), f"{label} corpus tt_span / history_min / p_split / "
+        check(got == (*want, 0, 0), f"{label} corpus {' / '.join(FILL_KERNELS)} / "
               f"minplus_group / tt_step launches {got} != {(*want, 0, 0)}")
     PATH_COUNTS["corpus"] = want
     return {"n": [len(e["seq"]) for e in entries], "processes": nproc,
             "placement": placement, "process_reports": multi,
             "launches": sum(r["launches"] for r in multi),
             "history_launches": want[1], "psplit_launches": want[2],
+            "stencil_pl_launches": want[3], "stencil_pr_launches": want[4],
             "one_process": solo[0]}
 
 
@@ -2059,6 +2293,10 @@ def main():
     report["tt_span"] = span_rows
     hist_rows, ps_rows = phase_history_psplit(cuda_ops, bucket_dims, torch.device("cuda"))
     report["history_min"], report["p_split"] = hist_rows, ps_rows
+    sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
+                                    / "rna_DirksPierce09.par"))
+    stencil_rows = phase_stencil(cuda_ops, sp, torch.device("cuda"))
+    report.update(stencil_rows)
 
     # ---- 3: corpus goldens -----------------------------------------------
     corpus = json.loads((ROOT / "tests" / "golden" / "corpus.json").read_text())
@@ -2085,8 +2323,6 @@ def main():
                    "tt_step_launches": cuda_ops.TT_STEP_LAUNCHES}
     launches = loop_launches(cuda_ops, fill_counts(n), "the main path")
 
-    sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
-                                    / "rna_DirksPierce09.par"))
     tabs = build_seq_tables(seq, sp, DEFAULT_PK)
     C, SC4 = consts_from_numpy(build_consts(tabs, sp, DEFAULT_PK), "cuda")
     torch.cuda.synchronize()
@@ -2343,6 +2579,30 @@ def main():
             "share_of_bound_l2cold": main["share_of_bound_l2cold"],
             "matches_plain": True, "shape": main["case"],
             "other_shapes": [{k: r[k] for k in new_keys} for r in rows_k[1:]]})
+    stencil_keys = ("case", "views", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms",
+                    "bound_by", "bytes_ms", "ops_ms", "share_of_bound",
+                    "share_of_bound_l2cold", "terms", "bytes", "max_abs_err")
+    for name, idx, what in (
+            ("stencil_pl", 3, "the XLA fusion of the PL interior-loop stencil "
+             "(gapped4.py:340-375, its packed window gapped5.py:369-420), one launch a span "
+             "(and row shard) with a tt step"),
+            ("stencil_pr", 4, "the XLA fusion of the PR interior-loop stencil "
+             "(gapped4.py:392-414, gapped5.py:435-452), one launch a span (and row shard) "
+             "with a tt step")):
+        rows_k = stencil_rows[name]
+        main = rows_k[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "ccj_tpu_torch/csrc/stencil.cu",
+            "replaces": STENCIL_REPLACES[name], "replaces_what": what,
+            "launches": PATH_COUNTS["the main path"][idx],
+            "launches_by_path": {k: v[idx] for k, v in PATH_COUNTS.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "call_ms": main["call_ms"],
+            "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
+            "share_of_bound_l2cold": main["share_of_bound_l2cold"],
+            "matches_plain": True, "shape": main["case"],
+            "other_shapes": [{k: r[k] for k in stencil_keys} for r in rows_k[1:]]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

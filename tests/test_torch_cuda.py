@@ -1,4 +1,5 @@
-"""The CUDA kernels (``tt_span``, ``minplus_group``, ``tt_step``) against
+"""The CUDA kernels (``tt_span``, ``minplus_group``, ``tt_step``,
+``history_min``, ``p_split``, ``stencil_pl``, ``stencil_pr``) against
 their plain PyTorch versions, on the card (exact: integer data), ``tt_span``
 against the two-launch loop it replaces, ``fold_many``'s
 fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
@@ -619,7 +620,8 @@ def test_p_split_kernel_matches_plain(cuda, n, s, B, i0, rows, packed):
 def test_fill_launches_history_and_p_split(cuda, n, packed):
     """A dense (n=100) and a packed (n=134) fill: one history_min per RL /
     RI call (16 a span s >= 1), one p_split per span with a term (3 <= s
-    <= n - 1), one tt_span per span with a tt step."""
+    <= n - 1), one tt_span, one stencil_pl and one stencil_pr per span with
+    a tt step."""
     from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
     from ccj_tpu_torch.engine import fold as tfold
     from ccj_tpu_torch.engine.gapped5 import segments7
@@ -629,11 +631,86 @@ def test_fill_launches_history_and_p_split(cuda, n, packed):
     sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
     tabs = build_seq_tables(_bench_seq(n, 42), sp, DEFAULT_PK)
     C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
-    before = (*_loop_counts(), cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES)
+    def counts():
+        return (*_loop_counts(), cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES,
+                cuda_ops.STENCIL_PL_LAUNCHES, cuda_ops.STENCIL_PR_LAUNCHES,
+                cuda_ops.STENCIL_LAUNCHES)
+
+    before = counts()
     st = (tfold.fill7(C, SC4, n, sp.dangles, segments7(n)) if packed
           else tfold.fill6(C, SC4, n, sp.dangles))
     torch.cuda.synchronize()
-    after = (*_loop_counts(), cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES)
-    assert tuple(a - b for a, b in zip(after, before)) == (n - 2, 0, 0, 16 * (n - 1), n - 3)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        n - 2, 0, 0, 16 * (n - 1), n - 3, n - 2, n - 2, 2 * (n - 2))
     if n == 100:
         assert int(st["V"][1, n]) == -1528
+
+
+def _stencil_operands(n, s, B, i0, rows, packed, gen, dev):
+    """The PL and PR stencil calls the fills make at this shape on a random
+    state, the bench sequence's weights: ({"PL": (parts, W4PL), "PR":
+    (parts, W4PR)}, keywords); a row shard's window is its rows (and PL's
+    29-row halo) of the state's."""
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.engine import gapped4, gapped5
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    tabs = build_seq_tables(_bench_seq(n, 42), sp, DEFAULT_PK)
+    SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), dev)[1]
+    n2, T, S = n + 2, n - 1, n
+    st = {"PKD": torch.zeros((B, 1, 1, 1, n2), dtype=torch.int16, device=dev)}
+    if packed:
+        segs = gapped5.segments7(n)
+        gi = next(g for g, (lo, hi, *_r) in enumerate(segs) if lo <= s < hi)
+        TB, IB = segs[gi][2], segs[gi][3]
+        for name in ("PL", "PR"):
+            for h in range(gi + 1):
+                lo, hi, TBh, IBh, _ = segs[h]
+                st[f"{name}@{h}"] = _rand16((B, TBh, hi - lo, IBh, n2), gen, dev)
+        reads = gapped5.packed_reads(st, n, s, gi, segs)
+    else:
+        TB, IB = gapped4.bucket_dims(n, s)
+        for name in ("PL", "PR"):
+            st[name] = _rand16((B, T, S, n2, n2), gen, dev)
+        reads = gapped4.dense_reads(st, n, s, TB, IB)
+    ops = {}
+    for name, halo in (("PL", 29), ("PR", 0)):
+        parts = reads.window(name, halo)
+        if rows is not None:
+            parts = [(v[..., i0:i0 + rows + halo, :], u0) for v, u0 in parts]
+        w = SC4["W4" + name][None].expand(B, *SC4["W4" + name].shape)
+        ops[name] = (parts, w)
+    return ops, dict(s=s, n=n, i0=i0, TB=TB, R=IB if rows is None else rows)
+
+
+# phase 2e's shapes: the n=100 main span, n=128's, the packed n=200 span 135
+# and span 110 (its window over segments 2 and 3), bucket 100 x 4, a dense
+# row shard (26 rows from i0 = 26) and a packed one (48 rows from i0 = 51)
+STENCIL_CASES = [(100, 37, 1, 0, None, False), (128, 65, 1, 0, None, False),
+                 (200, 135, 1, 0, None, True), (200, 110, 1, 0, None, True),
+                 (100, 37, 4, 0, None, False), (100, 37, 1, 26, 26, False),
+                 (200, 102, 1, 51, 48, True)]
+
+
+@pytest.mark.parametrize("n,s,B,i0,rows,packed", STENCIL_CASES)
+def test_stencil_kernels_match_plain(cuda, n, s, B, i0, rows, packed):
+    gen = torch.Generator(device=cuda).manual_seed(n + 3 * s + B + i0)
+    ops, kw = _stencil_operands(n, s, B, i0, rows, packed, gen, cuda)
+    for name, fn, ref in (("PL", cuda_ops.stencil_pl, cuda_ops.stencil_pl_ref),
+                          ("PR", cuda_ops.stencil_pr, cuda_ops.stencil_pr_ref)):
+        parts, w = ops[name]
+        want = ref(cuda_ops.stencil_parts(parts, B, n + 2, s), w, s, n, i0, kw["TB"],
+                   kw["R"])
+        before = (cuda_ops.STENCIL_LAUNCHES, cuda_ops.STENCIL_PL_LAUNCHES,
+                  cuda_ops.STENCIL_PR_LAUNCHES)
+        got = fn(parts, w, **kw)
+        torch.cuda.synchronize()
+        after = (cuda_ops.STENCIL_LAUNCHES, cuda_ops.STENCIL_PL_LAUNCHES,
+                 cuda_ops.STENCIL_PR_LAUNCHES)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (1, 1, 0) if name == "PL" else (1, 0, 1))
+        assert torch.equal(got, want), name
+        assert bool((want < INF).any()), name
