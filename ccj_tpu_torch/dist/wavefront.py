@@ -66,11 +66,12 @@ import torch
 
 from ..engine.common import I16, I32, INF, SAT16, dynamic_slice, pad_axis
 from ..engine.fold import add_batch, init_state_2d
-from ..engine.gapped import C_MATS, DS, M4_NAMES, _set_P_diag, compute_WBP_WPP_span, dims
+from ..engine.gapped import (C_MATS, DS, M4_NAMES, _set_P_diag, _wx_tables,
+                             compute_WBP_WPP_span, dims)
 from ..engine import cuda_ops
-from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, g2, per_table,
-                              span_families, update_pk_skews4)
-from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_spans, window_spans
+from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, history_groups,
+                              history_launch, span_families, update_pk_skews4)
+from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_segments, window_spans
 from ..engine.nested import compute_V_span, compute_WMv_WMp_WM_span
 
 # exchange classes the transport counts ("read": the traceback and gather())
@@ -360,15 +361,64 @@ class ShardedState:
         return sum(v.nbytes for v in self.replicas[self.devices[0]].values())
 
 
-def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanReads:
+def _history_tables(st: ShardedState, C, p: int, W):
+    """``q -> the weight tables on shard q's device``: ``W`` (shard p's) on
+    p's own device, else computed there from that device's replica of the
+    2-D matrices (``gapped._wx_tables``), so an owner's RI launch takes its
+    weights from its own copy of X and nothing travels."""
+    cache = {st.devices[p]: W}
+
+    def on(q):
+        dev = st.devices[q]
+        if dev not in cache:
+            WB, WP, WBPg, _ = _wx_tables(C, st.shards[q])
+            cache[dev] = {"WBt": WB, "WBPg": WBPg, "WPt": WP}
+        return cache[dev]
+    return on
+
+
+def _sharded_history(st: ShardedState, C, p: int, s: int, TB: int, IB: int, rl,
+                     ri_windows):
+    """``SpanReads.history`` of shard p's rows [i0, i0 + IB): one launch for
+    the RL windows (``rl``: row-local, ``family -> parts``) on p's device;
+    the RI windows' C rows l = i + s reduced on their owners, one launch
+    per owner q of rows [a, b) (``ri_windows(q, a, b)``: ``family ->
+    parts`` over q's own rows, weights from q's own tables), the int32
+    result shipped to p (class ``shift``); rows with l >= n2, and every row
+    at span 0 (no history), are INF and move nothing."""
+    tr, i0, dev = st.transport, p * st.R, st.devices[p]
+    n2 = st.n + 2
+
+    def history(W):
+        keys, out = history_launch(history_groups(cuda_ops.RL), lambda m, f: rl(f), W, s,
+                                   i0, TB, IB)
+        got = dict(zip(keys, out))
+        tables = _history_tables(st, C, p, W)
+        groups = history_groups(cuda_ops.RI)
+        keys = [key for *_g, outs in groups for _t, key in outs]
+        B = W["WBt"].shape[0]
+        ri = torch.full((len(keys), B, TB, IB, n2), INF, dtype=I32, device=dev)
+        for q, a, b in tr.owners(i0 + s, i0 + s + IB) if s >= 1 else ():
+            fam = ri_windows(q, a, b)
+            _, red = history_launch(groups, lambda m, f: fam(f), tables(q), s, a - s, TB,
+                                    b - a)
+            ri[:, :, :, a - i0 - s: b - i0 - s] = tr.move(red, q, p, "shift")
+        got.update(zip(keys, ri))
+        return got
+
+    return history
+
+
+def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int, C) -> SpanReads:
     """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
-    s of a dense state: ``RL`` is the dense layout's (row-local); ``plane``
-    and ``window`` fetch their halos, ``RI`` reduces each C row's history
-    on its owner."""
+    s of a dense state: ``plane`` and ``window`` fetch their halos; the
+    history scans take the dense layout's row-local RL windows and reduce
+    each C row's RI history on its owner (``C``: the tables' dict, whose
+    scalars give an owner its weights)."""
     n = st.n
     n2, T, S, U = dims(n)
-    sh, tr, R = st.shards[p], st.transport, st.R
-    i0, dev = p * R, st.devices[p]
+    sh, R = st.shards[p], st.R
+    i0 = p * R
 
     def plane(name, c, b, di):
         sl = st.fetch(p, name, lambda t: t.select(2, max(s - b, 0)),
@@ -377,26 +427,12 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanRea
         return dynamic_slice(sl, (c, 0, 0), (TB, IB, n2))
 
     sp0 = max(s - TB, 0)
-    spv = sp0 + torch.arange(TB, device=dev)
-    i_val = torch.arange(i0, i0 + IB, device=dev)
-    weights = per_table(lambda X: g2(X, i_val[None, :].expand(TB, IB),
-                                     i_val[None, :] + s - spv[:, None] - 1))  # [B, sp, i]
 
-    def RI(name, X, g1):
-        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
-        for rows i (l = i + s): each owner of rows l reduces its own (one
-        ``cuda_ops.history_min`` on its device)."""
-        wi = weights(X)
-        B = sh["PKD"].shape[0]
-        out = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)  # l >= n2: INF
-        for q, lo, hi in tr.owners(i0 + s, i0 + s + IB):
-            win = dynamic_slice(st.shards[q]["C_" + name],
-                                (0, sp0, lo - q * R, 0), (TB, TB, hi - lo, n2))
-            wq = tr.move(wi[..., lo - i0 - s: hi - i0 - s], p, q, "shift")
-            red = torch.full((B, TB, hi - lo, n2), INF, dtype=I32, device=st.devices[q])
-            cuda_ops.history_min(red, [(win, wq, s - sp0)], cuda_ops.RI, s, g1, lo - s)
-            out[:, :, lo - i0 - s: hi - i0 - s] = tr.move(red, q, p, "shift")
-        return out
+    def ri_windows(q, a, b):
+        """C rows [a, b) of the TB spans below s, on their owner q."""
+        return lambda fam: [(dynamic_slice(st.shards[q]["C_" + fam],
+                                           (0, sp0, a - q * R, 0), (TB, TB, b - a, n2)),
+                             s - sp0)]
 
     def window(name, halo=DS):
         """The stencil window (``gapped4.SpanReads``): the spans
@@ -406,24 +442,24 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanRea
         return [(st.fetch(p, name, lambda t: t.narrow(2, lo, s - lo),
                           i0, i0 + IB + halo, "halo"), lo)]
 
-    return SpanReads(plane, dense_rl(sh, n, s, TB, IB, i0), RI, window)
+    history = _sharded_history(st, C, p, s, TB, IB, dense_rl(sh, s, TB, IB), ri_windows)
+    return SpanReads(plane, history, window)
 
 
 def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
-                         IB: int) -> SpanReads:
+                         IB: int, C) -> SpanReads:
     """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
     s of segment gi of a packed state, reader by reader
     ``gapped5.packed_reads``' own over the transport: a family plane
     fetches a one-row halo, a ``DROPPED`` family's C rows l = i + di + u a
-    shift; ``RL`` is row-local (``gapped5.packed_rl``); ``RI`` reduces each
-    C row's history over every prior segment on its owner; the stencil
-    window, stitched from segments gi - 1 and gi, fetches a DS-row halo.
-    Rows a segment does not store read as unset, as they do unsharded."""
-    n2 = st.n + 2
+    shift; the history scans take the row-local RL windows
+    (``gapped5.packed_rl``) and reduce each C row's RI history over every
+    prior segment on its owner; the stencil window, stitched from segments
+    gi - 1 and gi, fetches a DS-row halo.  Rows a segment does not store
+    read as unset, as they do unsharded."""
     lo, _hi, TB, _IB, _Lc = SEGS[gi]
-    sh, tr = st.shards[p], st.transport
-    i0, dev = p * st.R, st.devices[p]
-    B = sh["PKD"].shape[0]
+    sh = st.shards[p]
+    i0 = p * st.R
 
     def seg_of(u):
         """gapped5.packed_reads' segment of a fixed-offset read at span u."""
@@ -445,34 +481,14 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
         sl = pad_axis(sl, -3, 0, max(c + TB - TBh, 0), SAT16)
         return sl[:, c: c + TB]
 
-    i_val = torch.arange(i0, i0 + IB, device=dev)
-    hist = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
-    hist = [(h, loh, nsh) for h, loh, nsh in hist if nsh > 0]
-    u = (torch.cat([loh + torch.arange(nsh, device=dev) for _, loh, nsh in hist])
-         if hist else None)
-    weights = per_table(lambda X: g2(X, i_val[None, :].expand(len(u), IB),
-                                     i_val[None, :] + s - u[:, None] - 1))   # [B, u, i]
+    hist = prior_segments(SEGS, gi, s)
 
-    def RI(name, X, g1):
-        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
-        for rows i (l = i + s) over every prior segment's spans: each owner
-        of rows l reduces its own history and ships the int32 result."""
-        out = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)  # l >= n2: INF
-        if not hist:
-            return out
-        wi = weights(X)
-        for q, a, b in tr.owners(i0 + s, i0 + s + IB):
-            wq = tr.move(wi[..., a - i0 - s: b - i0 - s], p, q, "shift")
-            parts, k = [], 0
-            for h, loh, nsh in hist:
-                win = st.fetch(q, f"C_{name}@{h}", lambda t, m=nsh: t.narrow(2, 0, m),
-                               a, b, "shift")                 # q's own rows
-                parts.append((win, wq[:, k:k + nsh], s - loh))
-                k += nsh
-            red = torch.full((B, TB, b - a, n2), INF, dtype=I32, device=st.devices[q])
-            cuda_ops.history_min(red, parts, cuda_ops.RI, s, g1, a - s)
-            out[:, :, a - i0 - s: b - i0 - s] = tr.move(red, q, p, "shift")
-        return out
+    def ri_windows(q, a, b):
+        """C rows [a, b) of every prior segment's spans below s, on their
+        owner q (its own rows: a view)."""
+        return lambda fam: [(st.fetch(q, f"C_{fam}@{h}", lambda t, m=nsh: t.narrow(2, 0, m),
+                                      a, b, "shift"), s - loh)
+                            for h, loh, nsh in hist]
 
     def window(name, halo=DS):
         """The stencil window (``gapped4.SpanReads``): the spans of
@@ -484,7 +500,9 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
                           i0, i0 + IB + halo, "halo"), a)
                 for h, a, b in window_spans(s, gi, SEGS)]
 
-    return SpanReads(plane, packed_rl(sh, st.n, s, gi, SEGS, TB, IB, i0), RI, window)
+    history = _sharded_history(st, C, p, s, TB, IB, packed_rl(sh, s, gi, SEGS, IB),
+                               ri_windows)
+    return SpanReads(plane, history, window)
 
 
 def resolve_devices(devices=None):
@@ -580,8 +598,8 @@ def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
         packed = {}
         for p, i0, IB in active:
             dev = st.devices[p]
-            reads = (sharded_reads(st, p, s, TB, IB) if gi is None else
-                     sharded_packed_reads(st, p, s, gi, st.segs, IB))
+            reads = (sharded_reads(st, p, s, TB, IB, Cd[dev]) if gi is None else
+                     sharded_packed_reads(st, p, s, gi, st.segs, IB, Cd[dev]))
             packed[p] = span_families(Cd[dev], SC4d[dev], st.shards[p], s, TB, IB,
                                       reads, i0)
         for p, slabs in packed.items():

@@ -36,9 +36,11 @@ checked once per span; its plain version :func:`tt_span_ref` is the loop of
 
 Four kernels of the rest of the span, each the counterpart of an XLA
 fusion of the JAX fills (no Pallas kernel): :func:`history_min`
-(``csrc/history.cu``), the gapped step's l-shrink / i-shrink history scans
-RL / RI over int16 views of the state (``ccj_tpu/engine/gapped4.py:306-341``,
-``gapped5.py:313-365``); :func:`p_split` (``csrc/psplit.cu``), the P
+(``csrc/history.cu``), every l-shrink / i-shrink history scan RL / RI of a
+span in one launch, each family's window read once over int16 views of
+the state and its weights taken from the ``[B, n2, n2]`` tables in the
+kernel (``ccj_tpu/engine/gapped4.py:306-341``, ``gapped5.py:313-365``);
+:func:`p_split` (``csrc/psplit.cu``), the P
 split contraction over PKE / PKD (``ccj_tpu/engine/gapped3.py:69-123``);
 :func:`stencil_pl` and :func:`stencil_pr` (``csrc/stencil.cu``), the PL
 and PR MAXLOOP^2 interior-loop stencils (``ccj_tpu/engine/gapped4.py:340-375``
@@ -72,6 +74,7 @@ import tempfile
 import threading
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -221,9 +224,12 @@ def _library():
                 raise RuntimeError(
                     f"cuda_ops.HistTable ({ctypes.sizeof(HistTable)} B) does not "
                     f"mirror csrc/history.cu ({lib.ccj_history_table_bytes()} B)")
-            if lib.ccj_history_max_parts() != HISTORY_MAX_PARTS:
-                raise RuntimeError("HISTORY_MAX_PARTS does not match csrc/history.cu")
-            lib.ccj_history_min.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lim = (ctypes.c_int * 4)()
+            lib.ccj_history_limits(lim)
+            if tuple(lim) != (HISTORY_MAX_WINDOWS, HISTORY_MAX_PARTS, HISTORY_MAX_SEGS,
+                              HISTORY_MAX_TABLES):
+                raise RuntimeError("HISTORY_MAX_* do not match csrc/history.cu")
+            lib.ccj_history_min.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.ccj_history_min.restype = ctypes.c_int
             if lib.ccj_p_split_table_bytes() != ctypes.sizeof(PSplitTable):
                 raise RuntimeError(
@@ -1149,126 +1155,220 @@ def _launch_span(table: SpanTable, plan, fn):
 
 
 # ---------------------------------------------------------------------------
-# history_min: the gapped step's l-shrink / i-shrink history scans
+# history_min: every history scan of a span (the gapped step's RL / RI)
 # ---------------------------------------------------------------------------
 
-HISTORY_MAX_PARTS = 8   # csrc/history.cu kMaxParts
-RL, RI = 0, 1           # history_min's modes
+HISTORY_MAX_WINDOWS = 16   # csrc/history.cu kMaxWindows
+HISTORY_MAX_PARTS = 8      # csrc/history.cu kMaxParts
+HISTORY_MAX_SEGS = 16      # csrc/history.cu kMaxSegs: distinct part layouts a launch
+HISTORY_MAX_TABLES = 3     # csrc/history.cu kMaxTables
+RL, RI = 0, 1              # history_min's modes
 
 
-class HistPart(ctypes.Structure):
-    """One history window of :func:`history_min`: csrc/history.cu's
-    ``struct HistPart``, field for field (pointers and element strides of
-    the int16 window [B, TBw, U, Rw, n2] and the int32 weights [B, U, R];
-    span u has distance d = d0 - u)."""
-    _fields_ = [("win", ctypes.c_void_p), ("ws", ctypes.c_longlong * 5),
-                ("w", ctypes.c_void_p), ("wws", ctypes.c_longlong * 3),
+class HistSeg(ctypes.Structure):
+    """The strides and extents of one part position: csrc/history.cu's
+    ``struct HistSeg``, field for field (element strides of the int16 view
+    [B, TBw, U, Rw, n2]; span u has distance d = d0 - u)."""
+    _fields_ = [("ws", ctypes.c_longlong * 5),
                 *((nm, ctypes.c_int) for nm in ("TBw", "U", "Rw", "d0"))]
+
+
+class HistWin(ctypes.Structure):
+    """One window of a launch: csrc/history.cu's ``struct HistWin``, field
+    for field."""
+    _fields_ = [*((nm, ctypes.c_int) for nm in ("mode", "g1", "nparts", "nout")),
+                ("tab", ctypes.c_int * 2), ("out", ctypes.c_int * 2),
+                ("seg", ctypes.c_ubyte * HISTORY_MAX_PARTS)]
 
 
 class HistTable(ctypes.Structure):
     """The operands of one :func:`history_min` launch: csrc/history.cu's
     ``struct HistTable``, field for field, passed to the kernel by value."""
-    _fields_ = [("part", HistPart * HISTORY_MAX_PARTS), ("acc", ctypes.c_void_p),
-                ("acc_s", ctypes.c_longlong * 4),
+    _fields_ = [("win", (ctypes.c_void_p * HISTORY_MAX_PARTS) * HISTORY_MAX_WINDOWS),
+                ("seg", HistSeg * HISTORY_MAX_SEGS), ("w", HistWin * HISTORY_MAX_WINDOWS),
+                ("X", ctypes.c_void_p * HISTORY_MAX_TABLES),
+                ("xs", (ctypes.c_longlong * 3) * HISTORY_MAX_TABLES),
+                ("out", ctypes.c_void_p),
                 *((nm, ctypes.c_int) for nm in (
-                    "nparts", "B", "TB", "R", "n2", "s", "g1", "mode", "i0"))]
+                    "nwin", "nseg", "B", "TB", "R", "n2", "s", "i0", "wmask"))]
 
 
-def history_parts(acc, parts):
-    """``parts`` checked against ``acc`` and cut to their admissible spans
-    (u < d0: a span u >= d0 has d <= 0 and gives no term); parts left with
-    no span or no row are dropped.  Raises on a part that does not fit."""
-    B, TB, R, n2 = acc.shape
-    out = []
-    for win, w, d0 in parts:
-        if win.dim() != 5 or win.dtype != torch.int16:
-            raise ValueError(f"a history window must be int16 [B, TBw, U, Rw, n2], "
-                             f"got {win.dtype} {tuple(win.shape)}")
-        if w.dim() != 3 or w.dtype != torch.int32:
-            raise ValueError(f"history weights must be int32 [B, U, R], got "
-                             f"{w.dtype} {tuple(w.shape)}")
-        Bw, _TBw, U, Rw, nw = win.shape
-        if Bw != B or nw != n2 or Rw > R or tuple(w.shape[:2]) != (B, U) or w.shape[2] < R:
-            raise ValueError(f"history window {tuple(win.shape)} / weights "
-                             f"{tuple(w.shape)} do not fit acc {tuple(acc.shape)}")
-        U = min(U, int(d0))
-        if U > 0 and Rw > 0:
-            out.append((win[:, :, :U], w[:, :U], int(d0)))
-    if len(out) > HISTORY_MAX_PARTS:
-        raise ValueError(f"{len(out)} history parts, past the kernel's "
-                         f"{HISTORY_MAX_PARTS} (a launch's table)")
-    return out
+class HistWindow(NamedTuple):
+    """One window of :func:`history_min`: a family's history read in place,
+    ``parts`` a list of (int16 view [B, TBw, U, Rw, n2], d0) pairs, and the
+    one or two scans it serves, ``outs`` a list of (weight table index,
+    output plane) pairs, all with one ``mode`` (:data:`RL` / :data:`RI`)
+    and one ``g1``."""
+    mode: int
+    g1: int
+    parts: list
+    outs: list
 
 
-def history_min_ref(acc, parts, mode, s, g1, i0=0):
+def g2(X, a, b):
+    """X[..., a, b] of square [..., n2, n2] tables, INF where (a, b) lies
+    off them."""
+    n2 = X.shape[-1]
+    ok = (a >= 0) & (a < n2) & (b >= 0) & (b < n2)
+    return torch.where(ok, X[..., a.clamp(0, n2 - 1), b.clamp(0, n2 - 1)], INF)
+
+
+def history_windows(windows, tables, R, s):
+    """``windows`` as :class:`HistWindow` s checked against the tables, the
+    output's R rows and the span s, every part cut to its admissible spans
+    (u < d0: a span u >= d0 has d <= 0 and gives no term) and dropped where
+    no span or row is left; returns (windows, K), K the output planes.
+    Raises on an operand that does not fit, a part with d0 > s, and past
+    the kernel's limits."""
+    if not 1 <= len(tables) <= HISTORY_MAX_TABLES:
+        raise ValueError(f"{len(tables)} weight tables: 1 to {HISTORY_MAX_TABLES}")
+    B, n2 = tables[0].shape[0], tables[0].shape[-1]
+    for X in tables:
+        if X.dtype != torch.int32 or tuple(X.shape) != (B, n2, n2):
+            raise ValueError(f"a weight table must be int32 [B, n2, n2] = [{B}, {n2}, {n2}], "
+                             f"got {X.dtype} {tuple(X.shape)}")
+    if not 1 <= len(windows) <= HISTORY_MAX_WINDOWS:
+        raise ValueError(f"{len(windows)} history windows: 1 to {HISTORY_MAX_WINDOWS}")
+    out, planes = [], []
+    for mode, g1, parts, outs in windows:
+        if mode not in (RL, RI):
+            raise ValueError(f"mode must be RL ({RL}) or RI ({RI}), got {mode}")
+        if not 1 <= len(outs) <= 2 or any(not 0 <= t < len(tables) for t, _ in outs):
+            raise ValueError(f"a window serves one or two scans of the tables, got {outs}")
+        planes += [int(k) for _, k in outs]
+        cut = []
+        for win, d0 in parts:
+            if win.dim() != 5 or win.dtype != torch.int16:
+                raise ValueError(f"a history window must be int16 [B, TBw, U, Rw, n2], "
+                                 f"got {win.dtype} {tuple(win.shape)}")
+            if (win.shape[0] != B or win.shape[4] != n2 or win.shape[3] > R or d0 > s
+                    or win.stride(4) != 1):
+                raise ValueError(f"history window {tuple(win.shape)} with d0 {d0} does not "
+                                 f"fit batch {B}, {R} rows, n2 {n2}, span {s} (or its j "
+                                 "axis is not contiguous)")
+            U = min(win.shape[2], int(d0))
+            if U > 0 and win.shape[3] > 0:
+                cut.append((win[:, :, :U], int(d0)))
+        if len(cut) > HISTORY_MAX_PARTS:
+            raise ValueError(f"{len(cut)} history parts, past the kernel's "
+                             f"{HISTORY_MAX_PARTS}")
+        out.append(HistWindow(mode, int(g1), cut, [(int(t), int(k)) for t, k in outs]))
+    if sorted(planes) != list(range(len(planes))):
+        raise ValueError(f"the scans' output planes must be 0 .. K - 1, each once, got {planes}")
+    return out, len(planes)
+
+
+def history_weights(X, mode, s, d0, U, i0, R):
+    """The weights of a part's spans u < U for rows i in [i0, i0 + R),
+    int32 [B, U, R]: RL X(l - d + 1, l) with l = i + s, RI X(i, i + d - 1),
+    d = d0 - u; INF off the table."""
+    dev = X.device
+    iv = torch.arange(i0, i0 + R, device=dev)[None, :]
+    d = (d0 - torch.arange(U, device=dev))[:, None]
+    if mode == RL:
+        return g2(X, iv + s - d + 1, (iv + s).expand(U, R))
+    return g2(X, iv.expand(U, R), iv + d - 1)
+
+
+def history_min_ref(windows, tables, s, i0, TB, R):
     """Plain PyTorch version of :func:`history_min` (the scans as the fills
-    wrote them before the kernel: ``gapped4``'s RL body and ``ri_min``)."""
-    B, TB, R, n2 = acc.shape
-    dev = acc.device
+    ran them before the kernels, one scan at a time, the weights gathered
+    from the tables, each part's terms over an int32 copy of its window):
+    ``windows`` as :func:`history_windows` returns them."""
+    B, n2, dev = tables[0].shape[0], tables[0].shape[-1], tables[0].device
+    K = sum(len(w.outs) for w in windows)
+    out = torch.full((K, B, TB, R, n2), INF, dtype=torch.int32, device=dev)
     tv = torch.arange(TB, device=dev)[:, None, None]          # tt
     iv = torch.arange(i0, i0 + R, device=dev)[None, :, None]  # i
     jv = torch.arange(n2, device=dev)[None, None, :]          # j
-    if mode == RL:
-        bound = (iv + s) - (jv + tv + 2) - g1                  # l - k - g1
-    else:
-        bound = torch.where(iv >= 1, (jv - iv) - g1, 0)        # sj - g1, i >= 1
-    acc.clamp_(max=INF)
-    for win, w, d0 in parts:
-        U, Rw = win.shape[2], win.shape[3]
-        x = win[:, :TB].to(torch.int32)
-        x = pad_axis(x, 1, 0, TB - x.shape[1], SAT16)   # tt rows past the part's
-        x = pad_axis(x, 3, 0, R - Rw, SAT16)            # rows past it: masked below
-        d = (d0 - torch.arange(U, device=dev))[None, :, None, None]
-        rows = (torch.arange(R, device=dev) < Rw)[:, None]
-        ok = (d >= 1) & (d <= bound[:, None]) & rows
-        vals = torch.where(ok, x + w[:, None, :, :R, None], INF)
-        torch.minimum(acc, vals.amin(dim=-3), out=acc)
-    return acc
+    for mode, g1, parts, outs in windows:
+        if mode == RL:
+            bound = (iv + s) - (jv + tv + 2) - g1               # l - k - g1
+        else:
+            bound = torch.where(iv >= 1, (jv - iv) - g1, 0)     # sj - g1, i >= 1
+        for win, d0 in parts:
+            U, Rw = win.shape[2], win.shape[3]
+            x = win[:, :TB].to(torch.int32)
+            x = pad_axis(x, 1, 0, TB - x.shape[1], SAT16)   # tt rows past the part's
+            x = pad_axis(x, 3, 0, R - Rw, SAT16)            # rows past it: masked below
+            d = (d0 - torch.arange(U, device=dev))[None, :, None, None]
+            rows = (torch.arange(R, device=dev) < Rw)[:, None]
+            ok = (d >= 1) & (d <= bound[:, None]) & rows
+            for t, k in outs:
+                w = history_weights(tables[t], mode, s, d0, U, i0, R)
+                vals = torch.where(ok, x + w[:, None, :, :, None], INF)
+                torch.minimum(out[k], vals.amin(dim=-3), out=out[k])
+    return out
 
 
-def history_min(acc, parts, mode, s, g1, i0=0):
-    """One history scan into ``acc`` in place; returns it.
+def history_min(windows, tables, *, s, i0, TB, R):
+    """Every history scan of ``windows`` in one launch; returns int32
+    [K, B, TB, R, n2], plane k the scan whose output index is k:
 
-    acc[b, tt, r, j] = min(acc, INF, min over parts (win, w, d0) and spans u
-    of win[b, tt, u, r, j] + w[b, u, r]) over the terms with distance
-    d = d0 - u in [1, bound]: ``mode`` :data:`RL`, the l-shrink scan,
-    bound = (i + s) - (j + tt + 2) - g1; :data:`RI`, the i-shrink scan,
-    bound = (j - i) - g1 and i >= 1; row r is i = i0 + r.
+      out[k, b, tt, r, j] = min(INF, min over the window's parts (win, d0)
+                                and spans u of win[b, tt, u, r, j] + w_k(d))
 
-    ``acc``: int32 [B, TB, R, n2].  Each part: ``win`` an int16 view
-    [B, TBw, U, Rw, n2] straight into the state (its tt rows past TBw read
-    SAT16, its rows past Rw give no term), ``w`` int32 [B, U, >= R], ``d0``
-    an int; at most :data:`HISTORY_MAX_PARTS` parts with an admissible
-    span (``gapped5.segments7`` makes at most 6 segments).  One kernel
-    launch on CUDA for the whole batch, none where no part has an
-    admissible span.  The plain version (:func:`history_min_ref`) for CPU
-    tensors."""
+    over the terms with distance d = d0 - u in [1, bound]: mode :data:`RL`,
+    the l-shrink scan, bound = (i + s) - (j + tt + 2) - g1 and w_k(d) =
+    X(l - d + 1, l) with l = i + s; :data:`RI`, the i-shrink scan, bound =
+    (j - i) - g1 and i >= 1, w_k(d) = X(i, i + d - 1); X the scan's table,
+    INF off it; row r is i = i0 + r.
+
+    ``windows``: at most :data:`HISTORY_MAX_WINDOWS` (mode, g1, parts,
+    outs) (:class:`HistWindow`); each part an int16 view [B, TBw, U, Rw,
+    n2] straight into the state whose tt rows past TBw read SAT16 and whose
+    rows past Rw give no term, with its d0 <= s (at most
+    :data:`HISTORY_MAX_PARTS` with an admissible span); ``outs`` one or two
+    (table index, output plane) pairs, the planes of all windows 0 .. K - 1
+    each once.  ``tables``: int32 [B, n2, n2] weight tables
+    (``gapped._wx_tables``), at most :data:`HISTORY_MAX_TABLES`.  One
+    kernel launch on CUDA for the whole batch, every output cell written
+    once (the output is ``torch.empty``); none where no part has an
+    admissible span (an INF output).  The plain version
+    (:func:`history_min_ref`) for CPU tensors."""
     global HISTORY_LAUNCHES
-    if acc.dim() != 4 or acc.dtype != torch.int32:
-        raise ValueError(f"acc must be int32 [B, TB, R, n2], got {acc.dtype} "
-                         f"{tuple(acc.shape)}")
-    if mode not in (RL, RI):
-        raise ValueError(f"mode must be RL ({RL}) or RI ({RI}), got {mode}")
-    tensors = [acc, *(t for win, w, _ in parts for t in (win, w))]
+    if TB < 1 or R < 1:
+        raise ValueError(f"history_min needs TB >= 1 and R >= 1, got {TB}, {R}")
+    tensors = [*tables, *(v for _m, _g, parts, _o in windows for v, _ in parts)]
     if all(t.device.type == "cpu" for t in tensors):
-        return history_min_ref(acc, history_parts(acc, parts), mode, s, g1, i0)
+        windows, _K = history_windows(windows, tables, R, s)
+        return history_min_ref(windows, tables, s, i0, TB, R)
     dev = _check_devices(tensors)
     fn = _library().ccj_history_min
-    parts = history_parts(acc, parts)
-    if not parts:
-        return acc.clamp_(max=INF)
-    B, TB, R, n2 = acc.shape
-    t = HistTable(acc=acc.data_ptr(), acc_s=(ctypes.c_longlong * 4)(*acc.stride()),
-                  nparts=len(parts), B=B, TB=TB, R=R, n2=n2, s=s, g1=g1, mode=mode, i0=i0)
-    for q, (win, w, d0) in enumerate(parts):
-        t.part[q] = HistPart(win.data_ptr(), (ctypes.c_longlong * 5)(*win.stride()),
-                             w.data_ptr(), (ctypes.c_longlong * 3)(*w.stride()),
-                             win.shape[1], win.shape[2], win.shape[3], d0)
-    _launch(fn, dev, "history_min", ctypes.addressof(t),
+    windows, K = history_windows(windows, tables, R, s)
+    B, n2 = tables[0].shape[0], tables[0].shape[-1]
+    if not any(w.parts for w in windows):
+        return torch.full((K, B, TB, R, n2), INF, dtype=torch.int32, device=dev)
+    out = torch.empty((K, B, TB, R, n2), dtype=torch.int32, device=dev)
+    t = HistTable(out=out.data_ptr(), nwin=len(windows), B=B, TB=TB, R=R, n2=n2, s=s,
+                  i0=i0)
+    segs = {}
+    vec2 = n2 % 2 == 0       # two neighbouring j in one 4-byte load: aligned views
+    for q, X in enumerate(tables):
+        t.X[q] = X.data_ptr()
+        t.xs[q] = (ctypes.c_longlong * 3)(*X.stride())
+    for wi, (mode, g1, parts, outs) in enumerate(windows):
+        hw = t.w[wi]
+        hw.mode, hw.g1, hw.nparts, hw.nout = mode, g1, len(parts), len(outs)
+        for q, (tab, k) in enumerate(outs):
+            hw.tab[q], hw.out[q] = tab, k
+            t.wmask |= 1 << (mode * HISTORY_MAX_TABLES + tab)
+        for p, (win, d0) in enumerate(parts):
+            g = segs.setdefault((win.stride(), *win.shape[1:4], d0), len(segs))
+            if g >= HISTORY_MAX_SEGS:
+                raise ValueError(f"more than {HISTORY_MAX_SEGS} distinct part layouts "
+                                 "(strides, tt rows, spans, rows, d0) in one launch")
+            hw.seg[p] = g
+            t.win[wi][p] = win.data_ptr()
+            vec2 = (vec2 and win.data_ptr() % 4 == 0
+                    and all(x % 2 == 0 for x in win.stride()[:4]))
+    for (ws, TBw, U, Rw, d0), g in segs.items():
+        t.seg[g] = HistSeg((ctypes.c_longlong * 5)(*ws), TBw, U, Rw, d0)
+    t.nseg = len(segs)
+    _launch(fn, dev, "history_min", ctypes.addressof(t), int(vec2),
             torch.cuda.current_stream(dev).cuda_stream)
     HISTORY_LAUNCHES += 1
-    return acc
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1277,14 +1377,13 @@ def history_min(acc, parts, mode, s, g1, i0=0):
 
 class PSplitTable(ctypes.Structure):
     """The operands of one :func:`p_split` launch: csrc/psplit.cu's
-    ``struct PSplitTable``, field for field (``split``, the blocks a row,
-    is the kernel's choice, written back)."""
+    ``struct PSplitTable``, field for field."""
     _fields_ = [("pke", ctypes.c_void_p), ("ks", ctypes.c_longlong * 5),
                 ("pkd", ctypes.c_void_p), ("ds", ctypes.c_longlong * 5),
                 ("out", ctypes.c_void_p), ("os", ctypes.c_longlong * 2),
                 *((nm, ctypes.c_int) for nm in (
                     "sp0", "sp1", "ro0", "ro1", "nrows", "B", "R", "s", "n", "i0",
-                    "lo", "nlive", "split"))]
+                    "lo", "nlive"))]
 
 
 def p_split_live(n, s, i0, R):

@@ -8,8 +8,9 @@ that module's docstring explains the design).  Per span s:
   IB >= n-s+2 covering the i axis;
 * batched cross-span phase — every family with no same-span reads (PL, PR,
   PO, PRmloop01, POmloop00/01/10, PfromO) and every cross-span reduction
-  base (the l-shrink / i-shrink history scans, one ``cuda_ops.history_min``
-  a call) for ALL tt of the span at once; the PL/PR interior-loop stencils
+  base (the l-shrink / i-shrink history scans, all 16 in one
+  ``cuda_ops.history_min`` launch, :data:`HISTORY_SCANS`) for ALL tt of the
+  span at once; the PL/PR interior-loop stencils
   (one ``cuda_ops.stencil_pl`` / ``stencil_pr`` each a span) read the big
   PL/PR arrays in place, through the layout's window of int16 views
   (:class:`SpanReads`: the dense layout's one block of the DS spans below
@@ -180,26 +181,56 @@ def update_pk_skews4(st, pk16, s, n, i0=0):
     return st
 
 
-def g2(X, a, b):
-    """X[..., a, b] of square [..., n2, n2] tables, INF where (a, b) lies
-    off them."""
-    n2 = X.shape[-1]
-    ok = (a >= 0) & (a < n2) & (b >= 0) & (b < n2)
-    return torch.where(ok, X[..., a.clamp(0, n2 - 1), b.clamp(0, n2 - 1)], INF)
+# The span's 16 history scans (the l-shrink RL and i-shrink RI reductions
+# that span_families reads), as data: (output key, mode, family, weight
+# table, g1).  Scans with one (mode, family, g1) share a window, read once:
+# 12 windows, four of them (RL and RI POmloop00, RL PRmloop00, RI
+# PLmloop00) serving two scans.  RL reads the family itself, RI its C skew.
+HISTORY_TABLES = ("WBt", "WBPg", "WPt")
+HISTORY_SCANS = (
+    # key            mode         family       table   g1
+    ("POm00_ri",     cuda_ops.RI, "POmloop00", "WBt",  0),
+    ("POm00_rl",     cuda_ops.RL, "POmloop00", "WBt",  0),
+    ("POm01",        cuda_ops.RL, "POmloop00", "WBPg", 0),
+    ("POm10_ri",     cuda_ops.RI, "POmloop00", "WBPg", 0),
+    ("POm10_rl",     cuda_ops.RL, "POmloop10", "WBt",  1),
+    ("PRm01",        cuda_ops.RL, "PRmloop00", "WBPg", 0),
+    ("PfromO_ri",    cuda_ops.RI, "PfromO",    "WPt",  1),
+    ("PfromO_rl",    cuda_ops.RL, "PfromO",    "WPt",  1),
+    ("PLmloop00",    cuda_ops.RI, "PLmloop00", "WBt",  0),
+    ("PLmloop10",    cuda_ops.RI, "PLmloop00", "WBPg", 0),
+    ("PRmloop00",    cuda_ops.RL, "PRmloop00", "WBt",  0),
+    ("PMmloop01",    cuda_ops.RL, "PMmloop00", "WBPg", 0),
+    ("PMmloop10_ri", cuda_ops.RI, "PMmloop00", "WBPg", 0),
+    ("PMmloop10_rl", cuda_ops.RL, "PMmloop10", "WBt",  1),
+    ("PfromL",       cuda_ops.RI, "PfromL",    "WPt",  1),
+    ("PfromR",       cuda_ops.RL, "PfromR",    "WPt",  1),
+)
 
 
-def per_table(weights):
-    """``weights(X)`` computed once per weight table X (by identity) for one
-    span's reader: the span's RL (or RI) calls that share a table share its
-    history weights (16 calls a span, 3 tables)."""
-    seen = {}
+def history_groups(mode=None):
+    """:data:`HISTORY_SCANS` by window, in order of first appearance (only
+    ``mode``'s where given): [(mode, family, g1, [(table index, key)])]."""
+    groups = {}
+    for key, m, fam, tab, g1 in HISTORY_SCANS:
+        if mode is None or m == mode:
+            groups.setdefault((m, fam, g1), []).append((HISTORY_TABLES.index(tab), key))
+    return [(m, fam, g1, outs) for (m, fam, g1), outs in groups.items()]
 
-    def get(X):
-        hit = seen.get(id(X))
-        if hit is None or hit[0] is not X:      # held, so the id is X's alone
-            hit = seen[id(X)] = (X, weights(X))
-        return hit[1]
-    return get
+
+def history_launch(groups, windows, W, s, i0, TB, R):
+    """One ``cuda_ops.history_min`` over the windows of ``groups``
+    (:func:`history_groups`), each window's parts from ``windows(mode,
+    family)`` ([(int16 view, d0)] whose row 0 is i = i0); ``W`` maps each
+    of :data:`HISTORY_TABLES` to its [B, n2, n2] table.  Returns (keys,
+    int32 [K, B, TB, R, n2]), plane k holding scan ``keys[k]``."""
+    wins, keys = [], []
+    for mode, fam, g1, outs in groups:
+        wins.append((mode, g1, windows(mode, fam),
+                     [(t, len(keys) + q) for q, (t, _key) in enumerate(outs)]))
+        keys += [key for _t, key in outs]
+    return keys, cuda_ops.history_min(wins, [W[t] for t in HISTORY_TABLES], s=s, i0=i0,
+                                      TB=TB, R=R)
 
 
 class SpanReads(NamedTuple):
@@ -209,8 +240,11 @@ class SpanReads(NamedTuple):
 
     * ``plane(name, c, b, di)``: int16 [B, TB, IB, n2] slab
       name[tt+c, s-b, i+di, j], unset where the layout holds nothing;
-    * ``RL(name, X, g1)`` / ``RI(name, X, g1)``: the l-shrink / i-shrink
-      history scans for all tt, int32 [B, TB, IB, n2];
+    * ``history(W)``: the span's 16 history scans (:data:`HISTORY_SCANS`)
+      for all tt, a dict of int32 [B, TB, IB, n2] by key, with the weight
+      tables ``W`` (``{"WBt": .., "WBPg": .., "WPt": ..}``, [B, n2, n2]):
+      one ``cuda_ops.history_min`` launch (a row shard: one for its RL
+      windows and one per owner of its RI windows' C rows);
     * ``window(name, halo)``: the PL / PR stencil window of family
       ``name``, read in place: a list of at most
       ``cuda_ops.STENCIL_MAX_PARTS`` (view, u0) pairs, each view an int16
@@ -224,40 +258,23 @@ class SpanReads(NamedTuple):
     a row shard of dist/wavefront.py has its own.
     """
     plane: Callable
-    RL: Callable
-    RI: Callable
+    history: Callable
     window: Callable
 
 
-def dense_rl(st, n, s, TB, IB, i0=0):
-    """The dense layout's ``RL`` scan (see :class:`SpanReads`) over rows
-    i in [i0, i0 + IB), which are the arrays' first IB rows: one
-    ``cuda_ops.history_min`` over the window of the TB spans below s.  It
-    reads only its own rows, so a row shard of dist/wavefront.py (its rows
-    from ``i0``) uses it as it is."""
-    dev = st["PKD"].device
+def dense_rl(st, s, TB, IB):
+    """The dense layout's RL windows over the first IB rows of ``st``'s
+    families: ``family -> [(view, d0)]``, the TB spans below s.  Row-local,
+    so a row shard of dist/wavefront.py (its arrays' row 0 is its i0) uses
+    it as it is."""
     sp0 = max(s - TB, 0)
-    spv = sp0 + torch.arange(TB, device=dev)            # window sp values
-    i1 = torch.arange(i0, i0 + IB, device=dev)
-    weights = per_table(lambda X: g2(X, i1[None, :] + spv[:, None] + 1,
-                                     (i1[None, :] + s).expand(TB, IB)))  # [B, sp, i]
-
-    def RL(name, X, g1):
-        """min over d in [1, G-g1] of big[name][tt, s-d, i, j] + X(l-d+1, l)
-        for all tt (pseudo_loop's l-shrink candidate scans)."""
-        win = dynamic_slice(st[name], (0, sp0, 0, 0), (TB, TB, IB, n + 2))
-        wl = weights(X)
-        acc = torch.full((win.shape[0], TB, IB, n + 2), INF, dtype=I32, device=dev)
-        return cuda_ops.history_min(acc, [(win, wl, s - sp0)], cuda_ops.RL, s, g1, i0)
-
-    return RL
+    return lambda fam: [(st[fam][:, :TB, sp0:sp0 + TB, :IB], s - sp0)]
 
 
 def dense_reads(st, n, s, TB, IB):
     """:class:`SpanReads` of the dense layout ([T, S, n2, n2] families and
     C skews), rows from i = 0."""
     n2, T, S, U = dims(n)
-    dev = st["PKD"].device
 
     def plane(name, c, b, di):
         sl = dynamic_slice(st[name], (0, max(s - b, 0), 0, 0),
@@ -266,21 +283,18 @@ def dense_reads(st, n, s, TB, IB):
         sl = dynamic_slice(sl, (c, 0, 0), (TB, n2, n2))
         return pad_axis(sl, -2, 0, 1, SAT16)[..., di: di + IB, :]
 
-    # batched cross-span reductions (i-shrink histories; RL: dense_rl)
-    sp0 = max(s - TB, 0)
-    spv = sp0 + torch.arange(TB, device=dev)            # window sp values
-    i1 = torch.arange(IB, device=dev)
-    weights = per_table(lambda X: g2(X, i1[None, :].expand(TB, IB),
-                                     i1[None, :] + s - spv[:, None] - 1))  # [B, sp, i]
+    def history(W):
+        """Every scan in one launch: RL over the family's TB spans below s,
+        RI over its C skew's rows l = i + s (rows with l >= n2 have none)."""
+        sp0, rows = max(s - TB, 0), min(IB, n2 - s)
+        rl = dense_rl(st, s, TB, IB)
 
-    def RI(name, X, g1):
-        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1)
-        for all tt (i-shrink scans): row i reads the C-layout row l = i + s,
-        and rows with l >= n2 have no term (INF)."""
-        rows = min(IB, n2 - s)
-        win = st["C_" + name][:, :TB, sp0:sp0 + TB, s:s + rows]
-        acc = torch.full((win.shape[0], TB, IB, n2), INF, dtype=I32, device=dev)
-        return cuda_ops.history_min(acc, [(win, weights(X), s - sp0)], cuda_ops.RI, s, g1)
+        def windows(mode, fam):
+            if mode == cuda_ops.RL:
+                return rl(fam)
+            return [(st["C_" + fam][:, :TB, sp0:sp0 + TB, s:s + rows], s - sp0)]
+
+        return dict(zip(*history_launch(history_groups(), windows, W, s, 0, TB, IB)))
 
     def window(name, halo=DS):
         """The stencil window (see :class:`SpanReads`): one view of the
@@ -288,7 +302,7 @@ def dense_reads(st, n, s, TB, IB):
         lo = max(s - DS, 0)
         return [(st[name][:, :, lo:s], lo)]
 
-    return SpanReads(plane, dense_rl(st, n, s, TB, IB), RI, window)
+    return SpanReads(plane, history, window)
 
 
 def pl_stencil(reads: SpanReads, SC4, s, n, TB, IB, i0=0):
@@ -328,7 +342,6 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
     bp, cp, ap, PB = C["bp"], C["cp"], C["ap"], C["PB"]
     canp, pt, ESTP = C["can_pair"], C["ptype"], C["ESTP"]
     dev = st["PKD"].device
-    RL, RI = reads.RL, reads.RI
 
     tv = torch.arange(TB, device=dev)[:, None, None]      # tt
     iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]  # i
@@ -415,23 +428,21 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
     POs = enc(POv, valid4)
 
     # ---- remaining cross-span-only families + reduction bases ------------
-    POm00 = mmin(SAT16 + bp, RI("POmloop00", WBt, 0), RL("POmloop00", WBt, 0))
-    POm01 = RL("POmloop00", WBPg, 0)
-    POm10 = torch.minimum(RI("POmloop00", WBPg, 0), RL("POmloop10", WBt, 1))
-    PRm01 = torch.minimum(rplane("PRmloop01", 0, 1, 0, 0) + cp,
-                          RL("PRmloop00", WBPg, 0))
-    PfromO = mmin(RI("PfromO", WPt, 1), RL("PfromO", WPt, 1),
-                  PLs + PB, PRs + PB)
+    H = reads.history({"WBt": WBt, "WBPg": WBPg, "WPt": WPt})
+    POm00 = mmin(SAT16 + bp, H["POm00_ri"], H["POm00_rl"])
+    POm01 = H["POm01"]
+    POm10 = torch.minimum(H["POm10_ri"], H["POm10_rl"])
+    PRm01 = torch.minimum(rplane("PRmloop01", 0, 1, 0, 0) + cp, H["PRm01"])
+    PfromO = mmin(H["PfromO_ri"], H["PfromO_rl"], PLs + PB, PRs + PB)
 
     bases = {
-        "PLmloop00": RI("PLmloop00", WBt, 0),
-        "PLmloop10": RI("PLmloop00", WBPg, 0),
-        "PRmloop00": RL("PRmloop00", WBt, 0),
-        "PMmloop01": RL("PMmloop00", WBPg, 0),
-        "PMmloop10": torch.minimum(RI("PMmloop00", WBPg, 0),
-                                   RL("PMmloop10", WBt, 1)),
-        "PfromL": RI("PfromL", WPt, 1),
-        "PfromR": RL("PfromR", WPt, 1),
+        "PLmloop00": H["PLmloop00"],
+        "PLmloop10": H["PLmloop10"],
+        "PRmloop00": H["PRmloop00"],
+        "PMmloop01": H["PMmloop01"],
+        "PMmloop10": torch.minimum(H["PMmloop10_ri"], H["PMmloop10_rl"]),
+        "PfromL": H["PfromL"],
+        "PfromR": H["PfromR"],
     }
 
     # ---- serial loop over tt (descending): one tt_span per span ----------

@@ -21,8 +21,8 @@ Cross-span reads are resolved per segment with Python-int span arithmetic:
   view of each of the two segments, read in place by the kernel
   (``cuda_ops.stencil_pl`` / ``stencil_pr``);
 * the l-shrink / i-shrink history scans (RL / RI) read ALL prior
-  segments, each segment's exact-extent block one part of the same
-  ``cuda_ops.history_min`` call.
+  segments, each segment's exact-extent block one part of its window in
+  the span's one ``cuda_ops.history_min`` launch.
 
 Rows beyond a segment's extents do not exist; every read pads them with the
 int16 unset value, the same losing candidates the dense layout holds there.
@@ -47,10 +47,11 @@ from __future__ import annotations
 import torch
 
 from . import cuda_ops
-from .common import (I16, I32, INF, SAT16, dynamic_slice,
+from .common import (I16, SAT16, dynamic_slice,
                      dynamic_update_slice, pad_axis)
 from .gapped import C_MATS, DS, M4_NAMES, dims
-from .gapped4 import SpanReads, g2, per_table, span_families, update_pk_skews4
+from .gapped4 import (SpanReads, history_groups, history_launch, span_families,
+                      update_pk_skews4)
 
 MIN_SEG = DS + 2   # every cross-span window must fit within one neighbor
 
@@ -115,32 +116,22 @@ def prior_spans(SEGS, h: int, s: int) -> int:
     return min(hih, s) - loh
 
 
-def packed_rl(st, n, s, gi: int, SEGS, TB, IB, i0=0):
-    """The packed layout's ``RL`` scan (``gapped4.SpanReads``) for span s
-    of segment gi over rows i in [i0, i0 + IB), which are the first IB
-    rows of every ``name@h`` block in ``st``: one ``cuda_ops.history_min``
-    over every prior segment's block (a part each, its tt rows past the
-    segment's reading SAT16).  Row-local; a row shard of dist/wavefront.py
-    (its blocks' rows from ``i0``) uses it as it is."""
-    n2 = n + 2
-    dev = st["PKD"].device
-    B = st["PKD"].shape[0]
-    i1 = torch.arange(i0, i0 + IB, device=dev)
-    hist = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
-    hist = [(h, loh, nsh) for h, loh, nsh in hist if nsh > 0]
-    u = [loh + torch.arange(nsh, device=dev) for _h, loh, nsh in hist]
-    weights = per_table(lambda X: [g2(X, i1[None, :] + u_h[:, None] + 1,
-                                      (i1[None, :] + s).expand(len(u_h), IB))
-                                   for u_h in u])
+def prior_segments(SEGS, gi: int, s: int):
+    """[(h, lo_h, spans)]: the segments up to gi with a span below s, and
+    how many (:func:`prior_spans`): every part of a span-s history scan."""
+    out = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
+    return [(h, loh, nsh) for h, loh, nsh in out if nsh > 0]
 
-    def RL(name, X, g1):
-        """min over d in [1, G-g1] of name[tt, s-d, i, j] + X(l-d+1, l)."""
-        parts = [(st[f"{name}@{h}"][:, :, :nsh, :IB], wl, s - loh)
-                 for (h, loh, nsh), wl in zip(hist, weights(X))]
-        acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
-        return cuda_ops.history_min(acc, parts, cuda_ops.RL, s, g1, i0)
 
-    return RL
+def packed_rl(st, s, gi: int, SEGS, IB):
+    """The packed layout's RL windows for span s of segment gi over the
+    first IB rows of every ``name@h`` block in ``st``: ``family -> [(view,
+    d0)]``, a part per prior segment (its tt rows past the segment's read
+    SAT16).  Row-local; a row shard of dist/wavefront.py (its blocks' rows
+    from ``i0``) uses it as it is."""
+    hist = prior_segments(SEGS, gi, s)
+    return lambda fam: [(st[f"{fam}@{h}"][:, :, :nsh, :IB], s - loh)
+                        for h, loh, nsh in hist]
 
 
 def packed_reads(st, n, s, gi: int, SEGS):
@@ -148,8 +139,6 @@ def packed_reads(st, n, s, gi: int, SEGS):
     segment gi (``SEGS[gi]`` gives the span's TB and IB)."""
     n2, T, S, U = dims(n)
     lo, hi, TB, IB, _Lc = SEGS[gi]
-    dev = st["PKD"].device
-    B = st["PKD"].shape[0]
 
     def seg_of(u):
         """The segment a fixed-offset read at span u takes: gi, or gi - 1
@@ -193,26 +182,23 @@ def packed_reads(st, n, s, gi: int, SEGS):
     def plane(name, c, b, di):
         return (plane_from_C if name in DROPPED else seg_plane)(name, c, b, di)
 
-    # ---- cross-span reductions: ALL prior segments (RL: packed_rl) --------
-    i1 = torch.arange(IB, device=dev)
-    rows = min(IB, n2 - s)                   # rows i with C row l = i + s < n2
-    hist = [(h, SEGS[h][0], prior_spans(SEGS, h, s)) for h in range(gi + 1)]
-    hist = [(h, loh, nsh) for h, loh, nsh in hist if nsh > 0]
-    u = [loh + torch.arange(nsh, device=dev) for _h, loh, nsh in hist]
-    weights = per_table(lambda X: [g2(X, i1[None, :].expand(len(u_h), IB),
-                                      i1[None, :] + s - u_h[:, None] - 1)  # [B, u, i]
-                                   for u_h in u])
+    # ---- cross-span reductions: ALL prior segments -------------------------
+    def history(W):
+        """Every scan in one launch, a part per prior segment: RL over the
+        family's blocks (:func:`packed_rl`), RI over its C skews' rows
+        l = i + s (local row l - lo_h - 1 of segment h's skew, s - lo_h - 1
+        >= 0 where the segment has a prior span; rows l >= n2 have none)."""
+        rows = min(IB, n2 - s)
+        rl = packed_rl(st, s, gi, SEGS, IB)
+        hist = prior_segments(SEGS, gi, s)
 
-    def RI(name, X, g1):
-        """min over d in [1, sj-g1] of C_[name][tt, s-d, l, j] + X(i, i+d-1):
-        row i reads C row l = i + s (local row l - lo_h - 1 of segment h's
-        skew, s - lo_h - 1 >= 0 where the segment has a prior span; rows
-        l >= n2 have no term), one part a prior segment."""
-        parts = [(st[f"C_{name}@{h}"][:, :, :nsh, s - loh - 1:s - loh - 1 + rows], wi,
-                  s - loh)
-                 for (h, loh, nsh), wi in zip(hist, weights(X))]
-        acc = torch.full((B, TB, IB, n2), INF, dtype=I32, device=dev)
-        return cuda_ops.history_min(acc, parts, cuda_ops.RI, s, g1)
+        def windows(mode, fam):
+            if mode == cuda_ops.RL:
+                return rl(fam)
+            return [(st[f"C_{fam}@{h}"][:, :, :nsh, s - loh - 1:s - loh - 1 + rows], s - loh)
+                    for h, loh, nsh in hist]
+
+        return dict(zip(*history_launch(history_groups(), windows, W, s, 0, TB, IB)))
 
     # ---- MAXLOOP stencil windows (PL / PR) -------------------------------
     def window(name, halo=DS):
@@ -224,7 +210,7 @@ def packed_reads(st, n, s, gi: int, SEGS):
         return [(st[f"{name}@{h}"][:, :, a - SEGS[h][0]:b - SEGS[h][0]], a)
                 for h, a, b in window_spans(s, gi, SEGS)]
 
-    return SpanReads(plane, packed_rl(st, n, s, gi, SEGS, TB, IB), RI, window)
+    return SpanReads(plane, history, window)
 
 
 def window_spans(s, gi: int, SEGS):

@@ -18,8 +18,9 @@ same way for both engines, in this order:
   function, so each part's wall is summed apart (V, P split, WBP/WPP, the
   cross-span phase of the gapped step, its serial tt loop, WM/WMv/WMp),
   and the cross-span phase split in three: the l-shrink / i-shrink
-  history scans (every ``RL`` / ``RI`` call of ``gapped4.span_families``,
-  one ``history_min`` kernel each), the PL / PR interior-loop stencils
+  history scans (``SpanReads.history``, the span's 16 RL / RI scans in
+  one ``history_min`` kernel, the weight tables' making excluded), the
+  PL / PR interior-loop stencils
   (``gapped4.pl_stencil`` / ``pr_stencil``: one ``stencil_pl`` /
   ``stencil_pr`` kernel each over the layout's in-place window of int16
   views, the views' making included) and the rest, the plane reads and
@@ -145,8 +146,7 @@ def main(argv=None):
         real_families = gapped4.span_families
 
         def families(C, SC4, st, s, TB, IB, reads, i0=0):
-            reads = reads._replace(RL=_timed(reads.RL, acc, "history"),
-                                   RI=_timed(reads.RI, acc, "history"))
+            reads = reads._replace(history=_timed(reads.history, acc, "history"))
             return real_families(C, SC4, st, s, TB, IB, reads, i0)
 
         def span_split(table, plan=None):

@@ -62,15 +62,17 @@ Phases; any failure exits non-zero and prints no result:
    (graph) and eager times on the same operands, the plain version's, and two bounds:
    the span's loop as one function (:func:`span_bound`) and, the two-launch
    loop's yardstick, the sum over the span's steps of the two kernels'
-   bounds (:func:`two_kernel_bound`); then (2d) ``history_min`` (the
-   gapped step's RL / RI history scans) and ``p_split`` (the P split)
-   against their plain versions exactly, at the fills' own calls on a
-   random state (:func:`history_psplit_cases`: the n=100 main span, n=128's,
-   the packed n=200 span 135 over all four prior segments, bucket 100 x 4,
-   a dense row shard of 26 rows from i0 = 26 and a packed one of 48 rows
-   from i0 = 51), each with its L2-hot and L2-cold device times, the
-   fills' eager call's, the plain version's on the card and its byte bound
-   (:func:`history_bound`, :func:`psplit_bound`; no library yardstick);
+   bounds (:func:`two_kernel_bound`); then (2d) ``history_min`` (all the
+   gapped step's RL / RI history scans of a span in one launch, its
+   weights computed in the kernel) and ``p_split`` (the P split) against
+   their plain versions exactly, at the fills' own launches on a random
+   state (:func:`history_psplit_cases`: the n=100 main span, n=128's, the
+   packed n=200 span 135 over all four prior segments, bucket 100 x 4, a
+   dense row shard of 26 rows from i0 = 26 and a packed one of 48 rows
+   from i0 = 51, a row shard's RL and RI launches apart), each with its
+   L2-hot and L2-cold device times, the fills' eager call's, the plain
+   version's on the card and its byte bound (:func:`history_bound`,
+   :func:`psplit_bound`; no library yardstick);
    then (2e) ``stencil_pl`` and ``stencil_pr`` (the PL / PR interior-loop
    stencils, read in place from the state) against their plain versions
    exactly, at the fills' own calls on a random PL / PR state with the
@@ -87,8 +89,8 @@ Phases; any failure exits non-zero and prints no result:
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
    (bench.py, seed 42; the lazy traceback, the default on CUDA) with the
    kernels' launch counts reset just before and read just after: one
-   ``tt_span`` per span with a tt step (98), one ``history_min`` per RL /
-   RI call (16 a span, 1584), one ``p_split`` per span with a term (97),
+   ``tt_span`` per span with a tt step (98), one ``history_min`` a span
+   s >= 1 (all 16 RL / RI scans, 99), one ``p_split`` per span with a term (97),
    one ``stencil_pl`` and one ``stencil_pr`` per span with a tt step (98
    each, ``STENCIL_LAUNCHES`` 196), no ``minplus_group`` and no
    ``tt_step``; every later path is checked the
@@ -254,11 +256,12 @@ def fill_counts(*lengths):
     once) of these lengths: (``tt_span``, ``history_min``, ``p_split``,
     ``stencil_pl``, ``stencil_pr``).  Every span with a tt step launches
     one ``tt_span``, one ``stencil_pl`` and one ``stencil_pr`` (spans 0 and
-    1 have no valid cell), every span s >= 1 one ``history_min`` per RL /
-    RI call (16; the packed layout's prior segments in one launch), every
-    span with a live row and a term (3 <= s <= n - 1) one ``p_split``."""
+    1 have no valid cell), every span s >= 1 one ``history_min`` (all 16
+    RL / RI scans; the packed layout's prior segments in the same launch),
+    every span with a live row and a term (3 <= s <= n - 1) one
+    ``p_split``."""
     tt = sum(tt_spans(m) for m in lengths)
-    return (tt, sum(HISTORY_CALLS * max(m - 1, 0) for m in lengths),
+    return (tt, sum(max(m - 1, 0) for m in lengths),
             sum(max(m - 3, 0) for m in lengths), tt, tt)
 
 
@@ -1058,7 +1061,6 @@ def phase_tt_span(cuda_ops, bucket_dims, dev):
 
 HISTORY_REPLACES = "ccj_tpu/engine/gapped4.py:306"   # XLA fusions of RL / RI
 PSPLIT_REPLACES = "ccj_tpu/engine/gapped3.py:69"     # XLA fusion of compute_P_span3
-HISTORY_CALLS = 16          # RL / RI calls a span (gapped4.span_families): 9 RL, 7 RI
 
 
 def rand_i16(shape, gen, dev):
@@ -1078,117 +1080,149 @@ def rand_weights(B, n2, gen, dev):
     return x.masked_fill_(x >= 500, INF)
 
 
-def history_calls(cuda_ops, case, gen, dev):
-    """The production RL and RI calls of one case on a random state, each
-    as (label, the closure call, its history_min arguments captured as it
-    ran): the dense or packed readers of the fills (``gapped4.dense_reads``,
-    ``gapped5.packed_reads``) on the whole state, or, for a row shard, the
-    row-local RL on the shard's rows (``dense_rl`` / ``packed_rl`` with
-    ``i0``) and the RI its rows' owner runs (``dist.wavefront``'s parts: C
-    rows l = i + s of every prior span, one owner holding them all)."""
+def history_launches(cuda_ops, case, gen, dev):
+    """The production ``history_min`` launches of one case on a random
+    state (every window of ``gapped4.HISTORY_SCANS`` random), each as (the
+    launch's label, the fills' call that makes it, its arguments taken as
+    it ran: windows, tables, keywords): the dense or packed reader's one
+    launch (``SpanReads.history`` of ``gapped4.dense_reads`` /
+    ``gapped5.packed_reads``, 16 planes) on the whole state, or a row
+    shard's two (``dist.wavefront``'s: the row-local RL windows on the
+    shard's rows, 9 planes, and the RI windows on the C rows l = i + s
+    that one owner holds, 7 planes).  On the meta device nothing runs
+    (the spy returns an empty output): the arguments alone, for
+    :func:`history_bound`."""
     from ccj_tpu_torch.engine import gapped4, gapped5
     from ccj_tpu_torch.engine.gapped import dims
 
     n, s, B, i0, rows = case["n"], case["s"], case["B"], case["i0"], case["rows"]
     n2, T, S, _ = dims(n)
-    X = rand_weights(B, n2, gen, dev)
-    st = {"PKD": torch.zeros((B, 1, 1, 1, n2), dtype=torch.int16, device=dev)}
+    meta = torch.device(dev).type == "meta"
+
+    def rand16(shape):
+        return (torch.empty(shape, dtype=torch.int16, device=dev) if meta
+                else rand_i16(shape, gen, dev))
+
+    W = {k: (torch.empty((B, n2, n2), dtype=torch.int32, device=dev) if meta
+             else rand_weights(B, n2, gen, dev)) for k in gapped4.HISTORY_TABLES}
+    fams = {(m, f) for _k, m, f, _t, _g in gapped4.HISTORY_SCANS}
+    st = {}
     if case["packed"]:
         segs = gapped5.segments7(n)
         gi = next(g for g, (lo, hi, *_r) in enumerate(segs) if lo <= s < hi)
-        TB, IB = segs[gi][2], segs[gi][3]
+        TB = segs[gi][2]
         for h in range(gi + 1):
             lo, hi, TBh, IBh, Lc = segs[h]
-            st[f"PRmloop00@{h}"] = rand_i16((B, TBh, hi - lo, IBh, n2), gen, dev)
-            st[f"C_PLmloop00@{h}"] = rand_i16((B, TBh, hi - lo, Lc, n2), gen, dev)
-        if rows is None:
-            reads = gapped5.packed_reads(st, n, s, gi, segs)
-            RL, RI = reads.RL, reads.RI
-        else:
-            cut = {k: (v if k.startswith("C_") or k == "PKD" else v[..., i0:i0 + rows, :])
-                   for k, v in st.items()}
-            RL = gapped5.packed_rl(cut, n, s, gi, segs, TB, rows, i0)
-            hist = [(h, segs[h][0], gapped5.prior_spans(segs, h, s)) for h in range(gi + 1)]
-            hist = [x for x in hist if x[2] > 0]
+            for m, f in fams:
+                key, nr = (f"{f}@{h}", IBh) if m == cuda_ops.RL else (f"C_{f}@{h}", Lc)
+                st[key] = rand16((B, TBh, hi - lo, nr, n2))
+        hist = gapped5.prior_segments(segs, gi, s)
 
-            def RI(name, X, g1):
-                iv = torch.arange(i0, i0 + rows, device=dev)
-                nr = min(rows, n2 - i0 - s)
-                parts = []
-                for h, loh, nsh in hist:
-                    u = loh + torch.arange(nsh, device=dev)
-                    w = gapped4.g2(X, iv[None, :].expand(nsh, rows),
-                                   iv[None, :] + s - u[:, None] - 1)
-                    off = i0 + s - loh - 1
-                    parts.append((st[f"C_{name}@{h}"][:, :, :nsh, off:off + nr], w, s - loh))
-                acc = torch.full((B, TB, rows, n2), 10_000_000, dtype=torch.int32, device=dev)
-                return cuda_ops.history_min(acc, parts, cuda_ops.RI, s, g1, i0)
+        def reads():
+            return gapped5.packed_reads(st, n, s, gi, segs)
+
+        def rl(cut):
+            return gapped5.packed_rl(cut, s, gi, segs, rows)
+
+        def ri(f):
+            off, nr = i0 + s, min(rows, n2 - i0 - s)
+            return [(st[f"C_{f}@{h}"][:, :, :nsh, off - lo - 1:off - lo - 1 + nr], s - lo)
+                    for h, lo, nsh in hist]
     else:
-        TB, IB = gapped4.bucket_dims(n, s)
-        st["PRmloop00"] = rand_i16((B, T, S, n2, n2), gen, dev)
-        st["C_PLmloop00"] = rand_i16((B, T, S, n2, n2), gen, dev)
-        if rows is None:
-            reads = gapped4.dense_reads(st, n, s, TB, IB)
-            RL, RI = reads.RL, reads.RI
-        else:
-            cut = {k: v[..., i0:i0 + rows, :] for k, v in st.items() if k != "C_PLmloop00"}
-            RL = gapped4.dense_rl(cut, n, s, TB, rows, i0)
-            sp0 = max(s - TB, 0)
+        TB = gapped4.bucket_dims(n, s)[0]
+        for m, f in fams:
+            st[f if m == cuda_ops.RL else "C_" + f] = rand16((B, T, S, n2, n2))
+        sp0 = max(s - TB, 0)
 
-            def RI(name, X, g1):
-                iv = torch.arange(i0, i0 + rows, device=dev)
-                spv = sp0 + torch.arange(TB, device=dev)
-                w = gapped4.g2(X, iv[None, :].expand(TB, rows), iv[None, :] + s - spv[:, None] - 1)
-                win = st["C_" + name][:, :TB, sp0:sp0 + TB, i0 + s:min(i0 + s + rows, n2)]
-                acc = torch.full((B, TB, rows, n2), 10_000_000, dtype=torch.int32, device=dev)
-                return cuda_ops.history_min(acc, [(win, w, s - sp0)], cuda_ops.RI, s, g1, i0)
-    calls = []
+        def reads():
+            return gapped4.dense_reads(st, n, s, TB, gapped4.bucket_dims(n, s)[1])
+
+        def rl(cut):
+            return gapped4.dense_rl(cut, s, TB, rows)
+
+        def ri(f):
+            return [(st["C_" + f][:, :TB, sp0:sp0 + TB, i0 + s:min(i0 + s + rows, n2)],
+                     s - sp0)]
+
+    if rows is None:
+        calls = [("", lambda: reads().history(W))]
+    else:
+        cut = {k: v[..., i0:i0 + rows, :] for k, v in st.items() if not k.startswith("C_")}
+        calls = [(f"{'RL' if mode == cuda_ops.RL else 'RI'} ",
+                  lambda mode=mode, fam=fam: gapped4.history_launch(
+                      gapped4.history_groups(mode), lambda m, f: fam(f), W, s, i0, TB, rows))
+                 for mode, fam in ((cuda_ops.RL, rl(cut)), (cuda_ops.RI, ri))]
+    out = []
     real = cuda_ops.history_min
-    for mode, fn in (("RL", lambda: RL("PRmloop00", X, 0)), ("RI", lambda: RI("PLmloop00", X, 0))):
+    for label, fn in calls:
         seen = []
 
-        def spy(acc, parts, mode_, s_, g1, i0_=0):
-            seen.append((acc.clone(), list(parts), mode_, s_, g1, i0_))
-            return real(acc, parts, mode_, s_, g1, i0_)
+        def spy(windows, tables, **kw):
+            seen.append((windows, tables, kw))
+            if meta:
+                K = sum(len(w[3]) for w in windows)
+                return torch.empty((K, B, kw["TB"], kw["R"], n2), dtype=torch.int32,
+                                   device=dev)
+            return real(windows, tables, **kw)
 
         cuda_ops.history_min = spy
         try:
             fn()
         finally:
             cuda_ops.history_min = real
-        check(len(seen) == 1, f"{case['label']} {mode}: {len(seen)} history_min calls")
-        calls.append((mode, fn, seen[0]))
-    return calls
+        check(len(seen) == 1, f"{case['label']} {label}: {len(seen)} history_min launches")
+        out.append((label, fn, seen[0]))
+    return out
 
 
-def history_bound(acc, parts, mode, s, g1, i0):
-    """(terms, bytes, ms by bytes, ms by operations) of one history scan on
-    its data: the window elements its admissible terms read (tt rows past a
-    part's read SAT16 and no memory), the weights they use and acc read and
-    written once (4 + 4 bytes a cell); two int32 operations a term."""
-    B, TB, R, n2 = acc.shape
-    dev = acc.device
-    tv = torch.arange(TB, device=dev)[:, None, None]
-    iv = torch.arange(i0, i0 + R, device=dev)[None, :, None]
-    jv = torch.arange(n2, device=dev)[None, None, :]
-    if mode == 0:
-        bound = (iv + s) - (jv + tv + 2) - g1
-    else:
-        bound = torch.where(iv >= 1, (jv - iv) - g1, 0)
-    bound = bound.long().clamp(min=0).expand(TB, R, n2)
-    terms = win_elems = w_elems = 0
-    for win, _w, d0 in parts:
-        TBw, U, Rw = win.shape[1:4]
-        rows_ok = (torch.arange(R, device=dev) < Rw)
-        cnt = (min(U, d0) - (d0 - bound).clamp(min=0)).clamp(min=0)
-        cnt = cnt * rows_ok[None, :, None]
-        terms += B * int(cnt.sum())
-        win_elems += B * int(cnt[:TBw].sum())
-        d = d0 - torch.arange(U, device=dev)
-        maxb = bound.amax(dim=(0, 2))                           # [R]
-        used = (d[:, None] >= 1) & (d[:, None] <= maxb[None, :]) & rows_ok[None, :]
-        w_elems += B * int(used.sum())
-    nbytes = 2 * win_elems + 4 * w_elems + 8 * acc.numel()
+def history_bound(cuda_ops, windows, tables, kw):
+    """(terms, bytes, ms by bytes, ms by operations) of one ``history_min``
+    launch on its data (``windows`` as ``cuda_ops.history_windows`` cuts
+    them): each window element an admissible term reads, once however many
+    scans the window serves (tt rows past a part's read SAT16 and no
+    memory); the X elements the rows' weights take (per row and (mode,
+    table), the distances up to the largest admissible one, on the table);
+    4 bytes written per output cell and plane, nothing read of it; two
+    int32 operations a term.  Shapes only: the operands may lie on the
+    meta device."""
+    s, i0, TB, R = kw["s"], kw["i0"], kw["TB"], kw["R"]
+    B, n2 = tables[0].shape[0], tables[0].shape[-1]
+    tv = torch.arange(TB)[:, None, None]
+    iv = torch.arange(i0, i0 + R)[None, :, None]
+    jv = torch.arange(n2)[None, None, :]
+    terms = win_elems = planes = 0
+    dmax = {}                                   # (mode, table) -> [R] largest d used
+    for mode, g1, parts, outs in windows:
+        planes += len(outs)
+        if mode == cuda_ops.RL:
+            bound = (iv + s) - (jv + tv + 2) - g1
+        else:
+            bound = torch.where(iv >= 1, (jv - iv) - g1, 0)
+        bound = bound.long().clamp(min=0).expand(TB, R, n2)
+        used = torch.zeros(R, dtype=torch.long)
+        for win, d0 in parts:
+            TBw, U, Rw = win.shape[1:4]
+            rows_ok = torch.arange(R) < Rw
+            cnt = (min(U, d0) - (d0 - bound).clamp(min=0)).clamp(min=0)
+            cnt = cnt * rows_ok[None, :, None]
+            terms += B * len(outs) * int(cnt.sum())
+            win_elems += B * int(cnt[:TBw].sum())
+            reach = torch.minimum(bound.amax(dim=(0, 2)), torch.tensor(d0))
+            used = torch.maximum(used, torch.where(cnt.amax(dim=(0, 2)) > 0, reach, 0))
+        for t, _k in outs:
+            key = (mode, t)
+            dmax[key] = torch.maximum(dmax.get(key, used), used)
+    x_elems = 0
+    i1 = torch.arange(i0, i0 + R)
+    for (mode, _t), used in dmax.items():
+        d = torch.arange(1, s + 1)[None, :]
+        live = d <= used[:, None]
+        if mode == cuda_ops.RL:                 # X(l - d + 1, l), l = i + s
+            on = (i1[:, None] + s < n2) & (i1[:, None] + s - d + 1 >= 0)
+        else:                                   # X(i, i + d - 1)
+            on = (i1[:, None] < n2) & (i1[:, None] + d - 1 < n2)
+        x_elems += B * int((live & on).sum())
+    nbytes = 2 * win_elems + 4 * x_elems + 4 * planes * B * TB * R * n2
     return terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3, 2 * terms / FP32_OPS_PER_S * 1e3
 
 
@@ -1261,31 +1295,32 @@ def phase_history_psplit(cuda_ops, bucket_dims, dev):
           "library_ms is null for both kernels"})
     hist_rows, ps_rows = [], []
     for case in history_psplit_cases(bucket_dims):
-        calls = history_calls(cuda_ops, case, gen, dev)
-        for mode, call, (acc0, parts, m, s, g1, i0) in calls:
-            parts = cuda_ops.history_parts(acc0, parts)
-            want = cuda_ops.history_min_ref(acc0.clone(), parts, m, s, g1, i0)
-            acc = acc0.clone()
+        for label, call, (windows, tables, kw) in history_launches(cuda_ops, case, gen, dev):
+            cut, K = cuda_ops.history_windows(windows, tables, kw["R"], kw["s"])
+            want = cuda_ops.history_min_ref(cut, tables, kw["s"], kw["i0"], kw["TB"], kw["R"])
+            name = f"history_min {label}{case['label']}"
             before = cuda_ops.HISTORY_LAUNCHES
-            cuda_ops.history_min(acc, parts, m, s, g1, i0)
+            got = cuda_ops.history_min(windows, tables, **kw)
             torch.cuda.synchronize()
             check(cuda_ops.HISTORY_LAUNCHES == before + 1,
                   "a history_min call made other than one launch")
-            err = int((acc.long() - want.long()).abs().max())
-            name = f"history_min {mode} {case['label']}"
+            err = int((got.long() - want.long()).abs().max())
             check(err == 0, f"{name} != plain: max |err| = {err}")
-            terms, nbytes, t_bytes, t_ops = history_bound(acc0, parts, m, s, g1, i0)
+            check(bool((got < 10_000_000).any()), f"{name}: no cell had a term")
+            del got, want
+            terms, nbytes, t_bytes, t_ops = history_bound(cuda_ops, cut, tables, kw)
 
             def kern():
-                cuda_ops.history_min(acc, parts, m, s, g1, i0)
+                cuda_ops.history_min(windows, tables, **kw)
 
-            row = {"case": name, "mode": mode, "batch": case["B"], "i0": i0,
-                   "parts": len(parts), "acc_shape": list(acc.shape), "terms": terms,
-                   "bytes": nbytes, "max_abs_err": err,
+            row = {"case": name, "batch": case["B"], "i0": kw["i0"], "planes": K,
+                   "windows": len(cut), "parts": max(len(w.parts) for w in cut),
+                   "out_shape": [K, case["B"], kw["TB"], kw["R"], tables[0].shape[-1]],
+                   "terms": terms, "bytes": nbytes, "max_abs_err": err,
                    "ms": graph_ms(kern, reps=20, replays=5), "ms_l2cold": flushed_ms(kern, 20),
                    "call_ms": cuda_ms(call, 10),
                    "plain_ms": cuda_ms(lambda: cuda_ops.history_min_ref(
-                       acc0.clone(), parts, m, s, g1, i0), 2),
+                       cut, tables, kw["s"], kw["i0"], kw["TB"], kw["R"]), 2),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": None}
@@ -1293,16 +1328,16 @@ def phase_history_psplit(cuda_ops, bucket_dims, dev):
             row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
             hist_rows.append(row)
             emit({"phase": "history_psplit", **row})
-        del calls
+        torch.cuda.empty_cache()
         pke, pkd, kw = psplit_operands(case, gen, dev)
         want = cuda_ops.p_split_ref(pke, pkd, kw["s"], kw["n"], kw["i0"], kw["R"],
                                     kw["sp"], kw["ro"])
+        name = f"p_split {case['label']}"
         before = cuda_ops.PSPLIT_LAUNCHES
         got = cuda_ops.p_split(pke, pkd, **kw)
         torch.cuda.synchronize()
         check(cuda_ops.PSPLIT_LAUNCHES == before + 1, "a p_split made other than one launch")
         err = int((got.long() - want.long()).abs().max())
-        name = f"p_split {case['label']}"
         check(err == 0, f"{name} != plain: max |err| = {err}")
         check(bool((want < 10_000_000).any()), f"{name}: no live row had a term")
         terms, nbytes, t_bytes, t_ops = psplit_bound(cuda_ops, case["B"], kw)
@@ -1966,9 +2001,9 @@ def sharded_counts(n, P):
     packed), as :func:`fill_counts` gives them, per shard that owns a
     span-s row (1 <= i <= n - s; R = ceil((n + 2) / P) rows a shard):
     ``tt_span``, ``stencil_pl`` and ``stencil_pr`` each span with a tt
-    step; ``history_min`` each span s >= 1 9 times for RL and 7 times per
-    owner of the shard's C rows l = i + s (< n2) for RI (each owner reduces
-    its own rows); ``p_split`` each span with a term."""
+    step; ``history_min`` each span s >= 1 once for the RL scans and once
+    per owner of the shard's C rows l = i + s (< n2) for the RI ones (each
+    owner reduces its own rows); ``p_split`` each span with a term."""
     from ccj_tpu_torch.dist.wavefront import row_partition, span_rows
 
     R, _ = row_partition(n, P)
@@ -1978,7 +2013,7 @@ def sharded_counts(n, P):
             a, b = i0 + s, min(i0 + s + IB, n + 2)
             owners = len({r // R for r in range(a, b)})
             tt += s >= 2
-            hist += (s >= 1) * (9 + 7 * owners)
+            hist += (s >= 1) * (1 + owners)
             ps += s >= 3
     return tt, hist, ps, tt, tt
 
@@ -2563,7 +2598,8 @@ def main():
     for name, source, replaces, what, rows_k, idx in (
             ("history_min", "ccj_tpu_torch/csrc/history.cu", HISTORY_REPLACES,
              "the XLA fusions of the RL / RI history scans (gapped4.py:306-341, "
-             "gapped5.py:313-365), one launch a call, 16 a span", hist_rows, 1),
+             "gapped5.py:313-365): the span's 16 scans in one launch (a row shard: "
+             "one for its RL scans, one per owner of its RI rows)", hist_rows, 1),
             ("p_split", "ccj_tpu_torch/csrc/psplit.cu", PSPLIT_REPLACES,
              "the XLA fusion of compute_P_span3's split contraction (gapped3.py:69-123), "
              "one launch a span (and row shard)", ps_rows, 2)):

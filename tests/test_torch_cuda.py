@@ -514,10 +514,12 @@ def test_tt_span_cluster_variants_match_plain(cuda, cluster):
 
 # (n, s, B, i0, rows, packed): the n=100 main span, n=128's, the packed n=200
 # span 135 (segment 3, four prior segments), bucket 100 x 4, a dense row
-# shard (26 rows from i0 = 26) and a packed one (48 rows from i0 = 51)
+# shard (26 rows from i0 = 26), a packed one (48 rows from i0 = 51), and
+# n=37, whose odd n2 takes history_min's one-cell-a-load path
 HP_CASES = [(100, 37, 1, 0, None, False), (128, 65, 1, 0, None, False),
             (200, 135, 1, 0, None, True), (100, 37, 4, 0, None, False),
-            (100, 37, 1, 26, 26, False), (200, 102, 1, 51, 48, True)]
+            (100, 37, 1, 26, 26, False), (200, 102, 1, 51, 48, True),
+            (37, 20, 1, 0, None, False)]
 
 
 def _rand16(shape, gen, dev):
@@ -525,67 +527,85 @@ def _rand16(shape, gen, dev):
     return x.masked_fill_(x >= 3000, 32767)
 
 
-def _history_parts(n, s, B, i0, rows, packed, gen, dev):
-    """(mode, acc, parts, i0) of the RL and RI calls the fills make at this
-    shape, on a random state (rows: a row shard's, i0 its first row)."""
+def _history_launches(n, s, B, i0, rows, packed, gen, dev):
+    """The history_min launches the fills make at this shape on a random
+    state, each as (windows, tables, keywords) taken by a spy: the
+    unsharded reader's one launch (``SpanReads.history``), or a row
+    shard's two (its RL windows on its own rows, its RI windows on the C
+    rows l = i + s, one owner holding them all)."""
     from ccj_tpu_torch.engine import gapped4, gapped5
 
     n2, T, S = n + 2, n - 1, n
-    X = torch.randint(-500, 600, (B, n2, n2), generator=gen, dtype=torch.int32, device=dev)
-    X.masked_fill_(X >= 500, INF)
-    R = n2 if rows is None else rows
-    iv = torch.arange(i0, i0 + R, device=dev)
+    W = {}
+    for k in gapped4.HISTORY_TABLES:
+        W[k] = torch.randint(-500, 600, (B, n2, n2), generator=gen, dtype=torch.int32,
+                             device=dev)
+        W[k].masked_fill_(W[k] >= 500, INF)
+    fams = {(m, f) for _k, m, f, _t, _g in gapped4.HISTORY_SCANS}
+    st = {}
     if packed:
         segs = gapped5.segments7(n)
         gi = next(g for g, (lo, hi, *_r) in enumerate(segs) if lo <= s < hi)
-        TB, IB = segs[gi][2], (segs[gi][3] if rows is None else rows)
-        rl, ri = [], []
+        TB, IB = segs[gi][2], segs[gi][3]
         for h in range(gi + 1):
             lo, hi, TBh, IBh, Lc = segs[h]
-            nsh = gapped5.prior_spans(segs, h, s)
-            if nsh <= 0:
-                continue
-            fam = _rand16((B, TBh, hi - lo, IBh, n2), gen, dev)
-            cs = _rand16((B, TBh, hi - lo, Lc, n2), gen, dev)
-            u = lo + torch.arange(nsh, device=dev)
-            wl = gapped4.g2(X, iv[:IB][None, :] + u[:, None] + 1,
-                            (iv[:IB][None, :] + s).expand(nsh, IB))
-            wi = gapped4.g2(X, iv[:IB][None, :].expand(nsh, IB),
-                            iv[:IB][None, :] + s - u[:, None] - 1)
-            off = i0 + s - lo - 1
-            rl.append((fam[:, :, :nsh, i0:i0 + IB], wl, s - lo))
-            ri.append((cs[:, :, :nsh, off:off + min(IB, n2 - i0 - s)], wi, s - lo))
+            for m, f in fams:
+                key, R_ = (f"{f}@{h}", IBh) if m == cuda_ops.RL else (f"C_{f}@{h}", Lc)
+                st[key] = _rand16((B, TBh, hi - lo, R_, n2), gen, dev)
+        hist = gapped5.prior_segments(segs, gi, s)
+        full = lambda: gapped5.packed_reads(st, n, s, gi, segs)  # noqa: E731
+        rl = lambda cut: gapped5.packed_rl(cut, s, gi, segs, rows)  # noqa: E731
+        nr = min(rows or 0, n2 - i0 - s)
+        ri = lambda f: [(st[f"C_{f}@{h}"][:, :, :nsh, i0 + s - lo - 1:i0 + s - lo - 1 + nr],  # noqa: E731
+                         s - lo) for h, lo, nsh in hist]
     else:
         TB, IB = gapped4.bucket_dims(n, s)
-        IB = IB if rows is None else rows
+        for m, f in fams:
+            st[f if m == cuda_ops.RL else "C_" + f] = _rand16((B, T, S, n2, n2), gen, dev)
         sp0 = max(s - TB, 0)
-        spv = sp0 + torch.arange(TB, device=dev)
-        fam = _rand16((B, T, S, n2, n2), gen, dev)
-        cs = _rand16((B, T, S, n2, n2), gen, dev)
-        wl = gapped4.g2(X, iv[:IB][None, :] + spv[:, None] + 1,
-                        (iv[:IB][None, :] + s).expand(TB, IB))
-        wi = gapped4.g2(X, iv[:IB][None, :].expand(TB, IB),
-                        iv[:IB][None, :] + s - spv[:, None] - 1)
-        rl = [(fam[:, :TB, sp0:sp0 + TB, i0:i0 + IB], wl, s - sp0)]
-        ri = [(cs[:, :TB, sp0:sp0 + TB, i0 + s:min(i0 + s + IB, n2)], wi, s - sp0)]
-    acc = torch.full((B, TB, IB, n2), INF, dtype=torch.int32, device=dev)
-    return [(cuda_ops.RL, acc, rl, i0), (cuda_ops.RI, acc.clone(), ri, i0)]
+        full = lambda: gapped4.dense_reads(st, n, s, TB, IB)  # noqa: E731
+        rl = lambda cut: gapped4.dense_rl(cut, s, TB, rows)  # noqa: E731
+        ri = lambda f: [(st["C_" + f][:, :TB, sp0:sp0 + TB, i0 + s:min(i0 + s + rows, n2)],  # noqa: E731
+                         s - sp0)]
+    seen = []
+    real = cuda_ops.history_min
+
+    def spy(windows, tables, **kw):
+        seen.append((windows, tables, kw))
+        return real(windows, tables, **kw)
+
+    cuda_ops.history_min = spy
+    try:
+        if rows is None:
+            full().history(W)
+        else:
+            cut = {k: v[..., i0:i0 + rows, :] for k, v in st.items() if not k.startswith("C_")}
+            for mode, fam_of in ((cuda_ops.RL, rl(cut)), (cuda_ops.RI, ri)):
+                gapped4.history_launch(gapped4.history_groups(mode), lambda m, f: fam_of(f),
+                                       W, s, i0, TB, rows)
+    finally:
+        cuda_ops.history_min = real
+    assert len(seen) == (1 if rows is None else 2)
+    return seen
 
 
 @pytest.mark.parametrize("n,s,B,i0,rows,packed", HP_CASES)
 def test_history_kernel_matches_plain(cuda, n, s, B, i0, rows, packed):
+    """Every launch of the span's scans (16 planes unsharded; 9 and 7 in a
+    row shard's two) exact against the plain version, one launch each."""
     gen = torch.Generator(device=cuda).manual_seed(n + s + B + i0)
-    for mode, acc, parts, i0_ in _history_parts(n, s, B, i0, rows, packed, gen, cuda):
-        for g1 in (0, 1):
-            want = cuda_ops.history_min_ref(acc.clone(), cuda_ops.history_parts(acc, parts),
-                                            mode, s, g1, i0_)
-            got = acc.clone()
-            before = cuda_ops.HISTORY_LAUNCHES
-            cuda_ops.history_min(got, parts, mode, s, g1, i0_)
-            torch.cuda.synchronize()
-            assert cuda_ops.HISTORY_LAUNCHES == before + 1
-            assert torch.equal(got, want), (mode, g1)
-            assert bool((got < INF).any())
+    for windows, tables, kw in _history_launches(n, s, B, i0, rows, packed, gen, cuda):
+        cut, K = cuda_ops.history_windows(windows, tables, kw["R"], kw["s"])
+        want = cuda_ops.history_min_ref(cut, tables, kw["s"], kw["i0"], kw["TB"], kw["R"])
+        before = cuda_ops.HISTORY_LAUNCHES
+        got = cuda_ops.history_min(windows, tables, **kw)
+        torch.cuda.synchronize()
+        assert cuda_ops.HISTORY_LAUNCHES == before + 1
+        assert K in (16, 9, 7) and tuple(got.shape) == tuple(want.shape)
+        assert torch.equal(got, want)
+        assert bool((got < INF).any())
+        del got, want
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("n,s,B,i0,rows,packed", HP_CASES)
@@ -618,8 +638,8 @@ def test_p_split_kernel_matches_plain(cuda, n, s, B, i0, rows, packed):
 
 @pytest.mark.parametrize("n,packed", [(100, False), (134, True)])
 def test_fill_launches_history_and_p_split(cuda, n, packed):
-    """A dense (n=100) and a packed (n=134) fill: one history_min per RL /
-    RI call (16 a span s >= 1), one p_split per span with a term (3 <= s
+    """A dense (n=100) and a packed (n=134) fill: one history_min a span
+    s >= 1 (all 16 RL / RI scans), one p_split per span with a term (3 <= s
     <= n - 1), one tt_span, one stencil_pl and one stencil_pr per span with
     a tt step."""
     from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
@@ -641,7 +661,7 @@ def test_fill_launches_history_and_p_split(cuda, n, packed):
           else tfold.fill6(C, SC4, n, sp.dangles))
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), before)) == (
-        n - 2, 0, 0, 16 * (n - 1), n - 3, n - 2, n - 2, 2 * (n - 2))
+        n - 2, 0, 0, n - 1, n - 3, n - 2, n - 2, 2 * (n - 2))
     if n == 100:
         assert int(st["V"][1, n]) == -1528
 

@@ -1,25 +1,33 @@
 """The gapped step's history scans, ``cuda_ops.history_min``
 (``csrc/history.cu`` on the card, its plain version ``history_min_ref``
-here), bit for bit (tolerance zero: integer data):
+here), bit for bit (tolerance zero: integer data).  One call computes
+every scan of a span (``gapped4.HISTORY_SCANS``: 9 RL and 7 RI over 12
+windows), its weights taken from the ``[B, n2, n2]`` tables inside the
+call:
 
-* the port's RL / RI (``gapped4.dense_rl`` and ``dense_reads``' RI;
-  ``gapped5.packed_rl`` and ``packed_reads``' RI) against the JAX
-  package's RL / RI closures inside its span step, through the seven
-  reduction bases the JAX step hands its tt loop (taken by a spy on
-  ``ccj_tpu.engine.ttloop.tt_loop``; they cover both scans, both g1 and
-  the three weight tables):
+* the port's scans (``SpanReads.history`` of ``gapped4.dense_reads`` and
+  ``gapped5.packed_reads``) against the JAX package's RL / RI closures
+  inside its span step, through the seven reduction bases the JAX step
+  hands its tt loop (taken by a spy on ``ccj_tpu.engine.ttloop.tt_loop``;
+  they cover both scans, both g1 and the three weight tables):
   - dense: the state of an n=24 ``fill6`` before span 12, for B=1, B=2
     (two sequences' states stacked) and a row slice i0 > 0 (the row
-    shards' form: RL on the shard's own rows, RI on the C rows l = i + s);
+    shards' form: one launch for the RL windows on the shard's own rows,
+    one for the RI windows on the C rows l = i + s);
   - packed: a random n=37 state in four segments of 12 spans (the scans
     read every prior segment; the earlier segments' tt rows, fewer than
     the span's, read SAT16), at a span of the third segment and the
     fourth's only span, and a row slice;
-* the kernel's loop restated in PyTorch (per (b, tt, r, j) the span range
-  [max(0, d0 - bound), min(U, d0)), the part's rows and tt rows) against
-  the plain version on random operands, both modes;
-* refusals; no launch counted on the CPU; CUDA operands without the kernel
-  library raise.
+* the kernel's walk restated in PyTorch (per block of a run of cells of
+  the flattened (r, j) plane and two tt rows: the run's rows' weights
+  staged by d from the tables, then per window, part and cell the span
+  range [max(0, d0 - bound), U), one load a window element shared by the
+  window's scans, every cell written once) against
+  the plain version on random operands: windows shared by two scans,
+  tables with INF entries and indices off the table, three packed
+  segments with fewer tt rows, spans and rows;
+* the scan list as data; refusals; no launch counted on the CPU; CUDA
+  operands without the kernel library raise.
 """
 
 import jax
@@ -49,6 +57,7 @@ SEQ37 = "GGGAAACGGGCGAUCCUUCCCGAAAGGGAUCGGGUUU"
 SPAN = 12
 BASES = ("PLmloop00", "PLmloop10", "PRmloop00", "PMmloop01", "PMmloop10",
          "PfromL", "PfromR")
+RL, RI = cuda_ops.RL, cuda_ops.RI
 
 
 class _Stop(Exception):
@@ -81,18 +90,24 @@ def _jax_bases(step, st):
     return got
 
 
-def _port_bases(reads, W):
-    """span_families' bases, from the layout's RL / RI."""
-    WBt, WPt, WBPg = W
-    RL, RI = reads.RL, reads.RI
-    return {"PLmloop00": RI("PLmloop00", WBt, 0),
-            "PLmloop10": RI("PLmloop00", WBPg, 0),
-            "PRmloop00": RL("PRmloop00", WBt, 0),
-            "PMmloop01": RL("PMmloop00", WBPg, 0),
-            "PMmloop10": torch.minimum(RI("PMmloop00", WBPg, 0),
-                                       RL("PMmloop10", WBt, 1)),
-            "PfromL": RI("PfromL", WPt, 1),
-            "PfromR": RL("PfromR", WPt, 1)}
+def _port_bases(H):
+    """span_families' bases, from the span's scans by key."""
+    return {"PLmloop00": H["PLmloop00"], "PLmloop10": H["PLmloop10"],
+            "PRmloop00": H["PRmloop00"], "PMmloop01": H["PMmloop01"],
+            "PMmloop10": torch.minimum(H["PMmloop10_ri"], H["PMmloop10_rl"]),
+            "PfromL": H["PfromL"], "PfromR": H["PfromR"]}
+
+
+def _tables(C, st):
+    WBt, WPt, WBPg, _ = _wx_tables(C, st)
+    return {"WBt": WBt, "WBPg": WBPg, "WPt": WPt}
+
+
+def _launch(mode, windows, W, s, i0, TB, R):
+    """The scans of one mode over ``windows(family)`` (a row shard's RL or
+    RI launch), as a dict by key."""
+    return dict(zip(*gapped4.history_launch(gapped4.history_groups(mode),
+                                            lambda m, f: windows(f), W, s, i0, TB, R)))
 
 
 def _consts(seq):
@@ -104,6 +119,21 @@ def _consts(seq):
     C_np = {**jfold.build_consts(tabs, sp, DEFAULT_PK, device=False), "n": tabs.n}
     C, SC4 = tfold.consts_from_numpy(C_np, "cpu")
     return sp, tabs, C_np, SC4, {**C, "n": tabs.n}
+
+
+def test_history_scans_are_data():
+    """16 scans, 9 RL and 7 RI, over 12 windows; the four shared windows
+    serve two scans each with one g1; every key once."""
+    keys = [k for k, *_ in gapped4.HISTORY_SCANS]
+    assert len(keys) == len(set(keys)) == 16
+    groups = gapped4.history_groups()
+    assert len(groups) == 12
+    assert sorted(len(outs) for *_, outs in groups) == [1] * 8 + [2] * 4
+    assert {(m, f) for m, f, _g, outs in groups if len(outs) == 2} == {
+        (RL, "POmloop00"), (RI, "POmloop00"), (RL, "PRmloop00"), (RI, "PLmloop00")}
+    assert len(gapped4.history_groups(RL)) == 7 and len(gapped4.history_groups(RI)) == 5
+    assert sum(len(o) for *_, o in gapped4.history_groups(RL)) == 9
+    assert {f for m, f, *_ in groups if m == RI} <= set(C_MATS)
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +175,9 @@ def dense():
 
 
 def _dense_port(C, st, TB, IB):
-    reads = gapped4.dense_reads(st, C["n"], SPAN, TB, IB)
-    return _port_bases(reads, _wx_tables(C, st)[:3])
+    H = gapped4.dense_reads(st, C["n"], SPAN, TB, IB).history(_tables(C, st))
+    assert set(H) == {k for k, *_ in gapped4.HISTORY_SCANS}
+    return _port_bases(H)
 
 
 @pytest.mark.parametrize("b", [0, 1])
@@ -167,32 +198,22 @@ def test_dense_scans_batch_of_two(dense):
             assert np.array_equal(got[name][b].numpy(), want[name]), (name, b)
 
 
-def _dense_ri_rows(st, name, X, g1, s, TB, i0, rows):
-    """A row shard's RI: rows i in [i0, i0 + rows) read C rows l = i + s
-    (``dist.wavefront.sharded_reads``' call, on one device)."""
-    n2 = st["PKD"].shape[-1]
-    sp0 = max(s - TB, 0)
-    spv = sp0 + torch.arange(TB)
-    iv = torch.arange(i0, i0 + rows)
-    win = st["C_" + name][:, :TB, sp0:sp0 + TB, i0 + s:min(i0 + s + rows, n2)]
-    w = gapped4.g2(X, iv[None, :].expand(TB, rows), iv[None, :] + s - spv[:, None] - 1)
-    acc = torch.full((st["PKD"].shape[0], TB, rows, n2), INF, dtype=torch.int32)
-    return cuda_ops.history_min(acc, [(win, w, s - sp0)], cuda_ops.RI, s, g1, i0)
-
-
 @pytest.mark.parametrize("i0,rows", [(3, 5), (7, 6)])
 def test_dense_scans_row_slice_match_jax(dense, i0, rows):
+    """A row shard's two launches (``dist.wavefront._sharded_history``, on
+    one device): RL over the shard's own rows, RI over the C rows
+    l = i + s of rows [i0, i0 + rows)."""
     C, st, TB, IB, want = dense[0]
-    WBt, WPt, WBPg = _wx_tables(C, st)[:3]
+    W = _tables(C, st)
+    n2, s, sp0 = C["n"] + 2, SPAN, max(SPAN - TB, 0)
     cut = {k: v[..., i0:i0 + rows, :] for k, v in st.items() if v.dim() == 5}
-    RL = gapped4.dense_rl(cut, C["n"], SPAN, TB, rows, i0)
-    for name, got in (("PRmloop00", RL("PRmloop00", WBt, 0)),
-                      ("PfromR", RL("PfromR", WPt, 1)),
-                      ("PLmloop10", _dense_ri_rows(st, "PLmloop00", WBPg, 0, SPAN, TB,
-                                                   i0, rows)),
-                      ("PfromL", _dense_ri_rows(st, "PfromL", WPt, 1, SPAN, TB, i0,
-                                                rows))):
-        assert np.array_equal(got[0].numpy(), want[name][:, i0:i0 + rows]), name
+    H = _launch(RL, gapped4.dense_rl(cut, s, TB, rows), W, s, i0, TB, rows)
+    H.update(_launch(RI, lambda f: [(st["C_" + f][:, :TB, sp0:sp0 + TB,
+                                                  i0 + s:min(i0 + s + rows, n2)], s - sp0)],
+                     W, s, i0, TB, rows))
+    got = _port_bases(H)
+    for name in BASES:
+        assert np.array_equal(got[name][0].numpy(), want[name][:, i0:i0 + rows]), name
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +263,11 @@ def packed():
 @pytest.mark.parametrize("s,gi", [(30, 2), (36, 3)])
 def test_packed_scans_match_jax(packed, s, gi):
     C, st, SEGS, want = packed
-    reads = gapped5.packed_reads(st, C["n"], s, gi, SEGS)
-    got = _port_bases(reads, _wx_tables(C, st)[:3])
+    H = gapped5.packed_reads(st, C["n"], s, gi, SEGS).history(_tables(C, st))
+    got = _port_bases(H)
     lo, hi, TB, IB, _ = SEGS[gi]
     assert SEGS[0][2] < TB                         # earlier segments: fewer tt rows
+    assert len(gapped5.prior_segments(SEGS, gi, s)) == 3   # three parts a window
     for name in BASES:
         assert tuple(got[name].shape) == (1, TB, IB, C["n"] + 2), name
         assert np.array_equal(got[name][0].numpy(), want[s][name]), name
@@ -254,115 +276,166 @@ def test_packed_scans_match_jax(packed, s, gi):
 def test_packed_scans_row_slice_match_jax(packed):
     C, st, SEGS, want = packed
     s, gi, i0, rows = 30, 2, 2, 6
-    n2 = C["n"] + 2
     lo, hi, TB, IB, _ = SEGS[gi]
-    WBt, WPt, WBPg = _wx_tables(C, st)[:3]
+    W = _tables(C, st)
     cut = {k: v[..., i0:i0 + rows, :] if "@" in k and not k.startswith("C_") else v
            for k, v in st.items()}
-    RL = gapped5.packed_rl(cut, C["n"], s, gi, SEGS, TB, rows, i0)
-    assert np.array_equal(RL("PfromR", WPt, 1)[0].numpy(),
-                          want[s]["PfromR"][:, i0:i0 + rows])
+    H = _launch(RL, gapped5.packed_rl(cut, s, gi, SEGS, rows), W, s, i0, TB, rows)
     # RI: the rows' C rows l = i + s of every prior segment's skew
-    iv = torch.arange(i0, i0 + rows)
-    parts = []
-    for h in range(gi + 1):
-        loh = SEGS[h][0]
-        nsh = gapped5.prior_spans(SEGS, h, s)
-        u = loh + torch.arange(nsh)
-        w = gapped4.g2(WPt, iv[None, :].expand(nsh, rows), iv[None, :] + s - u[:, None] - 1)
-        off = i0 + s - loh - 1
-        parts.append((st[f"C_PfromL@{h}"][:, :, :nsh, off:off + rows], w, s - loh))
-    acc = torch.full((1, TB, rows, n2), INF, dtype=torch.int32)
-    got = cuda_ops.history_min(acc, parts, cuda_ops.RI, s, 1, i0)
-    assert np.array_equal(got[0].numpy(), want[s]["PfromL"][:, i0:i0 + rows])
+    hist = gapped5.prior_segments(SEGS, gi, s)
+    H.update(_launch(RI, lambda f: [(st[f"C_{f}@{h}"][:, :, :nsh, i0 + s - loh - 1:
+                                                      i0 + s - loh - 1 + rows], s - loh)
+                                    for h, loh, nsh in hist], W, s, i0, TB, rows))
+    got = _port_bases(H)
+    for name in BASES:
+        assert np.array_equal(got[name][0].numpy(), want[s][name][:, i0:i0 + rows]), name
 
 
 # ---------------------------------------------------------------------------
-# the kernel's loop, restated, on random operands
+# the kernel's walk, restated, on random operands
 # ---------------------------------------------------------------------------
 
-def _kernel_loop(acc, parts, mode, s, g1, i0):
-    """csrc/history.cu restated: per (b, tt, r, j) the admissible distance
-    bound, then per part the spans u in [max(0, d0 - bound), min(U, d0))
-    of its rows r < Rw, a tt row past its TBw reading SAT16; acc's cell
-    clamped to INF first."""
-    out = acc.clone()
-    B, TB, R, n2 = acc.shape
+def _kernel_walk(windows, tables, s, i0, TB, R, loads, run=8):
+    """csrc/history.cu restated: per block (b, a run of ``run`` cells of the
+    flattened (r, j) plane, which may straddle rows, two tt rows) the
+    weights of the run's rows staged by d in [1, s] for each (mode, table)
+    (RL column l = i + s of X, RI row i, INF off the table); per window,
+    part and cell (tt, r, j) the spans u in [max(0, d0 - bound), U) when
+    bound >= 1 and r < Rw, one load a window element (a tt row past the
+    part's reads SAT16 and loads nothing) shared by the window's one or two
+    scans; every cell of every plane written once.  ``loads`` counts each
+    element loaded."""
+    B, n2 = tables[0].shape[0], tables[0].shape[-1]
+    K = sum(len(w.outs) for w in windows)
+    out = torch.full((K, B, TB, R, n2), -1, dtype=torch.int32)
+    written = torch.zeros(out.shape, dtype=torch.int32)
     for b in range(B):
-        for tt in range(TB):
-            for r in range(R):
+        for e0 in range(0, R * n2, run):
+            cells = [divmod(e, n2) for e in range(e0, min(e0 + run, R * n2))]
+            wsm = {}
+            for r in sorted({r for r, _j in cells}):
                 i = i0 + r
-                for j in range(n2):
-                    if mode == cuda_ops.RL:
-                        bound = (i + s) - (j + tt + 2) - g1
-                    else:
-                        bound = (j - i) - g1 if i >= 1 else 0
-                    best = min(int(acc[b, tt, r, j]), INF)
-                    if bound >= 1:
-                        for win, w, d0 in parts:
-                            TBw, U, Rw = win.shape[1:4]
-                            if r >= Rw:
-                                continue
-                            for u in range(max(0, d0 - bound), min(U, d0)):
-                                v = int(win[b, tt, u, r, j]) if tt < TBw else SAT16
-                                best = min(best, v + int(w[b, u, r]))
-                    out[b, tt, r, j] = best
+                for mode in (RL, RI):
+                    for t, X in enumerate(tables):
+                        col = []
+                        for d in range(s + 1):
+                            ra, cb = (i + s - d + 1, i + s) if mode == RL else (i, i + d - 1)
+                            ok = d >= 1 and 0 <= ra < n2 and 0 <= cb < n2
+                            col.append(int(X[b, ra, cb]) if ok else INF)
+                        wsm[r, mode, t] = col
+            for tt0 in range(0, TB, 2):
+                for mode, g1, parts, outs in windows:
+                    for tt in range(tt0, min(tt0 + 2, TB)):
+                        for r, j in cells:
+                            i = i0 + r
+                            bound = ((i + s) - (j + tt + 2) - g1 if mode == RL
+                                     else ((j - i) - g1 if i >= 1 else 0))
+                            best = [INF] * len(outs)
+                            for win, d0 in parts:
+                                TBw, U, Rw = win.shape[1:4]
+                                if r >= Rw or bound < 1:
+                                    continue
+                                for u in range(max(0, d0 - bound), U):
+                                    if tt < TBw:
+                                        v = int(win[b, tt, u, r, j])
+                                        key = (id(win), b, tt, u, r, j)
+                                        loads[key] = loads.get(key, 0) + 1
+                                    else:
+                                        v = SAT16
+                                    for q, (t, _k) in enumerate(outs):
+                                        best[q] = min(best[q], v + wsm[r, mode, t][d0 - u])
+                            for q, (_t, k) in enumerate(outs):
+                                out[k, b, tt, r, j] = best[q]
+                                written[k, b, tt, r, j] += 1
+    assert bool((written == 1).all())
     return out
 
 
-def _random_parts(rng, B, TB, R, n2):
-    parts = []
-    for TBw, U, Rw, d0 in ((TB, 5, R, 7), (TB - 3, 4, R - 2, 4), (2, 3, R, 2),
-                           (TB, 2, R, 0)):
+def _random_tables(rng, B, n2):
+    """Three [B, n2, n2] tables: small energies, a fifth INF."""
+    out = []
+    for _ in range(3):
+        x = rng.integers(-400, 400, (B, n2, n2)).astype(np.int32)
+        x[rng.random(x.shape) < 0.2] = INF
+        out.append(torch.from_numpy(x))
+    return out
+
+
+def _random_windows(rng, B, TB, R, n2, s):
+    """Four windows over three packed segments each (the first with the
+    span's tt rows, the others fewer, with fewer rows and spans; the last
+    segment's spans partly at d <= 0): RL shared by two tables, RL alone,
+    RI shared, RI alone; planes in a shuffled order."""
+    segs = ((TB, 5, R, s), (TB - 2, 4, R - 2, s - 5), (2, 4, R, 3))
+
+    def part(TBw, U, Rw, d0):
         x = rng.integers(-3000, 3000, (B, TBw, U, Rw, n2)).astype(np.int16)
         x[rng.random(x.shape) < 0.3] = SAT16
-        w = rng.integers(-400, 400, (B, U, R + 1)).astype(np.int32)
-        w[rng.random(w.shape) < 0.3] = INF
-        parts.append((torch.from_numpy(x), torch.from_numpy(w), d0))
-    return parts
+        return torch.from_numpy(x), d0
+
+    planes = [int(k) for k in rng.permutation(6)]
+    outs = ([(0, planes[0]), (1, planes[1])], [(2, planes[2])],
+            [(1, planes[3]), (2, planes[4])], [(0, planes[5])])
+    return [cuda_ops.HistWindow(mode, g1, [part(*sg) for sg in segs], o)
+            for (mode, g1), o in zip(((RL, 0), (RL, 1), (RI, 0), (RI, 1)), outs)]
 
 
-@pytest.mark.parametrize("mode,g1,i0", [(cuda_ops.RL, 0, 0), (cuda_ops.RL, 1, 3),
-                                        (cuda_ops.RI, 0, 0), (cuda_ops.RI, 1, 2)])
-def test_kernel_loop_equals_plain(mode, g1, i0):
-    rng = np.random.default_rng(7 + mode * 10 + i0)
+@pytest.mark.parametrize("g1,i0", [(0, 0), (1, 3), (0, 2), (1, 6)])
+def test_kernel_loop_equals_plain(g1, i0):
+    rng = np.random.default_rng(7 + g1 * 10 + i0)
     B, TB, R, n2, s = 2, 6, 5, 9, 8
-    parts = _random_parts(rng, B, TB, R, n2)
-    acc = torch.from_numpy(rng.integers(-500, 500, (B, TB, R, n2)).astype(np.int32))
-    acc[torch.from_numpy(rng.random(acc.shape) < 0.5)] = INF
-    acc[0, 0, 0, 0] = INF + 5                            # clamped to INF
-    want = _kernel_loop(acc, parts, mode, s, g1, i0)
-    got = cuda_ops.history_min(acc.clone(), parts, mode, s, g1, i0)
+    windows = [w._replace(g1=w.g1 + g1) for w in _random_windows(rng, B, TB, R, n2, s)]
+    tables = _random_tables(rng, B, n2)
+    cut, K = cuda_ops.history_windows(windows, tables, R, s)
+    assert K == 6 and all(len(w.parts) == 3 for w in cut)
+    loads = {}
+    want = _kernel_walk(cut, tables, s, i0, TB, R, loads)
+    got = cuda_ops.history_min(windows, tables, s=s, i0=i0, TB=TB, R=R)
     assert torch.equal(got, want)
-    assert bool((got < acc.clamp(max=INF)).any())        # terms were taken
+    assert set(loads.values()) == {1}                 # each element read once
+    assert bool((got < INF).any()) and bool((got == INF).any())
+    # off-table weights: RL's l = i + s >= n2 on the last rows
+    assert i0 + R - 1 + s >= n2
 
 
 def test_history_min_refuses_operands_that_do_not_fit():
     rng = np.random.default_rng(1)
-    parts = _random_parts(rng, 1, 4, 3, 6)
-    acc = torch.full((1, 4, 3, 6), INF, dtype=torch.int32)
-    win, w, d0 = parts[0]
-    for bad in ([(win[..., :5], w, d0)], [(win.to(torch.int32), w, d0)],
-                [(win, w[:, :, :2], d0)], [(win, w.to(torch.int64), d0)],
-                [(torch.cat([win, win], dim=3), w, d0)]):
+    B, TB, R, n2, s = 1, 4, 3, 6, 5
+    tables = _random_tables(rng, B, n2)
+    (win, d0), *_ = _random_windows(rng, B, TB, R, n2, s)[1].parts
+    kw = dict(s=s, i0=0, TB=TB, R=R)
+
+    def one(parts, outs=((0, 0),), mode=RL, tabs=tables):
+        return cuda_ops.history_min([(mode, 0, parts, list(outs))], tabs, **kw)
+
+    assert one([(win, d0)]).shape == (1, B, TB, R, n2)
+    for bad in ([(win[..., :5], d0)], [(win.to(torch.int32), d0)],
+                [(torch.cat([win, win], dim=3), d0)], [(win, s + 1)]):
         with pytest.raises(ValueError):
-            cuda_ops.history_min(acc, bad, cuda_ops.RL, 5, 0)
-    with pytest.raises(ValueError):                      # past the kernel's table
-        cuda_ops.history_min(acc, [parts[0]] * (cuda_ops.HISTORY_MAX_PARTS + 1),
-                             cuda_ops.RL, 5, 0)
+            one(bad)
+    with pytest.raises(ValueError):                      # past the kernel's parts
+        one([(win, d0)] * (cuda_ops.HISTORY_MAX_PARTS + 1))
     with pytest.raises(ValueError):
-        cuda_ops.history_min(acc, parts, 2, 5, 0)
+        one([(win, d0)], mode=2)
+    for outs in (((0, 1),), ((0, 0), (1, 0)), ((3, 0),), ((0, 0), (1, 1), (2, 2))):
+        with pytest.raises(ValueError):
+            one([(win, d0)], outs)
+    for tabs in ([t.to(torch.int64) for t in tables], [t[..., :5] for t in tables],
+                 tables * 2, []):
+        with pytest.raises(ValueError):
+            one([(win, d0)], tabs=tabs)
     with pytest.raises(ValueError):
-        cuda_ops.history_min(acc.to(torch.int64), parts, cuda_ops.RL, 5, 0)
+        cuda_ops.history_min([(RL, 0, [(win, d0)], [(0, k)])
+                              for k in range(cuda_ops.HISTORY_MAX_WINDOWS + 1)], tables, **kw)
 
 
 def test_history_min_on_cpu_counts_no_launch():
     rng = np.random.default_rng(2)
-    parts = _random_parts(rng, 1, 4, 3, 6)
+    windows = _random_windows(rng, 1, 4, 3, 6, 5)
     before = cuda_ops.HISTORY_LAUNCHES
-    acc = torch.full((1, 4, 3, 6), INF, dtype=torch.int32)
-    assert cuda_ops.history_min(acc, parts, cuda_ops.RI, 5, 0) is acc
+    out = cuda_ops.history_min(windows, _random_tables(rng, 1, 6), s=5, i0=0, TB=4, R=3)
     assert cuda_ops.HISTORY_LAUNCHES == before
+    assert out.dtype == torch.int32 and tuple(out.shape) == (6, 1, 4, 3, 6)
 
 
 class _CudaTyped:
@@ -386,9 +459,10 @@ def test_history_min_on_cuda_raises_without_the_library(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
     rng = np.random.default_rng(3)
-    parts = [(_CudaTyped(x), _CudaTyped(w), d0) for x, w, d0 in _random_parts(rng, 1, 4, 3, 6)]
-    acc = _CudaTyped(torch.full((1, 4, 3, 6), INF, dtype=torch.int32))
+    windows = [(m, g, [(_CudaTyped(x), d0) for x, d0 in parts], o)
+               for m, g, parts, o in _random_windows(rng, 1, 4, 3, 6, 5)]
+    tables = [_CudaTyped(t) for t in _random_tables(rng, 1, 6)]
     before = cuda_ops.HISTORY_LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc"):
-        cuda_ops.history_min(acc, parts, cuda_ops.RL, 5, 0)
+        cuda_ops.history_min(windows, tables, s=5, i0=0, TB=4, R=3)
     assert cuda_ops.HISTORY_LAUNCHES == before

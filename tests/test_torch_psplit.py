@@ -10,10 +10,12 @@ data):
   each element alone;
 * the row shards' operand (the PKD rows each a needs, stacked, as
   ``dist.wavefront`` fetches them) against PKD read in place;
-* the kernel's enumeration restated in PyTorch (per live row, the (b - 1,
-  m = a + c + 1) pairs with b - 1 + m <= s - 1, every a <= m - 2, factor-2
-  rows past the operand reading SAT16) against the plain version, on
-  random operands in both forms;
+* the kernel's tile walk restated in PyTorch (per live row and m = a + c + 1,
+  the rectangle b - 1 <= s - 1 - m, a <= m - 2 in 32 x 32 tiles, and in
+  4 x 4 ones; PKE along a, the factor-2 operand along b - 1 and added
+  transposed; factor-2 rows past the operand reading SAT16; the triangle
+  b - 1 + m > s - 1 never visited, each admissible term once) against the
+  plain version, on random operands in both forms;
 * refusals of operands that do not fit; no launch counted on the CPU;
   CUDA operands without the kernel library raise.
 """
@@ -121,40 +123,57 @@ def test_stacked_rows_equal_pkd_in_place(s, i0, rows):
     assert torch.equal(got, want)
 
 
-def _kernel_loop(pke, pkd, s, n, i0, R, sp, ro):
-    """csrc/psplit.cu's enumeration restated: per live (b, i) row, the
-    (b - 1, m) pairs of the (s - 2) x (s - 2) square with b - 1 + m <=
-    s - 1, every a in [0, m - 2] with c - 1 = m - 2 - a; factor 2 at
-    X[sp(a), c - 1, r + ro(a), b - 1], SAT16 past X's rows; INF where no
-    row is live."""
-    B, NR = pke.shape[0], pkd.shape[3]
+def _kernel_walk(pke, pkd, s, n, i0, R, sp, ro, tile):
+    """csrc/psplit.cu's walk restated: per live (b, i) row and m = a + c + 1
+    in [2, s - 1] (a block each), the rectangle b - 1 in [0, s - 1 - m],
+    a in [0, m - 2] in tile x tile tiles (the triangle b - 1 + m > s - 1
+    never visited); per tile A[b - 1][a] = PKE[b - 1, m, r, a] (INF outside
+    the rectangle) and B[a][b - 1] = X[sp(a), m - 2 - a, ro(a) + r, b - 1]
+    (SAT16 past X's rows and outside), the minimum of A + B transposed; the
+    block's minimum joins its row's where it is below INF.  Returns the
+    output and the terms visited per live row."""
+    B, T, A, NR = pke.shape[0], pke.shape[1], pkd.shape[1], pkd.shape[3]
     out = torch.full((B, R), INF, dtype=torch.int32)
     lo, hi = cuda_ops.p_split_live(n, s, i0, R)
-    a_all = torch.arange(max(s - 2, 0))
+    visits = []
     for b in range(B):
         for r in range(lo - i0, hi - i0 + 1):
-            best = INF
-            for bb in range(s - 2):
-                for m in range(2, s):
-                    if bb + m > s - 1:
-                        continue
-                    a = a_all[:m - 1]
-                    row = r + ro[0] + ro[1] * a
-                    x = sp[0] + sp[1] * a
-                    inside = row < NR
-                    v2 = torch.full(a.shape, SAT16, dtype=torch.int32)
-                    v2[inside] = pkd[b, x[inside], m - 2 - a[inside], row[inside], bb].to(
-                        torch.int32)
-                    v1 = pke[b, bb, m, r, a].to(torch.int32)
-                    best = min(best, int((v1 + v2).min()))
-            out[b, r] = min(best, INF)
-    return out
+            seen = 0
+            for m in range(2, s):
+                nbb, na = s - m, m - 1
+                blk = INF
+                for a0 in range(0, na, tile):
+                    for bb0 in range(0, nbb, tile):
+                        a = torch.arange(a0, a0 + tile)
+                        bb = torch.arange(bb0, bb0 + tile)
+                        inside = (bb[:, None] < nbb) & (a[None, :] < na)   # [b - 1, a]
+                        seen += int(inside.sum())
+                        Av = pke[b, bb.clamp(max=T - 1)[:, None], m, r,
+                                 a.clamp(max=pke.shape[4] - 1)[None, :]].to(torch.int32)
+                        Av = torch.where(inside, Av, INF)
+                        row = r + ro[0] + ro[1] * a
+                        x = (sp[0] + sp[1] * a).clamp(0, A - 1)
+                        ok = (row >= 0) & (row < NR)
+                        Bv = pkd[b, x[:, None], (m - 2 - a).clamp(0, T - 1)[:, None],
+                                 row.clamp(0, NR - 1)[:, None],
+                                 bb.clamp(max=pkd.shape[4] - 1)[None, :]].to(torch.int32)
+                        Bv = torch.where(ok[:, None] & inside.T, Bv, SAT16)   # [a, b - 1]
+                        blk = min(blk, int((Av + Bv.T).min()))
+                if blk < INF:
+                    out[b, r] = min(int(out[b, r]), blk)
+            visits.append(seen)
+    return out, visits
 
 
+@pytest.mark.parametrize("tile", [32, 4])
 @pytest.mark.parametrize("s,i0,R,form", [(6, 0, 16, "pkd"), (9, 2, 5, "pkd"),
                                          (13, 0, 3, "pkd"), (8, 3, 4, "stacked"),
                                          (10, 5, 6, "stacked")])
-def test_kernel_enumeration_equals_plain(s, i0, R, form):
+def test_kernel_enumeration_equals_plain(s, i0, R, form, tile):
+    """The tile walk (the kernel's 32 x 32 tiles, and 4 x 4 ones so that a
+    rectangle spans several) equals the plain version, and visits each
+    admissible term of a live row once: C(s, 3) of them (the last case
+    has no live row)."""
     pkd, pke = _pk(np.random.default_rng(40 + s), 2)
     pke_t = torch.from_numpy(pke[..., i0:i0 + R, :])
     if form == "pkd":
@@ -162,7 +181,9 @@ def test_kernel_enumeration_equals_plain(s, i0, R, form):
     else:   # short rows: factor-2 rows past the operand read SAT16
         X, sp, ro = _stacked(pkd, s, i0, R)[..., :max(R - 2, 1), :], (0, 1), (0, 0)
     want = cuda_ops.p_split_ref(pke_t, X, s, N, i0, R, sp, ro)
-    assert torch.equal(_kernel_loop(pke_t, X, s, N, i0, R, sp, ro), want)
+    got, visits = _kernel_walk(pke_t, X, s, N, i0, R, sp, ro, tile)
+    assert torch.equal(got, want)
+    assert all(v == s * (s - 1) * (s - 2) // 6 for v in visits)
     assert torch.equal(cuda_ops.p_split(pke_t, X, s=s, n=N, i0=i0, R=R, sp=sp, ro=ro),
                        want)
 

@@ -12,7 +12,10 @@ P shards on CPU devices in one process:
   golden line, fetching the slabs the unsharded traceback fetches, and its
   P split moves only the PKD cells the cube reads;
 * every shard holds R rows, and the transport counts bytes in each
-  exchange class the fill uses;
+  exchange class the fill uses; at P=4 the ``shift`` bytes are those of
+  the fill that shipped each RI scan's [B, U, rows] weights to the owner
+  of its C rows, less those weights (each owner now takes them from its
+  own tables), and no other class moved;
 * a row shard's min-plus descriptor table (rows from i0, the row offset
   in its masks' constant) gives the whole span's rows [i0, i0 + IB);
 * the entry point defaults to CUDA and raises without it.
@@ -40,6 +43,7 @@ from ccj_tpu_torch.engine import cuda_ops
 from ccj_tpu_torch.engine import fold as tfold
 from ccj_tpu_torch.engine.common import INF, SAT16
 from ccj_tpu_torch.engine.gapped import DS, M4_NAMES
+from ccj_tpu_torch.engine.gapped4 import bucket_dims
 from ccj_tpu_torch.engine.lazy import LazyMats, case_p_cube, case_p_device, p_split_reads
 from ccj_tpu_torch.engine.traceback import Traceback
 from ccj_tpu_torch.engine.ttloop import REDUCTIONS, reduction_table
@@ -274,6 +278,40 @@ def test_shard_rows_and_exchange_classes(n30):
     # the 2-D replicas are shared by shards on one device
     assert len(st.replicas) == 1
     assert all(sh["V"] is st.replicas[st.devices[0]]["V"] for sh in st.shards)
+
+
+# the n=30 P=4 fill's exchange bytes by class (the CPU fill of the tree
+# whose RI scans shipped their weights to the owners: the same shapes)
+SHIPPED_WEIGHTS_BYTES = {"halo": 29107648, "shift": 8601016, "gather": 5586560,
+                         "allgather": 5940}
+
+
+def ri_weight_bytes(n, P, spans):
+    """The int32 RI weights [B, U, rows] (B = 1, seven scans a span) that a
+    fill shipping them would move to each owner q != p of a shard p's C
+    rows l = i + s: ``spans`` gives (s, U) in fill order."""
+    R, _ = row_partition(n, P)
+    tr = RowTransport(["cpu"] * P, R, n + 2)
+    return sum(7 * 4 * U * (b - a)
+               for s, U in spans for p, i0, IB in span_rows(n, R, P, s)
+               for q, a, b in tr.owners(i0 + s, i0 + s + IB) if q != p)
+
+
+def test_shift_bytes_not_above_the_shipped_weights(n30, jax_fill4):
+    """fill6_sharded n=30 P=4: bit-equal to the JAX fill on every array it
+    holds, and its ``shift`` bytes the shipped-weights fill's less exactly
+    those weights; every other class unchanged."""
+    st = n30[4]
+    want = jax_fill4()
+    got = st.gather()
+    for k in (*M4_NAMES, *GROUPS["2d"]):
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    n = 30
+    weights = ri_weight_bytes(n, 4, [(s, bucket_dims(n, s)[0]) for s in range(n)])
+    moved = {c: v for c, v in st.transport.bytes.items() if c != "read"}
+    assert weights > 0
+    assert moved == {**SHIPPED_WEIGHTS_BYTES,
+                     "shift": SHIPPED_WEIGHTS_BYTES["shift"] - weights}
 
 
 def test_fill6_sharded_defaults_to_cuda_and_raises_without_it(monkeypatch):

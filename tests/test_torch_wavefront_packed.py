@@ -14,7 +14,10 @@ P shards on CPU devices in one process:
   ``shard_bytes`` equals the arithmetic of that partition (checked on
   the meta device up to n=240);
 * the transport counts bytes in each exchange class the fill uses, and
-  rows an array does not store read as unset and are not written;
+  rows an array does not store read as unset and are not written; at P=2
+  the ``shift`` bytes are those of the fill that shipped each RI scan's
+  weights to the owner of its C rows, less those weights, and no other
+  class moved;
 * ``LazyMats(.., segs=segments7(37))`` over a P=2 state folds the n=37
   anchor to its golden line, every slab equal to the unsharded
   ``fill7``'s, moving no more between shards than its slabs and P splits;
@@ -41,11 +44,11 @@ from ccj_tpu.params import DEFAULT_PK, parse_par, scale_parameters
 from ccj_tpu.precompute import build_seq_tables
 from ccj_tpu_torch.dist import wavefront
 from ccj_tpu_torch.dist.wavefront import (CLASSES, RowTransport, ShardedState,
-                                          fill7_sharded, row_partition)
+                                          fill7_sharded, row_partition, span_rows)
 from ccj_tpu_torch.engine import fold as tfold
 from ccj_tpu_torch.engine.common import SAT16
 from ccj_tpu_torch.engine.gapped import C_MATS, M4_NAMES, dims
-from ccj_tpu_torch.engine.gapped5 import M4_STORED, segments7
+from ccj_tpu_torch.engine.gapped5 import M4_STORED, prior_segments, segments7
 from ccj_tpu_torch.engine.lazy import LazyMats
 from ccj_tpu_torch.engine.traceback import Traceback
 
@@ -261,6 +264,37 @@ def test_exchange_classes_add_up(n34):
         assert per_span > 0 and per_span == tr.bytes[c], c
     assert set(tr.span_bytes) <= set(range(34))
     assert tr.bytes["halo"] > states[2].transport.bytes["halo"]
+
+
+# the n=34 P=2 fill's exchange bytes by class (the CPU fill of the tree
+# whose RI scans shipped their weights to the owners: the same shapes)
+SHIPPED_WEIGHTS_BYTES = {"halo": 19980072, "shift": 12753524, "gather": 5778432,
+                         "allgather": 2516}
+
+
+def test_shift_bytes_not_above_the_shipped_weights(n34, jax_fill7):
+    """fill7_sharded n=34 P=2: bit-equal to the JAX fill on the 2-D
+    matrices and every stored block, and its ``shift`` bytes the
+    shipped-weights fill's less exactly those weights (U = the spans of
+    every prior segment); every other class unchanged."""
+    SEGS, states = n34
+    st = states[2]
+    want = jax_fill7()
+    got = st.gather()
+    for k in (*KEYS_2D, "PKD", *(f"{m}@{g}" for g in range(len(SEGS)) for m in M4_STORED),
+              *(f"C_{m}@{g}" for g in range(len(SEGS)) for m in C_MATS)):
+        _assert_equal(got[k], want[k], k)
+    spans = [(s, sum(m for *_h, m in prior_segments(SEGS, gi, s)))
+             for gi, (lo, hi, *_r) in enumerate(SEGS) for s in range(lo, hi)]
+    R, _ = row_partition(34, 2)
+    tr = RowTransport(["cpu"] * 2, R, 36)
+    weights = sum(7 * 4 * U * (b - a)          # int32 [1, U, rows], seven scans a span
+                  for s, U in spans for p, i0, IB in span_rows(34, R, 2, s)
+                  for q, a, b in tr.owners(i0 + s, i0 + s + IB) if q != p)
+    moved = {c: v for c, v in st.transport.bytes.items() if c != "read"}
+    assert weights > 0
+    assert moved == {**SHIPPED_WEIGHTS_BYTES,
+                     "shift": SHIPPED_WEIGHTS_BYTES["shift"] - weights}
 
 
 def test_fill7_sharded_defaults_to_cuda_and_raises_without_it(monkeypatch):
