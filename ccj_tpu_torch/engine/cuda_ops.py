@@ -46,7 +46,7 @@ split contraction over PKE / PKD (``ccj_tpu/engine/gapped3.py:69-123``);
 and PR MAXLOOP^2 interior-loop stencils (``ccj_tpu/engine/gapped4.py:340-375``
 and ``:392-414``), which read the family in place through a short list of
 int16 views into the state (the span layout's window, ``gapped4.SpanReads``)
-and skip every term whose weight is INF.  Their plain versions are
+and walk only the terms whose weight is below INF.  Their plain versions are
 :func:`history_min_ref`, :func:`p_split_ref`, :func:`stencil_pl_ref` and
 :func:`stencil_pr_ref`.
 
@@ -1596,7 +1596,10 @@ def _stencil(kind, parts, w, s, n, i0, TB, R):
     fn = _library().ccj_stencil
     parts = stencil_parts(parts, B, n2, s)
     for win, _u0 in parts:     # the kernel's offsets within a plane are int32
-        if (win.shape[1] - 1) * win.stride(1) + (n2 - 1) * win.stride(4) >= 2 ** 31:
+        if win.stride(4) != 1:
+            raise ValueError(f"{name}: the kernel copies rows of a view as words: its "
+                             f"j stride must be 1, got {win.stride(4)}")
+        if (win.shape[1] - 1) * win.stride(1) + (n2 - 1) >= 2 ** 31:
             raise ValueError(f"{name}: view {tuple(win.shape)} spans 2^31 elements "
                              "or more along (tt, j)")
     out = torch.full((B, TB, R, n2), INF, dtype=torch.int32, device=dev)
@@ -1631,9 +1634,10 @@ def stencil_pl(parts, w4pl, *, s, n, i0, TB, R):
     INF elsewhere.  ``parts``: (view, u0) pairs, each view an int16
     [B, TTw, Uw, Rw, n2] straight into the PL state whose span u row holds
     span u0 + u and whose row 0 is i = i0 (at most
-    :data:`STENCIL_MAX_PARTS` holding a span in [s - DS, s)); a span no
-    part holds, a tt row past a view's and a row past it read SAT16, which
-    take part as values.  ``w4pl``: int32 [B, DS, DS, >= i0 + R, n2]
+    :data:`STENCIL_MAX_PARTS` holding a span in [s - DS, s); on CUDA each
+    with a unit j stride, its rows copied as words); a span no part holds,
+    a tt row past a view's and a row past it read SAT16, which take part as
+    values.  ``w4pl``: int32 [B, DS, DS, >= i0 + R, n2]
     (``gapped4.build_sc4``, INF outside every loop bound, so the kernel may
     skip those terms).  One kernel launch on CUDA for the whole batch, none
     for a span with no live row or no tt step (s < 2); the plain version

@@ -79,11 +79,12 @@ Phases; any failure exits non-zero and prints no result:
    bench sequence's stencil weights (:func:`stencil_cases`: the n=100 main
    span, n=128's, the packed n=200 span 135 and span 110, whose window
    straddles two segments, bucket 100 x 4, a dense row shard of 26 rows
-   from i0 = 26 and a packed one of 48 rows from i0 = 51), each with its
-   L2-hot and L2-cold device times, the fills' eager call's, the plain
-   version's on the card and its bound (:func:`stencil_bound`: the
-   admissible terms at one int32 add-min a lane and cycle against the
-   bytes they need; no library yardstick);
+   from i0 = 26 and a packed one of 48 rows from i0 = 51, a batch of two
+   sequences' weights, the n=100 span 8 and the odd-n2 n=37 span 20), each
+   with its L2-hot and L2-cold device times, the fills' eager call's, the
+   terms its warps walk, the plain version's on the card and its bound
+   (:func:`stencil_bound`: the admissible terms at one int32 add-min a
+   lane and cycle against the bytes they need; no library yardstick);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -1388,11 +1389,17 @@ def stencil_cases(bucket_dims):
     """Phase 2e's shapes: the n=100 main span, n=128's, the packed n=200
     span 135 (segment 3, one segment) and span 110 (its window straddles
     segments 2 and 3), a batch of four at bucket 100, a dense row shard
-    (n=100, shard 1 of 4: 26 rows from i0 = 26) and a packed one (n=200,
-    shard 1 of 4: 48 rows from i0 = 51 at span 102)."""
+    (n=100, shard 1 of 4: 26 rows from i0 = 26), a packed one (n=200,
+    shard 1 of 4: 48 rows from i0 = 51 at span 102), a batch of two
+    different sequences at bucket 100 (each element its own weights, so
+    the kernel's masks differ per element), the n=100 span 8, whose
+    columns hold 1-7 valid tt rows, and the n=37 span 20, whose n2 and tt
+    stride are odd (the staged rows' word parity alternates row by row).  ``mixed``: element b takes the
+    weights of ``bench_seq(n, 42 + b)``, else every element those of seed
+    42."""
     s100 = main_span(100, bucket_dims)[0]
     s128 = main_span(128, bucket_dims)[0]
-    base = dict(B=1, i0=0, rows=None, packed=False)
+    base = dict(B=1, i0=0, rows=None, packed=False, mixed=False)
     return [dict(base, label=f"n=100 s={s100}", n=100, s=s100),
             dict(base, label=f"n=128 s={s128}", n=128, s=s128),
             dict(base, label="n=200 packed s=135 (segment 3)", n=200, s=135, packed=True),
@@ -1402,15 +1409,52 @@ def stencil_cases(bucket_dims):
             dict(base, label=f"n=100 row shard 1 of 4 (26 rows from i0=26) s={s100}",
                  n=100, s=s100, i0=26, rows=26),
             dict(base, label="n=200 packed row shard 1 of 4 (48 rows from i0=51) s=102",
-                 n=200, s=102, i0=51, rows=48, packed=True)]
+                 n=200, s=102, i0=51, rows=48, packed=True),
+            dict(base, label=f"bucket 100 x 2, two sequences' weights, s={s100}", n=100,
+                 s=s100, B=2, mixed=True),
+            dict(base, label="n=100 s=8 (small span)", n=100, s=8),
+            dict(base, label="n=37 s=20 (odd n2 and tt stride)", n=37, s=20)]
 
 
-def stencil_operands(cuda_ops, case, SC4, gen, dev):
+def stencil_weights(sp, dev):
+    """A function of a :func:`stencil_cases` case: the batch's stencil
+    weights {"W4PL", "W4PR"}, [B, ...] each, element b those of
+    ``bench_seq(n, 42 + b)`` where the case is ``mixed``, else seed 42's
+    for every element.  A sequence's weights are built once and kept until
+    a case of another length."""
+    from ccj_tpu_torch.engine.fold import build_consts, consts_from_numpy
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    cache = {}
+
+    def one(n, seed):
+        if (n, seed) not in cache:
+            if any(k[0] != n for k in cache):
+                cache.clear()
+                torch.cuda.empty_cache()
+            tabs = build_seq_tables(bench_seq(n, seed), sp, DEFAULT_PK)
+            SC4 = consts_from_numpy(build_consts(tabs, sp, DEFAULT_PK), dev)[1]
+            cache[n, seed] = {k: SC4[k] for k in ("W4PL", "W4PR")}
+        return cache[n, seed]
+
+    def of(case):
+        n, B = case["n"], case["B"]
+        if case["mixed"]:
+            per = [one(n, 42 + b) for b in range(B)]
+            return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        return {k: v[None].expand(B, *v.shape) for k, v in one(n, 42).items()}
+
+    return of
+
+
+def stencil_operands(cuda_ops, case, SC4b, gen, dev):
     """A case's stencil calls as the fills make them, on a random PL / PR
-    state: {"PL": (parts, W4PL), "PR": (parts, W4PR)}, the keywords, and
-    the fills' own call of each (``gapped4.pl_stencil`` / ``pr_stencil``
-    over the layout's reads; a row shard's window is the rows the
-    transport fetches, here a view of the state's)."""
+    state and the batch's stencil weights ``SC4b`` ([B, ...] each): {"PL":
+    (parts, W4PL), "PR": (parts, W4PR)}, the keywords, and the fills' own
+    call of each (``gapped4.pl_stencil`` / ``pr_stencil`` over the layout's
+    reads; a row shard's window is the rows the transport fetches, here a
+    view of the state's)."""
     from ccj_tpu_torch.engine import gapped4, gapped5
     from ccj_tpu_torch.engine.gapped import DS, dims
 
@@ -1431,7 +1475,6 @@ def stencil_operands(cuda_ops, case, SC4, gen, dev):
         for name in ("PL", "PR"):
             st[name] = rand_i16((B, T, S, n2, n2), gen, dev)
         reads = gapped4.dense_reads(st, n, s, TB, IB)
-    SC4b = {k: v[None].expand(B, *v.shape) for k, v in SC4.items()}
     R = IB if rows is None else rows
     ops = {}
     for name, halo, w in (("PL", DS, SC4b["W4PL"]), ("PR", 0, SC4b["W4PR"])):
@@ -1466,55 +1509,152 @@ def stencil_bound(name, parts, w, s, n, i0, TB, R, clock_hz):
     valid = span_valid(n, s, i0, TB, R, n2, dev)                   # [TB, R, n2]
     terms = win_elems = w_elems = 0
     live_cols = valid.any(dim=0)                                    # [R, n2]
-    for d_out in range(1, DS + 1):
-        span = s - d_out
-        view = next((v for v, u0 in parts if u0 <= span < u0 + v.shape[2]), None)
-        used = torch.zeros((TB + DS, R + DS, n2), dtype=torch.bool, device=dev)
-        for d_in in range(1, DS + 1):
-            d1, d2 = (d_out, d_in) if name == "PL" else (d_in, d_out)
-            if name == "PL":       # W4PL[d1, d2, i, j], tt-free
-                fin = w[0, d1 - 1, d2 - 1, i0:i0 + R, :] < INF            # [R, n2]
-                cells = valid & fin
-                w_elems += int((fin & live_cols).sum())
-                # reads PL[tt + d2, s - d1, i + d1, j - d2]
-                if d2 < n2:
-                    used[d2:d2 + TB, d1:d1 + R, :n2 - d2] |= cells[:, :, d2:]
-            else:                  # W4PR[d1, d2, u + 2, i + s], u = j + tt
-                k = (torch.arange(TB, device=dev)[:, None, None]
-                     + torch.arange(n2, device=dev)[None, None, :] + 2)
-                l = torch.arange(i0, i0 + R, device=dev)[None, :, None] + s
-                ok = (k < w.shape[3]) & (l < w.shape[4])
-                fin = ok & (w[0, d1 - 1, d2 - 1][k.clamp(max=w.shape[3] - 1),
-                                                 l.clamp(max=w.shape[4] - 1)] < INF)
-                cells = valid & fin
-                uk = torch.zeros((n2 + TB + 2, R), dtype=torch.bool, device=dev)
-                uk[k.expand_as(cells)[cells], (l - s - i0).expand_as(cells)[cells]] = True
-                w_elems += int(uk.sum())
-                # reads PR[tt + d1, s - d2, i, j]
-                used[d1:d1 + TB, :R] |= cells
-            terms += int(cells.sum())
-        if view is not None:
-            TTw, Rw = view.shape[1], view.shape[3]
-            win_elems += int(used[:TTw, :Rw].sum())
-    terms, win_elems, w_elems = B * terms, B * win_elems, B * w_elems
+    for b in range(B):         # each element its own weights
+        for d_out in range(1, DS + 1):
+            span = s - d_out
+            view = next((v for v, u0 in parts if u0 <= span < u0 + v.shape[2]), None)
+            used = torch.zeros((TB + DS, R + DS, n2), dtype=torch.bool, device=dev)
+            for d_in in range(1, DS + 1):
+                d1, d2 = (d_out, d_in) if name == "PL" else (d_in, d_out)
+                if name == "PL":       # W4PL[d1, d2, i, j], tt-free
+                    fin = w[b, d1 - 1, d2 - 1, i0:i0 + R, :] < INF        # [R, n2]
+                    cells = valid & fin
+                    w_elems += int((fin & live_cols).sum())
+                    # reads PL[tt + d2, s - d1, i + d1, j - d2]
+                    if d2 < n2:
+                        used[d2:d2 + TB, d1:d1 + R, :n2 - d2] |= cells[:, :, d2:]
+                else:                  # W4PR[d1, d2, u + 2, i + s], u = j + tt
+                    k = (torch.arange(TB, device=dev)[:, None, None]
+                         + torch.arange(n2, device=dev)[None, None, :] + 2)
+                    l = torch.arange(i0, i0 + R, device=dev)[None, :, None] + s
+                    ok = (k < w.shape[3]) & (l < w.shape[4])
+                    fin = ok & (w[b, d1 - 1, d2 - 1][k.clamp(max=w.shape[3] - 1),
+                                                     l.clamp(max=w.shape[4] - 1)] < INF)
+                    cells = valid & fin
+                    uk = torch.zeros((n2 + TB + 2, R), dtype=torch.bool, device=dev)
+                    uk[k.expand_as(cells)[cells],
+                       (l - s - i0).expand_as(cells)[cells]] = True
+                    w_elems += int(uk.sum())
+                    # reads PR[tt + d1, s - d2, i, j]
+                    used[d1:d1 + TB, :R] |= cells
+                terms += int(cells.sum())
+            if view is not None:
+                TTw, Rw = view.shape[1], view.shape[3]
+                win_elems += int(used[:TTw, :Rw].sum())
     nbytes = 2 * win_elems + 4 * w_elems + 4 * B * int(valid.sum())
     return (terms, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
             terms / (INT32_LANES * clock_hz) * 1e3)
 
 
-def phase_stencil(cuda_ops, sp, dev):
+# csrc/stencil.cu: columns a tile, tt rows a tile by kind (Tile<KIND>::kRows)
+STENCIL_TILE_X, STENCIL_TILE_T, WARP = 32, {"PL": 128, "PR": 64}, 32
+
+
+def stencil_walked(name, w, s, n, i0, TB, R):
+    """The terms the stencil kernel's warps walk (``csrc/stencil.cu``), each
+    lane's add-min counted, the lanes past a column's last valid tt row
+    too: per live row, tile of 128 (PL) or 64 (PR) tt rows x 32 columns
+    (x = j - i for PL, u - i for PR) with a valid cell, outer offset
+    d <= min(DS, G - 5) at the tile's largest loop bound G, and column with
+    a valid cell in the tile, 32 lanes x the column's chunks of 32 tt rows
+    holding one x the inner offsets whose weight is below INF."""
+    from ccj_tpu_torch.engine.common import INF, TURN
+    from ccj_tpu_torch.engine.cuda_ops import PL_KIND, PR_KIND, p_split_live
+    from ccj_tpu_torch.engine.gapped import DS
+
+    kind = {"PL": PL_KIND, "PR": PR_KIND}.get(name, name)
+    tile_t = STENCIL_TILE_T["PL" if kind == PL_KIND else "PR"]
+    n2, dev = n + 2, w.device
+    lo, hi = p_split_live(n, s, i0, R)
+    cols, last_tt = s - 1, min(TB, s - 1) - 1
+    if hi < lo or cols < 1:
+        return 0
+    ntx = -(-cols // STENCIL_TILE_X)
+    nty = -(-min(TB, cols) // tile_t)
+    ii = torch.arange(lo, hi + 1, device=dev)[:, None]
+    x = torch.arange(ntx * STENCIL_TILE_X, device=dev)[None, :]
+    # cnt[b, d - 1, row, x]: the inner offsets of outer offset d with W < INF
+    if kind == PL_KIND:        # W4PL[b, d1, d2, i, j], j = i + x
+        j = ii + x
+        cnt = (w[:, :, :, ii, j.clamp(max=n2 - 1)] < INF).sum(dim=2) * (j < n2)
+        last = torch.clamp(s - 2 - x, max=last_tt)[0]
+    else:                      # W4PR[b, d1, d2, u + 2, i + s], u = i + x
+        k, l = ii + x + 2, ii + s
+        ok = (k < w.shape[3]) & (l < w.shape[4])
+        cnt = (w[:, :, :, k.clamp(max=w.shape[3] - 1), l.clamp(max=w.shape[4] - 1)]
+               < INF).sum(dim=1) * ok
+        last = torch.where(x > s - 2, -1, torch.clamp(x, max=last_tt))[0]
+    csum = torch.cumsum(cnt.sum(dim=(0, 2)), dim=0)          # [DS, x]: d' <= d
+    walked = 0
+    for ty in range(nty):
+        t0 = ty * tile_t
+        for tx in range(ntx):
+            x0 = tx * STENCIL_TILE_X
+            if kind == PL_KIND:
+                if t0 + x0 > s - 2:
+                    continue
+                gmax = min(x0 + STENCIL_TILE_X - 1, s - 2 - t0)
+            else:
+                if t0 > min(x0 + STENCIL_TILE_X - 1, s - 2):
+                    continue
+                gmax = s - 2 - max(x0, t0)
+            dmax = min(DS, gmax - TURN - 2)
+            if dmax < 1:
+                continue
+            span = slice(x0, x0 + STENCIL_TILE_X)
+            nk = ((last[span] - t0) // WARP + 1).clamp(0, tile_t // WARP)
+            walked += WARP * int((nk * csum[dmax - 1, span]).sum())
+    return walked
+
+
+def ptxas_usage(log):
+    """``-Xptxas -v``'s report per kernel entry of a build log: {mangled
+    name: {"registers", "spill_stores", "spill_loads", "smem"}} (bytes)."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def stencil_ptxas(log):
+    """``ptxas_usage`` of the two stencil kernels: {"stencil_pl": ...,
+    "stencil_pr": ...} (``stencil_kernel<0>`` and ``<1>``)."""
+    usage = ptxas_usage(log)
+    return {kname: next((v for k, v in usage.items() if f"stencil_kernelILi{kind}E" in k),
+                        None)
+            for kname, kind in (("stencil_pl", 0), ("stencil_pr", 1))}
+
+
+def phase_stencil(cuda_ops, sp, dev, ptxas=None):
     """Phase 2e: ``stencil_pl`` and ``stencil_pr`` against their plain
     versions on the card, exactly, at :func:`stencil_cases` (the fills'
     own calls on a random PL / PR state, the stencil weights of the bench
-    sequence of that length); each row with the kernel's L2-hot (graph
-    replay) and L2-cold (:func:`flushed_ms`) device times (the output's INF
-    fill included), the fills' eager call's, the plain version's on the
-    card and :func:`stencil_bound`.  Returns the rows by kernel."""
+    sequence of that length, or of one sequence a batch element); each
+    row with the kernel's L2-hot (graph replay) and L2-cold
+    (:func:`flushed_ms`) device times (the output's INF fill included),
+    the fills' eager call's, the plain version's on the card,
+    :func:`stencil_bound`, the lane terms the kernel walks
+    (:func:`stencil_walked`) against the admissible ones and the kernel's
+    ``ptxas`` registers and spill (``ptxas``: :func:`stencil_ptxas` of this
+    run's build).  Returns the rows by kernel."""
     from ccj_tpu_torch.engine.common import INF
-    from ccj_tpu_torch.engine.fold import build_consts, consts_from_numpy
     from ccj_tpu_torch.engine.gapped4 import bucket_dims
-    from ccj_tpu_torch.params import DEFAULT_PK
-    from ccj_tpu_torch.precompute import build_seq_tables
 
     gen = torch.Generator(device=dev).manual_seed(5)
     clock = sm_clock_hz()
@@ -1522,15 +1662,10 @@ def phase_stencil(cuda_ops, sp, dev):
           "library": "none: no single PyTorch call takes a masked min over sums without "
                      "materialising them, so library_ms is null for both kernels"})
     rows = {"stencil_pl": [], "stencil_pr": []}
-    sc4_by_n = {}
+    weights = stencil_weights(sp, dev)
     for case in stencil_cases(bucket_dims):
         n = case["n"]
-        if n not in sc4_by_n:
-            sc4_by_n.clear()
-            torch.cuda.empty_cache()
-            tabs = build_seq_tables(bench_seq(n), sp, DEFAULT_PK)
-            sc4_by_n[n] = consts_from_numpy(build_consts(tabs, sp, DEFAULT_PK), dev)[1]
-        ops, kw, calls = stencil_operands(cuda_ops, case, sc4_by_n[n], gen, dev)
+        ops, kw, calls = stencil_operands(cuda_ops, case, weights(case), gen, dev)
         for fam, kname in (("PL", "stencil_pl"), ("PR", "stencil_pr")):
             parts, w = ops[fam]
             fn = getattr(cuda_ops, kname)
@@ -1547,6 +1682,7 @@ def phase_stencil(cuda_ops, sp, dev):
             check(err == 0, f"{label} != plain: max |err| = {err}")
             check(bool((want < INF).any()), f"{label}: no cell had a term")
             terms, nbytes, t_bytes, t_ops = stencil_bound(fam, parts, w, clock_hz=clock, **kw)
+            walked = stencil_walked(fam, w, **kw)
 
             def kern(fn=fn, parts=parts, w=w):
                 fn(parts, w, **kw)
@@ -1554,9 +1690,11 @@ def phase_stencil(cuda_ops, sp, dev):
             row = {"case": label, "batch": case["B"], "i0": kw["i0"], "rows": kw["R"],
                    "TB": kw["TB"], "views": len(cuda_ops.stencil_parts(
                        parts, w.shape[0], n + 2, kw["s"])),
-                   "out_shape": list(got.shape), "terms": terms, "bytes": nbytes,
+                   "out_shape": list(got.shape), "terms": terms, "walked": walked,
+                   "walked_over_terms": walked / max(terms, 1), "bytes": nbytes,
                    "max_abs_err": err,
                    "ms": graph_ms(kern, reps=20, replays=5), "ms_l2cold": flushed_ms(kern, 20),
+                   "ptxas": (ptxas or {}).get(kname),
                    "call_ms": cuda_ms(calls[fam], 10),
                    "plain_ms": cuda_ms(lambda: ref(cuda_ops.stencil_parts(
                        parts, w.shape[0], n + 2, kw["s"]), w, kw["s"], n, kw["i0"],
@@ -2330,7 +2468,7 @@ def main():
     report["history_min"], report["p_split"] = hist_rows, ps_rows
     sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
-    stencil_rows = phase_stencil(cuda_ops, sp, torch.device("cuda"))
+    stencil_rows = phase_stencil(cuda_ops, sp, torch.device("cuda"), stencil_ptxas(log))
     report.update(stencil_rows)
 
     # ---- 3: corpus goldens -----------------------------------------------
@@ -2615,9 +2753,10 @@ def main():
             "share_of_bound_l2cold": main["share_of_bound_l2cold"],
             "matches_plain": True, "shape": main["case"],
             "other_shapes": [{k: r[k] for k in new_keys} for r in rows_k[1:]]})
-    stencil_keys = ("case", "views", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms",
-                    "bound_by", "bytes_ms", "ops_ms", "share_of_bound",
-                    "share_of_bound_l2cold", "terms", "bytes", "max_abs_err")
+    stencil_keys = ("case", "views", "ms", "ms_l2cold", "plain_ms", "call_ms",
+                    "bound_ms", "bound_by", "bytes_ms", "ops_ms", "share_of_bound",
+                    "share_of_bound_l2cold", "terms", "walked", "walked_over_terms", "bytes",
+                    "max_abs_err")
     for name, idx, what in (
             ("stencil_pl", 3, "the XLA fusion of the PL interior-loop stencil "
              "(gapped4.py:340-375, its packed window gapped5.py:369-420), one launch a span "
@@ -2637,7 +2776,8 @@ def main():
             "bound_by": main["bound_by"], "library_ms": None, "call_ms": main["call_ms"],
             "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
             "share_of_bound_l2cold": main["share_of_bound_l2cold"],
-            "matches_plain": True, "shape": main["case"],
+            "walked_over_terms": main["walked_over_terms"],
+            "ptxas": main["ptxas"], "matches_plain": True, "shape": main["case"],
             "other_shapes": [{k: r[k] for k in stencil_keys} for r in rows_k[1:]]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"

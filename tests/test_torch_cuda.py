@@ -666,11 +666,12 @@ def test_fill_launches_history_and_p_split(cuda, n, packed):
         assert int(st["V"][1, n]) == -1528
 
 
-def _stencil_operands(n, s, B, i0, rows, packed, gen, dev):
+def _stencil_operands(n, s, B, i0, rows, packed, gen, dev, mixed=False):
     """The PL and PR stencil calls the fills make at this shape on a random
-    state, the bench sequence's weights: ({"PL": (parts, W4PL), "PR":
-    (parts, W4PR)}, keywords); a row shard's window is its rows (and PL's
-    29-row halo) of the state's."""
+    state, the bench sequence's weights (``mixed``: element b those of the
+    seed 42 + b sequence): ({"PL": (parts, W4PL), "PR": (parts, W4PR)},
+    keywords); a row shard's window is its rows (and PL's 29-row halo) of
+    the state's."""
     from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
     from ccj_tpu_torch.engine import fold as tfold
     from ccj_tpu_torch.engine import gapped4, gapped5
@@ -678,8 +679,16 @@ def _stencil_operands(n, s, B, i0, rows, packed, gen, dev):
     from ccj_tpu_torch.precompute import build_seq_tables
 
     sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
-    tabs = build_seq_tables(_bench_seq(n, 42), sp, DEFAULT_PK)
-    SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), dev)[1]
+
+    def weights(seed):
+        tabs = build_seq_tables(_bench_seq(n, seed), sp, DEFAULT_PK)
+        return tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), dev)[1]
+
+    if mixed:
+        per = [weights(42 + b) for b in range(B)]
+        SC4 = {k: torch.stack([p[k] for p in per]) for k in ("W4PL", "W4PR")}
+    else:
+        SC4 = {k: v[None].expand(B, *v.shape) for k, v in weights(42).items()}
     n2, T, S = n + 2, n - 1, n
     st = {"PKD": torch.zeros((B, 1, 1, 1, n2), dtype=torch.int16, device=dev)}
     if packed:
@@ -701,24 +710,32 @@ def _stencil_operands(n, s, B, i0, rows, packed, gen, dev):
         parts = reads.window(name, halo)
         if rows is not None:
             parts = [(v[..., i0:i0 + rows + halo, :], u0) for v, u0 in parts]
-        w = SC4["W4" + name][None].expand(B, *SC4["W4" + name].shape)
-        ops[name] = (parts, w)
+        ops[name] = (parts, SC4["W4" + name])
     return ops, dict(s=s, n=n, i0=i0, TB=TB, R=IB if rows is None else rows)
 
 
 # phase 2e's shapes: the n=100 main span, n=128's, the packed n=200 span 135
 # and span 110 (its window over segments 2 and 3), bucket 100 x 4, a dense
-# row shard (26 rows from i0 = 26) and a packed one (48 rows from i0 = 51)
-STENCIL_CASES = [(100, 37, 1, 0, None, False), (128, 65, 1, 0, None, False),
-                 (200, 135, 1, 0, None, True), (200, 110, 1, 0, None, True),
-                 (100, 37, 4, 0, None, False), (100, 37, 1, 26, 26, False),
-                 (200, 102, 1, 51, 48, True)]
+# row shard (26 rows from i0 = 26), a packed one (48 rows from i0 = 51), a
+# batch of two sequences' weights (the kernel's masks differ per element)
+# the n=100 span 8 (1-7 valid tt rows a column) and the n=37 span 20 (n2 and
+# the tt stride odd: the staged rows' word parity alternates)
+STENCIL_CASES = [pytest.param(*c, False, id="-".join(map(str, c))) for c in (
+    (100, 37, 1, 0, None, False), (128, 65, 1, 0, None, False),
+    (200, 135, 1, 0, None, True), (200, 110, 1, 0, None, True),
+    (100, 37, 4, 0, None, False), (100, 37, 1, 26, 26, False),
+    (200, 102, 1, 51, 48, True))] + [
+    pytest.param(100, 37, 2, 0, None, False, True, id="100-37-2-mixed"),
+    pytest.param(100, 8, 1, 0, None, False, False, id="100-8-1-small-span"),
+    pytest.param(37, 20, 1, 0, None, False, False, id="37-20-1-odd-n2")]
 
 
-@pytest.mark.parametrize("n,s,B,i0,rows,packed", STENCIL_CASES)
-def test_stencil_kernels_match_plain(cuda, n, s, B, i0, rows, packed):
+@pytest.mark.parametrize("n,s,B,i0,rows,packed,mixed", STENCIL_CASES)
+def test_stencil_kernels_match_plain(cuda, n, s, B, i0, rows, packed, mixed):
     gen = torch.Generator(device=cuda).manual_seed(n + 3 * s + B + i0)
-    ops, kw = _stencil_operands(n, s, B, i0, rows, packed, gen, cuda)
+    ops, kw = _stencil_operands(n, s, B, i0, rows, packed, gen, cuda, mixed)
+    if mixed:                  # the elements' weights differ
+        assert not torch.equal(ops["PL"][1][0], ops["PL"][1][1])
     for name, fn, ref in (("PL", cuda_ops.stencil_pl, cuda_ops.stencil_pl_ref),
                           ("PR", cuda_ops.stencil_pr, cuda_ops.stencil_pr_ref)):
         parts, w = ops[name]
@@ -734,3 +751,23 @@ def test_stencil_kernels_match_plain(cuda, n, s, B, i0, rows, packed):
             (1, 1, 0) if name == "PL" else (1, 0, 1))
         assert torch.equal(got, want), name
         assert bool((want < INF).any()), name
+
+
+def test_stencil_refuses_a_view_with_a_j_stride(cuda):
+    """The kernels copy a view's rows as 4-byte words: a view whose j axis
+    is not contiguous is refused, not read wrong."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ops, kw = _stencil_operands(100, 37, 1, 0, None, False, gen, cuda)
+    for name, fn in (("PL", cuda_ops.stencil_pl), ("PR", cuda_ops.stencil_pr)):
+        parts, w = ops[name]
+        strided = []
+        for v, u0 in parts:        # the same values, every other element of j
+            wide = torch.zeros((*v.shape[:-1], 2 * v.shape[-1]), dtype=v.dtype,
+                               device=cuda)
+            wide[..., ::2] = v
+            strided.append((wide[..., ::2], u0))
+        assert strided[0][0].stride(4) == 2
+        before = cuda_ops.STENCIL_LAUNCHES
+        with pytest.raises(ValueError, match="j stride must be 1"):
+            fn(strided, w, **kw)
+        assert cuda_ops.STENCIL_LAUNCHES == before, name

@@ -20,10 +20,13 @@ zero: integer data):
   spans below 0 and tt rows past the view, and a packed two-segment one:
   equal on every cell where the old value is below INF - 32768 (the least
   sum a term of weight >= INF gives), INF where it is not;
-* the kernel's loop restated per cell (its (d1, d2) ranges from the cell's
-  loop bound G, the W < INF test, SAT16 for spans, tt rows and rows no
-  view holds) against the plain version on tiny random operands whose
-  weights follow the fills' contract (INF outside every loop bound);
+* the kernel's walk restated (per row, tile, outer offset and column the
+  mask of the inner offsets whose weight is below INF, terms from that
+  mask only; SAT16 for spans, tt rows and rows no view holds) against the
+  plain version on tiny random operands whose weights follow the fills'
+  contract (INF outside every loop bound): random INF inside the bounds,
+  whole inner columns INF for some outer offsets, none INF inside; and
+  its count of lane terms against ``chip_smoke.stencil_walked``;
 * refusals; no launch counted on the CPU; CUDA operands without the kernel
   library raise.
 """
@@ -350,18 +353,28 @@ def test_plain_versions_match_the_old_formulation(case):
 
 
 # ---------------------------------------------------------------------------
-# the kernel's loop, restated per cell, on tiny random operands
+# the kernel's walk, restated, on tiny random operands
 # ---------------------------------------------------------------------------
 
-def _kernel_loop(kind, parts, w, s, n, i0, TB, R):
-    """csrc/stencil.cu restated: per valid cell of a live row its loop bound
-    G (PL: j - i; PR: l - k), d_outer in [1, min(DS, G - 5)], d_inner in
-    [1, min(DS, G - 4 - d_outer)], W < INF; the state value from the view
-    holding the span, SAT16 for a span none holds, a tt row past a view's
-    or a row past it (or a column off [0, n2))."""
+def _kernel_walk(kind, parts, w, s, n, i0, TB, R):
+    """csrc/stencil.cu's walk restated: (out, lane terms walked).  Per live
+    row, tile of 128 (PL) or 64 (PR) tt rows x 32 columns (x = j - i for
+    PL; x = u - i, u = j + tt, for PR) with a valid cell, outer offset d in [1, min(DS, G - 5)] at
+    the tile's largest loop bound G, and column with a valid cell in the
+    tile: the mask of the inner offsets whose weight is below INF, and
+    terms from that mask only, each on the 32 lanes (tt rows) of every
+    chunk of 32 tt rows that holds a valid cell of the column.  The state
+    value comes from the view holding the span, SAT16 for a span none
+    holds, a tt row past a view's or a row past it (or a column off
+    [0, n2)).  Lanes past the column's last valid tt row are counted and
+    never written."""
     n2 = n + 2
     B = w.shape[0]
     out = torch.full((B, TB, R, n2), INF, dtype=torch.int32)
+    walked = 0
+    cols, last_tt = s - 1, min(TB, s - 1) - 1
+    PL = kind == cuda_ops.PL_KIND
+    chunks = 4 if PL else 2                  # chunks of 32 tt rows a tile
 
     def value(b, t, span, row, col):
         for view, u0 in parts:
@@ -370,37 +383,54 @@ def _kernel_loop(kind, parts, w, s, n, i0, TB, R):
                     return int(view[b, t, span - u0, row, col])
         return SAT16
 
+    def weight(b, d, dd, i, x):
+        if PL:                                  # W4PL[b, d1 - 1, d2 - 1, i, j]
+            return int(w[b, d - 1, dd, i, i + x]) if i + x < n2 else INF
+        k, l = i + x + 2, i + s                 # W4PR[b, d1 - 1, d2 - 1, k, l]
+        return int(w[b, dd, d - 1, k, l]) if k < w.shape[3] and l < w.shape[4] else INF
+
+    lo, hi = cuda_ops.p_split_live(n, s, i0, R)
     for b in range(B):
-        for r in range(R):
-            i = i0 + r
-            if i < 1 or i + s > n:
-                continue
-            for tt in range(min(TB, s - 1)):
-                for j in range(i, i + s - 1 - tt):
-                    k, l = j + tt + 2, i + s
-                    G = j - i if kind == cuda_ops.PL_KIND else l - k
-                    best = INF
-                    for do in range(1, min(DS, G - TURN - 2) + 1):
-                        for di in range(1, min(DS, G - TURN - 1 - do) + 1):
-                            if kind == cuda_ops.PL_KIND:
-                                d1, d2 = do, di
-                                W = int(w[b, d1 - 1, d2 - 1, i, j])
-                                v = value(b, tt + d2, s - d1, r + d1, j - d2)
-                            else:
-                                d1, d2 = di, do
-                                W = int(w[b, d1 - 1, d2 - 1, k, l])
-                                v = value(b, tt + d1, s - d2, r, j)
-                            if W < INF:
-                                best = min(best, v + W)
-                    out[b, tt, r, j] = best
-    return out
+        for i in range(lo, hi + 1):
+            r = i - i0
+            for t0 in range(0, min(TB, cols), 32 * chunks):
+                for x0 in range(0, cols, 32):
+                    if PL:
+                        if t0 + x0 > s - 2:
+                            continue
+                        gmax = min(x0 + 31, s - 2 - t0)
+                    elif t0 > min(x0 + 31, s - 2):
+                        continue
+                    else:
+                        gmax = s - 2 - max(x0, t0)
+                    acc = {}
+                    for d in range(1, min(DS, gmax - TURN - 2) + 1):
+                        for x in range(x0, x0 + 32):
+                            last = (min(last_tt, s - 2 - x) if PL
+                                    else -1 if x > s - 2 else min(last_tt, x))
+                            if last < t0:
+                                continue
+                            nk = min(chunks, (last - t0) // 32 + 1)
+                            ws = [weight(b, d, dd, i, x) for dd in range(DS)]
+                            mask = [dd for dd in range(DS) if ws[dd] < INF]
+                            walked += 32 * nk * len(mask)
+                            for dd in mask:
+                                for tt in range(t0, min(t0 + 32 * nk, last + 1)):
+                                    if PL:
+                                        v = value(b, tt + dd + 1, s - d, r + d, i + x - dd - 1)
+                                    else:
+                                        v = value(b, tt + dd + 1, s - d, r, i + x - tt)
+                                    acc[tt, x] = min(acc.get((tt, x), INF), v + ws[dd])
+                    for (tt, x), a in acc.items():
+                        out[b, tt, r, i + x if PL else i + x - tt] = a
+    return out, walked
 
 
-def _contract_weights(rng, kind, B, n, TB):
+def _contract_weights(rng, kind, B, n, TB, inf_share=0.2):
     """Random weights that follow the fills' contract: INF outside every
     cell's loop bound (PL at (i, j): d1 <= min(j - i, MAXLOOP) - 1,
-    d1 + d2 <= j - i - TURN - 1; PR at (k, l) the same in G = l - k), one
-    in five INF inside."""
+    d1 + d2 <= j - i - TURN - 1; PR at (k, l) the same in G = l - k),
+    ``inf_share`` of them INF inside."""
     n2, T = n + 2, n - 1
     d1 = np.arange(1, DS + 1)[:, None, None, None]
     d2 = np.arange(1, DS + 1)[None, :, None, None]
@@ -412,13 +442,40 @@ def _contract_weights(rng, kind, B, n, TB):
         shape = (B, DS, DS, n2 + T + 2, 2 * n2)
     G = (c - a)[None, None]
     ok = (d1 <= np.minimum(G, MAXLOOP) - 1) & (d1 + d2 <= G - TURN - 1)
-    w = _rand_weights(rng, shape, 0.2).numpy()
+    w = _rand_weights(rng, shape, inf_share).numpy()
     return torch.from_numpy(np.where(ok[None], w, INF).astype(np.int32))
 
 
-@pytest.mark.parametrize("kind", [cuda_ops.PL_KIND, cuda_ops.PR_KIND], ids=["PL", "PR"])
-@pytest.mark.parametrize("s,i0,R", [(12, 0, 5), (13, 2, 4)])
-def test_kernel_loop_equals_plain(kind, s, i0, R):
+def _outer_columns_inf(rng, kind, w, i0, R, s):
+    """``w`` with every inner weight INF at a third of the (outer offset,
+    row, column) triples that had one below INF: for those outer offsets a
+    warp's whole column mask is empty."""
+    w = w.clone()
+    rows = torch.arange(i0, i0 + R)
+    if kind == cuda_ops.PL_KIND:            # W4PL[b, d1, :, i, j]
+        live = (w[:, :, :, i0:i0 + R] < INF).any(dim=2)           # [B, d1, R, n2]
+        hit = live & torch.from_numpy(rng.random(tuple(live.shape)) < 1 / 3)
+        b, d, r, j = hit.nonzero(as_tuple=True)
+        w[b, d, :, rows[r], j] = INF
+    else:                                   # W4PR[b, :, d2, k, i + s]
+        live = (w[..., rows + s] < INF).any(dim=1)                 # [B, d2, K, R]
+        hit = live & torch.from_numpy(rng.random(tuple(live.shape)) < 1 / 3)
+        b, d, k, r = hit.nonzero(as_tuple=True)
+        w[b, :, d, k, rows[r] + s] = INF
+    assert int(hit.sum()) > 0
+    return w
+
+
+# (s, i0, R, weights): "random" one in five weights INF inside the loop
+# bounds, "columns" besides whole inner columns INF for some outer
+# offsets, "dense" no INF inside the loop bounds
+WALK_CASES = [pytest.param(12, 0, 5, "random", id="12-0-5"),
+              pytest.param(13, 2, 4, "random", id="13-2-4"),
+              pytest.param(12, 0, 5, "columns", id="12-0-5-columns"),
+              pytest.param(13, 2, 4, "dense", id="13-2-4-dense")]
+
+
+def _walk_operands(kind, s, i0, R, weights):
     rng = np.random.default_rng(100 * kind + s)
     n, B, TB = 16, 2, 12
     n2 = n + 2
@@ -426,12 +483,45 @@ def test_kernel_loop_equals_plain(kind, s, i0, R):
     # (s - DS < 0), span s - 1 held by the second
     parts = [(_rand_state(rng, (B, 6, 4, R + 3, n2)), 1),
              (_rand_state(rng, (B, 9, s - 5, R + 30, n2)), 5)]
-    w = _contract_weights(rng, kind, B, n, TB)
-    want = _kernel_loop(kind, parts, w, s, n, i0, TB, R)
+    w = _contract_weights(rng, kind, B, n, TB, 0.0 if weights == "dense" else 0.2)
+    if weights == "columns":
+        w = _outer_columns_inf(rng, kind, w, i0, R, s)
+    return parts, w, dict(s=s, n=n, i0=i0, TB=TB, R=R)
+
+
+def _admissible_terms(kind, w, s, n, i0, TB, R):
+    """The (valid cell, d1, d2) terms whose weight is below INF."""
+    tt, r, j = cuda_ops.span_valid(n, s, i0, TB, R, n + 2).nonzero(as_tuple=True)
+    i = i0 + r
+    W = w[:, :, :, i, j] if kind == cuda_ops.PL_KIND else w[:, :, :, j + tt + 2, i + s]
+    return int((W < INF).sum())
+
+
+@pytest.mark.parametrize("kind", [cuda_ops.PL_KIND, cuda_ops.PR_KIND], ids=["PL", "PR"])
+@pytest.mark.parametrize("s,i0,R,weights", WALK_CASES)
+def test_kernel_loop_equals_plain(kind, s, i0, R, weights):
+    parts, w, kw = _walk_operands(kind, s, i0, R, weights)
+    want, _ = _kernel_walk(kind, parts, w, **kw)
     fn = cuda_ops.stencil_pl if kind == cuda_ops.PL_KIND else cuda_ops.stencil_pr
-    got = fn(parts, w, s=s, n=n, i0=i0, TB=TB, R=R)
+    got = fn(parts, w, **kw)
     assert torch.equal(got, want)
     assert bool((got < INF).any())                        # terms were taken
+
+
+@pytest.mark.parametrize("kind", [cuda_ops.PL_KIND, cuda_ops.PR_KIND], ids=["PL", "PR"])
+@pytest.mark.parametrize("s,i0,R,weights", WALK_CASES)
+def test_walked_count_equals_the_walk(kind, s, i0, R, weights):
+    """``chip_smoke.stencil_walked``, the host count phase 2e reports beside
+    the admissible terms, equals the restated walk's own count, which lies
+    between the admissible terms and 32 lanes for each."""
+    import chip_smoke
+
+    parts, w, kw = _walk_operands(kind, s, i0, R, weights)
+    _, walked = _kernel_walk(kind, parts, w, **kw)
+    name = "PL" if kind == cuda_ops.PL_KIND else "PR"
+    assert chip_smoke.stencil_walked(name, w, **kw) == walked
+    terms = _admissible_terms(kind, w, **kw)
+    assert 0 < terms <= walked <= 32 * terms
 
 
 # ---------------------------------------------------------------------------
