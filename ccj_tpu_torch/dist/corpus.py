@@ -221,6 +221,8 @@ def main(argv=None):
     print(f"corpus-psplit-launches {cuda_ops.PSPLIT_LAUNCHES}", file=sys.stderr)
     print(f"corpus-stencil-pl-launches {cuda_ops.STENCIL_PL_LAUNCHES}", file=sys.stderr)
     print(f"corpus-stencil-pr-launches {cuda_ops.STENCIL_PR_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-assemble-launches {cuda_ops.ASSEMBLE_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-store-launches {cuda_ops.STORE_LAUNCHES}", file=sys.stderr)
     if args.process_id == 0:
         with open(args.out, "w") as fh:
             json.dump([dataclasses.asdict(r) for r in res], fh, indent=1)

@@ -41,9 +41,9 @@ rows are i in [i0, i0 + IB) reads:
 * the C-skew write-back: rows l = i + s — a shift by s, put into the
   owners.
 
-``RL``, the PR window, the serial tt loop and ``update_pk_skews4`` are
-row-local.  The transport counts the bytes a P-device run would move, by
-class, in total and per span.
+``RL``, the PR window, the serial tt loop and the PK write-back
+(``gapped4.pk_dests``) are row-local.  The transport counts the bytes a
+P-device run would move, by class, in total and per span.
 
 Why the i axis (the JAX module's reasoning, kept): the family axis caps at
 22 ways with unbalanced loads and all-to-all traffic per span; the tt axis
@@ -64,13 +64,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.common import I16, I32, INF, SAT16, dynamic_slice, pad_axis
+from ..engine.common import I16, I32, INF, SAT16, dynamic_slice
 from ..engine.fold import add_batch, init_state_2d
 from ..engine.gapped import (C_MATS, DS, M4_NAMES, _set_P_diag, _wx_tables,
                              compute_WBP_WPP_span, dims)
 from ..engine import cuda_ops
+from ..engine.cuda_ops import StoreDest
 from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, history_groups,
-                              history_launch, span_families, update_pk_skews4)
+                              history_launch, pk_dests, span_families, store_span)
 from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_segments, window_spans
 from ..engine.nested import compute_V_span, compute_WMv_WMp_WM_span
 
@@ -172,6 +173,20 @@ class RowTransport:
         if b > cur:
             parts.append(unset(b - cur))
         return torch.cat(parts, dim=-2)
+
+    def pieces(self, p: int, arrs, take, a: int, b: int, cls: str, rows=None):
+        """[(tensor, first global row)]: rows [a, b) of ``take(arrs[q])``
+        over the owning shards q, each on shard p's device without joining
+        them (shard p's own rows a view, another shard's moved and
+        counted); rows no shard stores are in none."""
+        out = []
+        for q, lo, hi in self.owners(a, b, rows):
+            t = take(arrs[q]).narrow(-2, lo - self._first_row(q, rows), hi - lo)
+            if q != p:
+                self._count(cls, t)
+                t = t.to(self.devices[p])
+            out.append((t, lo))
+        return out
 
     def put(self, p: int, arrs, take, a: int, slab, cls: str, rows=None):
         """Write shard p's ``slab`` into rows [a, a + rows) of
@@ -314,6 +329,20 @@ class ShardedState:
         return self.transport.fetch(p, [sh[name] for sh in self.shards], take,
                                     a, b, cls, rows=(r.lo, r.hi))
 
+    def pieces(self, p: int, name: str, take, a: int, b: int, cls: str):
+        """Global rows [a, b) of ``take`` of every shard's ``name`` as pieces
+        on shard p's device (:meth:`RowTransport.pieces`)."""
+        r = self.layout[name]
+        return self.transport.pieces(p, [sh[name] for sh in self.shards], take, a, b, cls,
+                                     rows=(r.lo, r.hi))
+
+    def own(self, p: int, name: str, take, a: int, b: int):
+        """Global rows [a, b) of ``take(shards[p][name])``, all shard p's
+        own: a view."""
+        r = self.layout[name]
+        first = self.transport._first_row(p, (r.lo, r.hi))
+        return take(self.shards[p][name]).narrow(-2, a - first, b - a)
+
     def put(self, p: int, name: str, take, a: int, slab, cls: str):
         """Shard p's ``slab`` into global rows [a, a + rows) of ``name``
         (:meth:`RowTransport.put`)."""
@@ -411,7 +440,10 @@ def _sharded_history(st: ShardedState, C, p: int, s: int, TB: int, IB: int, rl,
 
 def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int, C) -> SpanReads:
     """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
-    s of a dense state: ``plane`` and ``window`` fetch their halos; the
+    s of a dense state: ``parts`` gives its own rows in place and the halo
+    row of the next shard as a second piece (moved only from another
+    device: no joined copy), ``window`` fetches its DS-row halo (a joined
+    copy where it crosses shards, a view where shard p owns it); the
     history scans take the dense layout's row-local RL windows and reduce
     each C row's RI history on its owner (``C``: the tables' dict, whose
     scalars give an owner its weights)."""
@@ -420,11 +452,12 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int, C) -> Span
     sh, R = st.shards[p], st.R
     i0 = p * R
 
-    def plane(name, c, b, di):
-        sl = st.fetch(p, name, lambda t: t.select(2, max(s - b, 0)),
-                      i0 + di, i0 + di + IB, "halo")
-        sl = pad_axis(sl, -3, 0, max(c + TB - T, 0), SAT16)
-        return dynamic_slice(sl, (c, 0, 0), (TB, IB, n2))
+    def parts(name, c, b, di):
+        """The family at span max(s - b, 0), rows i0 + di on: shard p's own
+        rows a view, the halo row of the next shard as its own piece
+        (moved, class ``halo``); rows past n2 are in no piece."""
+        return [(t, c, i0 + di - lo) for t, lo in st.pieces(
+            p, name, lambda t: t.select(2, max(s - b, 0)), i0 + di, i0 + di + IB, "halo")]
 
     sp0 = max(s - TB, 0)
 
@@ -443,16 +476,17 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int, C) -> Span
                           i0, i0 + IB + halo, "halo"), lo)]
 
     history = _sharded_history(st, C, p, s, TB, IB, dense_rl(sh, s, TB, IB), ri_windows)
-    return SpanReads(plane, history, window)
+    return SpanReads(parts, history, window)
 
 
 def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
                          IB: int, C) -> SpanReads:
     """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
     s of segment gi of a packed state, reader by reader
-    ``gapped5.packed_reads``' own over the transport: a family plane
-    fetches a one-row halo, a ``DROPPED`` family's C rows l = i + di + u a
-    shift; the history scans take the row-local RL windows
+    ``gapped5.packed_reads``' own over the transport: a family plane's
+    rows i + di (a one-row halo) and a ``DROPPED`` family's C rows
+    l = i + di + u (a shift) as one piece per owner, in place on shard p's
+    device; the history scans take the row-local RL windows
     (``gapped5.packed_rl``) and reduce each C row's RI history over every
     prior segment on its owner; the stencil window, stitched from segments
     gi - 1 and gi, fetches a DS-row halo.  Rows a segment does not store
@@ -465,21 +499,20 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
         """gapped5.packed_reads' segment of a fixed-offset read at span u."""
         return gi if gi == 0 or u >= lo else gi - 1
 
-    def plane(name, c, b, di):
+    def parts(name, c, b, di):
         """name[tt+c, u=s-b, i+di, j] from the segment of u: a family's
         rows i + di (halo), a ``DROPPED`` family's C rows l = i + di + u
-        (shift)."""
+        (shift), each owner's rows a piece (shard p's own a view)."""
         u = s - b
         h = seg_of(u)
-        loh, hih, TBh = SEGS[h][:3]
+        loh, hih = SEGS[h][:2]
         span = min(max(u - loh, 0), hih - loh - 1)
         if name in DROPPED:
             key, r0, cls = f"C_{name}@{h}", i0 + di + u, "shift"
         else:
             key, r0, cls = f"{name}@{h}", i0 + di, "halo"
-        sl = st.fetch(p, key, lambda t: t.select(2, span), r0, r0 + IB, cls)
-        sl = pad_axis(sl, -3, 0, max(c + TB - TBh, 0), SAT16)
-        return sl[:, c: c + TB]
+        return [(t, c, r0 - lo) for t, lo in st.pieces(
+            p, key, lambda t: t.select(2, span), r0, r0 + IB, cls)]
 
     hist = prior_segments(SEGS, gi, s)
 
@@ -502,7 +535,7 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
 
     history = _sharded_history(st, C, p, s, TB, IB, packed_rl(sh, s, gi, SEGS, IB),
                                ri_windows)
-    return SpanReads(plane, history, window)
+    return SpanReads(parts, history, window)
 
 
 def resolve_devices(devices=None):
@@ -527,13 +560,15 @@ def _on(tables, dev):
                       for k, v in tables.items()})
 
 
-def _write_back(st: ShardedState, p: int, s: int, packed, gi=None):
-    """Shard p's span-s slabs into the state: the families and PKD / PKE
-    into its own rows, the C-skew rows l = i + s into their owners.  ``gi``
-    is the span's segment in a packed state (None: dense), whose C skews
-    drop the invalid i = 0 row, as ``gapped5.span_gapped7`` does."""
+def _write_back(st: ShardedState, p: int, s: int, res, gi=None):
+    """Shard p's span-s result (``gapped4.SpanResult``) into the state,
+    in one ``cuda_ops.span_store``: the families and PKD / PKE into its
+    own rows, the C-skew rows l = i + s it owns; the C rows another shard
+    owns into a staging slab, then into their owners (class ``shift``).
+    ``gi`` is the span's segment in a packed state (None: dense), whose C
+    skews drop the invalid i = 0 row, as ``gapped5.span_gapped7`` does."""
     sh, i0 = st.shards[p], p * st.R
-    TB, IB = packed["PK"].shape[-3], packed["PK"].shape[-2]
+    TB, IB = res.TB, res.IB
     if gi is None:
         names, sfx, u = M4_NAMES, "", s
     else:
@@ -542,14 +577,26 @@ def _write_back(st: ShardedState, p: int, s: int, packed, gi=None):
     def at_span(t):
         return t.narrow(1, 0, TB).select(2, u)
 
-    for name in names:
-        at_span(sh[name + sfx]).narrow(-2, 0, IB).copy_(packed[name])
+    dests = [StoreDest(name, at_span(sh[name + sfx]).narrow(-2, 0, IB)) for name in names]
+    remote = []
+    first = 1 if gi is not None and i0 == 0 else 0     # the slab row of l0
+    l0 = i0 + s + first
     for name in C_MATS:
-        slab, l0 = packed[name], i0 + s
-        if gi is not None and i0 == 0:
-            slab, l0 = slab[..., 1:, :], l0 + 1
-        st.put(p, f"C_{name}{sfx}", at_span, l0, slab, "shift")
-    update_pk_skews4(sh, packed["PK"], s, st.n, i0)
+        key = f"C_{name}{sfx}"
+        r = st.layout[key]
+        staging = None
+        for q, lo, hi in st.transport.owners(l0, l0 + IB - first, (r.lo, r.hi)):
+            if q == p:
+                dests.append(StoreDest(name, st.own(p, key, at_span, lo, hi), lo - l0 + first))
+                continue
+            if staging is None:
+                staging = torch.empty((sh["PKD"].shape[0], TB, IB, st.n2), dtype=I16,
+                                      device=st.devices[p])
+                dests.append(StoreDest(name, staging))
+            remote.append((key, lo, staging.narrow(-2, lo - l0 + first, hi - lo)))
+    store_span(res, dests + pk_dests(sh, s, st.n))
+    for key, lo, slab in remote:
+        st.put(p, key, at_span, lo, slab, "shift")
 
 
 def _spans(st: ShardedState):

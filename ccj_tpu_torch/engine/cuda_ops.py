@@ -34,7 +34,7 @@ row's valid band in shared memory, from a :class:`SpanTable` built and
 checked once per span; its plain version :func:`tt_span_ref` is the loop of
 :func:`minplus_group_ref` and :func:`tt_step_ref`.
 
-Four kernels of the rest of the span, each the counterpart of an XLA
+Six kernels of the rest of the span, each the counterpart of an XLA
 fusion of the JAX fills (no Pallas kernel): :func:`history_min`
 (``csrc/history.cu``), every l-shrink / i-shrink history scan RL / RI of a
 span in one launch, each family's window read once over int16 views of
@@ -46,9 +46,16 @@ split contraction over PKE / PKD (``ccj_tpu/engine/gapped3.py:69-123``);
 and PR MAXLOOP^2 interior-loop stencils (``ccj_tpu/engine/gapped4.py:340-375``
 and ``:392-414``), which read the family in place through a short list of
 int16 views into the state (the span layout's window, ``gapped4.SpanReads``)
-and walk only the terms whose weight is below INF.  Their plain versions are
-:func:`history_min_ref`, :func:`p_split_ref`, :func:`stencil_pl_ref` and
-:func:`stencil_pr_ref`.
+and walk only the terms whose weight is below INF; :func:`span_assemble`
+(``csrc/assemble.cu``), the span body around those reductions
+(``ccj_tpu/engine/gapped4.py:257-466``): the 13 fixed-offset plane reads
+read in place through the layout's views, the PL / PR / PO assembly and
+the cross-span-only families, for every tt of the span; and
+:func:`span_store` (``csrc/store.cu``), the span's pack and write-back into
+the layout's destination views (``gapped4.py:472-495``).  Their plain
+versions are :func:`history_min_ref`, :func:`p_split_ref`,
+:func:`stencil_pl_ref`, :func:`stencil_pr_ref`, :func:`span_assemble_ref`
+and :func:`span_store_ref`.
 
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
@@ -60,8 +67,10 @@ times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches,
 ``TT_SPAN_LAUNCHES`` ``tt_span`` launches, ``HISTORY_LAUNCHES``
 ``history_min`` launches, ``PSPLIT_LAUNCHES`` ``p_split`` launches and
 ``STENCIL_LAUNCHES`` the two stencils' (``STENCIL_PL_LAUNCHES`` and
-``STENCIL_PR_LAUNCHES`` each kernel's); nothing else moves them, so a run
-can show that its main path went through the kernels.
+``STENCIL_PR_LAUNCHES`` each kernel's), ``ASSEMBLE_LAUNCHES``
+``span_assemble`` launches and ``STORE_LAUNCHES`` ``span_store`` launches;
+nothing else moves them, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -78,7 +87,7 @@ from typing import NamedTuple
 
 import torch
 
-from .common import INF, SAT16, mmin, pad_axis
+from .common import INF, SAT16, TURN, mmin, pad_axis
 from .gapped import DS
 from .skew import skew_right, unskew_right
 
@@ -247,6 +256,24 @@ def _library():
                 raise RuntimeError("gapped.DS does not match csrc/stencil.cu kDS")
             lib.ccj_stencil.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             lib.ccj_stencil.restype = ctypes.c_int
+            for fn, struct, src in (("ccj_assemble_table_bytes", AssembleTable, "assemble"),
+                                    ("ccj_store_table_bytes", StoreTable, "store")):
+                if getattr(lib, fn)() != ctypes.sizeof(struct):
+                    raise RuntimeError(
+                        f"cuda_ops.{struct.__name__} ({ctypes.sizeof(struct)} B) does not "
+                        f"mirror csrc/{src}.cu ({getattr(lib, fn)()} B)")
+            lim = (ctypes.c_int * 3)()
+            lib.ccj_assemble_limits(lim)
+            if tuple(lim) != (len(ASSEMBLE_READS), PLANE_MAX_PARTS, len(ASSEMBLE_HISTORY)):
+                raise RuntimeError("ASSEMBLE_READS / PLANE_MAX_PARTS / ASSEMBLE_HISTORY do "
+                                   "not match csrc/assemble.cu")
+            lib.ccj_store_limits(lim)
+            if tuple(lim[:2]) != (STORE_MAX_DESTS, STORE_BLOCK_ROWS):
+                raise RuntimeError("STORE_MAX_DESTS / STORE_BLOCK_ROWS do not match "
+                                   "csrc/store.cu")
+            for fn in (lib.ccj_span_assemble, lib.ccj_span_store):
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -1659,3 +1686,391 @@ def stencil_pr(parts, w4pr, *, s, n, i0, TB, R):
     (``gapped4.build_sc4``).  One launch on CUDA, as :func:`stencil_pl`;
     the plain version (:func:`stencil_pr_ref`) for CPU tensors."""
     return _stencil(PR_KIND, parts, w4pr, s, n, i0, TB, R)
+
+
+# ---------------------------------------------------------------------------
+# span_assemble / span_store: the gapped step's cross-span assembly and its
+# write-back into the state
+# ---------------------------------------------------------------------------
+
+# The span's 13 fixed-offset plane reads, in csrc/assemble.cu's order:
+# (family, c, b, di, dj), value[tt, i, j] = family[tt + c, s - b, i + di, j + dj]
+# on the cells its own bounds admit, INF elsewhere.
+ASSEMBLE_READS = (
+    ("PL", 1, 1, 1, -1), ("PLmloop10", 1, 1, 1, -1), ("PLmloop01", 1, 1, 1, -1),
+    ("PfromL", 1, 1, 1, -1),
+    ("PR", 1, 1, 0, 0), ("PRmloop10", 1, 1, 0, 0), ("PRmloop01", 1, 1, 0, 0),
+    ("PfromR", 1, 1, 0, 0),
+    ("PO", 0, 2, 1, 0), ("POmloop10", 0, 2, 1, 0), ("POmloop01", 0, 2, 1, 0),
+    ("PfromO", 0, 2, 1, 0),
+    ("PRmloop01", 0, 1, 0, 0),
+)
+# the history scans span_assemble reads, in csrc/assemble.cu's order (the
+# keys of gapped4.HISTORY_SCANS)
+ASSEMBLE_HISTORY = ("POm00_ri", "POm00_rl", "POm01", "POm10_ri", "POm10_rl", "PRm01",
+                    "PfromO_ri", "PfromO_rl", "PLmloop00", "PLmloop10", "PRmloop00",
+                    "PMmloop01", "PMmloop10_ri", "PMmloop10_rl", "PfromL", "PfromR")
+# the cross-span-only families span_assemble packs to int16, in its output's order
+ASSEMBLED = ("PL", "PR", "PO", "PRmloop01", "POmloop00", "POmloop01", "POmloop10",
+             "PfromO")
+# span_store's sources: the tt loop's 14 families (int32), then ASSEMBLED (int16)
+STORE_SOURCES = (*STEP_FAMILIES, *ASSEMBLED)
+PLANE_MAX_PARTS = 2     # csrc/assemble.cu kParts
+STORE_MAX_DESTS = 40    # csrc/store.cu kMaxDests
+ASSEMBLE_LAUNCHES = 0   # span_assemble kernel launches (CUDA only)
+STORE_LAUNCHES = 0      # span_store kernel launches (CUDA only)
+
+
+class SpanAssembly(NamedTuple):
+    """What :func:`span_assemble` gives, every array over the span's
+    [B, TB, IB, n2] cells: the tt loop's operands ``PLs``, ``PRs``, ``POs``
+    (INF-encoded int32: the int16-clamped value on the valid cells, INF
+    elsewhere), ``mdp0`` = min(PLs, PRs) + PB and ``pmm10``, the PMmloop10
+    base (the min of its two history scans); ``xs``, int16 [8, B, TB, IB,
+    n2]: the :data:`ASSEMBLED` families packed for the store (the
+    int16-clamped value on the valid cells, SAT16 elsewhere)."""
+    PLs: torch.Tensor
+    PRs: torch.Tensor
+    POs: torch.Tensor
+    mdp0: torch.Tensor
+    pmm10: torch.Tensor
+    xs: torch.Tensor
+
+
+class StoreDest(NamedTuple):
+    """One destination of :func:`span_store`: an int16 view [B, TTd, Rd, n2]
+    into the state that receives family ``family`` (a name of
+    :data:`STORE_SOURCES`), packed (the int16-clamped value on the span's
+    valid cells, SAT16 elsewhere).  Without ``skew``, view[b, tt, rd, j] =
+    slab[b, tt, rd + r0, j]; with it (PKD and PKE), view[b, tt, rd, a] =
+    slab[b, tt, rd, i0 + rd + a] (r0 must be 0).  A tt row past the slab's
+    TB, a slab row outside [0, IB) and a column past n2 give SAT16."""
+    family: str
+    view: torch.Tensor
+    r0: int = 0
+    skew: bool = False
+
+
+def plane_slab(parts, B, TB, IB, n2, dev):
+    """A plane read's parts as one int16 [B, TB, IB, n2] slab: each part
+    (view [B, TTv, Rv, n2], t0, r0) holds the plane's rows r with 0 <= r +
+    r0 < Rv (view row r + r0), their tt rows with 0 <= tt + t0 < TTv; every
+    other cell is SAT16."""
+    sl = torch.full((B, TB, IB, n2), SAT16, dtype=torch.int16, device=dev)
+    for view, t0, r0 in parts:
+        r_lo, r_hi = max(0, -r0), min(IB, view.shape[2] - r0)
+        t_lo, t_hi = max(0, -t0), min(TB, view.shape[1] - t0)
+        if r_lo < r_hi and t_lo < t_hi:
+            sl[:, t_lo:t_hi, r_lo:r_hi] = view[:, t_lo + t0:t_hi + t0, r_lo + r0:r_hi + r0]
+    return sl
+
+
+def _enc16(v, vmask):
+    """Pack a plane for the state: int16-clamped value on valid cells, SAT16
+    on invalid ones (the fills' ``pack``)."""
+    return torch.where(vmask, v.clamp(-32768, SAT16), SAT16).to(torch.int16)
+
+
+def span_assemble_ref(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB, ap, bp,
+                      cp, PB):
+    """Plain PyTorch version of :func:`span_assemble`: the assembly as the
+    fills ran it before the kernel (``gapped4.span_families``), each plane
+    read made a slab (:func:`plane_slab`), the pair planes from the tables
+    as the fills' gather-free builders make them."""
+    from .ttloop import diag_il, plane_ij, plane_kl
+
+    canp, pt, ESTP = tables
+    n2, dev = n + 2, pl_int.device
+    B = pl_int.shape[0]
+    H = dict(zip(ASSEMBLE_HISTORY, hist))
+    tv = torch.arange(TB, device=dev)[:, None, None]      # tt
+    iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]  # i
+    jv = torch.arange(n2, device=dev)[None, None, :]      # j
+    kv = jv + tv + 2
+    lv = iv + s
+    valid4 = span_valid(n, s, i0, TB, IB, n2, dev)
+
+    # gather-free pair/energy planes (ttloop.py)
+    ESTP_ij = plane_ij(ESTP, TB, IB, i0=i0)
+    canp_ij = plane_ij(canp, TB, IB, i0=i0)
+    pt_ij = plane_ij(pt, TB, IB, i0=i0)
+    canp_kl = plane_kl(canp, s, TB, IB, n2, i0=i0)
+    pt_kl = plane_kl(pt, s, TB, IB, n2, i0=i0)
+    ESTP_klp = plane_kl(ESTP, s, TB, IB, n2, i0=i0)
+    canp_il = diag_il(canp, s, TB, IB, n2, i0=i0)
+    pt_il = diag_il(pt, s, TB, IB, n2, i0=i0)
+    ESTP_il = diag_il(ESTP, s, TB, IB, n2, i0=i0)
+
+    def rplane(q):
+        """value[tt, i, j] = read4(name, n, tt+c, s-b, i+di, j+dj)."""
+        _name, c, b, di, dj = ASSEMBLE_READS[q]
+        sl = plane_slab(planes[q], B, TB, IB, n2, dev)
+        if dj == -1:
+            sl = torch.nn.functional.pad(sl, (1, 0), value=SAT16)[..., :n2]
+        elif dj == 1:
+            sl = torch.nn.functional.pad(sl, (0, 1), value=SAT16)[..., 1:]
+        i2, j2 = iv + di, jv + dj
+        k2 = j2 + (tv + c) + 2
+        l2 = i2 + (s - b)
+        ok = ((i2 >= 1) & (i2 <= j2) & (k2 <= l2) & (l2 <= n)
+              & (s - b >= 0))
+        return torch.where(ok, sl.to(torch.int32), INF)
+
+    # ---- PL: interior stencil + assembly (batched over tt) ---------------
+    pl_stack = torch.where(iv + TURN + 2 < jv, rplane(0) + ESTP_ij, INF)
+    PLiloop = torch.where(canp_ij > 0, torch.minimum(pl_stack, pl_int), INF)
+    PLmloop_v = torch.minimum(rplane(1), rplane(2)) + ap + bp
+    PL_b3 = torch.where(jv >= iv + TURN + 1, rplane(3), INF)
+    PLv = torch.where(pt_ij > 0, mmin(PLiloop, PLmloop_v + bp, PL_b3), INF)
+    PLs = _enc(PLv, valid4)
+
+    # ---- PR: interior stencil + assembly (batched, u-coordinates) --------
+    pr_stack = torch.where(kv + TURN + 2 < lv, rplane(4) + ESTP_klp, INF)
+    PRiloop = torch.where(canp_kl > 0, torch.minimum(pr_stack, pr_int), INF)
+    PRmloop_v = torch.minimum(rplane(5), rplane(6)) + ap + bp
+    PR_b3 = torch.where(lv >= kv + TURN + 1, rplane(7), INF)
+    PRv = torch.where(pt_kl > 0, mmin(PRiloop, PRmloop_v + bp, PR_b3), INF)
+    PRs = _enc(PRv, valid4)
+
+    # ---- PO (generic interior branch is dead code; see gapped.py) --------
+    po_stack = torch.where((iv < jv) & (kv < lv), rplane(8) + ESTP_il, INF)
+    POiloop = torch.where(canp_il > 0, po_stack, INF)
+    POmloop_v = torch.minimum(rplane(9), rplane(10)) + ap + bp
+    PO_b3 = torch.where(lv >= iv + TURN + 1, rplane(11), INF)
+    POv = torch.where(pt_il > 0, mmin(POiloop, POmloop_v + bp, PO_b3), INF)
+    POs = _enc(POv, valid4)
+
+    # ---- remaining cross-span-only families + the PMmloop10 base ---------
+    POm00 = mmin(SAT16 + bp, H["POm00_ri"], H["POm00_rl"])
+    POm01 = H["POm01"]
+    POm10 = torch.minimum(H["POm10_ri"], H["POm10_rl"])
+    PRm01 = torch.minimum(rplane(12) + cp, H["PRm01"])
+    PfromO = mmin(H["PfromO_ri"], H["PfromO_rl"], PLs + PB, PRs + PB)
+    pmm10 = torch.minimum(H["PMmloop10_ri"], H["PMmloop10_rl"])
+    mdp0 = torch.minimum(PLs, PRs) + PB       # PfromMdoubleprime base
+    xs = torch.stack([_enc16(v, valid4) for v in (PLv, PRv, POv, PRm01, POm00, POm01,
+                                                  POm10, PfromO)])
+    return SpanAssembly(PLs, PRs, POs, mdp0, pmm10, xs)
+
+
+class AssemblePart(ctypes.Structure):
+    """One part of a plane read: csrc/assemble.cu's ``struct Part``, field
+    for field (the int16 view [B, TTv, Rv, n2] and its element strides)."""
+    _fields_ = [("p", ctypes.c_void_p), ("st", ctypes.c_longlong * 4),
+                *((nm, ctypes.c_int) for nm in ("TT", "R", "t0", "r0"))]
+
+
+class AssembleRead(ctypes.Structure):
+    """One plane read: csrc/assemble.cu's ``struct Read``."""
+    _fields_ = [("part", AssemblePart * PLANE_MAX_PARTS),
+                *((nm, ctypes.c_int) for nm in ("nparts", "c", "b", "di", "dj"))]
+
+
+class AssembleTable(ctypes.Structure):
+    """The operands of one :func:`span_assemble` launch: csrc/assemble.cu's
+    ``struct AssembleTable``, field for field, passed to the kernel by
+    value."""
+    _fields_ = [("rd", AssembleRead * len(ASSEMBLE_READS)),
+                ("hist", Plane * len(ASSEMBLE_HISTORY)), ("pl", Plane), ("pr", Plane),
+                ("tab", ctypes.c_void_p * 3), ("ts", (ctypes.c_longlong * 3) * 3),
+                ("out32", ctypes.c_void_p), ("out16", ctypes.c_void_p),
+                *((nm, ctypes.c_int) for nm in (
+                    "B", "TB", "IB", "n2", "n", "s", "i0", "ap", "bp", "cp", "PB"))]
+
+
+def assemble_operands(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB):
+    """Raise unless the operands fit one span's assembly: 13 plane reads
+    (:data:`ASSEMBLE_READS`), each a list of at most
+    :data:`PLANE_MAX_PARTS` (int16 view [B, TTv, Rv, n2], t0, r0) parts
+    whose row ranges do not overlap; ``pl_int``, ``pr_int`` and the 16
+    ``hist`` planes (:data:`ASSEMBLE_HISTORY`) int32 [B, TB, IB, n2];
+    ``tables`` (can_pair bool, ptype int32, ESTP int32) [B, n2, n2].
+    Returns the tensors, for the device check."""
+    n2 = n + 2
+    B = pl_int.shape[0]
+    if TB < 1 or IB < 1 or i0 < 0 or s < 0 or i0 + IB > n2:
+        raise ValueError(f"span_assemble: TB {TB}, rows [{i0}, {i0 + IB}) or span {s} "
+                         f"do not fit n2 {n2}")
+    if len(planes) != len(ASSEMBLE_READS) or len(hist) != len(ASSEMBLE_HISTORY):
+        raise ValueError(f"span_assemble takes {len(ASSEMBLE_READS)} plane reads and "
+                         f"{len(ASSEMBLE_HISTORY)} history planes, got {len(planes)}, "
+                         f"{len(hist)}")
+    E = ((B,), (TB,), (IB,), (n2,))
+    for name, x in (("pl_int", pl_int), ("pr_int", pr_int),
+                    *((f"hist[{k}]", h) for k, h in zip(ASSEMBLE_HISTORY, hist))):
+        _need(name, x, E)
+    for name, x, dt in zip(("can_pair", "ptype", "ESTP"), tables,
+                           (torch.bool, torch.int32, torch.int32)):
+        _need(name, x, ((B,), (n2,), (n2,)), dt)
+    tensors = [pl_int, pr_int, *hist, *tables]
+    for q, parts in enumerate(planes):
+        if len(parts) > PLANE_MAX_PARTS:
+            raise ValueError(f"plane read {ASSEMBLE_READS[q][0]}: {len(parts)} parts, past "
+                             f"the kernel's {PLANE_MAX_PARTS}")
+        spans = []
+        for view, t0, r0 in parts:
+            _need(f"plane read {ASSEMBLE_READS[q][0]}", view, ((B,), 0, 0, (n2,)),
+                  torch.int16)
+            spans.append((max(0, -r0), min(IB, view.shape[2] - r0)))
+            tensors.append(view)
+        spans = sorted(sp for sp in spans if sp[0] < sp[1])
+        if any(a2 < b1 for (_a1, b1), (a2, _b2) in zip(spans, spans[1:])):
+            raise ValueError(f"plane read {ASSEMBLE_READS[q][0]}: parts overlap in rows")
+    return tensors
+
+
+def span_assemble(planes, pl_int, pr_int, hist, tables, *, s, n, i0, TB, IB, ap, bp,
+                  cp, PB):
+    """The gapped step's cross-span assembly of span s for rows i in
+    [i0, i0 + IB) and every tt of the span (pseudo_loop.cc's PL / PR / PO
+    recurrences and the cross-span-only families; branch by branch as
+    ``gapped4.span_families`` computed them), returned as a
+    :class:`SpanAssembly`.
+
+    ``planes``: the 13 plane reads of :data:`ASSEMBLE_READS`, each a list
+    of parts read in place (:func:`plane_slab`'s rule: a cell no part holds
+    reads SAT16); ``pl_int`` / ``pr_int``: the PL / PR interior stencils
+    (``stencil_pl`` / ``stencil_pr``); ``hist``: the span's history scans
+    in :data:`ASSEMBLE_HISTORY` order (``history_min``'s planes, any
+    strides); ``tables``: (can_pair, ptype, ESTP) [B, n2, n2], from which
+    the kernel takes the pair planes (X[i, j], X[k, l] with k = j + tt + 2,
+    l = i + s, X[i, l]); ``ap``, ``bp``, ``cp``, ``PB`` the energies.  One
+    kernel launch on CUDA for the whole batch, a thread a cell, every
+    output cell written once (on CUDA each plane view needs a unit j
+    stride: the wrapper raises otherwise); the plain version
+    (:func:`span_assemble_ref`) for CPU tensors."""
+    global ASSEMBLE_LAUNCHES
+    tensors = assemble_operands(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB)
+    if all(t.device.type == "cpu" for t in tensors):
+        return span_assemble_ref(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB,
+                                 ap, bp, cp, PB)
+    dev = _check_devices(tensors)
+    fn = _library().ccj_span_assemble
+    B, n2 = pl_int.shape[0], n + 2
+    out32 = torch.empty((5, B, TB, IB, n2), dtype=torch.int32, device=dev)
+    out16 = torch.empty((len(ASSEMBLED), B, TB, IB, n2), dtype=torch.int16, device=dev)
+    t = AssembleTable(pl=_plane(pl_int), pr=_plane(pr_int), out32=out32.data_ptr(),
+                      out16=out16.data_ptr(), B=B, TB=TB, IB=IB, n2=n2, n=n, s=s, i0=i0,
+                      ap=ap, bp=bp, cp=cp, PB=PB)
+    for q, (parts, (_nm, c, b, di, dj)) in enumerate(zip(planes, ASSEMBLE_READS)):
+        rd = t.rd[q]
+        rd.nparts, rd.c, rd.b, rd.di, rd.dj = len(parts), c, b, di, dj
+        for k, (view, t0, r0) in enumerate(parts):
+            if view.stride(3) != 1:
+                raise ValueError(f"span_assemble: the warp's lanes read consecutive j: "
+                                 f"a plane view's j stride must be 1, got {view.stride(3)}")
+            rd.part[k] = AssemblePart(view.data_ptr(), (ctypes.c_longlong * 4)(*view.stride()),
+                                      view.shape[1], view.shape[2], int(t0), int(r0))
+    for k, h in enumerate(hist):
+        t.hist[k] = _plane(h)
+    for k, x in enumerate(tables):
+        t.tab[k] = x.data_ptr()
+        t.ts[k] = (ctypes.c_longlong * 3)(*x.stride())
+    _launch(fn, dev, "span_assemble", ctypes.addressof(t),
+            torch.cuda.current_stream(dev).cuda_stream)
+    ASSEMBLE_LAUNCHES += 1
+    return SpanAssembly(*out32, out16)
+
+
+def span_store_ref(dests, loops, xs, s, n, i0, TB, IB):
+    """Plain PyTorch version of :func:`span_store`: the write-back as the
+    fills ran it before the kernel (``pack`` of every slab, the
+    pad-then-slice into each family and C-skew slot, ``update_pk_skews4``'s
+    unskew for PKD and PKE), one copy a destination."""
+    n2, dev = n + 2, xs.device
+    valid4 = span_valid(n, s, i0, TB, IB, n2, dev)
+
+    def pack(slab32):
+        v = slab32[:, :TB].clamp(-32768, SAT16)
+        return torch.where(valid4, v, SAT16).to(torch.int16)
+
+    packed = {name: pack(loops[name]) for name in STEP_FAMILIES}
+    packed.update(zip(ASSEMBLED, xs))
+    for family, view, r0, skew in dests:
+        sl = packed[family]
+        TTd, Rd = view.shape[1], view.shape[2]
+        if skew:       # update_pk_skews4: slab[tt, r, a] = PK[tt, r, i0 + r + a]
+            if i0:
+                sl = pad_axis(sl[..., i0:], -1, 0, i0, SAT16)
+            sl = unskew_right(sl, SAT16, n2)
+        else:          # row rd of the slot holds slab row rd + r0
+            lo, hi = max(-r0, 0), max(r0 + Rd - IB, 0)
+            sl = pad_axis(sl, -2, lo, hi, SAT16)[..., r0 + lo:r0 + lo + Rd, :]
+        sl = pad_axis(sl, -2, 0, max(Rd - sl.shape[-2], 0), SAT16)[..., :Rd, :]
+        sl = pad_axis(sl, -3, 0, max(TTd - TB, 0), SAT16)[:, :TTd]
+        view.copy_(sl)
+
+
+class StoreDestC(ctypes.Structure):
+    """One destination: csrc/store.cu's ``struct Dest``, field for field
+    (``block0``: the launch's first block on it)."""
+    _fields_ = [("p", ctypes.c_void_p), ("st", ctypes.c_longlong * 4),
+                *((nm, ctypes.c_int) for nm in ("src", "skew", "TT", "R", "r0", "block0"))]
+
+
+class StoreTable(ctypes.Structure):
+    """The operands of one :func:`span_store` launch: csrc/store.cu's
+    ``struct StoreTable``, field for field, passed to the kernel by value."""
+    _fields_ = [("loop", Plane * len(STEP_FAMILIES)), ("xs", ctypes.c_void_p),
+                ("xst", ctypes.c_longlong * 5), ("d", StoreDestC * STORE_MAX_DESTS),
+                *((nm, ctypes.c_int) for nm in (
+                    "nd", "blocks", "B", "TB", "IB", "n2", "n", "s", "i0"))]
+
+
+STORE_BLOCK_ROWS = 8       # csrc/store.cu kWarps: destination rows (b, tt, rd) a block
+
+
+def span_store(dests, loops, xs, *, s, n, i0, TB, IB):
+    """Write span s's results into the state's destination views, in one
+    launch on CUDA: each :class:`StoreDest` receives its family packed
+    (the tt loop's 14 ``loops`` int32 [B, >= TB, IB, n2], clamped to int16
+    with SAT16 off the span's valid cells; the :data:`ASSEMBLED` families
+    from ``xs``, int16 [8, B, TB, IB, n2], as they are), every element of
+    every view written once.  Rows are i in [i0, i0 + IB).  The views must
+    not overlap one another; on CUDA each needs a unit j stride (the
+    wrapper raises otherwise).  The plain version (:func:`span_store_ref`)
+    for CPU tensors."""
+    global STORE_LAUNCHES
+    n2 = n + 2
+    B = xs.shape[1]
+    if TB < 1 or IB < 1 or i0 < 0 or s < 0:
+        raise ValueError(f"span_store: TB {TB}, rows [{i0}, {i0 + IB}) or span {s} do not fit")
+    if set(loops) != set(STEP_FAMILIES):
+        raise ValueError(f"loops must be {STEP_FAMILIES}, got {sorted(loops)}")
+    _need("xs", xs, ((len(ASSEMBLED),), (B,), (TB,), (IB,), (n2,)), torch.int16)
+    for name in STEP_FAMILIES:
+        _need(f"loops[{name}]", loops[name], ((B,), TB, (IB,), (n2,)))
+    if len(dests) > STORE_MAX_DESTS:
+        raise ValueError(f"{len(dests)} store destinations, past the kernel's "
+                         f"{STORE_MAX_DESTS}")
+    for family, view, r0, skew in dests:
+        if family not in STORE_SOURCES:
+            raise ValueError(f"span_store: no family {family!r}")
+        _need(f"destination {family}", view, ((B,), 0, 0, (n2,)), torch.int16)
+        if skew and r0:
+            raise ValueError("a skewed destination takes slab row rd at its row rd (r0 = 0)")
+    tensors = [xs, *loops.values(), *(d.view for d in dests)]
+    if all(t.device.type == "cpu" for t in tensors):
+        return span_store_ref(dests, loops, xs, s, n, i0, TB, IB)
+    dev = _check_devices(tensors)
+    fn = _library().ccj_span_store
+    t = StoreTable(xs=xs.data_ptr(), xst=(ctypes.c_longlong * 5)(*xs.stride()),
+                   nd=len(dests), B=B, TB=TB, IB=IB, n2=n2, n=n, s=s, i0=i0)
+    for k, name in enumerate(STEP_FAMILIES):
+        t.loop[k] = _plane(loops[name])
+    blocks = 0
+    for k, (family, view, r0, skew) in enumerate(dests):
+        if view.stride(3) != 1:
+            raise ValueError(f"span_store: the warp's lanes write consecutive j: a "
+                             f"destination's j stride must be 1, got {view.stride(3)}")
+        t.d[k] = StoreDestC(view.data_ptr(), (ctypes.c_longlong * 4)(*view.stride()),
+                            STORE_SOURCES.index(family), int(skew), view.shape[1],
+                            view.shape[2], int(r0), blocks)
+        blocks += -(-(view.numel() // max(n2, 1)) // STORE_BLOCK_ROWS)
+    t.blocks = blocks
+    if blocks == 0:
+        return None
+    _launch(fn, dev, "span_store", ctypes.addressof(t),
+            torch.cuda.current_stream(dev).cuda_stream)
+    STORE_LAUNCHES += 1
+    return None

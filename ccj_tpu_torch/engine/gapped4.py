@@ -14,18 +14,22 @@ that module's docstring explains the design).  Per span s:
   (one ``cuda_ops.stencil_pl`` / ``stencil_pr`` each a span) read the big
   PL/PR arrays in place, through the layout's window of int16 views
   (:class:`SpanReads`: the dense layout's one block of the DS spans below
-  s, the packed layout's two segments, a row shard's halo);
+  s, the packed layout's two segments, a row shard's halo), and one
+  ``cuda_ops.span_assemble`` reads the 13 fixed-offset planes in place
+  (``SpanReads.parts``) and assembles the rest;
 * the serial tt loop (engine/ttloop.py) for the self-referential families,
-  on INF-encoded int32 span slabs.
+  on INF-encoded int32 span slabs;
+* one ``cuda_ops.span_store`` that packs the span's 22 families and writes
+  them, their C skews and PKD / PKE into the layout's slots.
 
 Energy-model quirks (mloop00 read-before-write, dead PO interior branch,
 int16 store saturation) are reproduced exactly.  :func:`span_families`
 assembles the recurrences once for both storage layouts: the dense one
-here (:func:`dense_reads`, :func:`span_gapped4`) and the segment-packed
-one of engine/gapped5.py; each layout supplies its reads and its
-write-back.  The span steps update the big state IN PLACE: every read of
-the span's inputs happens before the write-back at its end, as in the JAX
-data flow.
+here (:func:`dense_reads`, :func:`dense_dests`, :func:`span_gapped4`) and
+the segment-packed one of engine/gapped5.py; each layout supplies its
+reads and its write-back's destinations.  The span steps update the big
+state IN PLACE: every read of the span's inputs happens before the
+write-back at its end, as in the JAX data flow.
 
 Every state array and per-sequence table carries a leading batch axis
 (``[B, T, S, n2, n2]`` families, ``[B, n2, n2]`` tables, ``[B, ...]``
@@ -42,11 +46,10 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import cuda_ops
-from .common import (I16, I32, INF, MAXLOOP, SAT16, TURN, dynamic_slice,
-                     dynamic_update_slice, mmin, pad_axis)
+from .common import I16, I32, INF, MAXLOOP, SAT16, TURN, pad_axis
+from .cuda_ops import StoreDest
 from .gapped import C_MATS, DS, M4_NAMES, _wx_tables, dims
-from .skew import unskew_right
-from .ttloop import diag_il, plane_ij, plane_kl, run_tt_loop
+from .ttloop import run_tt_loop
 
 # families updated in the serial tt loop (same-span dependencies)
 LOOP_MATS = (
@@ -160,25 +163,19 @@ def init_big_state4(n, device, batch: int = 1):
     return st
 
 
-def update_pk_skews4(st, pk16, s, n, i0=0):
-    """Refresh PKD / PKE from span s's packed PK slab [B, TB, IB, n2]
-    int16, in place: PKD[tt, s, i, a] = PK[tt, s, i, i+a] and
-    PKE[tt, s - tt, i, a] = PKD[tt, s, i, a] for tt <= s.  The slab's rows
-    i in [i0, i0 + IB) are the arrays' first IB rows (a row shard of
-    dist/wavefront.py holds rows from its i0)."""
-    n2, T, S, U = dims(n)
-    TBp, IBp = pk16.shape[-3], pk16.shape[-2]
-    rows = st["PKD"].shape[-2]           # n2, or a row shard's R (dist/wavefront.py)
-    if i0:   # a = j - i: slab row r (i = i0 + r) reads column i0 + r + a
-        pk16 = pad_axis(pk16[..., i0:], -1, 0, i0, SAT16)
-    slab = unskew_right(pk16, SAT16, n2)                 # [B, TBp, i, a]
-    slab = torch.nn.functional.pad(slab, (0, 0, 0, rows - IBp, 0, T - TBp),
-                                   value=SAT16)
-    dynamic_update_slice(st["PKD"], slab[:, :, None], (0, s, 0, 0))
-    # rows tt > s write back their own value in the JAX scatter: skip them
-    tt_idx = torch.arange(min(s, T - 1) + 1, device=pk16.device)
-    st["PKE"][:, tt_idx, s - tt_idx] = slab[:, tt_idx]
-    return st
+def pk_dests(st, s, n):
+    """The PK diagonal skews' destinations of span s (:class:`StoreDest`,
+    skewed): PKD[:, :, s] and PKE[:, tt, s - tt] for tt <= min(s, T - 1),
+    each (tt, i, a) taking PK[tt, i, i + a] (``update_pk_skews4`` of the
+    JAX module; rows tt > s write back their own value in its scatter and
+    are left alone).  A row shard of dist/wavefront.py passes its own
+    arrays, whose row 0 is its i0."""
+    T = dims(n)[1]
+    PKE = st["PKE"]
+    b0, t1, u1, r1, j1 = PKE.stride()
+    diag = PKE.as_strided((PKE.shape[0], min(s, T - 1) + 1, *PKE.shape[3:]),
+                          (b0, t1 - u1, r1, j1), PKE.storage_offset() + s * u1)
+    return [StoreDest("PK", st["PKD"][:, :, s], skew=True), StoreDest("PK", diag, skew=True)]
 
 
 # The span's 16 history scans (the l-shrink RL and i-shrink RI reductions
@@ -238,8 +235,11 @@ class SpanReads(NamedTuple):
     :func:`span_families` (built per span by :func:`dense_reads` and
     ``gapped5.packed_reads``):
 
-    * ``plane(name, c, b, di)``: int16 [B, TB, IB, n2] slab
-      name[tt+c, s-b, i+di, j], unset where the layout holds nothing;
+    * ``parts(name, c, b, di)``: the plane name[tt+c, s-b, i+di, j] of the
+      rows i in [i0, i0 + IB), read in place by ``cuda_ops.span_assemble``:
+      a list of at most ``cuda_ops.PLANE_MAX_PARTS`` (int16 view [B, TTv,
+      Rv, n2], t0, r0) parts, plane row r and tt at view row r + r0 and
+      tt + t0 (``cuda_ops.plane_slab``); a cell no part holds reads unset;
     * ``history(W)``: the span's 16 history scans (:data:`HISTORY_SCANS`)
       for all tt, a dict of int32 [B, TB, IB, n2] by key, with the weight
       tables ``W`` (``{"WBt": .., "WBPg": .., "WPt": ..}``, [B, n2, n2]):
@@ -257,9 +257,31 @@ class SpanReads(NamedTuple):
     Every read is of rows i in [i0, i0 + IB): the whole state has i0 = 0;
     a row shard of dist/wavefront.py has its own.
     """
-    plane: Callable
+    parts: Callable
     history: Callable
     window: Callable
+
+
+class SpanResult(NamedTuple):
+    """:func:`span_families`' result for the layout's write-back
+    (:func:`store_span`): the tt loop's 14 families (``loops``, int32
+    [B, TB, IB, n2] by name) and the 8 packed cross-span families (``xs``,
+    ``cuda_ops.span_assemble``'s int16 [8, B, TB, IB, n2]) of span ``s``,
+    rows [i0, i0 + IB)."""
+    loops: dict
+    xs: torch.Tensor
+    n: int
+    s: int
+    i0: int
+    TB: int
+    IB: int
+
+
+def store_span(res: SpanResult, dests):
+    """Write ``res`` into the layout's destinations (``cuda_ops.StoreDest``
+    views into the state): one ``cuda_ops.span_store``."""
+    cuda_ops.span_store(dests, res.loops, res.xs, s=res.s, n=res.n, i0=res.i0, TB=res.TB,
+                        IB=res.IB)
 
 
 def dense_rl(st, s, TB, IB):
@@ -276,12 +298,11 @@ def dense_reads(st, n, s, TB, IB):
     C skews), rows from i = 0."""
     n2, T, S, U = dims(n)
 
-    def plane(name, c, b, di):
-        sl = dynamic_slice(st[name], (0, max(s - b, 0), 0, 0),
-                           (T, 1, n2, n2))[:, :, 0]
-        sl = pad_axis(sl, -3, 0, max(c + TB - T, 0), SAT16)
-        sl = dynamic_slice(sl, (c, 0, 0), (TB, n2, n2))
-        return pad_axis(sl, -2, 0, 1, SAT16)[..., di: di + IB, :]
+    def parts(name, c, b, di):
+        """The family's slot at span max(s - b, 0) (a read at a span below
+        0 is masked by the assembly): tt rows from c, rows from di; rows
+        past n2 and tt rows past T read unset."""
+        return [(st[name][:, :, max(s - b, 0)], c, di)]
 
     def history(W):
         """Every scan in one launch: RL over the family's TB spans below s,
@@ -302,7 +323,17 @@ def dense_reads(st, n, s, TB, IB):
         lo = max(s - DS, 0)
         return [(st[name][:, :, lo:s], lo)]
 
-    return SpanReads(plane, history, window)
+    return SpanReads(parts, history, window)
+
+
+def dense_dests(st, n, s, TB):
+    """The dense layout's write-back of span s (``cuda_ops.StoreDest`` s):
+    each family's slot at span s (its rows from IB unset), each C skew's
+    rows l = i + s of it (the rows l < s unset), PKD and PKE
+    (:func:`pk_dests`)."""
+    return ([StoreDest(name, st[name][:, :TB, s]) for name in M4_NAMES]
+            + [StoreDest(name, st["C_" + name][:, :TB, s], -s) for name in C_MATS]
+            + pk_dests(st, s, n))
 
 
 def pl_stencil(reads: SpanReads, SC4, s, n, TB, IB, i0=0):
@@ -329,138 +360,37 @@ def pr_stencil(reads: SpanReads, SC4, s, n, TB, IB, i0=0):
 
 def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
     """All 22 gapped families for span s, read from the state through
-    ``reads`` (its layout's :class:`SpanReads`): a dict of int16
-    [B, TB, IB, n2] slabs, unset on invalid cells.  Writes nothing, so the
-    caller's write-back into ``st`` follows every read of the span.
+    ``reads`` (its layout's :class:`SpanReads`), as a :class:`SpanResult`
+    for the layout's write-back (:func:`store_span`).  Writes nothing, so
+    the caller's write-back into ``st`` follows every read of the span.
 
-    The slabs' rows are i in [i0, i0 + IB).  TB >= s-1 covers tt; the
-    whole state (i0 = 0) takes IB >= n-s+2, a row shard of
-    dist/wavefront.py its rows with i <= n - s (caller guarantees; padded
-    rows are never valid)."""
+    Per span: the weight tables, the PL / PR stencils, the 16 history scans,
+    one ``cuda_ops.span_assemble`` (the fixed-offset plane reads in place,
+    the PL / PR / PO assembly and the cross-span-only families for every
+    tt) and the serial tt loop (one ``tt_span``).  The slabs' rows are i in
+    [i0, i0 + IB).  TB >= s-1 covers tt; the whole state (i0 = 0) takes
+    IB >= n-s+2, a row shard of dist/wavefront.py its rows with i <= n - s
+    (caller guarantees; padded rows are never valid)."""
     n = C["n"]
-    n2, T, S, U = dims(n)
-    bp, cp, ap, PB = C["bp"], C["cp"], C["ap"], C["PB"]
-    canp, pt, ESTP = C["can_pair"], C["ptype"], C["ESTP"]
-    dev = st["PKD"].device
-
-    tv = torch.arange(TB, device=dev)[:, None, None]      # tt
-    iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]  # i
-    jv = torch.arange(n2, device=dev)[None, None, :]      # j
-    kv = jv + tv + 2
-    lv = iv + s
-    valid4 = cuda_ops.span_valid(n, s, i0, TB, IB, n2, dev)
-
+    n2 = n + 2
     WBt, WPt, WBPg, WPPg = _wx_tables(C, st)
-
-    # gather-free pair/energy planes (ttloop.py)
-    ESTP_ij = plane_ij(ESTP, TB, IB, i0=i0)
-    canp_ij = plane_ij(canp, TB, IB, i0=i0)
-    pt_ij = plane_ij(pt, TB, IB, i0=i0)
-    canp_kl = plane_kl(canp, s, TB, IB, n2, i0=i0)
-    pt_kl = plane_kl(pt, s, TB, IB, n2, i0=i0)
-    ESTP_klp = plane_kl(ESTP, s, TB, IB, n2, i0=i0)
-    canp_il = diag_il(canp, s, TB, IB, n2, i0=i0)
-    pt_il = diag_il(pt, s, TB, IB, n2, i0=i0)
-    ESTP_il = diag_il(ESTP, s, TB, IB, n2, i0=i0)
-
-    def enc(v, vmask):
-        """Store-encode a plane: int16-clamped value on valid cells
-        (matrices.hh:188-191), INF on invalid ones (matrices.hh:177-182)."""
-        return torch.where(vmask, v.clamp(-32768, SAT16), INF)
-
-    # ---- batched plane reads (all tt at once) -----------------------------
-    def rplane(name, c, b, di, dj):
-        """value[tt, i, j] = read4(name, n, tt+c, s-b, i+di, j+dj)."""
-        sl = reads.plane(name, c, b, di)
-        if dj == -1:
-            sl = torch.nn.functional.pad(sl, (1, 0), value=SAT16)[..., :n2]
-        elif dj == 1:
-            sl = torch.nn.functional.pad(sl, (0, 1), value=SAT16)[..., 1:]
-        i2, j2 = iv + di, jv + dj
-        k2 = j2 + (tv + c) + 2
-        l2 = i2 + (s - b)
-        ok = ((i2 >= 1) & (i2 <= j2) & (k2 <= l2) & (l2 <= n)
-              & (s - b >= 0))
-        return torch.where(ok, sl.to(I32), INF)
-
-    # ---- PL: interior stencil + assembly (batched over tt) ---------------
     pl_int = pl_stencil(reads, SC4, s, n, TB, IB, i0)
-    pl_stack = torch.where(
-        iv + TURN + 2 < jv,
-        rplane("PL", 1, 1, 1, -1) + ESTP_ij,
-        INF)
-    PLiloop = torch.where(canp_ij > 0, torch.minimum(pl_stack, pl_int), INF)
-    PLmloop_v = torch.minimum(
-        rplane("PLmloop10", 1, 1, 1, -1),
-        rplane("PLmloop01", 1, 1, 1, -1)) + ap + bp
-    PL_b3 = torch.where(jv >= iv + TURN + 1,
-                        rplane("PfromL", 1, 1, 1, -1), INF)
-    PLv = torch.where(pt_ij > 0, mmin(PLiloop, PLmloop_v + bp, PL_b3), INF)
-    PLs = enc(PLv, valid4)
-
-    # ---- PR: interior stencil + assembly (batched, u-coordinates) --------
     pr_int = pr_stencil(reads, SC4, s, n, TB, IB, i0)
-    pr_stack = torch.where(
-        kv + TURN + 2 < lv,
-        rplane("PR", 1, 1, 0, 0) + ESTP_klp,
-        INF)
-    PRiloop = torch.where(canp_kl > 0, torch.minimum(pr_stack, pr_int), INF)
-    PRmloop_v = torch.minimum(
-        rplane("PRmloop10", 1, 1, 0, 0),
-        rplane("PRmloop01", 1, 1, 0, 0)) + ap + bp
-    PR_b3 = torch.where(lv >= kv + TURN + 1,
-                        rplane("PfromR", 1, 1, 0, 0), INF)
-    PRv = torch.where(pt_kl > 0, mmin(PRiloop, PRmloop_v + bp, PR_b3), INF)
-    PRs = enc(PRv, valid4)
-
-    # ---- PO (generic interior branch is dead code; see gapped.py) --------
-    po_stack = torch.where(
-        (iv < jv) & (kv < lv),
-        rplane("PO", 0, 2, 1, 0) + ESTP_il,
-        INF)
-    POiloop = torch.where(canp_il > 0, po_stack, INF)
-    POmloop_v = torch.minimum(
-        rplane("POmloop10", 0, 2, 1, 0),
-        rplane("POmloop01", 0, 2, 1, 0)) + ap + bp
-    PO_b3 = torch.where(lv >= iv + TURN + 1,
-                        rplane("PfromO", 0, 2, 1, 0), INF)
-    POv = torch.where(pt_il > 0, mmin(POiloop, POmloop_v + bp, PO_b3), INF)
-    POs = enc(POv, valid4)
-
-    # ---- remaining cross-span-only families + reduction bases ------------
     H = reads.history({"WBt": WBt, "WBPg": WBPg, "WPt": WPt})
-    POm00 = mmin(SAT16 + bp, H["POm00_ri"], H["POm00_rl"])
-    POm01 = H["POm01"]
-    POm10 = torch.minimum(H["POm10_ri"], H["POm10_rl"])
-    PRm01 = torch.minimum(rplane("PRmloop01", 0, 1, 0, 0) + cp, H["PRm01"])
-    PfromO = mmin(H["PfromO_ri"], H["PfromO_rl"], PLs + PB, PRs + PB)
-
-    bases = {
-        "PLmloop00": H["PLmloop00"],
-        "PLmloop10": H["PLmloop10"],
-        "PRmloop00": H["PRmloop00"],
-        "PMmloop01": H["PMmloop01"],
-        "PMmloop10": torch.minimum(H["PMmloop10_ri"], H["PMmloop10_rl"]),
-        "PfromL": H["PfromL"],
-        "PfromR": H["PfromR"],
-    }
+    A = cuda_ops.span_assemble(
+        [reads.parts(name, c, b, di) for name, c, b, di, _dj in cuda_ops.ASSEMBLE_READS],
+        pl_int, pr_int, [H[k] for k in cuda_ops.ASSEMBLE_HISTORY],
+        (C["can_pair"], C["ptype"], C["ESTP"]), s=s, n=n, i0=i0, TB=TB, IB=IB,
+        ap=C["ap"], bp=C["bp"], cp=C["cp"], PB=C["PB"])
+    bases = {"PLmloop00": H["PLmloop00"], "PLmloop10": H["PLmloop10"],
+             "PRmloop00": H["PRmloop00"], "PMmloop01": H["PMmloop01"],
+             "PMmloop10": A.pmm10, "PfromL": H["PfromL"], "PfromR": H["PfromR"]}
 
     # ---- serial loop over tt (descending): one tt_span per span ----------
-    mdp0 = torch.minimum(PLs, PRs) + PB       # PfromMdoubleprime base
-    cur = run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, PLs, PRs, POs, mdp0,
+    valid4 = cuda_ops.span_valid(n, s, i0, TB, IB, n2, A.xs.device)
+    cur = run_tt_loop(C, SC4, WBt, WPt, WBPg, bases, A.PLs, A.PRs, A.POs, A.mdp0,
                       valid4, s, TB, IB, i0)
-
-    def pack(slab32):
-        v = slab32[:, :TB].clamp(-32768, SAT16)
-        return torch.where(valid4, v, SAT16).to(I16)
-
-    packed = {name: pack(cur[name]) for name in LOOP_MATS}
-    for name, v in (("PL", PLv), ("PR", PRv), ("PO", POv),
-                    ("PRmloop01", PRm01), ("POmloop00", POm00),
-                    ("POmloop01", POm01), ("POmloop10", POm10),
-                    ("PfromO", PfromO)):
-        packed[name] = pack(v)
-    return packed
+    return SpanResult({name: cur[name] for name in LOOP_MATS}, A.xs, n, s, i0, TB, IB)
 
 
 def span_gapped4(C, SC4, st, s, TB, IB):
@@ -471,17 +401,6 @@ def span_gapped4(C, SC4, st, s, TB, IB):
     guarantees; padded rows are never valid and never written back).
     """
     n = C["n"]
-    n2 = n + 2
-    packed = span_families(C, SC4, st, s, TB, IB,
-                           dense_reads(st, n, s, TB, IB))
-    for name in M4_NAMES:
-        sl = packed[name]
-        if IB < n2:
-            sl = pad_axis(sl, -2, 0, n2 - IB, SAT16)
-        dynamic_update_slice(st[name], sl[:, :, None], (0, s, 0, 0))
-    for name in C_MATS:
-        # C layout: row l = i + s holds the (i, j) plane row i
-        slp = pad_axis(packed[name], -2, n2, 0, SAT16)    # [TB, n2+IB, n2]
-        cs = dynamic_slice(slp, (0, n2 - s, 0), (TB, n2, n2))
-        dynamic_update_slice(st["C_" + name], cs[:, :, None], (0, s, 0, 0))
-    return update_pk_skews4(st, packed["PK"], s, n)
+    store_span(span_families(C, SC4, st, s, TB, IB, dense_reads(st, n, s, TB, IB)),
+               dense_dests(st, n, s, TB))
+    return st

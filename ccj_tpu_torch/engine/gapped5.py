@@ -29,7 +29,7 @@ int16 unset value, the same losing candidates the dense layout holds there.
 
 One deliberate deviation from the JAX module: **PKD and PKE stay dense**
 (``gapped4.init_big_state4``'s shapes), so the span step reuses the port's
-in-place ``gapped4.update_pk_skews4`` and ``gapped3.compute_P_span3``
+in-place PK write-back (``gapped4.pk_dests``) and ``gapped3.compute_P_span3``
 unchanged, and ``update_pk_skews7`` / ``compute_P_span7`` are not ported.
 The JAX module stores PKE per segment because XLA copied the dense PKE on
 every span's scatter; an in-place ``index_put`` makes no such copy.  The
@@ -47,11 +47,11 @@ from __future__ import annotations
 import torch
 
 from . import cuda_ops
-from .common import (I16, SAT16, dynamic_slice,
-                     dynamic_update_slice, pad_axis)
+from .common import I16, SAT16
+from .cuda_ops import StoreDest
 from .gapped import C_MATS, DS, M4_NAMES, dims
-from .gapped4 import (SpanReads, history_groups, history_launch, span_families,
-                      update_pk_skews4)
+from .gapped4 import (SpanReads, history_groups, history_launch, pk_dests, span_families,
+                      store_span)
 
 MIN_SEG = DS + 2   # every cross-span window must fit within one neighbor
 
@@ -146,41 +146,20 @@ def packed_reads(st, n, s, gi: int, SEGS):
         segment 0 serves them with a clamped, unused read)."""
         return gi if gi == 0 or u >= lo else gi - 1
 
-    # ---- segment-resolved plane reads ------------------------------------
-    def seg_plane(name, c, b, di):
-        """Family ``name`` at span u = s-b from its segment, tt rows
-        [c, c+TB), i rows [di, di+IB), missing extents as SAT16."""
+    # ---- segment-resolved plane reads, in place -------------------------
+    def parts(name, c, b, di):
+        """Family ``name`` at span u = s-b from its segment (``seg_of``), tt
+        rows from c, rows from di; a family stored ONLY as its C skew
+        (``DROPPED``) from that skew's rows l = i + di + u, local row
+        l - lo_h - 1 (rows before its row 0 read unset).  Extents the
+        segment does not hold read unset."""
         u = s - b
         h = seg_of(u)
-        loh, hih, TBh, IBh, _ = SEGS[h]
-        sl = dynamic_slice(st[f"{name}@{h}"],
-                           (0, min(max(u - loh, 0), hih - loh - 1), 0, 0),
-                           (TBh, 1, min(IB + 1, IBh), n2))[:, :, 0]
-        if IB + 1 > IBh:
-            sl = pad_axis(sl, -2, 0, IB + 1 - IBh, SAT16)
-        sl = pad_axis(sl, -3, 0, max(c + TB - TBh, 0), SAT16)
-        return sl[:, c: c + TB, di: di + IB]
-
-    def plane_from_C(name, c, b, di):
-        """A family stored ONLY as its C skew (``DROPPED``):
-        name[tt+c, u=s-b, i+di, j] = C_name[tt+c, u, l, j] at row
-        l = (i+di) + u, a contiguous row block of the segment's span u (two
-        lead rows of SAT16 stand for the rows before row 0)."""
-        u = s - b
-        h = seg_of(u)
-        loh, hih, TBh, IBh, Lch = SEGS[h]
-        sl = dynamic_slice(st[f"C_{name}@{h}"],
-                           (0, min(max(u - loh, 0), hih - loh - 1), 0, 0),
-                           (TBh, 1, Lch, n2))[:, :, 0]
-        sl = pad_axis(sl, -2, 2, 0, SAT16)
-        off = u + di - loh - 1 + 2          # row of i = 0 (>= 0, see +2)
-        sl = dynamic_slice(sl, (0, min(max(off, 0), Lch + 2 - IB), 0),
-                           (TBh, IB, n2))
-        sl = pad_axis(sl, -3, 0, max(c + TB - TBh, 0), SAT16)
-        return sl[:, c: c + TB]
-
-    def plane(name, c, b, di):
-        return (plane_from_C if name in DROPPED else seg_plane)(name, c, b, di)
+        loh, hih = SEGS[h][:2]
+        span = min(max(u - loh, 0), hih - loh - 1)
+        if name in DROPPED:
+            return [(st[f"C_{name}@{h}"][:, :, span], c, u + di - loh - 1)]
+        return [(st[f"{name}@{h}"][:, :, span], c, di)]
 
     # ---- cross-span reductions: ALL prior segments -------------------------
     def history(W):
@@ -210,7 +189,7 @@ def packed_reads(st, n, s, gi: int, SEGS):
         return [(st[f"{name}@{h}"][:, :, a - SEGS[h][0]:b - SEGS[h][0]], a)
                 for h, a, b in window_spans(s, gi, SEGS)]
 
-    return SpanReads(plane, history, window)
+    return SpanReads(parts, history, window)
 
 
 def window_spans(s, gi: int, SEGS):
@@ -225,21 +204,25 @@ def window_spans(s, gi: int, SEGS):
     return out
 
 
+def packed_dests(st, n, s, gi: int, SEGS):
+    """The packed layout's write-back of span s of segment gi
+    (``cuda_ops.StoreDest`` s): each stored family's block at span s, each
+    C skew's rows from i = 1 (local row l - lo - 1 = (s - lo) + (i - 1); the
+    invalid i = 0 row is dropped), the dense PKD and PKE
+    (``gapped4.pk_dests``)."""
+    u, IB = s - SEGS[gi][0], SEGS[gi][3]
+    return ([StoreDest(name, st[f"{name}@{gi}"][:, :, u]) for name in M4_STORED]
+            + [StoreDest(name, st[f"C_{name}@{gi}"][:, :, u, u:u + IB - 1], 1)
+               for name in C_MATS]
+            + pk_dests(st, s, n))
+
+
 def span_gapped7(C, SC4, st, s, gi: int, SEGS):
     """All 22 gapped families for span s of segment gi; updates the packed
     state in place (every read of the span's inputs happens before the
     write-back into segment gi) and returns it."""
     n = C["n"]
     lo, hi, TB, IB, _Lc = SEGS[gi]
-    packed = span_families(C, SC4, st, s, TB, IB,
-                           packed_reads(st, n, s, gi, SEGS))
-    for name in M4_STORED:
-        dynamic_update_slice(st[f"{name}@{gi}"], packed[name][:, :, None],
-                             (0, s - lo, 0, 0))
-    for name in C_MATS:
-        # C rows: local row l - lo - 1 = (s - lo) + (i - 1); drop the
-        # (invalid) i = 0 row so the write starts at i = 1
-        dynamic_update_slice(st[f"C_{name}@{gi}"],
-                             packed[name][:, :, None, 1:],
-                             (0, s - lo, s - lo, 0))
-    return update_pk_skews4(st, packed["PK"], s, n)
+    store_span(span_families(C, SC4, st, s, TB, IB, packed_reads(st, n, s, gi, SEGS)),
+               packed_dests(st, n, s, gi, SEGS))
+    return st

@@ -1,15 +1,18 @@
 """Where a fill's time goes on the GPU, for the dense and the packed engine
 alike.
 
-    python -m ccj_tpu_torch.fill_breakdown [--n 100] [--engine 6|7]
+    python ccj_tpu_torch/fill_breakdown.py [--tree DIR] [--n 100] [--engine 6|7]
                                            [--profile-spans 50:52]
 
-Fills the bench sequence of length n (seed 42, as bench.py draws it) on one
-CUDA device with ``fold.fill6`` (``--engine 6``, the default) or
-``fold.fill7`` (``--engine 7``, segments ``gapped5.segments7(n)``) and
-prints one JSON object, also written to
-chiprun_out/fill_breakdown_n<n>_e<engine>.json.  Every figure is taken the
-same way for both engines, in this order:
+(or ``python -m ccj_tpu_torch.fill_breakdown`` without ``--tree``).
+``ccj_tpu_torch`` is imported from ``--tree`` (default: the checkout this
+file lies in), so the same script splits an older commit unpacked beside
+it, as ``walls.py`` does.  Fills the bench sequence of length n (seed 42,
+as bench.py draws it) on one CUDA device with ``fold.fill6``
+(``--engine 6``, the default) or ``fold.fill7`` (``--engine 7``, segments
+``gapped5.segments7(n)``) and prints one JSON object, also written to
+chiprun_out/fill_breakdown_n<n>_e<engine>[_<label>].json.  Every figure is
+taken the same way for both engines, in this order:
 
 * ``fill_s_first``, ``fill_s``: two plain fills in a row, each synchronised
   at its end only (the first also warms the allocator and caches);
@@ -23,8 +26,9 @@ same way for both engines, in this order:
   PL / PR interior-loop stencils
   (``gapped4.pl_stencil`` / ``pr_stencil``: one ``stencil_pl`` /
   ``stencil_pr`` kernel each over the layout's in-place window of int16
-  views, the views' making included) and the rest, the plane reads and
-  the assembly;
+  views, the views' making included) and the rest, the plane reads,
+  the assembly and the write-back (one ``span_assemble`` and one
+  ``span_store`` a span, with the weight tables and the views);
 * ``tt_loop_turns``: that fill and two more taken the same way, in turns:
   the tt loop as the fills run it (one ``tt_span`` a span), as the
   two-launch loop it replaced (``ttloop.run_tt_loop_steps``), and as the
@@ -42,8 +46,15 @@ same way for both engines, in this order:
   time over that wall is the device's busy share; the kernels and PyTorch
   ops that take the most device time and the port's own kernels
   (``tt_span``, ``history_min``, ``p_split``, ``stencil_pl`` /
-  ``stencil_pr``; ``minplus_group`` and ``tt_step`` where anything runs
-  them) are listed.
+  ``stencil_pr``, ``span_assemble`` / ``span_store``; ``minplus_group``
+  and ``tt_step`` where anything runs them) are listed;
+* ``eager_ops``: last, one more fill under a ``TorchDispatchMode`` that
+  counts the non-view aten ops the host dispatches (on the card each is
+  an eager call, most of them a launch), a span of the gapped step's
+  cross-span phase: those outside the named kernels' wrappers
+  (``history_min``, ``stencil_pl``, ``stencil_pr``, ``span_assemble``,
+  ``span_store``, where the tree has them), those inside them, and the tt
+  loop's (``run_tt_loop``, its table build), per span and in total.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import random
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -58,11 +70,9 @@ from pathlib import Path
 
 import torch
 
-from .engine import cuda_ops, fold, gapped4, gapped5, ttloop
-from .params import DEFAULT_PK, parse_par, scale_parameters
-from .precompute import build_seq_tables
-
 ROOT = Path(__file__).resolve().parents[1]
+# the kernels whose wrappers' own ops eager_ops counts apart (a tree may lack some)
+NAMED_KERNELS = ("history_min", "stencil_pl", "stencil_pr", "span_assemble", "span_store")
 
 
 def _timed(fn, acc, key):
@@ -82,24 +92,89 @@ def _top(events):
             for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
 
 
+def eager_ops(fold, gapped4, cuda_ops, run_fill, step, n):
+    """One fill under a TorchDispatchMode counting the non-view aten ops the
+    gapped step dispatches (``step``: the fill's span step in ``fold``), by
+    where they come from: inside a named kernel's wrapper
+    (:data:`NAMED_KERNELS`), inside ``run_tt_loop`` (the tt loop's table
+    build and its kernel's wrapper), or the rest of the cross-span phase
+    (``outside``: the weight tables, views, plane reads, assembly and
+    write-back).  Returns the totals and the per-span means over the
+    fill's n spans."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    where = []                       # the innermost region of the current call
+    counts = defaultdict(int)
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if where and not func.is_view:
+                counts[where[-1]] += 1
+            return func(*args, **(kwargs or {}))
+
+    def region(fn, name):
+        def run(*a, **kw):
+            where.append(name)
+            try:
+                return fn(*a, **kw)
+            finally:
+                where.pop()
+        return run
+
+    patches = [(fold, step, "outside"), (gapped4, "run_tt_loop", "tt_loop"),
+               *((cuda_ops, k, k) for k in NAMED_KERNELS if hasattr(cuda_ops, k))]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
+    try:
+        for m, k, name in patches:
+            setattr(m, k, region(getattr(m, k), name))
+        with Count():
+            run_fill()
+        torch.cuda.synchronize()
+    finally:
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+    kernels = {k: counts[k] for k in NAMED_KERNELS if hasattr(cuda_ops, k)}
+    return {"spans": n, "outside": counts["outside"], "in_kernel_wrappers": kernels,
+            "tt_loop": counts["tt_loop"],
+            "per_span": {"outside": counts["outside"] / n,
+                         "in_kernel_wrappers": sum(kernels.values()) / n,
+                         "tt_loop": counts["tt_loop"] / n}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--label", default="")
     ap.add_argument("--n", type=int, default=100)
     ap.add_argument("--engine", type=int, choices=(6, 7), default=6)
     ap.add_argument("--profile-spans", default="50:52")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
+    tree = Path(args.tree).resolve()
+    loaded = sys.modules.get("ccj_tpu_torch")
+    if loaded is not None and Path(loaded.__file__).resolve().parents[1] != tree:
+        sys.exit(f"ccj_tpu_torch is already imported from {loaded.__file__}: run this "
+                 "file as a script to split another tree")
+    sys.path.insert(0, str(tree))
+    from ccj_tpu_torch.engine import cuda_ops, fold, gapped4, gapped5, ttloop
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
     n, packed = args.n, args.engine == 7
     rng = random.Random(42)
     seq = "".join(rng.choice("ACGU") for _ in range(n))
-    sp = scale_parameters(parse_par(Path(__file__).parent / "params"
+    sp = scale_parameters(parse_par(tree / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
     tabs = build_seq_tables(seq, sp, DEFAULT_PK)
     C, SC4 = fold.consts_from_numpy(fold.build_consts(tabs, sp, DEFAULT_PK), "cuda")
     dev = C["H"].device
     SEGS = gapped5.segments7(n)
-    out = {"n": n, "engine": args.engine, "card": torch.cuda.get_device_name(0)}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"n": n, "engine": args.engine, "tree": str(tree), "label": args.label,
+           "card": card, "kind": torch.cuda.get_device_name(0)}
     if packed:
         out["segments"] = len(SEGS)
 
@@ -117,6 +192,9 @@ def main(argv=None):
         torch.cuda.synchronize()
         cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
         cuda_ops.TT_SPAN_LAUNCHES = cuda_ops.STENCIL_LAUNCHES = 0
+        for k in ("ASSEMBLE_LAUNCHES", "STORE_LAUNCHES"):
+            if hasattr(cuda_ops, k):
+                setattr(cuda_ops, k, 0)
         t0 = time.perf_counter()
         st = run_fill()
         torch.cuda.synchronize()
@@ -127,6 +205,8 @@ def main(argv=None):
     out["minplus_launches"] = cuda_ops.LAUNCHES
     out["tt_step_launches"] = cuda_ops.TT_STEP_LAUNCHES
     out["stencil_launches"] = cuda_ops.STENCIL_LAUNCHES
+    out["assemble_launches"] = getattr(cuda_ops, "ASSEMBLE_LAUNCHES", None)
+    out["store_launches"] = getattr(cuda_ops, "STORE_LAUNCHES", None)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     # ---- per-part walls: wrap the span functions where the fill and the
@@ -249,11 +329,14 @@ def main(argv=None):
         "port_kernels": _top([e for e in kernels
                               if any(k in e.key for k in ("minplus", "tt_step", "tt_span",
                                                           "history", "p_split",
-                                                          "stencil"))]),
+                                                          "stencil", "assemble",
+                                                          "store"))]),
     }
+    out["eager_ops"] = eager_ops(fold, gapped4, cuda_ops, run_fill, step, n)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / f"fill_breakdown_n{n}_e{args.engine}.json").write_text(
+    tag = f"_{args.label}" if args.label else ""
+    (dest / f"fill_breakdown_n{n}_e{args.engine}{tag}.json").write_text(
         json.dumps(out, indent=1))
     print(json.dumps(out))
 

@@ -8,8 +8,8 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
-   ``ccj_tpu_torch/csrc/`` (the seven kernels, one ``nvcc`` per source,
-   the six sources run together) and report the build time;
+   ``ccj_tpu_torch/csrc/`` (the nine kernels, one ``nvcc`` per source,
+   the eight sources run together) and report the build time;
 2. the min-plus kernel against its plain PyTorch version on the card,
    exactly (tolerance zero: integer data): single windows
    (``minplus_window``, a group of one) in all three mask modes, at the CPU
@@ -85,6 +85,15 @@ Phases; any failure exits non-zero and prints no result:
    terms its warps walk, the plain version's on the card and its bound
    (:func:`stencil_bound`: the admissible terms at one int32 add-min a
    lane and cycle against the bytes they need; no library yardstick);
+   then (2f) ``span_assemble`` (the span's plane reads, in place, and its
+   PL / PR / PO assembly) and ``span_store`` (its write-back into the
+   layout's slots) against their plain versions exactly, at the fills'
+   own calls on a random state (:func:`span_cases`: the n=100 main span,
+   n=128's, the packed n=200 spans 135 and 103, bucket 100 x 4, a dense
+   and a packed row shard, the odd-n2 n=37 span 20), each with its
+   L2-hot and L2-cold device times, the eager call's, the plain version's
+   on the card and its byte bound (:func:`assemble_bound`,
+   :func:`store_bound`; no library yardstick);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -93,7 +102,8 @@ Phases; any failure exits non-zero and prints no result:
    ``tt_span`` per span with a tt step (98), one ``history_min`` a span
    s >= 1 (all 16 RL / RI scans, 99), one ``p_split`` per span with a term (97),
    one ``stencil_pl`` and one ``stencil_pr`` per span with a tt step (98
-   each, ``STENCIL_LAUNCHES`` 196), no ``minplus_group`` and no
+   each, ``STENCIL_LAUNCHES`` 196), one ``span_assemble`` and one
+   ``span_store`` a span (100 each), no ``minplus_group`` and no
    ``tt_step``; every later path is checked the
    same way (:func:`fill_counts`; per span and row shard with a span-s
    row, :func:`sharded_counts`); then
@@ -250,27 +260,30 @@ def reset_counts(cuda_ops):
     cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
     cuda_ops.TT_SPAN_LAUNCHES = cuda_ops.HISTORY_LAUNCHES = cuda_ops.PSPLIT_LAUNCHES = 0
     cuda_ops.STENCIL_LAUNCHES = cuda_ops.STENCIL_PL_LAUNCHES = cuda_ops.STENCIL_PR_LAUNCHES = 0
+    cuda_ops.ASSEMBLE_LAUNCHES = cuda_ops.STORE_LAUNCHES = 0
 
 
 def fill_counts(*lengths):
     """The launches of unsharded fills (dense or packed; a batch counts
     once) of these lengths: (``tt_span``, ``history_min``, ``p_split``,
-    ``stencil_pl``, ``stencil_pr``).  Every span with a tt step launches
-    one ``tt_span``, one ``stencil_pl`` and one ``stencil_pr`` (spans 0 and
-    1 have no valid cell), every span s >= 1 one ``history_min`` (all 16
-    RL / RI scans; the packed layout's prior segments in the same launch),
-    every span with a live row and a term (3 <= s <= n - 1) one
-    ``p_split``."""
+    ``stencil_pl``, ``stencil_pr``, ``span_assemble``, ``span_store``).
+    Every span with a tt step launches one ``tt_span``, one ``stencil_pl``
+    and one ``stencil_pr`` (spans 0 and 1 have no valid cell), every span
+    s >= 1 one ``history_min`` (all 16 RL / RI scans; the packed layout's
+    prior segments in the same launch), every span with a live row and a
+    term (3 <= s <= n - 1) one ``p_split``, every span one
+    ``span_assemble`` and one ``span_store``."""
     tt = sum(tt_spans(m) for m in lengths)
+    spans = sum(lengths)
     return (tt, sum(max(m - 1, 0) for m in lengths),
-            sum(max(m - 3, 0) for m in lengths), tt, tt)
+            sum(max(m - 3, 0) for m in lengths), tt, tt, spans, spans)
 
 
-# launches of each path's fills since :func:`reset_counts`, by path:
-# (tt_span, history_min, p_split, stencil_pl, stencil_pr), filled in by
-# :func:`loop_launches`
+# launches of each path's fills since :func:`reset_counts`, by path: one
+# count each of FILL_KERNELS, filled in by :func:`loop_launches`
 PATH_COUNTS = {}
-FILL_KERNELS = ("tt_span", "history_min", "p_split", "stencil_pl", "stencil_pr")
+FILL_KERNELS = ("tt_span", "history_min", "p_split", "stencil_pl", "stencil_pr",
+                "span_assemble", "span_store")
 
 
 def loop_launches(cuda_ops, want, what):
@@ -282,6 +295,7 @@ def loop_launches(cuda_ops, want, what):
     :data:`PATH_COUNTS` and returns ``tt_span``'s count."""
     got = (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES,
            cuda_ops.STENCIL_PL_LAUNCHES, cuda_ops.STENCIL_PR_LAUNCHES,
+           cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES,
            cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
     check(got == (*want, 0, 0), f"{what}: {' / '.join(FILL_KERNELS)} / minplus_group / "
           f"tt_step launches {got} != {(*want, 0, 0)}")
@@ -331,6 +345,27 @@ def graph_ms(fn, reps=50, replays=10):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / (reps * replays)
+
+
+def graph_cold_ms(fn, reps=20, replays=3):
+    """Device time of one call with L2 cold: ``reps`` calls, each after a
+    buffer of twice the L2 is zeroed, captured in one CUDA graph and
+    replayed between CUDA events, less the same graph of the zeroings
+    alone.  Unlike :func:`flushed_ms` the host's work (a wrapper's checks
+    and launch) is out of the timing."""
+    buf = torch.empty(int(2 * L2_BYTES) // 4, dtype=torch.int32, device="cuda")
+
+    def calls():
+        for _ in range(reps):
+            buf.zero_()
+            fn()
+
+    def flushes():
+        for _ in range(reps):
+            buf.zero_()
+
+    return (graph_ms(calls, reps=1, replays=replays)
+            - graph_ms(flushes, reps=1, replays=replays)) / reps
 
 
 def rand_i32(shape, gen, dev):
@@ -1712,6 +1747,281 @@ def phase_stencil(cuda_ops, sp, dev, ptxas=None):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 2f: span_assemble and span_store, the span's assembly and write-back
+# ---------------------------------------------------------------------------
+
+SPAN_REPLACES = {"span_assemble": "ccj_tpu/engine/gapped4.py:257",   # XLA fusions of the
+                 "span_store": "ccj_tpu/engine/gapped4.py:472"}      # span body, no Pallas
+
+
+def span_cases(bucket_dims):
+    """Phase 2f's shapes: the n=100 main span, n=128's, the packed n=200
+    span 135 (segment 3) and span 103 (its fixed-offset reads in segments 2
+    and 3), a batch of four at bucket 100, a dense row shard (n=100, shard
+    1 of 4: 26 rows from i0 = 26), a packed one (n=200, shard 1 of 4: 48
+    rows from i0 = 51 at span 102, its reads in segment 2) and the n=37
+    span 20 (odd n2)."""
+    s100 = main_span(100, bucket_dims)[0]
+    s128 = main_span(128, bucket_dims)[0]
+    base = dict(B=1, i0=0, rows=None, packed=False)
+    return [dict(base, label=f"n=100 s={s100}", n=100, s=s100),
+            dict(base, label=f"n=128 s={s128}", n=128, s=s128),
+            dict(base, label="n=200 packed s=135 (segment 3)", n=200, s=135, packed=True),
+            dict(base, label="n=200 packed s=103 (reads in segments 2 and 3)", n=200,
+                 s=103, packed=True),
+            dict(base, label=f"bucket 100 x 4 s={s100}", n=100, s=s100, B=4),
+            dict(base, label=f"n=100 row shard 1 of 4 (26 rows from i0=26) s={s100}",
+                 n=100, s=s100, i0=26, rows=26),
+            dict(base, label="n=200 packed row shard 1 of 4 (48 rows from i0=51) s=102",
+                 n=200, s=102, i0=51, rows=48, packed=True),
+            dict(base, label="n=37 s=20 (odd n2)", n=37, s=20)]
+
+
+def fill_rand16_(x, gen):
+    """Random int16 state cells in place (as :func:`rand_i16` makes them)."""
+    from ccj_tpu_torch.engine.common import SAT16
+
+    x.random_(-3000, 4000, generator=gen)
+    return x.masked_fill_(x >= 3000, SAT16)
+
+
+def span_kernel_calls(cuda_ops, case, sp, gen, dev):
+    """The fills' own ``span_assemble`` and ``span_store`` calls of one case,
+    taken by spies as the layout's span step runs once on a random state
+    (every 4-D array random; the bench sequence's tables, one copy an
+    element of a batch): ``gapped4.span_gapped4``, ``gapped5.span_gapped7``
+    or, for a row shard, ``dist.wavefront``'s reads, ``span_families`` and
+    write-back of the shard on P=4 shards of one device.  Returns
+    ((args, keywords) of span_assemble, those of span_store, the state)."""
+    from ccj_tpu_torch.dist import wavefront
+    from ccj_tpu_torch.engine import fold, gapped4, gapped5
+    from ccj_tpu_torch.params import DEFAULT_PK
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    n, s, B, i0, rows = case["n"], case["s"], case["B"], case["i0"], case["rows"]
+    tabs = build_seq_tables(bench_seq(n), sp, DEFAULT_PK)
+    C, SC4 = fold.consts_from_numpy(fold.build_consts(tabs, sp, DEFAULT_PK), dev)
+    Cb, SC4b = fold.stack_consts([C] * B), fold.stack_consts([SC4] * B)
+    segs = gapped5.segments7(n) if case["packed"] else None
+    gi = (next(g for g, (lo, hi, *_r) in enumerate(segs) if lo <= s < hi)
+          if segs else None)
+    TB, IB = (segs[gi][2], segs[gi][3]) if segs else gapped4.bucket_dims(n, s)
+    seen = {}
+    real = cuda_ops.span_assemble, cuda_ops.span_store
+
+    def spy(k):
+        def run(*a, **kw):
+            seen[k] = (a, kw)
+            return real[k](*a, **kw)
+        return run
+
+    cuda_ops.span_assemble, cuda_ops.span_store = spy(0), spy(1)
+    try:
+        with torch.inference_mode():
+            if rows is None:
+                if segs:
+                    st = fold.init_state_2d(n, dev)
+                    st.update(gapped5.init_big_state7(n, segs, dev))
+                else:
+                    st = fold._init_dense(n, dev, B)
+                for v in st.values():
+                    if v.dim() == 5:
+                        fill_rand16_(v, gen)
+                if segs:
+                    gapped5.span_gapped7(Cb, SC4b, st, s, gi, segs)
+                else:
+                    gapped4.span_gapped4(Cb, SC4b, st, s, TB, IB)
+            else:
+                st = wavefront.ShardedState(n, [dev] * 4, segs)
+                for sh in st.shards:
+                    for k in st.row_names:
+                        fill_rand16_(sh[k], gen)
+                p = i0 // st.R
+                check((p, i0, rows) in wavefront.span_rows(n, st.R, 4, s),
+                      f"{case['label']}: not a shard's rows")
+                reads = (wavefront.sharded_packed_reads(st, p, s, gi, segs, rows, Cb) if segs
+                         else wavefront.sharded_reads(st, p, s, TB, rows, Cb))
+                res = gapped4.span_families(Cb, SC4b, st.shards[p], s, TB, rows, reads, i0)
+                wavefront._write_back(st, p, s, res, gi)
+        torch.cuda.synchronize()
+    finally:
+        cuda_ops.span_assemble, cuda_ops.span_store = real
+    check(set(seen) == {0, 1}, f"{case['label']}: the step made no span_assemble or "
+          "span_store call")
+    return seen[0], seen[1], st
+
+
+def assemble_bound(cuda_ops, args, kw):
+    """(bytes, ms by bytes) of one ``span_assemble`` on its data: each state
+    element a valid cell's taken branches read once (a read its own bounds
+    admit, behind the gates pt > 0, can_pair > 0 and its term's bound; a
+    cell no part holds reads SAT16 and no memory; two reads of one family
+    and span counted once), pl_int / pr_int where the interior branch is
+    taken, the eight history planes the valid cells read and the two of the
+    PMmloop10 base on every cell (4 B each), the table entries those
+    branches take, and every output cell written once (5 int32 and 8 int16
+    a cell).  No arithmetic is worth counting: a few adds and mins a cell."""
+    from ccj_tpu_torch.engine.common import TURN
+
+    planes, pl_int, pr_int, hist, (canp, pt, ESTP) = args
+    s, n, i0, TB, IB = (kw[k] for k in ("s", "n", "i0", "TB", "IB"))
+    B, n2, dev = pl_int.shape[0], n + 2, pl_int.device
+    tv = torch.arange(TB, device=dev)[:, None, None]
+    iv = torch.arange(i0, i0 + IB, device=dev)[None, :, None]
+    jv = torch.arange(n2, device=dev)[None, None, :]
+    kv, lv = jv + tv + 2, iv + s
+    valid = cuda_ops.span_valid(n, s, i0, TB, IB, n2, dev)[None]
+
+    def at(X, a, b):
+        a, b = torch.broadcast_tensors(a, b)
+        return X[:, a.clamp(0, n2 - 1), b.clamp(0, n2 - 1)]
+
+    pij, pkl, pil = (at(pt, a, b) > 0 for a, b in ((iv, jv), (kv, lv), (iv, lv)))
+    cij, ckl, cil = (at(canp, a, b) for a, b in ((iv, jv), (kv, lv), (iv, lv)))
+    gates = [pij & cij & (iv + TURN + 2 < jv), pij, pij, pij & (jv >= iv + TURN + 1),
+             pkl & ckl & (kv + TURN + 2 < lv), pkl, pkl, pkl & (lv >= kv + TURN + 1),
+             pil & cil & (iv < jv) & (kv < lv), pil, pil, pil & (lv >= iv + TURN + 1),
+             torch.ones_like(pij)]
+    used = {}
+    for q, (name, c, b, di, dj) in enumerate(cuda_ops.ASSEMBLE_READS):
+        i2, j2 = iv + di, jv + dj
+        ok = ((i2 >= 1) & (i2 <= j2) & (j2 + tv + c + 2 <= i2 + s - b)
+              & (i2 + s - b <= n) & (s - b >= 0))
+        need = valid & ok & gates[q]
+        held = torch.zeros((TB, IB, 1), dtype=torch.bool, device=dev)
+        for view, t0, r0 in planes[q]:
+            held |= (((tv + t0 >= 0) & (tv + t0 < view.shape[1]))
+                     & ((iv - i0 + r0 >= 0) & (iv - i0 + r0 < view.shape[2])))
+        need = (need & held).expand(B, TB, IB, n2)
+        # element (tt + c, r + di, j + dj) of the family at span s - b
+        u = used.setdefault((name, b), torch.zeros((B, TB + 2, IB + 2, n2 + 1),
+                                                   dtype=torch.bool, device=dev))
+        u[:, c:c + TB, di:di + IB, 1 + dj:1 + dj + n2] |= need
+    state_elems = sum(int(u.sum()) for u in used.values())
+    vcells = B * int(valid.sum())
+    cells = B * TB * IB * n2
+
+    def entries(*pairs):
+        m = torch.zeros((B, n2, n2), dtype=torch.bool, device=dev)
+        for a, b, mask in pairs:
+            a, b, mask = torch.broadcast_tensors(a, b, (mask & valid).expand(B, TB, IB, n2))
+            bi = torch.arange(B, device=dev)[:, None, None, None].expand_as(a)
+            m[bi[mask], a[mask], b[mask]] = True
+        return int(m.sum())
+
+    true = torch.ones_like(valid)
+    pt_e = entries((iv, jv, true), (kv, lv, true), (iv, lv, true))
+    can_e = entries((iv, jv, pij), (kv, lv, pkl), (iv, lv, pil))
+    est_e = entries((iv, jv, gates[0]), (kv, lv, gates[4]), (iv, lv, gates[8]))
+    nbytes = (2 * state_elems
+              + 4 * B * int((valid & pij & cij).sum()) + 4 * B * int((valid & pkl & ckl).sum())
+              + 4 * 8 * vcells + 4 * 2 * cells
+              + 4 * pt_e + can_e + 4 * est_e
+              + (5 * 4 + 8 * 2) * cells)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def store_bound(cuda_ops, args, kw):
+    """(bytes, ms by bytes) of one ``span_store`` on its data: every
+    destination element written once (2 B), and each source element of a
+    valid cell read once (the 14 loop families' int32, the 8 assembled
+    families' int16: 72 B a valid cell; every family has a destination
+    that covers its valid rows)."""
+    dests, loops, xs = args
+    s, n, i0, TB, IB = (kw[k] for k in ("s", "n", "i0", "TB", "IB"))
+    vcells = xs.shape[1] * int(cuda_ops.span_valid(n, s, i0, TB, IB, n + 2, xs.device).sum())
+    nbytes = 2 * sum(d.view.numel() for d in dests) + (4 * len(loops) + 2 * len(xs)) * vcells
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_span(cuda_ops, sp, bucket_dims, dev):
+    """Phase 2f: ``span_assemble`` and ``span_store`` against their plain
+    versions on the card, exactly, at :func:`span_cases` (the fills' own
+    calls, :func:`span_kernel_calls`); each row with the kernel's L2-hot
+    (graph replay) and L2-cold (:func:`graph_cold_ms`) device times, the
+    eager call's (the wrapper's host work and launch), the plain version's
+    on the card and the bound (:func:`assemble_bound`, :func:`store_bound`).  The
+    store's result is its destination views after the kernel, against the
+    same views filled with -7 and written by the plain version.  Returns
+    the rows by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    emit({"phase": "span", "library": "none: no single PyTorch call assembles the "
+          "recurrences' branches or writes a span into its slots, so library_ms is null "
+          "for both kernels"})
+    rows = {"span_assemble": [], "span_store": []}
+    for case in span_cases(bucket_dims):
+        with torch.inference_mode():       # the state's tensors are inference tensors
+            span_case(cuda_ops, case, sp, gen, dev, rows)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def span_case(cuda_ops, case, sp, gen, dev, rows):
+    """One case of :func:`phase_span`: appends its two rows to ``rows``."""
+    from ccj_tpu_torch.engine.common import INF
+
+    (aa, akw), (sa, skw), st = span_kernel_calls(cuda_ops, case, sp, gen, dev)
+    base = {"batch": case["B"], "i0": akw["i0"], "rows": akw["IB"], "TB": akw["TB"]}
+    # ---- span_assemble ---------------------------------------------------
+    want = cuda_ops.span_assemble_ref(*aa, **akw)
+    before = cuda_ops.ASSEMBLE_LAUNCHES
+    got = cuda_ops.span_assemble(*aa, **akw)
+    torch.cuda.synchronize()
+    check(cuda_ops.ASSEMBLE_LAUNCHES == before + 1, "a span_assemble made other than "
+          "one launch")
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    label = f"span_assemble {case['label']}"
+    check(err == 0, f"{label} != plain: max |err| = {err}")
+    check(bool((want.PLs < INF).any()) and bool((want.xs[7] < 32767).any()),
+          f"{label}: no valid cell had a value")
+    del got, want
+    nbytes, t_bytes = assemble_bound(cuda_ops, aa, akw)
+
+    def kern_a():
+        cuda_ops.span_assemble(*aa, **akw)
+
+    row = {"case": label, **base, "parts": max(len(p) for p in aa[0]), "bytes": nbytes,
+           "max_abs_err": err, "ms": graph_ms(kern_a, reps=20, replays=5),
+           "ms_l2cold": graph_cold_ms(kern_a), "call_ms": cuda_ms(kern_a, 10),
+           "plain_ms": cuda_ms(lambda: cuda_ops.span_assemble_ref(*aa, **akw), 2),
+           "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+    rows["span_assemble"].append(row)
+    emit({"phase": "span", **row})
+    # ---- span_store -------------------------------------------------------
+    dests = sa[0]
+    before = cuda_ops.STORE_LAUNCHES
+    cuda_ops.span_store(*sa, **skw)
+    torch.cuda.synchronize()
+    check(cuda_ops.STORE_LAUNCHES == before + 1, "a span_store made other than one launch")
+    kernel_views = [d.view.clone() for d in dests]
+    for d in dests:
+        d.view.fill_(-7)
+    cuda_ops.span_store_ref(*sa, **skw)
+    err = max(int((d.view.long() - k.long()).abs().max())
+              for d, k in zip(dests, kernel_views))
+    label = f"span_store {case['label']}"
+    check(err == 0, f"{label} != plain: max |err| = {err}")
+    del kernel_views
+    nbytes, t_bytes = store_bound(cuda_ops, sa, skw)
+
+    def kern_s():
+        cuda_ops.span_store(*sa, **skw)
+
+    row = {"case": label, **base, "destinations": len(dests), "bytes": nbytes,
+           "max_abs_err": err, "ms": graph_ms(kern_s, reps=20, replays=5),
+           "ms_l2cold": graph_cold_ms(kern_s), "call_ms": cuda_ms(kern_s, 10),
+           "plain_ms": cuda_ms(lambda: cuda_ops.span_store_ref(*sa, **skw), 2),
+           "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+    rows["span_store"].append(row)
+    emit({"phase": "span", **row})
+
+
 def max_rel_err(got, want):
     """Largest |got - want| / max(|got|, |want|) over two arrays (0 where
     both are 0)."""
@@ -2141,11 +2451,12 @@ def sharded_counts(n, P):
     ``tt_span``, ``stencil_pl`` and ``stencil_pr`` each span with a tt
     step; ``history_min`` each span s >= 1 once for the RL scans and once
     per owner of the shard's C rows l = i + s (< n2) for the RI ones (each
-    owner reduces its own rows); ``p_split`` each span with a term."""
+    owner reduces its own rows); ``p_split`` each span with a term;
+    ``span_assemble`` and ``span_store`` each span."""
     from ccj_tpu_torch.dist.wavefront import row_partition, span_rows
 
     R, _ = row_partition(n, P)
-    tt = hist = ps = 0
+    tt = hist = ps = spans = 0
     for s in range(n):
         for _p, i0, IB in span_rows(n, R, P, s):
             a, b = i0 + s, min(i0 + s + IB, n + 2)
@@ -2153,7 +2464,8 @@ def sharded_counts(n, P):
             tt += s >= 2
             hist += (s >= 1) * (1 + owners)
             ps += s >= 3
-    return tt, hist, ps, tt, tt
+            spans += 1
+    return tt, hist, ps, tt, tt, spans, spans
 
 
 def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
@@ -2379,7 +2691,9 @@ def phase_corpus_processes(entries, nproc=2):
                                           "corpus-history-launches",
                                           "corpus-psplit-launches",
                                           "corpus-stencil-pl-launches",
-                                          "corpus-stencil-pr-launches")))
+                                          "corpus-stencil-pr-launches",
+                                          "corpus-assemble-launches",
+                                          "corpus-store-launches")))
             reports.append({"wall_s": walls[pid],
                             "fold_s": float(vals["corpus-fold-seconds"]),
                             "launches": int(vals["corpus-tt-span-launches"]),
@@ -2387,6 +2701,8 @@ def phase_corpus_processes(entries, nproc=2):
                             "psplit_launches": int(vals["corpus-psplit-launches"]),
                             "stencil_pl_launches": int(vals["corpus-stencil-pl-launches"]),
                             "stencil_pr_launches": int(vals["corpus-stencil-pr-launches"]),
+                            "assemble_launches": int(vals["corpus-assemble-launches"]),
+                            "store_launches": int(vals["corpus-store-launches"]),
                             "minplus_launches": int(vals["corpus-minplus-launches"]),
                             "tt_step_launches": int(vals["corpus-tt-step-launches"])})
         res = json.loads(out.read_text())
@@ -2411,7 +2727,8 @@ def phase_corpus_processes(entries, nproc=2):
 
     want = fill_counts(*(bucket_for(len(e["seq"])) for e in entries))
     keys = ("launches", "history_launches", "psplit_launches", "stencil_pl_launches",
-            "stencil_pr_launches", "minplus_launches", "tt_step_launches")
+            "stencil_pr_launches", "assemble_launches", "store_launches", "minplus_launches",
+            "tt_step_launches")
     for label, reps in (("two-process", multi), ("one-process", solo)):
         got = tuple(sum(r[k] for r in reps) for k in keys)
         check(got == (*want, 0, 0), f"{label} corpus {' / '.join(FILL_KERNELS)} / "
@@ -2422,6 +2739,7 @@ def phase_corpus_processes(entries, nproc=2):
             "launches": sum(r["launches"] for r in multi),
             "history_launches": want[1], "psplit_launches": want[2],
             "stencil_pl_launches": want[3], "stencil_pr_launches": want[4],
+            "assemble_launches": want[5], "store_launches": want[6],
             "one_process": solo[0]}
 
 
@@ -2470,6 +2788,8 @@ def main():
                                     / "rna_DirksPierce09.par"))
     stencil_rows = phase_stencil(cuda_ops, sp, torch.device("cuda"), stencil_ptxas(log))
     report.update(stencil_rows)
+    span_k_rows = phase_span(cuda_ops, sp, bucket_dims, torch.device("cuda"))
+    report.update(span_k_rows)
 
     # ---- 3: corpus goldens -----------------------------------------------
     corpus = json.loads((ROOT / "tests" / "golden" / "corpus.json").read_text())
@@ -2779,6 +3099,31 @@ def main():
             "walked_over_terms": main["walked_over_terms"],
             "ptxas": main["ptxas"], "matches_plain": True, "shape": main["case"],
             "other_shapes": [{k: r[k] for k in stencil_keys} for r in rows_k[1:]]})
+    span_keys = ("case", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms", "bound_by",
+                 "share_of_bound", "share_of_bound_l2cold", "bytes", "max_abs_err")
+    for name, idx, what in (
+            ("span_assemble", 5, "the XLA fusion of the span body around its reductions: the "
+             "13 fixed-offset plane reads, the PL / PR / PO assembly and the cross-span-only "
+             "families (gapped4.py:257-466, the packed reads of gapped5.span_gapped7), one "
+             "launch a span (and row shard)"),
+            ("span_store", 6, "the XLA fusion of the span's pack and write-back of 22 "
+             "families, 5 C skews, PKD and PKE (gapped4.py:472-495, update_pk_skews4 "
+             ":210-229), one launch a span (and row shard)")):
+        rows_k = span_k_rows[name]
+        main = rows_k[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"ccj_tpu_torch/csrc/"
+            f"{'assemble' if idx == 5 else 'store'}.cu",
+            "replaces": SPAN_REPLACES[name], "replaces_what": what,
+            "launches": PATH_COUNTS["the main path"][idx],
+            "launches_by_path": {k: v[idx] for k, v in PATH_COUNTS.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "call_ms": main["call_ms"],
+            "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
+            "share_of_bound_l2cold": main["share_of_bound_l2cold"],
+            "matches_plain": True, "shape": main["case"],
+            "other_shapes": [{k: r[k] for k in span_keys} for r in rows_k[1:]]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,5 +1,6 @@
 """The CUDA kernels (``tt_span``, ``minplus_group``, ``tt_step``,
-``history_min``, ``p_split``, ``stencil_pl``, ``stencil_pr``) against
+``history_min``, ``p_split``, ``stencil_pl``, ``stencil_pr``,
+``span_assemble``, ``span_store``) against
 their plain PyTorch versions, on the card (exact: integer data), ``tt_span``
 against the two-launch loop it replaces, ``fold_many``'s
 fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
@@ -771,3 +772,101 @@ def test_stencil_refuses_a_view_with_a_j_stride(cuda):
         with pytest.raises(ValueError, match="j stride must be 1"):
             fn(strided, w, **kw)
         assert cuda_ops.STENCIL_LAUNCHES == before, name
+
+
+# span_assemble and span_store (chip_smoke.py phase 2f's calls: the fills'
+# own, on a random state): the odd-n2 n=37 span 20, a batch of two, a dense
+# row shard (its halo row a second view, another shard's), the packed n=134
+# span 93 (its reads in segments 2 and 3) and a packed row shard
+SPAN_CASES = [pytest.param(dict(B=B, i0=i0, rows=rows, packed=packed, n=n, s=s, label=lab),
+                           id=lab) for lab, n, s, B, i0, rows, packed in (
+    ("37-20-odd-n2", 37, 20, 1, 0, None, False),
+    ("100-37-batch-2", 100, 37, 2, 0, None, False),
+    ("100-37-row-shard", 100, 37, 1, 26, 26, False),
+    ("134-93-packed", 134, 93, 1, 0, None, True),
+    ("134-62-packed-row-shard", 134, 62, 1, 34, 34, True))]
+
+
+def _span_calls(case, dev):
+    import chip_smoke
+
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.params import parse_par, scale_parameters
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    gen = torch.Generator(device=dev).manual_seed(case["n"] + case["s"])
+    return chip_smoke.span_kernel_calls(cuda_ops, case, sp, gen, dev)
+
+
+@pytest.mark.parametrize("case", SPAN_CASES)
+def test_span_kernels_match_plain(cuda, case):
+    with torch.inference_mode():
+        (aa, akw), (sa, skw), _st = _span_calls(case, cuda)
+        want = cuda_ops.span_assemble_ref(*aa, **akw)
+        before = (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES)
+        got = cuda_ops.span_assemble(*aa, **akw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(cuda_ops.SpanAssembly._fields, got, want):
+            assert torch.equal(g, w), name
+        assert bool((want.PLs < INF).any())
+        dests = sa[0]
+        cuda_ops.span_store(*sa, **skw)
+        torch.cuda.synchronize()
+        kernel_views = [d.view.clone() for d in dests]
+        for d in dests:
+            d.view.fill_(-7)
+        cuda_ops.span_store_ref(*sa, **skw)
+        for d, k in zip(dests, kernel_views):
+            assert torch.equal(d.view, k), d.family
+        assert (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+def test_span_kernels_refuse_a_view_with_a_j_stride(cuda):
+    """The warps' lanes take consecutive j: a plane view or a destination
+    whose j axis is not contiguous is refused, not read or written wrong."""
+    with torch.inference_mode():
+        (aa, akw), (sa, skw), _st = _span_calls(dict(SPAN_CASES[0].values[0]), cuda)
+
+        def strided(v):             # the same values, every other element of j
+            wide = torch.zeros((*v.shape[:-1], 2 * v.shape[-1]), dtype=v.dtype, device=cuda)
+            wide[..., ::2] = v
+            return wide[..., ::2]
+
+        planes = [[(strided(v), t0, r0) for v, t0, r0 in p] for p in aa[0]]
+        before = (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES)
+        with pytest.raises(ValueError, match="j stride must be 1"):
+            cuda_ops.span_assemble(planes, *aa[1:], **akw)
+        dests = [cuda_ops.StoreDest(d.family, strided(d.view), d.r0, d.skew) for d in sa[0]]
+        with pytest.raises(ValueError, match="j stride must be 1"):
+            cuda_ops.span_store(dests, *sa[1:], **skw)
+        assert (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES) == before
+
+
+def test_fill_launches_span_kernels(cuda):
+    """One span_assemble and one span_store a span on the dense (n=60) and
+    the packed (n=134) fill, and a span and row shard on the row-sharded
+    one (n=60, P=3)."""
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.dist.wavefront import fill6_sharded, row_partition, span_rows
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.engine.gapped5 import segments7
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+
+    def counts():
+        return (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES)
+
+    for n, run, want in (
+            (60, lambda C, S: tfold.fill6(C, S, 60, sp.dangles), 60),
+            (134, lambda C, S: tfold.fill7(C, S, 134, sp.dangles, segments7(134)), 134),
+            (60, lambda C, S: fill6_sharded(C, S, 60, sp.dangles, devices=[cuda] * 3),
+             sum(len(span_rows(60, row_partition(60, 3)[0], 3, s)) for s in range(60)))):
+        tabs = build_seq_tables(_bench_seq(n, 42), sp, DEFAULT_PK)
+        C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
+        before = counts()
+        run(C, SC4)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (want, want), n
