@@ -44,20 +44,45 @@
 // each), pl_int, pr_int and 15 history planes (4 B each) and six table
 // entries; every cell writes 5 int32 and 8 int16 outputs and reads the two
 // PMmloop10 scans.  No arithmetic is worth counting.  Design: a thread a
-// cell, j fastest, so a warp reads and writes 32 consecutive j of every
-// plane (every view's j axis is contiguous; the wrapper refuses one that
-// is not); a cell outside the span's valid cells writes its constants and
-// the PMmloop10 base and reads nothing else.
+// cell, j fastest, a block 256 consecutive cells of the flattened [B, TB,
+// IB, n2] planes, so a warp's loads of the 18 int32 planes (the history
+// scans, pl_int, pr_int) and its stores of the 13 outputs are aligned,
+// contiguous runs of the same cells; the plane reads are contiguous along
+// j too (every view's j axis is contiguous; the wrapper refuses one that
+// is not).  The PR branch reads the tables at (k, l), k = j + tt + 2: a
+// warp's lanes on consecutive k walk down a column, a sector a lane.
+// Copies of the tables transposed in storage, which make those reads
+// contiguous, measured no faster on an H100 (0.0811 against 0.0807 ms at
+// n=200 span 135), and staging column l in shared memory would not cut
+// them, each (k, l) being read by one cell of a block; so the kernel reads
+// the tables as they are.  The 16 history planes share one set of strides
+// (the wrapper checks it), so a cell's offset into all 16 is one 32-bit
+// sum, and each plane read's (c, b, di, dj) is a compile-time constant; a
+// cell off the span's valid ones writes its constants and the PMmloop10
+// base and reads nothing else.  A cell's 13 outputs stay in registers
+// until its last load: stored as they were computed, each store held the
+// later loads behind it (the outputs might alias the operands), and the
+// kernel took 56 registers and 1.2-1.3x the time on an H100.  What binds
+// it is the 36 B of output and the 8 B of PMmloop10 base every cell
+// moves (80 % of its bytes at n=200), in flight behind the valid cells'
+// chains of dependent loads.  Measured slower on an H100: two cells a
+// thread (1.1-1.5x); a warp of 8 rows x 4 quads of 4 cells, its outputs as
+// vectors into row-padded buffers and each plane read's row pointer found
+// once a thread (128 registers, a quarter of the warps resident;
+// 1.6-2.1x); a block of 8 rows x 32 columns, a cell a thread, so that the
+// tables' (k, l) reads met 8 consecutive l (each row starts off a 128-byte
+// line, so every warp's int32 loads and stores straddle two; 1.1-1.5x).
+// (Figures: PERF.md.)
 
 #include <cuda_runtime.h>
 
-#include <cstring>
 
 namespace {
 
 constexpr int kReads = 13;              // cuda_ops.ASSEMBLE_READS
 constexpr int kParts = 2;               // cuda_ops.PLANE_MAX_PARTS
 constexpr int kHist = 16;               // cuda_ops.ASSEMBLE_HISTORY
+constexpr int kOut32 = 5;
 constexpr int kOut16 = 8;               // cuda_ops.ASSEMBLED
 constexpr int kSAT16 = 32767;
 constexpr int kINF = 10000000;
@@ -69,100 +94,92 @@ enum Hist {
   kPOm00ri, kPOm00rl, kPOm01, kPOm10ri, kPOm10rl, kPRm01, kPfromOri, kPfromOrl,
   kPLm00, kPLm10, kPRm00, kPMm01, kPMm10ri, kPMm10rl, kPfromL, kPfromR
 };
-// cuda_ops.ASSEMBLE_READS' order
+// cuda_ops.ASSEMBLE_READS' order, and each read's (c, b, di, dj)
 enum Read_ {
   rPL, rPLm10, rPLm01, rPfromL, rPR, rPRm10, rPRm01, rPfromR, rPO, rPOm10, rPOm01,
   rPfromO, rPRm01b
 };
+__host__ __device__ constexpr int read_c(int q) { return q < rPO ? 1 : 0; }
+__host__ __device__ constexpr int read_b(int q) { return q >= rPO && q < rPRm01b ? 2 : 1; }
+__host__ __device__ constexpr int read_di(int q) {
+  return q < rPR || (q >= rPO && q < rPRm01b) ? 1 : 0;
+}
+__host__ __device__ constexpr int read_dj(int q) { return q < rPR ? -1 : 0; }
 
-// Mirrored field for field by ccj_tpu_torch/engine/cuda_ops.py.
-struct Part {                 // AssemblePart: int16 [B, TT, R, n2]
-  const short* p;
-  long long st[4];
-  int TT, R, t0, r0;          // plane row r, tt: view row r + r0, tt + t0
-};
-struct Read {                 // AssembleRead
-  Part part[kParts];
-  int nparts, c, b, di, dj;
-};
-struct Plane {                // Plane: int32 [B, TB, IB, n2], any strides
-  const int* p;
-  long long s[4];
-};
+// Mirrored field for field by ccj_tpu_torch/engine/cuda_ops.py (AssembleTable):
+// every 64-bit field first, then the 32-bit ones, so the wrapper packs it
+// with one struct format.
 struct AssembleTable {
-  Read rd[kReads];
-  Plane hist[kHist];
-  Plane pl, pr;               // the PL / PR interior stencils
-  const void* tab[3];         // can_pair (bool), ptype, ESTP (int32) [B, n2, n2]
-  long long ts[3][3];
-  int* out32;                 // [5, B, TB, IB, n2]: PLs, PRs, POs, mdp0, PMmloop10 base
-  short* out16;               // [8, B, TB, IB, n2]: cuda_ops.ASSEMBLED packed
+  const short* pp[kReads][kParts];      // part views int16 [B, TT, R, n2], unit j stride
+  long long pst0[kReads][kParts];       // their b strides
+  long long pst1[kReads][kParts];       // their tt strides
+  const int* hist[kHist];               // [B, TB, IB, n2], strides hs
+  const int* pl;                        // the PL / PR interior stencils, strides pls, prs
+  const int* pr;
+  const unsigned char* canp;            // [B, n2, n2] tables, strides ts (unit columns)
+  const int* ptype;
+  const int* estp;
+  int* out32;                 // 5 planes [B, TB, IB, n2], one after another: PLs, PRs,
+  short* out16;               // POs, mdp0, the PMmloop10 base; 8: cuda_ops.ASSEMBLED packed
+  int pst2[kReads][kParts];             // the parts' row strides
+  int pTT[kReads][kParts], pR[kReads][kParts];
+  int pt0[kReads][kParts], pr0[kReads][kParts];   // plane row r, tt: view row r + r0, tt + t0
+  int nparts[kReads];
+  int hs[3], pls[3], prs[3];            // b, tt, row strides of hist, pl, pr
+  int ts[2];                            // b, row strides of the tables
   int B, TB, IB, n2, n, s, i0, ap, bp, cp, PB;
 };
-
-__device__ __forceinline__ int at(const Plane& x, int b, int tt, int r, int j) {
-  return __ldg(x.p + b * x.s[0] + tt * x.s[1] + r * x.s[2] + j * x.s[3]);
-}
 
 // read q at (tt, row r, column j + dj), INF where its bounds do not admit
 // the cell, SAT16 where no part holds it
 __device__ __forceinline__ int rp(const AssembleTable& t, int q, int b, int tt, int r, int i,
                                   int j) {
-  const Read& R = t.rd[q];
-  const int i2 = i + R.di, j2 = j + R.dj, u = t.s - R.b;
-  const int k2 = j2 + tt + R.c + 2, l2 = i2 + u;
+  const int c = read_c(q), dj = read_dj(q);
+  const int i2 = i + read_di(q), j2 = j + dj, u = t.s - read_b(q);
+  const int k2 = j2 + tt + c + 2, l2 = i2 + u;
   if (!(i2 >= 1 && i2 <= j2 && k2 <= l2 && l2 <= t.n && u >= 0)) return kINF;
-  for (int p = 0; p < R.nparts; ++p) {
-    const Part& P = R.part[p];
-    const int vr = r + P.r0;
-    if (vr < 0 || vr >= P.R) continue;
-    const int vt = tt + P.t0;
-    if (vt < 0 || vt >= P.TT) return kSAT16;
-    return __ldg(P.p + b * P.st[0] + vt * P.st[1] + vr * P.st[2] + j2 * P.st[3]);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    if (p >= t.nparts[q]) break;
+    const int vr = r + t.pr0[q][p];
+    if (vr < 0 || vr >= t.pR[q][p]) continue;
+    const int vt = tt + t.pt0[q][p];
+    if (vt < 0 || vt >= t.pTT[q][p]) return kSAT16;
+    return __ldg(t.pp[q][p] + b * t.pst0[q][p] + vt * t.pst1[q][p] + vr * t.pst2[q][p] + j2);
   }
   return kSAT16;
 }
 
-__device__ __forceinline__ int tab(const AssembleTable& t, int k, int b, int x, int y) {
-  const long long o = b * t.ts[k][0] + x * t.ts[k][1] + y * t.ts[k][2];
-  return k == 0 ? (int)__ldg(static_cast<const unsigned char*>(t.tab[0]) + o)
-                : __ldg(static_cast<const int*>(t.tab[k]) + o);
-}
-
 __device__ __forceinline__ int enc(int v) { return min(max(v, -32768), kSAT16); }
 
-__global__ void __launch_bounds__(kThreads)
-assemble_kernel(const __grid_constant__ AssembleTable t, int cells) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= cells) return;
+// Cell e of the flattened [B, TB, IB, n2] planes: its 5 int32 and 8 int16
+// outputs.
+__device__ __forceinline__ void assemble_cell(const AssembleTable& t, int e, int* o32,
+                                              int* o16) {
   const int j = e % t.n2;
   int rest = e / t.n2;
   const int r = rest % t.IB;
   rest /= t.IB;
-  const int tt = rest % t.TB;
-  const int b = rest / t.TB;
-  const int i = t.i0 + r;
-  const int s = t.s;
-  const int k = j + tt + 2, l = i + s;
-  const long long plane = (long long)t.B * t.TB * t.IB * t.n2;
-  int* o32 = t.out32 + e;
-  short* o16 = t.out16 + e;
-  o32[4 * plane] = min(at(t.hist[kPMm10ri], b, tt, r, j), at(t.hist[kPMm10rl], b, tt, r, j));
+  const int tt = rest % t.TB, b = rest / t.TB;
+  const int s = t.s, i = t.i0 + r, l = i + s, k = j + tt + 2;
+  const int h = b * t.hs[0] + tt * t.hs[1] + r * t.hs[2] + j;   // the cell in the 16 hist planes
+  o32[4] = min(__ldg(t.hist[kPMm10ri] + h), __ldg(t.hist[kPMm10rl] + h));
   if (!(i >= 1 && j >= i && k <= l && l <= t.n)) {    // not a valid cell
-    o32[0] = o32[plane] = o32[2 * plane] = kINF;
-    o32[3 * plane] = kINF + t.PB;
+    o32[0] = o32[1] = o32[2] = kINF;
+    o32[3] = kINF + t.PB;
 #pragma unroll
-    for (int q = 0; q < kOut16; ++q) o16[q * plane] = (short)kSAT16;
+    for (int q = 0; q < kOut16; ++q) o16[q] = kSAT16;
     return;
   }
-  const int bp = t.bp, ml = t.ap + t.bp;
+  const int bp = t.bp, ml = t.ap + t.bp, ts1 = t.ts[1], tb = b * t.ts[0];
+  const int ij = tb + i * ts1 + j, il = tb + i * ts1 + l, kl = tb + k * ts1 + l;
   // ---- PL ------------------------------------------------------------------
   int PLv = kINF;
-  if (tab(t, 1, b, i, j) > 0) {
+  if (__ldg(t.ptype + ij) > 0) {
     int iloop = kINF;
-    if (tab(t, 0, b, i, j) > 0) {
-      const int st = i + kTurn + 2 < j ? rp(t, rPL, b, tt, r, i, j) + tab(t, 2, b, i, j) : kINF;
-      iloop = min(st, at(t.pl, b, tt, r, j));
+    if (__ldg(t.canp + ij) > 0) {
+      const int st = i + kTurn + 2 < j ? rp(t, rPL, b, tt, r, i, j) + __ldg(t.estp + ij) : kINF;
+      iloop = min(st, __ldg(t.pl + b * t.pls[0] + tt * t.pls[1] + r * t.pls[2] + j));
     }
     const int mv = min(rp(t, rPLm10, b, tt, r, i, j), rp(t, rPLm01, b, tt, r, i, j)) + ml;
     const int b3 = j >= i + kTurn + 1 ? rp(t, rPfromL, b, tt, r, i, j) : kINF;
@@ -170,11 +187,12 @@ assemble_kernel(const __grid_constant__ AssembleTable t, int cells) {
   }
   // ---- PR ------------------------------------------------------------------
   int PRv = kINF;
-  if (tab(t, 1, b, k, l) > 0) {
+  if (__ldg(t.ptype + kl) > 0) {
     int iloop = kINF;
-    if (tab(t, 0, b, k, l) > 0) {
-      const int st = k + kTurn + 2 < l ? rp(t, rPR, b, tt, r, i, j) + tab(t, 2, b, k, l) : kINF;
-      iloop = min(st, at(t.pr, b, tt, r, j));
+    if (__ldg(t.canp + kl) > 0) {
+      const int st = k + kTurn + 2 < l ? rp(t, rPR, b, tt, r, i, j) + __ldg(t.estp + kl)
+                                       : kINF;
+      iloop = min(st, __ldg(t.pr + b * t.prs[0] + tt * t.prs[1] + r * t.prs[2] + j));
     }
     const int mv = min(rp(t, rPRm10, b, tt, r, i, j), rp(t, rPRm01, b, tt, r, i, j)) + ml;
     const int b3 = l >= k + kTurn + 1 ? rp(t, rPfromR, b, tt, r, i, j) : kINF;
@@ -182,31 +200,47 @@ assemble_kernel(const __grid_constant__ AssembleTable t, int cells) {
   }
   // ---- PO ------------------------------------------------------------------
   int POv = kINF;
-  if (tab(t, 1, b, i, l) > 0) {
+  if (__ldg(t.ptype + il) > 0) {
     int iloop = kINF;
-    if (tab(t, 0, b, i, l) > 0 && i < j && k < l)
-      iloop = rp(t, rPO, b, tt, r, i, j) + tab(t, 2, b, i, l);
+    if (__ldg(t.canp + il) > 0 && i < j && k < l)
+      iloop = rp(t, rPO, b, tt, r, i, j) + __ldg(t.estp + il);
     const int mv = min(rp(t, rPOm10, b, tt, r, i, j), rp(t, rPOm01, b, tt, r, i, j)) + ml;
     const int b3 = l >= i + kTurn + 1 ? rp(t, rPfromO, b, tt, r, i, j) : kINF;
     POv = min(min(iloop, mv + bp), b3);
   }
   const int PLs = enc(PLv), PRs = enc(PRv);
   // ---- the cross-span-only families --------------------------------------
-  const int POm00 = min(kSAT16 + bp, min(at(t.hist[kPOm00ri], b, tt, r, j),
-                                         at(t.hist[kPOm00rl], b, tt, r, j)));
-  const int POm01 = at(t.hist[kPOm01], b, tt, r, j);
-  const int POm10 = min(at(t.hist[kPOm10ri], b, tt, r, j), at(t.hist[kPOm10rl], b, tt, r, j));
-  const int PRm01 = min(rp(t, rPRm01b, b, tt, r, i, j) + t.cp, at(t.hist[kPRm01], b, tt, r, j));
-  const int PfromO = min(min(at(t.hist[kPfromOri], b, tt, r, j),
-                             at(t.hist[kPfromOrl], b, tt, r, j)),
+  const int POm00 = min(kSAT16 + bp, min(__ldg(t.hist[kPOm00ri] + h),
+                                         __ldg(t.hist[kPOm00rl] + h)));
+  const int POm01 = __ldg(t.hist[kPOm01] + h);
+  const int POm10 = min(__ldg(t.hist[kPOm10ri] + h), __ldg(t.hist[kPOm10rl] + h));
+  const int PRm01 = min(rp(t, rPRm01b, b, tt, r, i, j) + t.cp, __ldg(t.hist[kPRm01] + h));
+  const int PfromO = min(min(__ldg(t.hist[kPfromOri] + h), __ldg(t.hist[kPfromOrl] + h)),
                          min(PLs, PRs) + t.PB);
   o32[0] = PLs;
-  o32[plane] = PRs;
-  o32[2 * plane] = enc(POv);
-  o32[3 * plane] = min(PLs, PRs) + t.PB;
-  const int packed[kOut16] = {PLs, PRs, POv, PRm01, POm00, POm01, POm10, PfromO};
+  o32[1] = PRs;
+  o32[2] = enc(POv);
+  o32[3] = min(PLs, PRs) + t.PB;
+  o16[0] = PLs;
+  o16[1] = PRs;
+  o16[2] = enc(POv);
+  o16[3] = enc(PRm01);
+  o16[4] = enc(POm00);
+  o16[5] = enc(POm01);
+  o16[6] = enc(POm10);
+  o16[7] = enc(PfromO);
+}
+
+__global__ void __launch_bounds__(kThreads)
+assemble_kernel(const __grid_constant__ AssembleTable t, int cells) {
+  const int e = (int)blockIdx.x * kThreads + (int)threadIdx.x;
+  if (e >= cells) return;
+  int o32[kOut32], o16[kOut16];
+  assemble_cell(t, e, o32, o16);        // every load before the first store
 #pragma unroll
-  for (int q = 0; q < kOut16; ++q) o16[q * plane] = (short)enc(packed[q]);
+  for (int q = 0; q < kOut32; ++q) t.out32[q * cells + e] = o32[q];
+#pragma unroll
+  for (int q = 0; q < kOut16; ++q) t.out16[q * cells + e] = (short)o16[q];
 }
 
 }  // namespace
@@ -215,25 +249,35 @@ assemble_kernel(const __grid_constant__ AssembleTable t, int cells) {
 
 extern "C" int ccj_assemble_table_bytes() { return (int)sizeof(AssembleTable); }
 
-// (reads, parts a read, history planes): checked against cuda_ops' constants
-// at load.
+// (reads, parts a read, history planes): checked against cuda_ops'
+// constants at load.
 extern "C" void ccj_assemble_limits(int* out) {
   out[0] = kReads;
   out[1] = kParts;
   out[2] = kHist;
 }
 
+// Each plane read's (c, b, di, dj), in order: checked against
+// cuda_ops.ASSEMBLE_READS at load.
+extern "C" void ccj_assemble_reads(int* out) {
+  for (int q = 0; q < kReads; ++q) {
+    out[4 * q] = read_c(q);
+    out[4 * q + 1] = read_b(q);
+    out[4 * q + 2] = read_di(q);
+    out[4 * q + 3] = read_dj(q);
+  }
+}
+
 // One span's assembly from `table` (one AssembleTable) on `stream`.
 // Returns cudaGetLastError() after the launch: 0 on success.
 extern "C" int ccj_span_assemble(const void* table, void* stream) {
-  AssembleTable t;
-  std::memcpy(&t, table, sizeof(t));
-  const long long cells = (long long)t.B * t.TB * t.IB * t.n2;
-  if (t.B < 1 || t.TB < 1 || t.IB < 1 || t.n2 < 1 || cells >= (1LL << 31) / 8)
+  const AssembleTable* t = static_cast<const AssembleTable*>(table);
+  const long long cells = (long long)t->B * t->TB * t->IB * t->n2;
+  if (t->B < 1 || t->TB < 1 || t->IB < 1 || t->n2 < 1 || cells * kOut16 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   for (int q = 0; q < kReads; ++q)
-    if (t.rd[q].nparts < 0 || t.rd[q].nparts > kParts) return (int)cudaErrorInvalidValue;
-  const int blocks = (int)((cells + kThreads - 1) / kThreads);
-  assemble_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(t, (int)cells);
+    if (t->nparts[q] < 0 || t->nparts[q] > kParts) return (int)cudaErrorInvalidValue;
+  assemble_kernel<<<(unsigned)((cells + kThreads - 1) / kThreads), kThreads, 0,
+                    (cudaStream_t)stream>>>(*t, (int)cells);
   return (int)cudaGetLastError();
 }

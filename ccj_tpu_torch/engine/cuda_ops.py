@@ -78,6 +78,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import threading
@@ -187,6 +188,8 @@ def build_library(force: bool = False) -> tuple[Path, str]:
 
 def _library():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             path, _ = build_library()
@@ -267,9 +270,15 @@ def _library():
             if tuple(lim) != (len(ASSEMBLE_READS), PLANE_MAX_PARTS, len(ASSEMBLE_HISTORY)):
                 raise RuntimeError("ASSEMBLE_READS / PLANE_MAX_PARTS / ASSEMBLE_HISTORY do "
                                    "not match csrc/assemble.cu")
+            reads = (ctypes.c_int * (4 * len(ASSEMBLE_READS)))()
+            lib.ccj_assemble_reads(reads)
+            if [tuple(reads[4 * q:4 * q + 4]) for q in range(len(ASSEMBLE_READS))] != [
+                    tuple(r[1:]) for r in ASSEMBLE_READS]:
+                raise RuntimeError("ASSEMBLE_READS' (c, b, di, dj) do not match "
+                                   "csrc/assemble.cu")
             lib.ccj_store_limits(lim)
-            if tuple(lim[:2]) != (STORE_MAX_DESTS, STORE_BLOCK_ROWS):
-                raise RuntimeError("STORE_MAX_DESTS / STORE_BLOCK_ROWS do not match "
+            if tuple(lim[:2]) != (STORE_MAX_DESTS, STORE_BLOCK_VECS):
+                raise RuntimeError("STORE_MAX_DESTS / STORE_BLOCK_VECS do not match "
                                    "csrc/store.cu")
             for fn in (lib.ccj_span_assemble, lib.ccj_span_store):
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -1853,39 +1862,121 @@ def span_assemble_ref(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB, ap
     return SpanAssembly(PLs, PRs, POs, mdp0, pmm10, xs)
 
 
-class AssemblePart(ctypes.Structure):
-    """One part of a plane read: csrc/assemble.cu's ``struct Part``, field
-    for field (the int16 view [B, TTv, Rv, n2] and its element strides)."""
-    _fields_ = [("p", ctypes.c_void_p), ("st", ctypes.c_longlong * 4),
-                *((nm, ctypes.c_int) for nm in ("TT", "R", "t0", "r0"))]
+def _need_same(names, xs, shape, dtype=torch.int32):
+    """:func:`_need` on operands that share one shape, checked as one: each
+    must have the first's shape and ``dtype``, which must fit ``shape``;
+    where they differ, each is checked on its own (``names[k]`` names
+    ``xs[k]`` in the message)."""
+    first = xs[0].shape
+    if [x.shape for x in xs].count(first) == len(xs) and {x.dtype for x in xs} == {dtype}:
+        _need(names[0], xs[0], shape, dtype)
+        return
+    for name, x in zip(names, xs):
+        _need(name, x, shape, dtype)
 
 
-class AssembleRead(ctypes.Structure):
-    """One plane read: csrc/assemble.cu's ``struct Read``."""
-    _fields_ = [("part", AssemblePart * PLANE_MAX_PARTS),
-                *((nm, ctypes.c_int) for nm in ("nparts", "c", "b", "di", "dj"))]
+def _one_device(tensors):
+    """The one device every tensor lies on (the CPU or one CUDA device);
+    raises otherwise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError("a kernel needs every operand on one CUDA device "
+                         f"(or all on the CPU), got {sorted(map(str, devs))}")
+    return devs.pop()
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)   # CUDA builds only
+
+
+def _raw_stream(dev):
+    """``dev``'s current CUDA stream as the integer a launch takes
+    (``torch.cuda.current_stream(dev).cuda_stream``, without making the
+    Stream object where the build offers that)."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return _RAW_STREAM(dev.index)
+
+
+_tables = threading.local()    # one launch table of each kind a thread, reused
+
+
+def _table(cls):
+    """This thread's one ``cls`` launch table.  Each launch copies the table
+    it is given (it is the kernel's by-value parameter), so the next call
+    may overwrite it at once."""
+    t = getattr(_tables, cls.__name__, None)
+    if t is None:
+        t = cls()
+        setattr(_tables, cls.__name__, t)
+    return t
+
+
+_I32 = 1 << 31          # offsets the kernels take in 32 bits stay below it
+
+
+def _packed_layout(cls, fmt, first32):
+    """Raise unless ``fmt`` (its 64-bit fields, then its 32-bit ones)
+    packs ``cls`` field for field: ``first32``, the first 32-bit field,
+    starts where the 64-bit ones end, and ``fmt`` fits the structure."""
+    n64 = int(fmt.format.lstrip("=").split("q")[0])
+    if getattr(cls, first32).offset != 8 * n64 or fmt.size > ctypes.sizeof(cls):
+        raise RuntimeError(f"{cls.__name__}'s struct format does not match its fields")
+_RQ, _PQ = len(ASSEMBLE_READS), PLANE_MAX_PARTS
 
 
 class AssembleTable(ctypes.Structure):
     """The operands of one :func:`span_assemble` launch: csrc/assemble.cu's
-    ``struct AssembleTable``, field for field, passed to the kernel by
-    value."""
-    _fields_ = [("rd", AssembleRead * len(ASSEMBLE_READS)),
-                ("hist", Plane * len(ASSEMBLE_HISTORY)), ("pl", Plane), ("pr", Plane),
-                ("tab", ctypes.c_void_p * 3), ("ts", (ctypes.c_longlong * 3) * 3),
-                ("out32", ctypes.c_void_p), ("out16", ctypes.c_void_p),
+    ``struct AssembleTable``, field for field (its 64-bit fields first, so
+    :data:`_ASSEMBLE_FMT` packs it in one call), passed to the kernel by
+    value.  ``pp`` ... ``pr0``: each plane read's parts (view, strides,
+    extents, offsets); ``hist``: the 16 history planes, sharing strides
+    ``hs``; ``pl``, ``pr``: the stencils (strides ``pls``, ``prs``);
+    ``canp``, ``ptype``, ``estp``: the tables, sharing strides ``ts``
+    (unit column stride); ``out32`` / ``out16``: the outputs' 5 and 8
+    planes, one after another."""
+    _fields_ = [("pp", (ctypes.c_void_p * _PQ) * _RQ),
+                ("pst0", (ctypes.c_longlong * _PQ) * _RQ),
+                ("pst1", (ctypes.c_longlong * _PQ) * _RQ),
+                ("hist", ctypes.c_void_p * len(ASSEMBLE_HISTORY)),
+                *((nm, ctypes.c_void_p) for nm in (
+                    "pl", "pr", "canp", "ptype", "estp", "out32", "out16")),
+                *((nm, (ctypes.c_int * _PQ) * _RQ) for nm in (
+                    "pst2", "pTT", "pR", "pt0", "pr0")),
+                ("nparts", ctypes.c_int * _RQ), ("hs", ctypes.c_int * 3),
+                ("pls", ctypes.c_int * 3), ("prs", ctypes.c_int * 3), ("ts", ctypes.c_int * 2),
                 *((nm, ctypes.c_int) for nm in (
                     "B", "TB", "IB", "n2", "n", "s", "i0", "ap", "bp", "cp", "PB"))]
 
 
+_ASSEMBLE_FMT = struct.Struct(f"={3 * _RQ * _PQ + len(ASSEMBLE_HISTORY) + 7}q"
+                              f"{5 * _RQ * _PQ + _RQ + 22}i")
+_packed_layout(AssembleTable, _ASSEMBLE_FMT, "pst2")
+
+
+def _check_parts(q, parts, B, n2, IB):
+    """Raise unless plane read q's parts fit (see :func:`assemble_operands`)."""
+    if len(parts) > PLANE_MAX_PARTS:
+        raise ValueError(f"plane read {ASSEMBLE_READS[q][0]}: {len(parts)} parts, past "
+                         f"the kernel's {PLANE_MAX_PARTS}")
+    for view, _t0, _r0 in parts:
+        _need(f"plane read {ASSEMBLE_READS[q][0]}", view, ((B,), 0, 0, (n2,)), torch.int16)
+    spans = sorted(sp for sp in ((max(0, -r0), min(IB, v.shape[2] - r0))
+                                 for v, _t0, r0 in parts) if sp[0] < sp[1])
+    if any(a2 < b1 for (_a1, b1), (a2, _b2) in zip(spans, spans[1:])):
+        raise ValueError(f"plane read {ASSEMBLE_READS[q][0]}: parts overlap in rows")
+
+
+_TABLE_DTYPES = [torch.bool, torch.int32, torch.int32]     # can_pair, ptype, ESTP
+
+
 def assemble_operands(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB):
     """Raise unless the operands fit one span's assembly: 13 plane reads
-    (:data:`ASSEMBLE_READS`), each a list of at most
-    :data:`PLANE_MAX_PARTS` (int16 view [B, TTv, Rv, n2], t0, r0) parts
-    whose row ranges do not overlap; ``pl_int``, ``pr_int`` and the 16
-    ``hist`` planes (:data:`ASSEMBLE_HISTORY`) int32 [B, TB, IB, n2];
-    ``tables`` (can_pair bool, ptype int32, ESTP int32) [B, n2, n2].
-    Returns the tensors, for the device check."""
+    (:data:`ASSEMBLE_READS`); ``pl_int``, ``pr_int`` and the 16 ``hist``
+    planes (:data:`ASSEMBLE_HISTORY`) int32 [B, TB, IB, n2]; ``tables``
+    (can_pair bool, ptype int32, ESTP int32) [B, n2, n2].  Each plane
+    read's parts (:func:`_check_parts`) are checked by the CPU path and by
+    :func:`assemble_table` as it reads them.  Returns the tensors, for the
+    device check."""
     n2 = n + 2
     B = pl_int.shape[0]
     if TB < 1 or IB < 1 or i0 < 0 or s < 0 or i0 + IB > n2:
@@ -1895,28 +1986,80 @@ def assemble_operands(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB):
         raise ValueError(f"span_assemble takes {len(ASSEMBLE_READS)} plane reads and "
                          f"{len(ASSEMBLE_HISTORY)} history planes, got {len(planes)}, "
                          f"{len(hist)}")
-    E = ((B,), (TB,), (IB,), (n2,))
-    for name, x in (("pl_int", pl_int), ("pr_int", pr_int),
-                    *((f"hist[{k}]", h) for k, h in zip(ASSEMBLE_HISTORY, hist))):
-        _need(name, x, E)
-    for name, x, dt in zip(("can_pair", "ptype", "ESTP"), tables,
-                           (torch.bool, torch.int32, torch.int32)):
-        _need(name, x, ((B,), (n2,), (n2,)), dt)
-    tensors = [pl_int, pr_int, *hist, *tables]
+    planes32 = [pl_int, pr_int, *hist]
+    _need_same(["pl_int", "pr_int", *(f"hist[{k}]" for k in ASSEMBLE_HISTORY)], planes32,
+               ((B,), (TB,), (IB,), (n2,)))
+    tabs = list(tables)
+    if len(tabs) != 3:
+        raise ValueError("span_assemble: tables are (can_pair, ptype, ESTP)")
+    if ([x.shape for x in tabs].count((B, n2, n2)) != 3
+            or [x.dtype for x in tabs] != _TABLE_DTYPES):
+        for name, x, dt in zip(("can_pair", "ptype", "ESTP"), tabs, _TABLE_DTYPES):
+            _need(name, x, ((B,), (n2,), (n2,)), dt)
+    return [*planes32, *tabs, *(v for parts in planes for v, _t0, _r0 in parts)]
+
+
+_NO_PART = [(0,) * 8] * _PQ      # a plane read's unused part slots
+
+
+def assemble_table(planes, pl_int, pr_int, hist, tables, out32, out16, *, s, n, i0, TB,
+                   IB, ap, bp, cp, PB):
+    """One :func:`span_assemble` launch's operands as the kernel takes them
+    (the global checks of :func:`assemble_operands` passed; each plane
+    read's parts are checked here as they are read; ``out32`` / ``out16``
+    contiguous [5 | 8, B·TB·IB·n2], each row a plane of the span's cells):
+    this thread's :class:`AssembleTable`, packed in one call (valid until
+    the next call).  Builds on tensors of any device; raises where the
+    kernel cannot take them: a j stride that is not 1, history planes or
+    tables that do not share their strides, an offset past 32 bits."""
+    B, n2 = pl_int.shape[0], n + 2
+    cells = B * TB * IB * n2
+    if (tuple(out32.shape) != (5, cells) or tuple(out16.shape) != (len(ASSEMBLED), cells)
+            or not out32.is_contiguous() or not out16.is_contiguous()
+            or out16.numel() >= _I32):
+        raise ValueError(f"span_assemble: outputs {tuple(out32.shape)}, "
+                         f"{tuple(out16.shape)} are not [5 | 8, {cells}], contiguous, "
+                         f"within 32-bit offsets")
+    hs, pls, prs = hist[0].stride(), pl_int.stride(), pr_int.stride()
+    if hs[3] != 1 or [h.stride() for h in hist].count(hs) != len(hist):
+        raise ValueError("span_assemble: the history planes must share their strides with "
+                         f"a unit j stride, got {[h.stride() for h in hist]}")
+    if pls[3] != 1 or prs[3] != 1:
+        raise ValueError(f"span_assemble: pl_int's and pr_int's j stride must be 1, got "
+                         f"{pls[3]}, {prs[3]}")
+    canp, pt, estp = tables
+    ts = pt.stride()
+    if ts[2] != 1 or canp.stride() != ts or estp.stride() != ts:
+        raise ValueError("span_assemble: the tables must share their strides with a unit "
+                         f"column stride, got {[x.stride() for x in tables]}")
+    if (any((B - 1) * x[0] + (TB - 1) * x[1] + (IB - 1) * x[2] + n2 >= _I32
+            for x in (hs, pls, prs)) or (B - 1) * ts[0] + n2 * ts[1] >= _I32):
+        raise ValueError("span_assemble: an int32 plane or a table is past 32-bit offsets")
+    rows, nparts, i16 = [], [], torch.int16
     for q, parts in enumerate(planes):
-        if len(parts) > PLANE_MAX_PARTS:
-            raise ValueError(f"plane read {ASSEMBLE_READS[q][0]}: {len(parts)} parts, past "
-                             f"the kernel's {PLANE_MAX_PARTS}")
-        spans = []
+        nparts.append(len(parts))
+        if len(parts) > 1:
+            _check_parts(q, parts, B, n2, IB)
         for view, t0, r0 in parts:
-            _need(f"plane read {ASSEMBLE_READS[q][0]}", view, ((B,), 0, 0, (n2,)),
-                  torch.int16)
-            spans.append((max(0, -r0), min(IB, view.shape[2] - r0)))
-            tensors.append(view)
-        spans = sorted(sp for sp in spans if sp[0] < sp[1])
-        if any(a2 < b1 for (_a1, b1), (a2, _b2) in zip(spans, spans[1:])):
-            raise ValueError(f"plane read {ASSEMBLE_READS[q][0]}: parts overlap in rows")
-    return tensors
+            shp = view.shape
+            if len(shp) != 4 or shp[0] != B or shp[3] != n2 or view.dtype != i16:
+                _check_parts(q, parts, B, n2, IB)
+            st = view.stride()
+            if st[3] != 1:
+                raise ValueError(f"span_assemble: the lanes read consecutive j: a plane "
+                                 f"view's j stride must be 1, got {st[3]}")
+            if (shp[2] - 1) * st[2] >= _I32:
+                raise ValueError("span_assemble: a plane view's rows are past 32-bit offsets")
+            rows.append((view.data_ptr(), st[0], st[1], st[2], shp[1], shp[2], t0, r0))
+        rows += _NO_PART[len(parts):]
+    pp, st0, st1, st2, tts, rs, t0s, r0s = zip(*rows)
+    t = _table(AssembleTable)
+    _ASSEMBLE_FMT.pack_into(
+        t, 0, *pp, *st0, *st1, *(h.data_ptr() for h in hist), pl_int.data_ptr(),
+        pr_int.data_ptr(), canp.data_ptr(), pt.data_ptr(), estp.data_ptr(),
+        out32.data_ptr(), out16.data_ptr(), *st2, *tts, *rs, *t0s, *r0s, *nparts, *hs[:3],
+        *pls[:3], *prs[:3], *ts[:2], B, TB, IB, n2, n, s, i0, ap, bp, cp, PB)
+    return t
 
 
 def span_assemble(planes, pl_int, pr_int, hist, tables, *, s, n, i0, TB, IB, ap, bp,
@@ -1931,45 +2074,33 @@ def span_assemble(planes, pl_int, pr_int, hist, tables, *, s, n, i0, TB, IB, ap,
     of parts read in place (:func:`plane_slab`'s rule: a cell no part holds
     reads SAT16); ``pl_int`` / ``pr_int``: the PL / PR interior stencils
     (``stencil_pl`` / ``stencil_pr``); ``hist``: the span's history scans
-    in :data:`ASSEMBLE_HISTORY` order (``history_min``'s planes, any
-    strides); ``tables``: (can_pair, ptype, ESTP) [B, n2, n2], from which
-    the kernel takes the pair planes (X[i, j], X[k, l] with k = j + tt + 2,
-    l = i + s, X[i, l]); ``ap``, ``bp``, ``cp``, ``PB`` the energies.  One
-    kernel launch on CUDA for the whole batch, a thread a cell, every
-    output cell written once (on CUDA each plane view needs a unit j
-    stride: the wrapper raises otherwise); the plain version
+    in :data:`ASSEMBLE_HISTORY` order (``history_min``'s planes);
+    ``tables``: (can_pair, ptype, ESTP) [B, n2, n2], from which the kernel
+    takes the pair planes (X[i, j], X[k, l] with k = j + tt + 2, l = i + s,
+    X[i, l]); ``ap``, ``bp``, ``cp``, ``PB`` the energies.  One kernel
+    launch on CUDA for the whole batch, every output cell written once
+    (:func:`assemble_table`'s operands: a unit j stride on every plane
+    view and operand, one set of strides for the ``hist`` planes and one
+    for the tables; the wrapper raises otherwise).  The plain version
     (:func:`span_assemble_ref`) for CPU tensors."""
     global ASSEMBLE_LAUNCHES
-    tensors = assemble_operands(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB)
-    if all(t.device.type == "cpu" for t in tensors):
+    dev = _one_device(assemble_operands(planes, pl_int, pr_int, hist, tables, s, n, i0,
+                                        TB, IB))
+    if dev.type == "cpu":
+        for q, parts in enumerate(planes):
+            _check_parts(q, parts, pl_int.shape[0], n + 2, IB)
         return span_assemble_ref(planes, pl_int, pr_int, hist, tables, s, n, i0, TB, IB,
                                  ap, bp, cp, PB)
-    dev = _check_devices(tensors)
     fn = _library().ccj_span_assemble
-    B, n2 = pl_int.shape[0], n + 2
-    out32 = torch.empty((5, B, TB, IB, n2), dtype=torch.int32, device=dev)
-    out16 = torch.empty((len(ASSEMBLED), B, TB, IB, n2), dtype=torch.int16, device=dev)
-    t = AssembleTable(pl=_plane(pl_int), pr=_plane(pr_int), out32=out32.data_ptr(),
-                      out16=out16.data_ptr(), B=B, TB=TB, IB=IB, n2=n2, n=n, s=s, i0=i0,
-                      ap=ap, bp=bp, cp=cp, PB=PB)
-    for q, (parts, (_nm, c, b, di, dj)) in enumerate(zip(planes, ASSEMBLE_READS)):
-        rd = t.rd[q]
-        rd.nparts, rd.c, rd.b, rd.di, rd.dj = len(parts), c, b, di, dj
-        for k, (view, t0, r0) in enumerate(parts):
-            if view.stride(3) != 1:
-                raise ValueError(f"span_assemble: the warp's lanes read consecutive j: "
-                                 f"a plane view's j stride must be 1, got {view.stride(3)}")
-            rd.part[k] = AssemblePart(view.data_ptr(), (ctypes.c_longlong * 4)(*view.stride()),
-                                      view.shape[1], view.shape[2], int(t0), int(r0))
-    for k, h in enumerate(hist):
-        t.hist[k] = _plane(h)
-    for k, x in enumerate(tables):
-        t.tab[k] = x.data_ptr()
-        t.ts[k] = (ctypes.c_longlong * 3)(*x.stride())
-    _launch(fn, dev, "span_assemble", ctypes.addressof(t),
-            torch.cuda.current_stream(dev).cuda_stream)
+    shape = (pl_int.shape[0], TB, IB, n + 2)
+    out32 = torch.empty((5, *shape), dtype=torch.int32, device=dev)
+    out16 = torch.empty((len(ASSEMBLED), *shape), dtype=torch.int16, device=dev)
+    t = assemble_table(planes, pl_int, pr_int, hist, tables, out32.view(5, -1),
+                       out16.view(len(ASSEMBLED), -1), s=s, n=n, i0=i0, TB=TB, IB=IB, ap=ap,
+                       bp=bp, cp=cp, PB=PB)
+    _launch(fn, dev, "span_assemble", ctypes.addressof(t), _raw_stream(dev))
     ASSEMBLE_LAUNCHES += 1
-    return SpanAssembly(*out32, out16)
+    return SpanAssembly(*out32.unbind(0), out16)
 
 
 def span_store_ref(dests, loops, xs, s, n, i0, TB, IB):
@@ -2001,76 +2132,151 @@ def span_store_ref(dests, loops, xs, s, n, i0, TB, IB):
         view.copy_(sl)
 
 
-class StoreDestC(ctypes.Structure):
-    """One destination: csrc/store.cu's ``struct Dest``, field for field
-    (``block0``: the launch's first block on it)."""
-    _fields_ = [("p", ctypes.c_void_p), ("st", ctypes.c_longlong * 4),
-                *((nm, ctypes.c_int) for nm in ("src", "skew", "TT", "R", "r0", "block0"))]
+_SD = STORE_MAX_DESTS
+STORE_BLOCK_VECS = 256     # csrc/store.cu kBlockVecs: 16-byte vectors (8 elements) a block
+_STORE_SRC = {name: k for k, name in enumerate(STORE_SOURCES)}
 
 
 class StoreTable(ctypes.Structure):
     """The operands of one :func:`span_store` launch: csrc/store.cu's
-    ``struct StoreTable``, field for field, passed to the kernel by value."""
-    _fields_ = [("loop", Plane * len(STEP_FAMILIES)), ("xs", ctypes.c_void_p),
-                ("xst", ctypes.c_longlong * 5), ("d", StoreDestC * STORE_MAX_DESTS),
+    ``struct StoreTable``, field for field (its 64-bit fields first, so
+    :data:`_STORE_FMT` packs it in one call), passed to the kernel by
+    value.  ``loop`` / ``lst``, ``xs`` / ``xst``: the sources and their
+    strides; per destination k: ``dp[k]`` its view's pointer, ``dst0``,
+    ``dst1``, ``drow`` its b, tt and row strides (a row stride of n2 makes
+    each (b, tt) plane one contiguous run), ``dTT``, ``dR`` its extents,
+    ``dr0``, ``dskew``, ``dsrc`` (:data:`STORE_SOURCES` index), ``dchunks``
+    (blocks a run) and ``dblock0`` (the launch's first block on it)."""
+    _fields_ = [("loop", ctypes.c_void_p * len(STEP_FAMILIES)), ("xs", ctypes.c_void_p),
+                ("dp", ctypes.c_void_p * _SD), ("dst0", ctypes.c_longlong * _SD),
+                ("dst1", ctypes.c_longlong * _SD),
+                ("lst", (ctypes.c_int * 3) * len(STEP_FAMILIES)), ("xst", ctypes.c_int * 4),
+                *((nm, ctypes.c_int * _SD) for nm in (
+                    "drow", "dTT", "dR", "dr0", "dskew", "dsrc", "dchunks", "dblock0")),
                 *((nm, ctypes.c_int) for nm in (
                     "nd", "blocks", "B", "TB", "IB", "n2", "n", "s", "i0"))]
 
 
-STORE_BLOCK_ROWS = 8       # csrc/store.cu kWarps: destination rows (b, tt, rd) a block
+_STORE_FMT = struct.Struct(f"={len(STEP_FAMILIES) + 1 + 3 * _SD}q"
+                           f"{3 * len(STEP_FAMILIES) + 4 + 8 * _SD + 9}i")
+_packed_layout(StoreTable, _STORE_FMT, "lst")
+
+
+def _check_dest(family, view, r0, skew, B, n2):
+    """Raise unless ``view`` (int16 [B, TT, R, n2]) can take ``family``."""
+    if family not in _STORE_SRC:
+        raise ValueError(f"span_store: no family {family!r}")
+    _need(f"destination {family}", view, ((B,), 0, 0, (n2,)), torch.int16)
+    if skew and r0:
+        raise ValueError("a skewed destination takes slab row rd at its row rd (r0 = 0)")
+
+
+def store_operands(dests, loops, xs, s, n, i0, TB, IB):
+    """Raise unless the operands fit one span's write-back (see
+    :func:`span_store`; each destination, :func:`_check_dest`, is checked by
+    the CPU path and by :func:`store_table` as it reads it); returns the
+    tensors, for the device check."""
+    n2 = n + 2
+    B = xs.shape[1]
+    if TB < 1 or IB < 1 or i0 < 0 or s < 0:
+        raise ValueError(f"span_store: TB {TB}, rows [{i0}, {i0 + IB}) or span {s} do not fit")
+    if loops.keys() != _STEP_SET:
+        raise ValueError(f"loops must be {STEP_FAMILIES}, got {sorted(loops)}")
+    _need("xs", xs, ((len(ASSEMBLED),), (B,), (TB,), (IB,), (n2,)), torch.int16)
+    srcs = [loops[name] for name in STEP_FAMILIES]
+    _need_same([f"loops[{name}]" for name in STEP_FAMILIES], srcs,
+               ((B,), TB, (IB,), (n2,)))
+    if len(dests) > STORE_MAX_DESTS:
+        raise ValueError(f"{len(dests)} store destinations, past the kernel's "
+                         f"{STORE_MAX_DESTS}")
+    return [*srcs, xs, *(d.view for d in dests)]
+
+
+_STEP_SET = set(STEP_FAMILIES)
+
+
+def store_table(dests, loops, xs, *, s, n, i0, TB, IB):
+    """One :func:`span_store` launch's operands as the kernel takes them
+    (the global checks of :func:`store_operands` passed): this thread's
+    :class:`StoreTable`, packed in one call (valid until the next call),
+    and the launch's blocks.  Each destination's runs are its (b, tt)
+    planes where its row stride is n2 (every destination the layouts
+    make), else its rows; ``dchunks`` blocks of :data:`STORE_BLOCK_VECS`
+    16-byte vectors a run (the run's partial first and last vectors
+    included); ``dblock0`` is the prefix sum of the destinations' blocks.
+    An empty view takes no entry.  Builds on tensors of any device;
+    checks each destination as it reads it (:func:`store_operands` does
+    the rest) and raises where the kernel cannot take the operands: a j
+    stride that is not 1, a source offset past 32 bits."""
+    n2 = n + 2
+    B = xs.shape[1]
+    srcs = [loops[name] for name in STEP_FAMILIES]
+    lsts = [x.stride() for x in srcs]
+    for st in set(lsts):
+        if st[3] != 1:
+            raise ValueError(f"span_store: a loop family's j stride must be 1, got {st[3]}")
+        if (B - 1) * st[0] + (TB - 1) * st[1] + (IB - 1) * st[2] + n2 >= _I32:
+            raise ValueError("span_store: a loop family is past 32-bit offsets")
+    xst = xs.stride()
+    if xst[4] != 1:
+        raise ValueError(f"span_store: xs' j stride must be 1, got {xst[4]}")
+    if (len(ASSEMBLED) - 1) * xst[0] + (B - 1) * xst[1] + (TB - 1) * xst[2] + (
+            IB - 1) * xst[3] + n2 >= _I32:
+        raise ValueError("span_store: xs is past 32-bit offsets")
+    rows, blocks, vpb, i16, src_of = [], 0, STORE_BLOCK_VECS, torch.int16, _STORE_SRC
+    for family, view, r0, skew in dests:
+        shp = view.shape
+        if (len(shp) != 4 or shp[0] != B or shp[3] != n2 or view.dtype != i16
+                or family not in src_of or (skew and r0)):
+            _check_dest(family, view, r0, skew, B, n2)
+        TT, R = shp[1], shp[2]
+        if not TT or not R:
+            continue
+        st = view.stride()
+        if st[3] != 1:
+            raise ValueError(f"span_store: the lanes write consecutive j: a destination's "
+                             f"j stride must be 1, got {st[3]}")
+        run = st[2] == n2                  # each (b, tt) plane one contiguous run
+        chunks = -(-(((R * n2 if run else n2) + 14) // 8) // vpb)
+        rows.append((view.data_ptr(), st[0], st[1], st[2], TT, R, r0, skew, src_of[family],
+                     chunks, blocks))
+        blocks += B * TT * (R if not run else 1) * chunks
+    nd = len(rows)
+    pad = (0,) * (_SD - nd)
+    dp, dst0, dst1, drow, dTT, dR, dr0, dskew, dsrc, dchunks, dblock0 = (
+        zip(*rows) if rows else ((),) * 11)
+    t = _table(StoreTable)
+    _STORE_FMT.pack_into(
+        t, 0, *[x.data_ptr() for x in srcs], xs.data_ptr(),
+        *dp, *pad, *dst0, *pad, *dst1, *pad, *[x for st in lsts for x in st[:3]], *xst[:4],
+        *drow, *pad, *dTT, *pad, *dR, *pad, *dr0, *pad, *dskew, *pad, *dsrc, *pad,
+        *dchunks, *pad, *dblock0, *pad, nd, blocks, B, TB, IB, n2, n, s, i0)
+    return t, blocks
 
 
 def span_store(dests, loops, xs, *, s, n, i0, TB, IB):
     """Write span s's results into the state's destination views, in one
     launch on CUDA: each :class:`StoreDest` receives its family packed
-    (the tt loop's 14 ``loops`` int32 [B, >= TB, IB, n2], clamped to int16
-    with SAT16 off the span's valid cells; the :data:`ASSEMBLED` families
-    from ``xs``, int16 [8, B, TB, IB, n2], as they are), every element of
-    every view written once.  Rows are i in [i0, i0 + IB).  The views must
-    not overlap one another; on CUDA each needs a unit j stride (the
+    (the tt loop's 14 ``loops`` int32 [B, >= TB, IB, n2], clamped to
+    int16, and the :data:`ASSEMBLED` families from ``xs``, int16 [8, B,
+    TB, IB, n2], on the span's valid cells; SAT16 on every other cell),
+    every element of every view written once.  ``xs`` must be SAT16 off
+    the valid cells, as ``span_assemble`` leaves it: the kernel reads no
+    source there, where the plain version copies ``xs`` as it is.  Rows are
+    i in [i0, i0 + IB).  The views must not overlap one another; on CUDA
+    every view and source needs a unit j stride (:func:`store_table`: the
     wrapper raises otherwise).  The plain version (:func:`span_store_ref`)
     for CPU tensors."""
     global STORE_LAUNCHES
-    n2 = n + 2
-    B = xs.shape[1]
-    if TB < 1 or IB < 1 or i0 < 0 or s < 0:
-        raise ValueError(f"span_store: TB {TB}, rows [{i0}, {i0 + IB}) or span {s} do not fit")
-    if set(loops) != set(STEP_FAMILIES):
-        raise ValueError(f"loops must be {STEP_FAMILIES}, got {sorted(loops)}")
-    _need("xs", xs, ((len(ASSEMBLED),), (B,), (TB,), (IB,), (n2,)), torch.int16)
-    for name in STEP_FAMILIES:
-        _need(f"loops[{name}]", loops[name], ((B,), TB, (IB,), (n2,)))
-    if len(dests) > STORE_MAX_DESTS:
-        raise ValueError(f"{len(dests)} store destinations, past the kernel's "
-                         f"{STORE_MAX_DESTS}")
-    for family, view, r0, skew in dests:
-        if family not in STORE_SOURCES:
-            raise ValueError(f"span_store: no family {family!r}")
-        _need(f"destination {family}", view, ((B,), 0, 0, (n2,)), torch.int16)
-        if skew and r0:
-            raise ValueError("a skewed destination takes slab row rd at its row rd (r0 = 0)")
-    tensors = [xs, *loops.values(), *(d.view for d in dests)]
-    if all(t.device.type == "cpu" for t in tensors):
+    dev = _one_device(store_operands(dests, loops, xs, s, n, i0, TB, IB))
+    if dev.type == "cpu":
+        for family, view, r0, skew in dests:
+            _check_dest(family, view, r0, skew, xs.shape[1], n + 2)
         return span_store_ref(dests, loops, xs, s, n, i0, TB, IB)
-    dev = _check_devices(tensors)
     fn = _library().ccj_span_store
-    t = StoreTable(xs=xs.data_ptr(), xst=(ctypes.c_longlong * 5)(*xs.stride()),
-                   nd=len(dests), B=B, TB=TB, IB=IB, n2=n2, n=n, s=s, i0=i0)
-    for k, name in enumerate(STEP_FAMILIES):
-        t.loop[k] = _plane(loops[name])
-    blocks = 0
-    for k, (family, view, r0, skew) in enumerate(dests):
-        if view.stride(3) != 1:
-            raise ValueError(f"span_store: the warp's lanes write consecutive j: a "
-                             f"destination's j stride must be 1, got {view.stride(3)}")
-        t.d[k] = StoreDestC(view.data_ptr(), (ctypes.c_longlong * 4)(*view.stride()),
-                            STORE_SOURCES.index(family), int(skew), view.shape[1],
-                            view.shape[2], int(r0), blocks)
-        blocks += -(-(view.numel() // max(n2, 1)) // STORE_BLOCK_ROWS)
-    t.blocks = blocks
+    t, blocks = store_table(dests, loops, xs, s=s, n=n, i0=i0, TB=TB, IB=IB)
     if blocks == 0:
         return None
-    _launch(fn, dev, "span_store", ctypes.addressof(t),
-            torch.cuda.current_stream(dev).cuda_stream)
+    _launch(fn, dev, "span_store", ctypes.addressof(t), _raw_stream(dev))
     STORE_LAUNCHES += 1
     return None

@@ -2,7 +2,7 @@
 alike.
 
     python ccj_tpu_torch/fill_breakdown.py [--tree DIR] [--n 100] [--engine 6|7]
-                                           [--profile-spans 50:52]
+                                           [--profile-spans 50:52] [--sharded P]
 
 (or ``python -m ccj_tpu_torch.fill_breakdown`` without ``--tree``).
 ``ccj_tpu_torch`` is imported from ``--tree`` (default: the checkout this
@@ -48,6 +48,16 @@ taken the same way for both engines, in this order:
   (``tt_span``, ``history_min``, ``p_split``, ``stencil_pl`` /
   ``stencil_pr``, ``span_assemble`` / ``span_store``; ``minplus_group``
   and ``tt_step`` where anything runs them) are listed;
+* ``host_views``: one more fill, not synchronised, with host clocks
+  around the layout's view building outside the kernels' wrappers (the
+  write-back's destinations, ``gapped4.dense_dests`` /
+  ``gapped5.packed_dests``, and the plane reads' parts, ``SpanReads.parts``)
+  and around the two span wrappers' calls (``span_assemble``,
+  ``span_store``: their checks, table and launch, as enqueued); with
+  ``--sharded P``, the same over a row-sharded fill of P shards on the one
+  card (``dist.wavefront``), where ``_write_back`` builds the
+  destinations (its time up to its ``store_span`` call) and the sharded
+  reads the parts;
 * ``eager_ops``: last, one more fill under a ``TorchDispatchMode`` that
   counts the non-view aten ops the host dispatches (on the card each is
   an eager call, most of them a launch), a span of the gapped step's
@@ -141,6 +151,69 @@ def eager_ops(fold, gapped4, cuda_ops, run_fill, step, n):
                          "tt_loop": counts["tt_loop"] / n}}
 
 
+def host_views(run_fill, patches, spans):
+    """``run_fill()`` once, each (module, name, key) of ``patches`` timed by
+    the host clock (no synchronise: the host's own work and its enqueues);
+    a name ending in ``_reads`` is a ``SpanReads`` builder, whose ``parts``
+    is timed instead.  Returns the seconds by key, in total and a span."""
+    acc, saved = defaultdict(float), []
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return run
+
+    def reads(fn, key):
+        def run(*a, **kw):
+            r = fn(*a, **kw)
+            return r._replace(parts=timed(r.parts, key))
+        return run
+
+    try:
+        for m, name, key in patches:
+            real = getattr(m, name)
+            saved.append((m, name, real))
+            setattr(m, name, (reads if name.endswith("_reads") else timed)(real, key))
+        run_fill()
+        torch.cuda.synchronize()
+    finally:
+        for m, name, real in saved:
+            setattr(m, name, real)
+    return {"spans": spans, "total_s": dict(acc),
+            "per_span_ms": {k: v / spans * 1e3 for k, v in acc.items()}}
+
+
+def write_back_views(wavefront, run_fill, spans):
+    """A row-sharded fill with ``_write_back``'s time up to its
+    ``store_span`` call (the shard's destination views and staging slabs)
+    and the sharded reads' ``parts`` timed by the host clock."""
+    acc, entered = defaultdict(float), []
+    real_wb, real_store = wavefront._write_back, wavefront.store_span
+
+    def write_back(*a, **kw):
+        entered.append(time.perf_counter())
+        return real_wb(*a, **kw)
+
+    def store(*a, **kw):
+        acc["write_back_dests"] += time.perf_counter() - entered.pop()
+        return real_store(*a, **kw)
+
+    wavefront._write_back, wavefront.store_span = write_back, store
+    try:
+        out = host_views(run_fill, [(wavefront, "sharded_reads", "sharded_parts"),
+                                    (wavefront, "sharded_packed_reads", "sharded_parts")],
+                         spans)
+    finally:
+        wavefront._write_back, wavefront.store_span = real_wb, real_store
+    out["total_s"].update(acc)
+    out["per_span_ms"].update({k: v / spans * 1e3 for k, v in acc.items()})
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
@@ -148,6 +221,8 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=100)
     ap.add_argument("--engine", type=int, choices=(6, 7), default=6)
     ap.add_argument("--profile-spans", default="50:52")
+    ap.add_argument("--sharded", type=int, default=0,
+                    help="also time a row-sharded fill's view building, P shards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -332,6 +407,19 @@ def main(argv=None):
                                                           "stencil", "assemble",
                                                           "store"))]),
     }
+    out["host_views"] = host_views(run_fill, [
+        (gapped5, "packed_dests", "dests") if packed else (gapped4, "dense_dests", "dests"),
+        (gapped5, "packed_reads", "parts") if packed else (gapped4, "dense_reads", "parts"),
+        (cuda_ops, "span_assemble", "span_assemble_call"),
+        (cuda_ops, "span_store", "span_store_call")], n)
+    if args.sharded:
+        from ccj_tpu_torch.dist import wavefront
+
+        devs = ["cuda:0"] * args.sharded
+        out["host_views_sharded"] = {"shards": args.sharded, **write_back_views(
+            wavefront, lambda: (wavefront.fill7_sharded(C, SC4, n, sp.dangles, SEGS, devs)
+                                if packed else
+                                wavefront.fill6_sharded(C, SC4, n, sp.dangles, devs)), n)}
     out["eager_ops"] = eager_ops(fold, gapped4, cuda_ops, run_fill, step, n)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)

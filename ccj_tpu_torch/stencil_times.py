@@ -1,21 +1,26 @@
-"""Device times of the PL / PR stencil kernels (``stencil_pl``,
-``stencil_pr``) of one checkout of the port at ``chip_smoke.py``'s phase 2e
-shapes, so that two commits can be timed in turns within one run.
+"""Device times of the port's redesigned span kernels of one checkout, so
+that two commits can be timed in turns within one run: the PL / PR
+stencils (``stencil_pl``, ``stencil_pr``) at ``chip_smoke.py``'s phase 2e
+shapes, or the span's assembly and write-back (``span_assemble``,
+``span_store``) at its phase 2f shapes.
 
-    python ccj_tpu_torch/stencil_times.py [--tree DIR]
+    python ccj_tpu_torch/stencil_times.py [--tree DIR] [--kernels stencil|span]
 
 The kernels come from ``--tree``'s package (default: the checkout this file
 lies in), built from its ``csrc/`` into its ``build/``; an older commit
 unpacked beside this one (``git archive <commit>`` into ``build/parent``)
 is timed the same way.  The operands, the shapes and the timers are this
-checkout's ``chip_smoke.py`` (``stencil_cases``, ``stencil_operands``,
-``graph_ms``, ``flushed_ms``): the fills' own calls on a random state and
-the bench sequences' weights, the same seed for every tree.  Each call is
-checked against the plain version.  Prints one JSON line: the card's name
-and power limit, the tree, the kernels' ``ptxas`` report where this run
-built the library, and per case and kernel the L2-hot (graph replay) and
-L2-cold ms a call; also appends it to ``chiprun_out/stencil_times.jsonl``
-beside this file's checkout.
+checkout's ``chip_smoke.py`` (``stencil_cases`` / ``stencil_operands``,
+``span_cases`` / ``span_kernel_calls``, ``graph_ms``, ``flushed_ms``,
+``graph_cold_ms``, ``cuda_ms``): the fills' own calls on a random state
+and the bench sequences' tables, the same seed for every tree.  Each call
+is checked against the plain version (the store's views filled with -7
+before the plain version writes them).  Prints one JSON line: the card's
+name and power limit, the tree, the kernels' ``ptxas`` report where this
+run built the library, and per case and kernel the L2-hot (graph replay)
+and L2-cold ms a call (``span``: also the eager call's ms, the wrapper's
+host work and launch); also appends it to
+``chiprun_out/stencil_times.jsonl`` beside this file's checkout.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ HERE = Path(__file__).resolve().parents[1]
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE))
+    ap.add_argument("--kernels", choices=("stencil", "span"), default="stencil")
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -55,11 +61,29 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60).stdout.strip()
     sp = scale_parameters(parse_par(HERE / "ccj_tpu_torch" / "params"
                                     / "rna_DirksPierce09.par"))
+    out = {"tree": str(tree), "card": card, "kind": torch.cuda.get_device_name(0),
+           "kernels": args.kernels}
+    if args.kernels == "stencil":
+        out["ptxas"] = smoke.stencil_ptxas(log) if log else None
+        out["cases"] = stencil_rows(smoke, cuda_ops, bucket_dims, sp, dev)
+    else:
+        out["ptxas"] = smoke.span_ptxas(log) if log else None
+        out["cases"] = span_rows(smoke, cuda_ops, bucket_dims, sp, dev)
+    line = json.dumps(out)
+    print(line, flush=True)
+    dest = HERE / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    with open(dest / "stencil_times.jsonl", "a") as f:
+        f.write(line + "\n")
+
+
+def stencil_rows(smoke, cuda_ops, bucket_dims, sp, dev):
+    """Phase 2e's cases: per kernel its L2-hot and L2-cold ms a call."""
+    import torch
+
     gen = torch.Generator(device=dev).manual_seed(5)
     weights = smoke.stencil_weights(sp, dev)
-    out = {"tree": str(tree), "card": card,
-           "kind": torch.cuda.get_device_name(0),
-           "ptxas": smoke.stencil_ptxas(log) if log else None, "cases": []}
+    rows = []
     for case in smoke.stencil_cases(bucket_dims):
         n, B = case["n"], case["B"]
         ops, kw, _ = smoke.stencil_operands(cuda_ops, case, weights(case), gen, dev)
@@ -78,14 +102,67 @@ def main(argv=None):
 
             row[kname] = {"ms": smoke.graph_ms(kern, reps=20, replays=5),
                           "ms_l2cold": smoke.flushed_ms(kern, 20)}
-        out["cases"].append(row)
+        rows.append(row)
         del ops
-    line = json.dumps(out)
-    print(line, flush=True)
-    dest = HERE / "chiprun_out"
-    dest.mkdir(exist_ok=True)
-    with open(dest / "stencil_times.jsonl", "a") as f:
-        f.write(line + "\n")
+    return rows
+
+
+def host_ms(fn, calls=20, rounds=7):
+    """The host's time for one eager call (its checks, table and launch,
+    enqueued): ``calls`` calls on the host clock, the device synchronised
+    after each round, outside the clock; the median of ``rounds`` rounds."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+    return sorted(out)[rounds // 2]
+
+
+def span_rows(smoke, cuda_ops, bucket_dims, sp, dev):
+    """Phase 2f's cases: per kernel its L2-hot, L2-cold (``graph_cold_ms``)
+    and eager-call ms a call (``cuda_ms``, CUDA events around 10 calls; and
+    ``host_ms``, the host clock's median)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for case in smoke.span_cases(bucket_dims):
+        with torch.inference_mode():      # the state's tensors are inference tensors
+            (aa, akw), (sa, skw), st = smoke.span_kernel_calls(cuda_ops, case, sp, gen, dev)
+            got, want = cuda_ops.span_assemble(*aa, **akw), cuda_ops.span_assemble_ref(*aa, **akw)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                sys.exit(f"span_assemble {case['label']}: differs from the plain version")
+            dests = sa[0]
+            cuda_ops.span_store(*sa, **skw)
+            kernel_views = [d.view.clone() for d in dests]
+            for d in dests:
+                d.view.fill_(-7)
+            cuda_ops.span_store_ref(*sa, **skw)
+            if not all(torch.equal(d.view, k) for d, k in zip(dests, kernel_views)):
+                sys.exit(f"span_store {case['label']}: differs from the plain version")
+            del got, want, kernel_views
+            row = {"case": case["label"]}
+            for kname, fn, a, kw in (("span_assemble", cuda_ops.span_assemble, aa, akw),
+                                     ("span_store", cuda_ops.span_store, sa, skw)):
+                def kern(fn=fn, a=a, kw=kw):
+                    fn(*a, **kw)
+
+                row[kname] = {"ms": smoke.graph_ms(kern, reps=20, replays=5),
+                              "ms_l2cold": smoke.graph_cold_ms(kern),
+                              "call_ms": smoke.cuda_ms(kern, 10), "host_ms": host_ms(kern)}
+            rows.append(row)
+            del aa, sa, st
+        torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":

@@ -92,8 +92,8 @@ Phases; any failure exits non-zero and prints no result:
    n=128's, the packed n=200 spans 135 and 103, bucket 100 x 4, a dense
    and a packed row shard, the odd-n2 n=37 span 20), each with its
    L2-hot and L2-cold device times, the eager call's, the plain version's
-   on the card and its byte bound (:func:`assemble_bound`,
-   :func:`store_bound`; no library yardstick);
+   on the card, its byte bound (:func:`assemble_bound`,
+   :func:`store_bound`; no library yardstick) and its ``ptxas`` report;
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -1676,6 +1676,15 @@ def stencil_ptxas(log):
             for kname, kind in (("stencil_pl", 0), ("stencil_pr", 1))}
 
 
+def span_ptxas(log):
+    """``ptxas_usage`` of the two span kernels: {"span_assemble": ...,
+    "span_store": ...} (``assemble_kernel`` and ``store_kernel``)."""
+    usage = ptxas_usage(log)
+    return {kname: next((v for k, v in usage.items() if entry in k), None)
+            for kname, entry in (("span_assemble", "assemble_kernel"),
+                                 ("span_store", "store_kernel"))}
+
+
 def phase_stencil(cuda_ops, sp, dev, ptxas=None):
     """Phase 2e: ``stencil_pl`` and ``stencil_pr`` against their plain
     versions on the card, exactly, at :func:`stencil_cases` (the fills'
@@ -1935,16 +1944,18 @@ def store_bound(cuda_ops, args, kw):
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def phase_span(cuda_ops, sp, bucket_dims, dev):
+def phase_span(cuda_ops, sp, bucket_dims, dev, ptxas=None):
     """Phase 2f: ``span_assemble`` and ``span_store`` against their plain
     versions on the card, exactly, at :func:`span_cases` (the fills' own
     calls, :func:`span_kernel_calls`); each row with the kernel's L2-hot
     (graph replay) and L2-cold (:func:`graph_cold_ms`) device times, the
     eager call's (the wrapper's host work and launch), the plain version's
-    on the card and the bound (:func:`assemble_bound`, :func:`store_bound`).  The
-    store's result is its destination views after the kernel, against the
-    same views filled with -7 and written by the plain version.  Returns
-    the rows by kernel."""
+    on the card, the bound (:func:`assemble_bound`, :func:`store_bound`)
+    and the kernel's ``ptxas`` registers, spill and shared memory
+    (``ptxas``: :func:`span_ptxas` of this run's build).  The store's
+    result is its destination views after the kernel, against the same
+    views filled with -7 and written by the plain version.  Returns the
+    rows by kernel."""
     gen = torch.Generator(device=dev).manual_seed(6)
     emit({"phase": "span", "library": "none: no single PyTorch call assembles the "
           "recurrences' branches or writes a span into its slots, so library_ms is null "
@@ -1952,13 +1963,13 @@ def phase_span(cuda_ops, sp, bucket_dims, dev):
     rows = {"span_assemble": [], "span_store": []}
     for case in span_cases(bucket_dims):
         with torch.inference_mode():       # the state's tensors are inference tensors
-            span_case(cuda_ops, case, sp, gen, dev, rows)
+            span_case(cuda_ops, case, sp, gen, dev, rows, ptxas or {})
         gc.collect()
         torch.cuda.empty_cache()
     return rows
 
 
-def span_case(cuda_ops, case, sp, gen, dev, rows):
+def span_case(cuda_ops, case, sp, gen, dev, rows, ptxas):
     """One case of :func:`phase_span`: appends its two rows to ``rows``."""
     from ccj_tpu_torch.engine.common import INF
 
@@ -1986,7 +1997,8 @@ def span_case(cuda_ops, case, sp, gen, dev, rows):
            "max_abs_err": err, "ms": graph_ms(kern_a, reps=20, replays=5),
            "ms_l2cold": graph_cold_ms(kern_a), "call_ms": cuda_ms(kern_a, 10),
            "plain_ms": cuda_ms(lambda: cuda_ops.span_assemble_ref(*aa, **akw), 2),
-           "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None}
+           "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None,
+           "ptxas": ptxas.get("span_assemble")}
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
     rows["span_assemble"].append(row)
@@ -2015,7 +2027,8 @@ def span_case(cuda_ops, case, sp, gen, dev, rows):
            "max_abs_err": err, "ms": graph_ms(kern_s, reps=20, replays=5),
            "ms_l2cold": graph_cold_ms(kern_s), "call_ms": cuda_ms(kern_s, 10),
            "plain_ms": cuda_ms(lambda: cuda_ops.span_store_ref(*sa, **skw), 2),
-           "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None}
+           "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None,
+           "ptxas": ptxas.get("span_store")}
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
     rows["span_store"].append(row)
@@ -2788,7 +2801,7 @@ def main():
                                     / "rna_DirksPierce09.par"))
     stencil_rows = phase_stencil(cuda_ops, sp, torch.device("cuda"), stencil_ptxas(log))
     report.update(stencil_rows)
-    span_k_rows = phase_span(cuda_ops, sp, bucket_dims, torch.device("cuda"))
+    span_k_rows = phase_span(cuda_ops, sp, bucket_dims, torch.device("cuda"), span_ptxas(log))
     report.update(span_k_rows)
 
     # ---- 3: corpus goldens -----------------------------------------------
@@ -3122,7 +3135,7 @@ def main():
             "bound_by": main["bound_by"], "library_ms": None, "call_ms": main["call_ms"],
             "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
             "share_of_bound_l2cold": main["share_of_bound_l2cold"],
-            "matches_plain": True, "shape": main["case"],
+            "ptxas": main["ptxas"], "matches_plain": True, "shape": main["case"],
             "other_shapes": [{k: r[k] for k in span_keys} for r in rows_k[1:]]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"

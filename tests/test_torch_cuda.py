@@ -775,13 +775,17 @@ def test_stencil_refuses_a_view_with_a_j_stride(cuda):
 
 
 # span_assemble and span_store (chip_smoke.py phase 2f's calls: the fills'
-# own, on a random state): the odd-n2 n=37 span 20, a batch of two, a dense
-# row shard (its halo row a second view, another shard's), the packed n=134
-# span 93 (its reads in segments 2 and 3) and a packed row shard
+# own, on a random state): the odd-n2 n=37 span 20, a batch of two and one
+# of four at n2 = 102 (not a multiple of 8: runs that start off a 16-byte
+# boundary), a dense row shard (its halo row a second view, another
+# shard's; a staging slab for the C rows other shards own), the packed
+# n=134 span 93 (its reads in segments 2 and 3) and a packed row shard;
+# every case writes PKE's anti-diagonal view
 SPAN_CASES = [pytest.param(dict(B=B, i0=i0, rows=rows, packed=packed, n=n, s=s, label=lab),
                            id=lab) for lab, n, s, B, i0, rows, packed in (
     ("37-20-odd-n2", 37, 20, 1, 0, None, False),
     ("100-37-batch-2", 100, 37, 2, 0, None, False),
+    ("100-37-batch-4", 100, 37, 4, 0, None, False),
     ("100-37-row-shard", 100, 37, 1, 26, 26, False),
     ("134-93-packed", 134, 93, 1, 0, None, True),
     ("134-62-packed-row-shard", 134, 62, 1, 34, 34, True))]
@@ -798,10 +802,32 @@ def _span_calls(case, dev):
     return chip_smoke.span_kernel_calls(cuda_ops, case, sp, gen, dev)
 
 
+def _store_matches_plain(sa, skw):
+    """span_store (one launch) against span_store_ref on the same
+    destinations, each filled with -7 before the plain version writes it."""
+    dests = sa[0]
+    before = cuda_ops.STORE_LAUNCHES
+    cuda_ops.span_store(*sa, **skw)
+    torch.cuda.synchronize()
+    assert cuda_ops.STORE_LAUNCHES == before + 1
+    kernel_views = [d.view.clone() for d in dests]
+    for d in dests:
+        d.view.fill_(-7)
+    cuda_ops.span_store_ref(*sa, **skw)
+    for d, k in zip(dests, kernel_views):
+        assert torch.equal(d.view, k), d.family
+
+
 @pytest.mark.parametrize("case", SPAN_CASES)
 def test_span_kernels_match_plain(cuda, case):
     with torch.inference_mode():
         (aa, akw), (sa, skw), _st = _span_calls(case, cuda)
+        dests = sa[0]
+        assert sum(d.skew for d in dests) == 2          # PKD[:, :, s] and PKE's diagonal
+        if case["rows"] is not None and not case["packed"]:
+            assert any(d.view._base is None for d in dests), "no staging slab"
+        if (case["n"] + 2) % 8:
+            assert any(d.view.data_ptr() % 16 for d in dests), "no run off 16 bytes"
         want = cuda_ops.span_assemble_ref(*aa, **akw)
         before = (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES)
         got = cuda_ops.span_assemble(*aa, **akw)
@@ -809,17 +835,24 @@ def test_span_kernels_match_plain(cuda, case):
         for name, g, w in zip(cuda_ops.SpanAssembly._fields, got, want):
             assert torch.equal(g, w), name
         assert bool((want.PLs < INF).any())
-        dests = sa[0]
-        cuda_ops.span_store(*sa, **skw)
-        torch.cuda.synchronize()
-        kernel_views = [d.view.clone() for d in dests]
-        for d in dests:
-            d.view.fill_(-7)
-        cuda_ops.span_store_ref(*sa, **skw)
-        for d, k in zip(dests, kernel_views):
-            assert torch.equal(d.view, k), d.family
+        _store_matches_plain(sa, skw)
         assert (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES) == (before[0] + 1,
                                                                           before[1] + 1)
+
+
+def test_span_store_takes_a_destination_whose_row_stride_is_not_n2(cuda):
+    """No layout makes one, but the kernel takes it a row a run: every
+    other row of a slab, beside the span's own destinations."""
+    with torch.inference_mode():
+        (_aa, _akw), (sa, skw), _st = _span_calls(dict(SPAN_CASES[1].values[0]), cuda)
+        dests, loops, xs = sa
+        n2 = skw["n"] + 2
+        big = torch.zeros((xs.shape[1], skw["TB"] + 3, 2 * 40, n2), dtype=torch.int16,
+                          device=cuda)
+        extra = [cuda_ops.StoreDest("PL", big[:, :, ::2], 5),
+                 cuda_ops.StoreDest("PK", big[:, 1:, 1::2], skew=True)]
+        assert all(d.view.stride(2) == 2 * n2 for d in extra)
+        _store_matches_plain(([*dests[:20], *extra], loops, xs), skw)
 
 
 def test_span_kernels_refuse_a_view_with_a_j_stride(cuda):
