@@ -223,6 +223,10 @@ def main(argv=None):
     print(f"corpus-stencil-pr-launches {cuda_ops.STENCIL_PR_LAUNCHES}", file=sys.stderr)
     print(f"corpus-assemble-launches {cuda_ops.ASSEMBLE_LAUNCHES}", file=sys.stderr)
     print(f"corpus-store-launches {cuda_ops.STORE_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-span-v-launches {cuda_ops.SPAN_V_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-span-wbp-launches {cuda_ops.SPAN_WBP_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-span-wm-launches {cuda_ops.SPAN_WM_LAUNCHES}", file=sys.stderr)
+    print(f"corpus-wx-launches {cuda_ops.WX_LAUNCHES}", file=sys.stderr)
     if args.process_id == 0:
         with open(args.out, "w") as fh:
             json.dump([dataclasses.asdict(r) for r in res], fh, indent=1)

@@ -57,6 +57,16 @@ versions are :func:`history_min_ref`, :func:`p_split_ref`,
 :func:`stencil_pl_ref`, :func:`stencil_pr_ref`, :func:`span_assemble_ref`
 and :func:`span_store_ref`.
 
+Four kernels of the span's 2-D recurrences (``csrc/span2d.cu``), each the
+counterpart of an XLA fusion of the JAX fill's span body (no Pallas
+kernel): :func:`span_v` (V and Vtype, ``ccj_tpu/engine/nested.py:54-152``),
+:func:`span_wbp` (WBP and WPP, ``ccj_tpu/engine/gapped.py:119-160``),
+:func:`span_wm` (WMv, WMp and WM, ``nested.py:155-196``) and
+:func:`wx_tables` (the gapped step's four weight tables,
+``gapped.py:42-59``), each one launch a span for the whole batch; their
+plain versions, the bodies the fills ran before, are :func:`span_v_ref`,
+:func:`span_wbp_ref`, :func:`span_wm_ref` and :func:`wx_tables_ref`.
+
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
 back.  The library is built with ``nvcc`` (one process per source, then one
@@ -68,7 +78,9 @@ times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches,
 ``history_min`` launches, ``PSPLIT_LAUNCHES`` ``p_split`` launches and
 ``STENCIL_LAUNCHES`` the two stencils' (``STENCIL_PL_LAUNCHES`` and
 ``STENCIL_PR_LAUNCHES`` each kernel's), ``ASSEMBLE_LAUNCHES``
-``span_assemble`` launches and ``STORE_LAUNCHES`` ``span_store`` launches;
+``span_assemble`` launches, ``STORE_LAUNCHES`` ``span_store`` launches,
+and ``SPAN_V_LAUNCHES``, ``SPAN_WBP_LAUNCHES``, ``SPAN_WM_LAUNCHES`` and
+``WX_LAUNCHES`` those of the four 2-D kernels;
 nothing else moves them, so a run can show that its main path went
 through the kernels.
 """
@@ -88,7 +100,7 @@ from typing import NamedTuple
 
 import torch
 
-from .common import INF, SAT16, TURN, mmin, pad_axis
+from .common import INF, MAXLOOP, SAT16, TURN, V_UNSET, guarded_add, mmin, pad_axis, v_get
 from .gapped import DS
 from .skew import skew_right, unskew_right
 
@@ -280,7 +292,15 @@ def _library():
             if tuple(lim[:2]) != (STORE_MAX_DESTS, STORE_BLOCK_VECS):
                 raise RuntimeError("STORE_MAX_DESTS / STORE_BLOCK_VECS do not match "
                                    "csrc/store.cu")
-            for fn in (lib.ccj_span_assemble, lib.ccj_span_store):
+            if lib.ccj_span2d_table_bytes() != ctypes.sizeof(Span2dTable):
+                raise RuntimeError(
+                    f"cuda_ops.Span2dTable ({ctypes.sizeof(Span2dTable)} B) does not "
+                    f"mirror csrc/span2d.cu ({lib.ccj_span2d_table_bytes()} B)")
+            lib.ccj_span2d_limits(lim)
+            if tuple(lim) != (len(SPAN2D_OPERANDS), MAXLOOP + 2, len(SPAN2D_KINDS)):
+                raise RuntimeError("SPAN2D_OPERANDS / MAXLOOP / SPAN2D_KINDS do not match "
+                                   "csrc/span2d.cu")
+            for fn in (lib.ccj_span_assemble, lib.ccj_span_store, lib.ccj_span2d):
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             _lib = lib
@@ -2279,4 +2299,431 @@ def span_store(dests, loops, xs, *, s, n, i0, TB, IB):
         return None
     _launch(fn, dev, "span_store", ctypes.addressof(t), _raw_stream(dev))
     STORE_LAUNCHES += 1
+    return None
+
+
+# ---------------------------------------------------------------------------
+# span_v, span_wbp, span_wm, wx_tables: the span's 2-D recurrences
+# ---------------------------------------------------------------------------
+
+SPAN_V_LAUNCHES = 0     # span_v kernel launches (CUDA only)
+SPAN_WBP_LAUNCHES = 0   # span_wbp kernel launches (CUDA only)
+SPAN_WM_LAUNCHES = 0    # span_wm kernel launches (CUDA only)
+WX_LAUNCHES = 0         # wx_tables kernel launches (CUDA only)
+
+# csrc/span2d.cu's operand slots and kinds, in order
+SPAN2D_OPERANDS = ("V", "Vtype", "WM", "WMv", "WMp", "P2", "WBP", "WPP", "H", "EINT",
+                   "ML0", "ML2", "ML_ip1", "ML_jm1", "ML_both",
+                   "MB0", "MB2", "MB_5", "MB_3", "MB_53", "out")
+SPAN2D_KINDS = ("span_v", "span_wbp", "span_wm", "wx_tables")
+_SPAN2D_STATE = frozenset(("V", "Vtype", "WM", "WMv", "WMp", "P2", "WBP", "WPP"))
+_SPAN2D_SLOT = {name: k for k, name in enumerate(SPAN2D_OPERANDS)}
+_SPAN2D_SCALARS = ("MLbase", "PSM", "PSP", "PUP", "PPS", "b", "bp", "cp")
+
+
+def _span2d_reads(kind, dangles):
+    """The operands ``kind`` reads (or writes) at ``dangles``."""
+    mb = {0: ("MB0",), 1: ("MB0", "MB_5", "MB_3", "MB_53"), 2: ("MB2",)}
+    ml = {0: ("ML0",), 1: ("ML0", "ML_ip1", "ML_jm1", "ML_both"), 2: ("ML2",)}
+    return {"span_v": ("V", "Vtype", "WM", "WMv", "WMp", "H", "EINT", *mb[dangles]),
+            "span_wbp": ("V", "P2", "WBP", "WPP"),
+            "span_wm": ("V", "P2", "WM", "WMv", "WMp", *ml[dangles]),
+            "wx_tables": ("WBP", "WPP")}[kind]
+
+
+_SPAN2D_READS = {(k, d): _span2d_reads(k, d) for k in SPAN2D_KINDS for d in (0, 1, 2)}
+
+
+class Span2dTable(ctypes.Structure):
+    """The operands of one csrc/span2d.cu launch: its ``struct
+    Span2dTable``, field for field (the 64-bit fields first, so
+    :data:`_SPAN2D_FMT` packs it in one call), passed to the kernel by
+    value.  ``p[k]``, ``bs[k]``, ``rs[k]``, ``cs[k]``: operand slot k's
+    pointer and its batch, row and column strides (:data:`SPAN2D_OPERANDS`;
+    zero where the kind does not read it), ``edi`` / ``edj`` EINT's di and
+    dj strides; ``kind`` indexes :data:`SPAN2D_KINDS`; the fill's scalars
+    follow."""
+    _fields_ = [*((nm, ctypes.c_longlong * len(SPAN2D_OPERANDS))
+                  for nm in ("p", "bs", "rs", "cs")),
+                ("edi", ctypes.c_longlong), ("edj", ctypes.c_longlong),
+                *((nm, ctypes.c_int) for nm in (
+                    "kind", "B", "n", "n2", "s", "dangles", "MLbase", "PSM", "PSP", "PUP",
+                    "PPS", "pkb", "bp", "cp"))]
+
+
+_SPAN2D_FMT = struct.Struct(f"={4 * len(SPAN2D_OPERANDS) + 2}q14i")
+_packed_layout(Span2dTable, _SPAN2D_FMT, "kind")
+
+
+def span2d_operands(C, st, kind, dangles=2):
+    """Raise unless the state and tables fit one ``kind`` call (every
+    operand it reads int32 [B, n2, n2], Vtype int8, EINT [B, 32, 32, n2,
+    n2], all on one device, n2 = C["n"] + 2); returns (device, names,
+    tensors)."""
+    if dangles not in (0, 1, 2):
+        raise ValueError(f"{kind}: dangles must be 0, 1 or 2, got {dangles}")
+    names = _SPAN2D_READS[kind, dangles]
+    first = st[names[0]]
+    n2 = C["n"] + 2
+    if first.dim() != 3 or first.shape[1:] != (n2, n2):
+        raise ValueError(f"{kind}: {names[0]} {tuple(first.shape)} is not [B, {n2}, {n2}] "
+                         f"(n = {C['n']})")
+    B, dev = first.shape[0], first.device
+    sq, eint = (B, n2, n2), (B, MAXLOOP + 2, MAXLOOP + 2, n2, n2)
+    xs = []
+    for name in names:
+        x = st[name] if name in _SPAN2D_STATE else C[name]
+        want, dt = (eint if name == "EINT" else sq), (
+            torch.int8 if name == "Vtype" else torch.int32)
+        if x.shape != want or x.dtype != dt:
+            _need(name, x, tuple((d,) for d in want), dt)
+        if x.device != dev:
+            raise ValueError(f"{kind}: every operand on one device (or all on the CPU); "
+                             f"{names[0]} on {dev}, {name} on {x.device}")
+        xs.append(x)
+    return dev, names, xs
+
+
+def _span2d_launch(kind, C, s, dangles, names, xs, dev, out=False):
+    """One csrc/span2d.cu launch of ``kind`` on the checked operands
+    (:func:`span2d_operands`): this thread's :class:`Span2dTable`, packed in
+    one call, every operand taken with its own strides (the tables from
+    numpy may be column-major).  ``out``: allocate and return the [4, B,
+    n2, n2] output."""
+    fn = _library().ccj_span2d
+    n = C["n"]
+    n2 = n + 2
+    k = len(SPAN2D_OPERANDS)
+    ptrs, bs, rs, cs = [0] * k, [0] * k, [0] * k, [0] * k
+    edi = edj = 0
+    for name, x in zip(names, xs):
+        slot = _SPAN2D_SLOT[name]
+        st = x.stride()
+        if name == "EINT":
+            edi, edj = st[1], st[2]
+        ptrs[slot], bs[slot], rs[slot], cs[slot] = x.data_ptr(), st[0], st[-2], st[-1]
+    B = xs[0].shape[0]
+    if B > MAX_GRID_Y:
+        raise ValueError(f"{kind}: a batch of {B} is past the grid's {MAX_GRID_Y}")
+    res = None
+    if out:
+        res = torch.empty((4, B, n2, n2), dtype=torch.int32, device=dev)
+        ptrs[-1] = res.data_ptr()
+    t = _table(Span2dTable)
+    _SPAN2D_FMT.pack_into(t, 0, *ptrs, *bs, *rs, *cs, edi, edj, SPAN2D_KINDS.index(kind),
+                          B, n, n2, s, dangles, *(C[name] for name in _SPAN2D_SCALARS))
+    _launch(fn, dev, kind, ctypes.addressof(t), _raw_stream(dev))
+    return res
+
+
+def _diag_idx(n2, s, device):
+    """Row index vector i (0..n2-1) and the diagonal column j = i + s."""
+    ii = torch.arange(n2, device=device)
+    return ii, ii + s
+
+
+def e_mlstem_diag(C, st, ii, jj, dangles):
+    """E_MLStem(V(i,j), V(i+1,j), V(i,j-1), V(i+1,j-1))
+    (s_energy_matrix.cc:54-112) for index tensors (ii, jj)."""
+    V = st["V"]
+    n2 = V.shape[-1]
+    iic = ii.clamp(0, n2 - 1)
+    jjc = jj.clamp(0, n2 - 1)
+    vij = v_get(V, iic, jjc)
+    e = guarded_add(vij, (C["ML2"] if dangles == 2 else C["ML0"])[:, iic, jjc])
+    if dangles == 1:
+        MLbase = C["MLbase"]
+        ip1 = (ii + 1).clamp(0, n2 - 1)
+        jm1 = (jj - 1).clamp(0, n2 - 1)
+        vi1j = torch.where(jj - ii - 1 > TURN, v_get(V, ip1, jjc), INF)
+        e = torch.minimum(e, guarded_add(vi1j, MLbase + C["ML_ip1"][:, iic, jjc]))
+        vij1 = torch.where(jj - 1 - ii > TURN,
+                           v_get(V, iic, (jjc - 1).clamp(0, n2 - 1)), INF)
+        e = torch.minimum(e, guarded_add(vij1, MLbase + C["ML_jm1"][:, iic, jjc]))
+        vi1j1 = torch.where(jj - 1 - ii - 1 > TURN, v_get(V, ip1, jm1), INF)
+        e = torch.minimum(
+            e, guarded_add(vi1j1, 2 * MLbase + C["ML_both"][:, iic, jjc]))
+    return e
+
+
+def span_v_ref(C, st, s, dangles):
+    """Plain PyTorch version of :func:`span_v`: V(i, i+s) for all i
+    (s_energy_matrix.cc:315-358), in place, as the fills ran it before the
+    kernel."""
+    n = C["n"]
+    n2 = n + 2
+    V = st["V"]
+    dev = V.device
+    ii, jj = _diag_idx(n2, s, dev)
+    jjc = jj.clamp(0, n2 - 1)
+    row_valid = (ii >= 1) & (jj <= n)
+
+    # --- hairpin (H already INF where unpairable) --------------------------
+    e_h = C["H"][:, ii, jjc]
+
+    # --- interior loops (s_energy_matrix.cc:287-299) -----------------------
+    # k=i+di, l=j-dj; bounds: di>=1, dj>=1, di <= MAXLOOP+1,
+    # l >= k+TURN+1  <=>  di+dj <= s-TURN-1;  n1+n2 <= MAXLOOP  <=>
+    # di+dj <= MAXLOOP+2;  k <= j-TURN-2  <=>  di <= s-TURN-2 (implied)
+    di = torch.arange(MAXLOOP + 2, device=dev)[:, None, None]
+    dj = torch.arange(MAXLOOP + 2, device=dev)[None, :, None]
+    iv = ii[None, None, :]
+    jv = jj[None, None, :]
+    ok = ((di >= 1) & (dj >= 1)
+          & (di <= MAXLOOP + 1)
+          & (di + dj <= MAXLOOP + 2)
+          & (di + dj <= s - TURN - 1)
+          & (iv >= 1) & (jv <= n))
+    eint = C["EINT"][:, di, dj, iv, jv.clamp(0, n2 - 1)]
+    vin = v_get(V, (iv + di).clamp(0, n2 - 1), (jv - dj).clamp(0, n2 - 1))
+    e_i = torch.where(ok, eint + vin, INF).amin(dim=(-3, -2))
+
+    # --- multiloop (compute_energy_VM, s_energy_matrix.cc:243-268) ---------
+    # split point c = i + g, g in [1, s-3]
+    WM, WMv, WMp = st["WM"], st["WMv"], st["WMp"]
+    gg = torch.arange(n2, device=dev)[:, None]
+    iv2 = ii[None, :]
+    cc = iv2 + gg
+    ok2 = (gg >= 1) & (gg <= s - 3) & (iv2 >= 1) & (iv2 + s <= n)
+    MLbase = C["MLbase"]
+
+    def getter(M):
+        def g(a, b):  # get_energy_WM / WMv / WMp: INF for a >= b
+            return torch.where(a >= b, INF,
+                               M[:, a.clamp(0, n2 - 1), b.clamp(0, n2 - 1)])
+        return g
+
+    wm_g, wmv_g, wmp_g = getter(WM), getter(WMv), getter(WMp)
+    gm1 = ((gg - 1) * MLbase).to(torch.int32)
+    gm2 = ((gg - 2) * MLbase).to(torch.int32)
+
+    jm1v = iv2 + s - 1
+    wm2_ij = mmin(
+        wm_g(iv2 + 1, cc - 1) + wmv_g(cc, jm1v),
+        wm_g(iv2 + 1, cc - 1) + wmp_g(cc, jm1v),
+        gm1 + wmp_g(cc, jm1v),
+    )
+    if dangles == 2:
+        e_c = guarded_add(wm2_ij, C["MB2"][:, None, ii, jjc])
+    elif dangles == 0:
+        e_c = guarded_add(wm2_ij, C["MB0"][:, None, ii, jjc])
+    else:  # dangles == 1 (s_energy_matrix.cc:142-195)
+        jm2v = iv2 + s - 2
+        e_c = guarded_add(wm2_ij, C["MB0"][:, None, ii, jjc])
+        wm2_ip1j = mmin(
+            wm_g(iv2 + 2, cc - 1) + wmv_g(cc, jm1v),
+            # quirk preserved: WMp(k-1, j-1) (s_energy_matrix.cc:254)
+            wm_g(iv2 + 2, cc - 1) + wmp_g(cc - 1, jm1v),
+            gm2 + wmp_g(cc, jm1v),
+        )
+        e_c = torch.minimum(e_c, guarded_add(wm2_ip1j, C["MB_5"][:, None, ii, jjc]))
+        wm2_ijm1 = mmin(
+            wm_g(iv2 + 1, cc - 1) + wmv_g(cc, jm2v),
+            wm_g(iv2 + 1, cc - 1) + wmp_g(cc, jm2v),
+            gm1 + wmp_g(cc, jm2v),
+        )
+        e_c = torch.minimum(e_c, guarded_add(wm2_ijm1, C["MB_3"][:, None, ii, jjc]))
+        wm2_ip1jm1 = mmin(
+            wm_g(iv2 + 2, cc - 1) + wmv_g(cc, jm2v),
+            wm_g(iv2 + 2, cc - 1) + wmp_g(cc, jm2v),
+            gm2 + wmp_g(cc, jm2v),
+        )
+        e_c = torch.minimum(e_c, guarded_add(wm2_ip1jm1, C["MB_53"][:, None, ii, jjc]))
+    e_m = torch.where(ok2, e_c, INF).amin(dim=-2)
+
+    # --- select & store (compute_energy min_rank; first-minimum wins) ------
+    branches = torch.stack([e_h, e_i, e_m])
+    vmin = branches.amin(dim=0)
+    rank = torch.argmin(branches, dim=0)  # first minimum, as jnp.argmin
+    is_set = vmin < INF // 2
+    newV = torch.where(is_set, vmin, V_UNSET)
+    newT = torch.where(is_set, rank + 1, 0).to(torch.int8)  # 1=H,2=I,3=M, 0=N
+
+    Vt = st["Vtype"]
+    write = row_valid & (jj > ii)
+    V[:, ii, jjc] = torch.where(write, newV, V[:, ii, jjc])
+    Vt[:, ii, jjc] = torch.where(write, newT, Vt[:, ii, jjc])
+
+
+def span_v(C, st, s, dangles):
+    """V(i, i+s) and Vtype for every live row i of span s, in place, for
+    every element of the batch: one ``span_v`` launch on CUDA
+    (csrc/span2d.cu), none at s = 0, whose cells j = i are never written.
+    ``st``: the state's V, Vtype, WM, WMv, WMp ([B, n2, n2]); ``C`` the
+    fill's tables (H, EINT, the MB tables of ``dangles``) with their batch
+    axis and its scalars.  The plain version (:func:`span_v_ref`) for CPU
+    tensors."""
+    global SPAN_V_LAUNCHES
+    dev, names, xs = span2d_operands(C, st, "span_v", dangles)
+    if dev.type == "cpu":
+        return span_v_ref(C, st, s, dangles)
+    if 1 <= s < C["n"]:
+        _span2d_launch("span_v", C, s, dangles, names, xs, dev)
+        SPAN_V_LAUNCHES += 1
+    return None
+
+
+def wx_tables_ref(C, st):
+    """Plain PyTorch version of :func:`wx_tables`."""
+    n = C["n"]
+    n2 = n + 2
+    dev = st["WBP"].device
+    a = torch.arange(n2, device=dev)[:, None]
+    b = torch.arange(n2, device=dev)[None, :]
+    inb = (a >= 1) & (b >= 1) & (a <= n) & (b <= n)
+
+    def wx(raw, unit):
+        base = torch.minimum((unit * (b - a + 1)).to(torch.int32), raw)
+        return torch.where(inb, torch.where(a > b, 0, base), INF)
+
+    WB = wx(st["WBP"], C["cp"])
+    WP = wx(st["WPP"], C["PUP"])
+    # TriangleMatrix::get (i>j -> INF) for the >=1-pair variants
+    WBPg = torch.where(a > b, INF, st["WBP"])
+    WPPg = torch.where(a > b, INF, st["WPP"])
+    return WB, WP, WBPg, WPPg
+
+
+def wx_tables(C, st):
+    """The gapped step's weight tables from the state's WBP and WPP
+    ([B, n2, n2] int32): (WB, WP, WBPg, WPPg), each int32 [B, n2, n2] --
+    WB / WP as ``get_WB`` / ``get_WP`` (pseudo_loop.cc:647-661: INF off
+    [1, n], 0 for a > b, else min(unit * (b - a + 1), raw), unit cp / PUP),
+    WBPg / WPPg as ``TriangleMatrix::get`` (INF for a > b).  One
+    ``wx_tables`` launch on CUDA (csrc/span2d.cu), the four tables views of
+    one [4, B, n2, n2] tensor.  The plain version (:func:`wx_tables_ref`)
+    for CPU tensors."""
+    global WX_LAUNCHES
+    dev, names, xs = span2d_operands(C, st, "wx_tables")
+    if dev.type == "cpu":
+        return wx_tables_ref(C, st)
+    out = _span2d_launch("wx_tables", C, 0, 0, names, xs, dev, out=True)
+    WX_LAUNCHES += 1
+    return tuple(out.unbind(0))
+
+
+def span_wbp_ref(C, st, s):
+    """Plain PyTorch version of :func:`span_wbp`: compute_WBP /
+    compute_WPP for all blocks (i, l=i+s) (pseudo_loop.cc:134-164), in
+    place, as the fills ran it before the kernel."""
+    n = C["n"]
+    n2 = n + 2
+    dev = st["WBP"].device
+    ii = torch.arange(n2, device=dev)
+    ll = ii + s
+    llc = ll.clamp(0, n2 - 1)
+    lm1 = (ll - 1).clamp(0, n2 - 1)
+    row_valid = (ii >= 1) & (ll <= n)
+
+    WB, WP, _, _ = wx_tables_ref(C, st)
+    gg = torch.arange(n2, device=dev)[:, None]          # g = d - i in [0, s-1]
+    iv2 = ii[None, :]
+    dd = iv2 + gg
+    ok = (gg >= 0) & (gg <= s - 1) & (iv2 >= 1) & (iv2 + s <= n)
+    ddc = dd.clamp(0, n2 - 1)
+    lv = (iv2 + s).clamp(0, n2 - 1)
+    vdl = v_get(st["V"], ddc, lv)
+    pdl = torch.where(dd > iv2 + s, INF, st["P2"][:, ddc, lv])  # P.get(d,l), d<=l
+    ivc = iv2.clamp(0, n2 - 1)
+    dm1 = (dd - 1).clamp(0, n2 - 1)
+
+    WBPr = st["WBP"]
+    wb_prev = torch.where(dd - 1 >= 0, WB[:, ivc, dm1], INF)
+    b1 = torch.where(ok, wb_prev + vdl + C["bp"] + C["PPS"], INF).amin(dim=-2)
+    b2 = torch.where(ok, wb_prev + pdl + C["PSM"] + C["PPS"], INF).amin(dim=-2)
+    b3 = torch.where(ii > ll - 1, INF, WBPr[:, ii, lm1]) + C["cp"]
+    wbp_min = mmin(b1, b2, b3)
+
+    WPPr = st["WPP"]
+    wp_prev = torch.where(dd - 1 >= 0, WP[:, ivc, dm1], INF)
+    c1 = torch.where(ok, wp_prev + vdl + C["PPS"], INF).amin(dim=-2)
+    c2 = torch.where(ok, wp_prev + pdl + C["PSP"] + C["PPS"], INF).amin(dim=-2)
+    c3 = torch.where(ii > ll - 1, INF, WPPr[:, ii, lm1]) + C["PUP"]
+    wpp_min = mmin(c1, c2, c3)
+
+    old = WBPr[:, ii, llc]
+    newWBP = torch.where(wbp_min < INF // 2, wbp_min, old)
+    WBPr[:, ii, llc] = torch.where(row_valid, newWBP, old)
+    old = WPPr[:, ii, llc]
+    newWPP = torch.where(wpp_min < INF // 2, wpp_min, old)
+    WPPr[:, ii, llc] = torch.where(row_valid, newWPP, old)
+
+
+def span_wbp(C, st, s):
+    """WBP(i, i+s) and WPP(i, i+s) for every live row i of span s, in
+    place, for every element of the batch (P's span-s diagonal written
+    already): one ``span_wbp`` launch on CUDA (csrc/span2d.cu) a span with
+    a live row, the WB / WP weights computed in the kernel from WBP / WPP.
+    ``st``: the state's V, P2, WBP, WPP ([B, n2, n2]); ``C`` the fill's
+    scalars.  The plain version (:func:`span_wbp_ref`) for CPU tensors."""
+    global SPAN_WBP_LAUNCHES
+    dev, names, xs = span2d_operands(C, st, "span_wbp")
+    if dev.type == "cpu":
+        return span_wbp_ref(C, st, s)
+    if 0 <= s < C["n"]:
+        _span2d_launch("span_wbp", C, s, 0, names, xs, dev)
+        SPAN_WBP_LAUNCHES += 1
+    return None
+
+
+def span_wm_ref(C, st, s, dangles):
+    """Plain PyTorch version of :func:`span_wm`: compute_WMv_WMp +
+    compute_energy_WM for span s (s_energy_matrix.cc:206-241), in place, as
+    the fills ran it before the kernel; no-op when s < 3 (j-i+1 < 4)."""
+    n = C["n"]
+    n2 = n + 2
+    WM, WMv, WMp, P2 = st["WM"], st["WMv"], st["WMp"], st["P2"]
+    dev = WM.device
+    ii, jj = _diag_idx(n2, s, dev)
+    jjc = jj.clamp(0, n2 - 1)
+    jm1 = (jj - 1).clamp(0, n2 - 1)
+    row_valid = (ii >= 1) & (jj <= n) & (s >= 3)
+
+    MLbase = C["MLbase"]
+    psm_b = C["PSM"] + C["b"]
+
+    stem = e_mlstem_diag(C, st, ii, jj, dangles)
+    wmv_new = torch.minimum(stem, WMv[:, ii, jm1] + MLbase)
+    # WMB argument is P.get(i,j) (W_final.cc:64): i<=j -> raw cell
+    wmp_new = torch.minimum(P2[:, ii, jjc] + psm_b, WMp[:, ii, jm1] + MLbase)
+
+    WMv[:, ii, jjc] = torch.where(row_valid, wmv_new, WMv[:, ii, jjc])
+    WMp[:, ii, jjc] = torch.where(row_valid, wmp_new, WMp[:, ii, jjc])
+
+    # ---- WM (compute_energy_WM, s_energy_matrix.cc:219-241) --------------
+    # k = j-TURN-1 .. i  ->  g = k-i in [0, s-TURN-1]
+    gg = torch.arange(n2, device=dev)[:, None]
+    iv = ii[None, :]
+    kk = iv + gg
+    ok = (gg >= 0) & (gg <= s - TURN - 1) & (iv >= 1) & (iv + s <= n)
+    kkc = kk.clamp(0, n2 - 1)
+    jv = (iv + s).clamp(0, n2 - 1)
+    gml = (gg * MLbase).to(torch.int32)
+    wm_kj = e_mlstem_diag(C, st, kk, iv + s, dangles)
+    wmb_kj = P2[:, kkc, jv] + psm_b
+    wm_ikm1 = torch.where(iv >= kk - 1, INF,
+                          WM[:, iv.clamp(0, n2 - 1), (kk - 1).clamp(0, n2 - 1)])
+    m1 = torch.where(ok, gml + wm_kj, INF).amin(dim=-2)
+    m2 = torch.where(ok, gml + wmb_kj, INF).amin(dim=-2)
+    m3 = torch.where(ok, wm_ikm1 + wm_kj, INF).amin(dim=-2)
+    m4 = torch.where(ok, wm_ikm1 + wmb_kj, INF).amin(dim=-2)
+    m5 = WM[:, ii, jm1] + MLbase
+    wm_new = mmin(m1, m2, m3, m4, m5)
+    WM[:, ii, jjc] = torch.where(row_valid, wm_new, WM[:, ii, jjc])
+
+
+def span_wm(C, st, s, dangles):
+    """WMv, WMp, then WM at (i, i+s) for every live row i of span s, in
+    place, for every element of the batch: one ``span_wm`` launch on CUDA
+    (csrc/span2d.cu), none at s < 3 (no cell is written there).  ``st``:
+    the state's V, P2, WM, WMv, WMp ([B, n2, n2]); ``C`` the fill's ML
+    tables of ``dangles`` with their batch axis and its scalars.  The plain
+    version (:func:`span_wm_ref`) for CPU tensors."""
+    global SPAN_WM_LAUNCHES
+    dev, names, xs = span2d_operands(C, st, "span_wm", dangles)
+    if dev.type == "cpu":
+        return span_wm_ref(C, st, s, dangles)
+    if 3 <= s < C["n"]:
+        _span2d_launch("span_wm", C, s, dangles, names, xs, dev)
+        SPAN_WM_LAUNCHES += 1
     return None

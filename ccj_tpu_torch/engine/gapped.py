@@ -6,7 +6,10 @@ diagonal write and the WBP/WPP span update.  Storage layout is
 ``M[tt, s, i, j]`` with ``s = l - i`` (outer span) and ``tt = k - j - 2``
 (gap diagonal); k and l are implicit.  The reference's quirks are kept
 exactly (see ``ccj_tpu/engine/gapped.py`` for the pseudo_loop.cc citations).
-State arrays carry a leading batch axis, as in engine/nested.py.
+State arrays carry a leading batch axis, as in engine/nested.py.  The
+WB/WP tables and the WBP/WPP update are one kernel launch each on the card
+(``cuda_ops.wx_tables``, ``cuda_ops.span_wbp``: csrc/span2d.cu), imported
+where they are called, since ``cuda_ops`` imports this module.
 
 The layout constants ``DS``, ``PADT``, ``C_MATS`` and ``dims`` come from
 ``ccj_tpu/engine/gapped2.py`` (the v2-lineage layout vocabulary shared by
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import INF, MAXLOOP, mmin, v_get
+from .common import INF, MAXLOOP
 
 M4_NAMES = [
     "PK", "PL", "PR", "PM", "PO",
@@ -46,24 +49,10 @@ def dims(n):
 
 def _wx_tables(C, st):
     """Dense WB/WP/WBP-get/WPP-get lookup tables for the current state
-    ([B, n2, n2] each)."""
-    n = C["n"]
-    n2 = n + 2
-    dev = st["WBP"].device
-    a = torch.arange(n2, device=dev)[:, None]
-    b = torch.arange(n2, device=dev)[None, :]
-    inb = (a >= 1) & (b >= 1) & (a <= n) & (b <= n)
+    ([B, n2, n2] each): one ``cuda_ops.wx_tables``."""
+    from . import cuda_ops
 
-    def wx(raw, unit):
-        base = torch.minimum((unit * (b - a + 1)).to(torch.int32), raw)
-        return torch.where(inb, torch.where(a > b, 0, base), INF)
-
-    WB = wx(st["WBP"], C["cp"])
-    WP = wx(st["WPP"], C["PUP"])
-    # TriangleMatrix::get (i>j -> INF) for the >=1-pair variants
-    WBPg = torch.where(a > b, INF, st["WBP"])
-    WPPg = torch.where(a > b, INF, st["WPP"])
-    return WB, WP, WBPg, WPPg
+    return cuda_ops.wx_tables(C, st)
 
 
 def _set_P_diag(st, n, s, p_min):
@@ -84,46 +73,8 @@ def _set_P_diag(st, n, s, p_min):
 def compute_WBP_WPP_span(C, st, s):
     """compute_WBP / compute_WPP for all blocks (i, l=i+s)
     (pseudo_loop.cc:134-164); P(.,.) of this span must be written already.
-    Updates WBP and WPP in place."""
-    n = C["n"]
-    n2 = n + 2
-    dev = st["WBP"].device
-    ii = torch.arange(n2, device=dev)
-    ll = ii + s
-    llc = ll.clamp(0, n2 - 1)
-    lm1 = (ll - 1).clamp(0, n2 - 1)
-    row_valid = (ii >= 1) & (ll <= n)
+    Updates WBP and WPP in place: one ``cuda_ops.span_wbp``."""
+    from . import cuda_ops
 
-    WB, WP, _, _ = _wx_tables(C, st)
-    gg = torch.arange(n2, device=dev)[:, None]          # g = d - i in [0, s-1]
-    iv2 = ii[None, :]
-    dd = iv2 + gg
-    ok = (gg >= 0) & (gg <= s - 1) & (iv2 >= 1) & (iv2 + s <= n)
-    ddc = dd.clamp(0, n2 - 1)
-    lv = (iv2 + s).clamp(0, n2 - 1)
-    vdl = v_get(st["V"], ddc, lv)
-    pdl = torch.where(dd > iv2 + s, INF, st["P2"][:, ddc, lv])  # P.get(d,l), d<=l
-    ivc = iv2.clamp(0, n2 - 1)
-    dm1 = (dd - 1).clamp(0, n2 - 1)
-
-    WBPr = st["WBP"]
-    wb_prev = torch.where(dd - 1 >= 0, WB[:, ivc, dm1], INF)
-    b1 = torch.where(ok, wb_prev + vdl + C["bp"] + C["PPS"], INF).amin(dim=-2)
-    b2 = torch.where(ok, wb_prev + pdl + C["PSM"] + C["PPS"], INF).amin(dim=-2)
-    b3 = torch.where(ii > ll - 1, INF, WBPr[:, ii, lm1]) + C["cp"]
-    wbp_min = mmin(b1, b2, b3)
-
-    WPPr = st["WPP"]
-    wp_prev = torch.where(dd - 1 >= 0, WP[:, ivc, dm1], INF)
-    c1 = torch.where(ok, wp_prev + vdl + C["PPS"], INF).amin(dim=-2)
-    c2 = torch.where(ok, wp_prev + pdl + C["PSP"] + C["PPS"], INF).amin(dim=-2)
-    c3 = torch.where(ii > ll - 1, INF, WPPr[:, ii, lm1]) + C["PUP"]
-    wpp_min = mmin(c1, c2, c3)
-
-    old = WBPr[:, ii, llc]
-    newWBP = torch.where(wbp_min < INF // 2, wbp_min, old)
-    WBPr[:, ii, llc] = torch.where(row_valid, newWBP, old)
-    old = WPPr[:, ii, llc]
-    newWPP = torch.where(wpp_min < INF // 2, wpp_min, old)
-    WPPr[:, ii, llc] = torch.where(row_valid, newWPP, old)
+    cuda_ops.span_wbp(C, st, s)
     return st

@@ -53,7 +53,9 @@ taken the same way for both engines, in this order:
   write-back's destinations, ``gapped4.dense_dests`` /
   ``gapped5.packed_dests``, and the plane reads' parts, ``SpanReads.parts``)
   and around the two span wrappers' calls (``span_assemble``,
-  ``span_store``: their checks, table and launch, as enqueued); with
+  ``span_store``: their checks, table and launch, as enqueued) and the 2-D
+  recurrences' (:data:`RECURRENCES`, as enqueued: the eager ops of a tree
+  without their kernels, the wrappers' work of one with them); with
   ``--sharded P``, the same over a row-sharded fill of P shards on the one
   card (``dist.wavefront``), where ``_write_back`` builds the
   destinations (its time up to its ``store_span`` call) and the sharded
@@ -63,8 +65,10 @@ taken the same way for both engines, in this order:
   an eager call, most of them a launch), a span of the gapped step's
   cross-span phase: those outside the named kernels' wrappers
   (``history_min``, ``stencil_pl``, ``stencil_pr``, ``span_assemble``,
-  ``span_store``, where the tree has them), those inside them, and the tt
-  loop's (``run_tt_loop``, its table build), per span and in total.
+  ``span_store``, where the tree has them) and the step's weight tables,
+  those inside them, and the tt loop's (``run_tt_loop``, its table
+  build); and the 2-D recurrences' by function (V, WBP/WPP, WM/WMv/WMp,
+  the step's ``_wx_tables``, ``_set_P_diag``), per span and in total.
 """
 
 from __future__ import annotations
@@ -83,6 +87,15 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 # the kernels whose wrappers' own ops eager_ops counts apart (a tree may lack some)
 NAMED_KERNELS = ("history_min", "stencil_pl", "stencil_pr", "span_assemble", "span_store")
+# the 2-D kernels' launch counts (a tree may lack them)
+SPAN2D_COUNTS = ("SPAN_V_LAUNCHES", "SPAN_WBP_LAUNCHES", "SPAN_WM_LAUNCHES", "WX_LAUNCHES")
+# the span body's 2-D recurrences eager_ops and host_views count by function:
+# key -> (module, name), names both trees have
+RECURRENCES = {"V": ("fold", "compute_V_span"),
+               "WBP/WPP": ("fold", "compute_WBP_WPP_span"),
+               "WM/WMv/WMp": ("fold", "compute_WMv_WMp_WM_span"),
+               "wx_tables (gapped step)": ("gapped4", "_wx_tables"),
+               "_set_P_diag": ("gapped3", "_set_P_diag")}
 
 
 def _timed(fn, acc, key):
@@ -102,14 +115,17 @@ def _top(events):
             for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
 
 
-def eager_ops(fold, gapped4, cuda_ops, run_fill, step, n):
+def eager_ops(fold, gapped3, gapped4, cuda_ops, run_fill, step, n):
     """One fill under a TorchDispatchMode counting the non-view aten ops the
-    gapped step dispatches (``step``: the fill's span step in ``fold``), by
-    where they come from: inside a named kernel's wrapper
-    (:data:`NAMED_KERNELS`), inside ``run_tt_loop`` (the tt loop's table
-    build and its kernel's wrapper), or the rest of the cross-span phase
-    (``outside``: the weight tables, views, plane reads, assembly and
-    write-back).  Returns the totals and the per-span means over the
+    span body dispatches, by where they come from: in the gapped step
+    (``step``: the fill's span step in ``fold``), inside a named kernel's
+    wrapper (:data:`NAMED_KERNELS`), inside ``run_tt_loop`` (the tt loop's
+    table build and its kernel's wrapper), inside the step's weight tables
+    (``gapped4._wx_tables``), or the rest of the cross-span phase
+    (``outside``: views, plane reads, assembly and write-back); and the 2-D
+    recurrences by function (:data:`RECURRENCES`: V, WBP/WPP with its own
+    weight tables, WM/WMv/WMp, the P diagonal's write), everything inside
+    each counted.  Returns the totals and the per-span means over the
     fill's n spans."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -131,8 +147,10 @@ def eager_ops(fold, gapped4, cuda_ops, run_fill, step, n):
                 where.pop()
         return run
 
+    mods = {"fold": fold, "gapped3": gapped3, "gapped4": gapped4}
     patches = [(fold, step, "outside"), (gapped4, "run_tt_loop", "tt_loop"),
-               *((cuda_ops, k, k) for k in NAMED_KERNELS if hasattr(cuda_ops, k))]
+               *((cuda_ops, k, k) for k in NAMED_KERNELS if hasattr(cuda_ops, k)),
+               *((mods[m], k, key) for key, (m, k) in RECURRENCES.items())]
     saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
     try:
         for m, k, name in patches:
@@ -144,11 +162,14 @@ def eager_ops(fold, gapped4, cuda_ops, run_fill, step, n):
         for m, k, fn in saved:
             setattr(m, k, fn)
     kernels = {k: counts[k] for k in NAMED_KERNELS if hasattr(cuda_ops, k)}
+    recs = {k: counts[k] for k in RECURRENCES}
     return {"spans": n, "outside": counts["outside"], "in_kernel_wrappers": kernels,
-            "tt_loop": counts["tt_loop"],
+            "tt_loop": counts["tt_loop"], "recurrences": recs,
             "per_span": {"outside": counts["outside"] / n,
                          "in_kernel_wrappers": sum(kernels.values()) / n,
-                         "tt_loop": counts["tt_loop"] / n}}
+                         "tt_loop": counts["tt_loop"] / n,
+                         "recurrences": {k: v / n for k, v in recs.items()},
+                         "recurrences_total": sum(recs.values()) / n}}
 
 
 def host_views(run_fill, patches, spans):
@@ -232,7 +253,7 @@ def main(argv=None):
         sys.exit(f"ccj_tpu_torch is already imported from {loaded.__file__}: run this "
                  "file as a script to split another tree")
     sys.path.insert(0, str(tree))
-    from ccj_tpu_torch.engine import cuda_ops, fold, gapped4, gapped5, ttloop
+    from ccj_tpu_torch.engine import cuda_ops, fold, gapped3, gapped4, gapped5, ttloop
     from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
     from ccj_tpu_torch.precompute import build_seq_tables
 
@@ -267,7 +288,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         cuda_ops.LAUNCHES = cuda_ops.WINDOWS = cuda_ops.TT_STEP_LAUNCHES = 0
         cuda_ops.TT_SPAN_LAUNCHES = cuda_ops.STENCIL_LAUNCHES = 0
-        for k in ("ASSEMBLE_LAUNCHES", "STORE_LAUNCHES"):
+        for k in ("ASSEMBLE_LAUNCHES", "STORE_LAUNCHES", *SPAN2D_COUNTS):
             if hasattr(cuda_ops, k):
                 setattr(cuda_ops, k, 0)
         t0 = time.perf_counter()
@@ -282,6 +303,7 @@ def main(argv=None):
     out["stencil_launches"] = cuda_ops.STENCIL_LAUNCHES
     out["assemble_launches"] = getattr(cuda_ops, "ASSEMBLE_LAUNCHES", None)
     out["store_launches"] = getattr(cuda_ops, "STORE_LAUNCHES", None)
+    out["span2d_launches"] = {k: getattr(cuda_ops, k, None) for k in SPAN2D_COUNTS}
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     # ---- per-part walls: wrap the span functions where the fill and the
@@ -405,13 +427,16 @@ def main(argv=None):
                               if any(k in e.key for k in ("minplus", "tt_step", "tt_span",
                                                           "history", "p_split",
                                                           "stencil", "assemble",
-                                                          "store"))]),
+                                                          "store", "span_v", "span_wbp",
+                                                          "span_wm", "wx_kernel"))]),
     }
     out["host_views"] = host_views(run_fill, [
         (gapped5, "packed_dests", "dests") if packed else (gapped4, "dense_dests", "dests"),
         (gapped5, "packed_reads", "parts") if packed else (gapped4, "dense_reads", "parts"),
         (cuda_ops, "span_assemble", "span_assemble_call"),
-        (cuda_ops, "span_store", "span_store_call")], n)
+        (cuda_ops, "span_store", "span_store_call"),
+        *(({"fold": fold, "gapped3": gapped3, "gapped4": gapped4}[m], k, f"{key}_call")
+          for key, (m, k) in RECURRENCES.items())], n)
     if args.sharded:
         from ccj_tpu_torch.dist import wavefront
 
@@ -420,7 +445,7 @@ def main(argv=None):
             wavefront, lambda: (wavefront.fill7_sharded(C, SC4, n, sp.dangles, SEGS, devs)
                                 if packed else
                                 wavefront.fill6_sharded(C, SC4, n, sp.dangles, devs)), n)}
-    out["eager_ops"] = eager_ops(fold, gapped4, cuda_ops, run_fill, step, n)
+    out["eager_ops"] = eager_ops(fold, gapped3, gapped4, cuda_ops, run_fill, step, n)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     tag = f"_{args.label}" if args.label else ""

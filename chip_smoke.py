@@ -8,8 +8,8 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
-   ``ccj_tpu_torch/csrc/`` (the nine kernels, one ``nvcc`` per source,
-   the eight sources run together) and report the build time;
+   ``ccj_tpu_torch/csrc/`` (the thirteen kernels, one ``nvcc`` per
+   source, the nine sources run together) and report the build time;
 2. the min-plus kernel against its plain PyTorch version on the card,
    exactly (tolerance zero: integer data): single windows
    (``minplus_window``, a group of one) in all three mask modes, at the CPU
@@ -94,6 +94,16 @@ Phases; any failure exits non-zero and prints no result:
    L2-hot and L2-cold device times, the eager call's, the plain version's
    on the card, its byte bound (:func:`assemble_bound`,
    :func:`store_bound`; no library yardstick) and its ``ptxas`` report;
+   then (2g) ``span_v``, ``span_wbp``, ``span_wm`` and ``wx_tables`` (the
+   span's 2-D recurrences and the gapped step's weight tables) against
+   their plain versions exactly on random 2-D states with INF, TRI_UNSET
+   and V_UNSET cells (:func:`span2d_cases`: the n=100 main span, n=128's,
+   n=200 span 135, bucket 100 x 4, dangles 0 and 1 at n=100, the odd-n2
+   n=37 span 20), the whole 2-D state after each, each with its L2-hot
+   and L2-cold device times, the eager call's, the plain version's on
+   the card, its byte bound (:func:`span2d_bound`, well under a
+   microsecond: these kernels are launch- and host-bound) and its
+   ``ptxas`` report;
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -102,9 +112,11 @@ Phases; any failure exits non-zero and prints no result:
    ``tt_span`` per span with a tt step (98), one ``history_min`` a span
    s >= 1 (all 16 RL / RI scans, 99), one ``p_split`` per span with a term (97),
    one ``stencil_pl`` and one ``stencil_pr`` per span with a tt step (98
-   each, ``STENCIL_LAUNCHES`` 196), one ``span_assemble`` and one
-   ``span_store`` a span (100 each), no ``minplus_group`` and no
-   ``tt_step``; every later path is checked the
+   each, ``STENCIL_LAUNCHES`` 196), one ``span_assemble``, one
+   ``span_store``, one ``span_wbp`` and one ``wx_tables`` a span (100
+   each), one ``span_v`` a span s >= 1 (99), one ``span_wm`` a span s >= 3
+   (97), no ``minplus_group`` and no ``tt_step``; every later path (the
+   checkpoint's resumed fill too) is checked the
    same way (:func:`fill_counts`; per span and row shard with a span-s
    row, :func:`sharded_counts`); then
    the fill alone (V(1, 100) must be -1528, bench.py's golden) and, on
@@ -261,29 +273,40 @@ def reset_counts(cuda_ops):
     cuda_ops.TT_SPAN_LAUNCHES = cuda_ops.HISTORY_LAUNCHES = cuda_ops.PSPLIT_LAUNCHES = 0
     cuda_ops.STENCIL_LAUNCHES = cuda_ops.STENCIL_PL_LAUNCHES = cuda_ops.STENCIL_PR_LAUNCHES = 0
     cuda_ops.ASSEMBLE_LAUNCHES = cuda_ops.STORE_LAUNCHES = 0
+    cuda_ops.SPAN_V_LAUNCHES = cuda_ops.SPAN_WBP_LAUNCHES = cuda_ops.SPAN_WM_LAUNCHES = 0
+    cuda_ops.WX_LAUNCHES = 0
+
+
+def span_launches(spans):
+    """The launches of an unsharded fill's spans ``spans`` (dense or
+    packed; a batch counts once; every span s <= n - 1 has a live row),
+    one count each of :data:`FILL_KERNELS`.  Every span with a tt step
+    (s >= 2) launches one ``tt_span``, one ``stencil_pl`` and one
+    ``stencil_pr`` (spans 0 and 1 have no valid cell), every span s >= 1
+    one ``history_min`` (all 16 RL / RI scans; the packed layout's prior
+    segments in the same launch), every span with a term (s >= 3) one
+    ``p_split``, every span one ``span_assemble``, one ``span_store``, one
+    ``span_wbp`` and one ``wx_tables``; every span s >= 1 one ``span_v``
+    (span 0's cells j = i are never written) and every span s >= 3 one
+    ``span_wm`` (no cell of a shorter span is written)."""
+    out = [0] * len(FILL_KERNELS)
+    for s in spans:
+        for k, on in enumerate((s >= 2, s >= 1, s >= 3, s >= 2, s >= 2, True, True,
+                                s >= 1, True, s >= 3, True)):
+            out[k] += on
+    return tuple(out)
 
 
 def fill_counts(*lengths):
-    """The launches of unsharded fills (dense or packed; a batch counts
-    once) of these lengths: (``tt_span``, ``history_min``, ``p_split``,
-    ``stencil_pl``, ``stencil_pr``, ``span_assemble``, ``span_store``).
-    Every span with a tt step launches one ``tt_span``, one ``stencil_pl``
-    and one ``stencil_pr`` (spans 0 and 1 have no valid cell), every span
-    s >= 1 one ``history_min`` (all 16 RL / RI scans; the packed layout's
-    prior segments in the same launch), every span with a live row and a
-    term (3 <= s <= n - 1) one ``p_split``, every span one
-    ``span_assemble`` and one ``span_store``."""
-    tt = sum(tt_spans(m) for m in lengths)
-    spans = sum(lengths)
-    return (tt, sum(max(m - 1, 0) for m in lengths),
-            sum(max(m - 3, 0) for m in lengths), tt, tt, spans, spans)
+    """:func:`span_launches` of whole fills of these lengths."""
+    return tuple(map(sum, zip(*(span_launches(range(m)) for m in lengths))))
 
 
 # launches of each path's fills since :func:`reset_counts`, by path: one
 # count each of FILL_KERNELS, filled in by :func:`loop_launches`
 PATH_COUNTS = {}
 FILL_KERNELS = ("tt_span", "history_min", "p_split", "stencil_pl", "stencil_pr",
-                "span_assemble", "span_store")
+                "span_assemble", "span_store", "span_v", "span_wbp", "span_wm", "wx_tables")
 
 
 def loop_launches(cuda_ops, want, what):
@@ -296,7 +319,8 @@ def loop_launches(cuda_ops, want, what):
     got = (cuda_ops.TT_SPAN_LAUNCHES, cuda_ops.HISTORY_LAUNCHES, cuda_ops.PSPLIT_LAUNCHES,
            cuda_ops.STENCIL_PL_LAUNCHES, cuda_ops.STENCIL_PR_LAUNCHES,
            cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES,
-           cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
+           cuda_ops.SPAN_V_LAUNCHES, cuda_ops.SPAN_WBP_LAUNCHES, cuda_ops.SPAN_WM_LAUNCHES,
+           cuda_ops.WX_LAUNCHES, cuda_ops.LAUNCHES, cuda_ops.TT_STEP_LAUNCHES)
     check(got == (*want, 0, 0), f"{what}: {' / '.join(FILL_KERNELS)} / minplus_group / "
           f"tt_step launches {got} != {(*want, 0, 0)}")
     check(cuda_ops.STENCIL_LAUNCHES == want[3] + want[4],
@@ -2035,6 +2059,223 @@ def span_case(cuda_ops, case, sp, gen, dev, rows, ptxas):
     emit({"phase": "span", **row})
 
 
+# ---------------------------------------------------------------------------
+# phase 2g: span_v, span_wbp, span_wm and wx_tables, the span's 2-D recurrences
+# ---------------------------------------------------------------------------
+
+SPAN2D_KERNELS = ("span_v", "span_wbp", "span_wm", "wx_tables")
+SPAN2D_REPLACES = {"span_v": "ccj_tpu/engine/nested.py:54",      # XLA fusions of the
+                   "span_wbp": "ccj_tpu/engine/gapped.py:119",   # fill's span body,
+                   "span_wm": "ccj_tpu/engine/nested.py:155",    # no Pallas kernel
+                   "wx_tables": "ccj_tpu/engine/gapped.py:42"}
+
+
+def span2d_cases(bucket_dims):
+    """Phase 2g's shapes: the n=100 main span, n=128's, n=200 span 135
+    (the packed fill keeps the 2-D matrices dense), a batch of four at
+    bucket 100, dangles 0 and 1 at n=100's main span and the n=37 span 20
+    (odd n2)."""
+    s100 = main_span(100, bucket_dims)[0]
+    s128 = main_span(128, bucket_dims)[0]
+    base = dict(B=1, dangles=2)
+    return [dict(base, label=f"n=100 s={s100}", n=100, s=s100),
+            dict(base, label=f"n=128 s={s128}", n=128, s=s128),
+            dict(base, label="n=200 s=135 (the packed fill's dense 2-D matrices)", n=200,
+                 s=135),
+            dict(base, label=f"bucket 100 x 4 s={s100}", n=100, s=s100, B=4),
+            dict(base, label=f"n=100 s={s100} dangles 0", n=100, s=s100, dangles=0),
+            dict(base, label=f"n=100 s={s100} dangles 1", n=100, s=s100, dangles=1),
+            dict(base, label="n=37 s=20 (odd n2)", n=37, s=20)]
+
+
+def span2d_state(B, n, gen, dev):
+    """A random 2-D state [B, n2, n2], made on the host from ``gen``:
+    energies in [-3000, 3000) with 10 % INF, 10 % TRI_UNSET and 5 % V_UNSET
+    cells; Vtype in 0..3."""
+    from ccj_tpu_torch.engine.common import INF, TRI_UNSET, V_UNSET
+
+    n2 = n + 2
+    st = {}
+    for k in ("V", "WM", "WMv", "WMp", "P2", "WBP", "WPP"):
+        x = torch.randint(-3000, 3000, (B, n2, n2), generator=gen, dtype=torch.int32)
+        u = torch.rand((B, n2, n2), generator=gen)
+        x[u < 0.1] = INF
+        x[(u >= 0.1) & (u < 0.2)] = TRI_UNSET
+        x[(u >= 0.2) & (u < 0.25)] = V_UNSET
+        st[k] = x.to(dev)
+    st["Vtype"] = torch.randint(0, 4, (B, n2, n2), generator=gen, dtype=torch.int8).to(dev)
+    return st
+
+
+def span2d_bound(name, n, s, B, dangles):
+    """(bytes, ms by bytes) of one call of ``name`` at span s: each
+    element of the state and the tables its live rows need read once (the
+    union of their cells, array by array; the interior terms' EINT
+    entries, which no two rows share) and each output written once
+    (span_v: V and Vtype, 5 B a row; span_wbp: WBP and WPP; span_wm: WMv,
+    WMp and WM; wx_tables: two [B, n2, n2] tables read and four
+    written).  No arithmetic is worth counting: a few adds and mins a
+    term."""
+    from ccj_tpu_torch.engine.common import MAXLOOP, TURN
+
+    n2 = n + 2
+    if name == "wx_tables":
+        nbytes = B * n2 * n2 * 4 * (2 + 4)
+        return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+    marks = {}
+
+    def mark(key, a, c, ok=None):
+        a, c = torch.broadcast_tensors(a, c)
+        idx = a * n2 + c
+        if ok is not None:
+            idx = idx[torch.broadcast_to(ok, idx.shape)]
+        marks.setdefault(key, torch.zeros(n2 * n2, dtype=torch.bool))[idx.reshape(-1)] = True
+
+    i = torch.arange(1, n - s + 1)[:, None]          # the live rows
+    j = i + s
+    terms = 0
+    if name == "span_v":
+        for key in ("H", *{0: ("MB0",), 1: ("MB0", "MB_5", "MB_3", "MB_53"),
+                           2: ("MB2",)}[dangles]):
+            mark(key, i, j)
+        L = min(MAXLOOP + 2, s - TURN - 1)
+        if L >= 2:
+            di = torch.arange(1, L)[None, :, None]
+            dj = torch.arange(1, L)[None, None, :]
+            ok = di + dj <= L
+            mark("V", i[:, :, None] + di, j[:, :, None] - dj, ok)
+            terms = (n - s) * int(ok.sum())
+        if s >= 4:
+            c = i + torch.arange(1, s - 2)[None, :]
+            mark("WM", i + 1, c - 1, i + 1 < c - 1)
+            mark("WMv", c, j - 1)
+            mark("WMp", c, j - 1)
+            if dangles == 1:
+                mark("WM", i + 2, c - 1, i + 2 < c - 1)
+                mark("WMp", c - 1, j - 1)
+                mark("WMv", c, j - 2)
+                mark("WMp", c, j - 2)
+        writes = 5
+    elif name == "span_wbp":
+        g = torch.arange(s)[None, :]
+        d = i + g
+        for key in ("V", "P2"):
+            mark(key, d, j)
+        for key in ("WBP", "WPP"):
+            mark(key, i, d - 1, (d - 1 >= 1) & (g > 0))
+            if s >= 1:
+                mark(key, i, j - 1)
+        writes = 8
+    else:
+        if s < 3:
+            return 0, 0.0
+        k = i + torch.arange(s - TURN)[None, :]
+        mark("V", k, j)
+        for key in (("ML2",) if dangles == 2 else ("ML0",)) + (
+                ("ML_ip1", "ML_jm1", "ML_both") if dangles == 1 else ()):
+            mark(key, k, j)
+        if dangles == 1:
+            mark("V", k + 1, j, j - k - 1 > TURN)
+            mark("V", k, j - 1, j - 1 - k > TURN)
+            mark("V", k + 1, j - 1, j - k - 2 > TURN)
+        mark("P2", k, j)
+        mark("WM", i, k - 1, i < k - 1)
+        for key in ("WM", "WMv", "WMp"):
+            mark(key, i, j - 1)
+        writes = 12
+    nbytes = B * (4 * sum(int(m.sum()) for m in marks.values()) + 4 * terms
+                  + writes * (n - s))
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def span2d_ptxas(log):
+    """``ptxas_usage`` of the four 2-D kernels: {name: usage}, span_v and
+    span_wm by dangles variant."""
+    usage = ptxas_usage(log)
+
+    def entry(key):
+        return next((v for k, v in usage.items() if key in k), None)
+    return {"span_v": {f"dangles{d}": entry(f"span_v_kernelILi{d}E") for d in (0, 1, 2)},
+            "span_wbp": entry("span_wbp_kernel"),
+            "span_wm": {f"dangles{d}": entry(f"span_wm_kernelILi{d}E") for d in (0, 1, 2)},
+            "wx_tables": entry("wx_kernel")}
+
+
+def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
+    """Phase 2g: ``span_v``, ``span_wbp``, ``span_wm`` and ``wx_tables``
+    against their plain versions on the card, exactly, at
+    :func:`span2d_cases`, each on a random state (:func:`span2d_state`)
+    with the bench sequences' tables (one sequence an element of a batch):
+    the whole 2-D state after the kernel against the same state after the
+    plain version (``wx_tables``: its four tables), one launch a call;
+    each row with the kernel's L2-hot (graph replay) and L2-cold
+    (:func:`graph_cold_ms`) device times, the eager call's (the wrapper's
+    checks, table and launch), the plain version's on the card, the bound
+    (:func:`span2d_bound`) and the ``ptxas`` report.  Returns the rows by
+    kernel."""
+    from ccj_tpu_torch.engine import fold
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    gen = torch.Generator().manual_seed(7)
+    emit({"phase": "span2d", "library": "none: no single PyTorch call computes a span of "
+          "these recurrences, so library_ms is null for the four kernels"})
+    rows = {k: [] for k in SPAN2D_KERNELS}
+    counters = {"span_v": "SPAN_V_LAUNCHES", "span_wbp": "SPAN_WBP_LAUNCHES",
+                "span_wm": "SPAN_WM_LAUNCHES", "wx_tables": "WX_LAUNCHES"}
+    for case in span2d_cases(bucket_dims):
+        n, s, B, d = case["n"], case["s"], case["B"], case["dangles"]
+        sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
+                                        / "rna_DirksPierce09.par"), dangles=d)
+        Cs = []
+        for b in range(B):
+            tabs = build_seq_tables(bench_seq(n, seed=42 + b), sp, DEFAULT_PK)
+            Cs.append(fold.consts_from_numpy(fold.build_consts(tabs, sp, DEFAULT_PK), dev,
+                                             sc4_np={})[0])
+        # a batch of one as the fills hold it: a view of the tables, some of
+        # them column-major as numpy gives them
+        C = {**(fold.add_batch(Cs[0]) if B == 1 else fold.stack_consts(Cs)), "n": n}
+        st0 = span2d_state(B, n, gen, dev)
+        for name in SPAN2D_KERNELS:
+            kern, plain = getattr(cuda_ops, name), getattr(cuda_ops, f"{name}_ref")
+            args = (s, d) if name in ("span_v", "span_wm") else (s,) if name == "span_wbp" \
+                else ()
+            got = {k: v.clone() for k, v in st0.items()}
+            want = {k: v.clone() for k, v in st0.items()}
+            before = getattr(cuda_ops, counters[name])
+            out_k = kern(C, got, *args)
+            torch.cuda.synchronize()
+            check(getattr(cuda_ops, counters[name]) == before + 1,
+                  f"a {name} call made other than one launch")
+            out_p = plain(C, want, *args)
+            label = f"{name} {case['label']}"
+            if name == "wx_tables":
+                pairs = list(zip(out_k, out_p))
+            else:
+                pairs = [(got[k], want[k]) for k in st0]
+                check(any(not torch.equal(want[k], st0[k]) for k in st0),
+                      f"{label}: the plain version wrote nothing")
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in pairs)
+            check(err == 0, f"{label} != plain: max |err| = {err}")
+            nbytes, t_bytes = span2d_bound(name, n, s, B, d)
+
+            def call(kern=kern, got=got, args=args):
+                kern(C, got, *args)
+
+            row = {"case": label, "batch": B, "n": n, "s": s, "dangles": d,
+                   "bytes": nbytes, "max_abs_err": err,
+                   "ms": graph_ms(call, reps=20, replays=5),
+                   "ms_l2cold": graph_cold_ms(call), "call_ms": cuda_ms(call, 20),
+                   "plain_ms": cuda_ms(lambda: plain(C, want, *args), 3),
+                   "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None,
+                   "ptxas": (ptxas or {}).get(name)}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
+            rows[name].append(row)
+            emit({"phase": "span2d", **row})
+    return rows
+
+
 def max_rel_err(got, want):
     """Largest |got - want| / max(|got|, |want|) over two arrays (0 where
     both are 0)."""
@@ -2224,9 +2465,12 @@ def phase_checkpoint(sp, n=48, every=16, stop_at=20):
     """Phase 8: fill4 with a snapshot every ``every`` spans, interrupted
     from ``on_span`` at span ``stop_at``, then resumed; the resumed state
     must equal an uninterrupted fill6 on every array and the snapshot must
-    be gone.  The snapshot lives under ``build/`` (git ignores it)."""
+    be gone; the resumed fill's launches are those of the spans it runs
+    (:func:`span_launches`).  The snapshot lives under ``build/`` (git
+    ignores it)."""
     import shutil
 
+    from ccj_tpu_torch.engine import cuda_ops
     from ccj_tpu_torch.engine import fold as fmod
     from ccj_tpu_torch.params import DEFAULT_PK
     from ccj_tpu_torch.precompute import build_seq_tables
@@ -2268,11 +2512,15 @@ def phase_checkpoint(sp, n=48, every=16, stop_at=20):
             raise SmokeFailure("fill4 ran past the interruption")
         check(snap.exists(), "fill4 left no snapshot")
         snapshot_bytes = snap.stat().st_size
+        reset_counts(cuda_ops)
         t0 = time.perf_counter()
         st = fmod.fill4(C, SC4, n, sp.dangles, checkpoint_dir=str(ckpt),
                         checkpoint_every=every, digest=dig)
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
+        # the resumed fill runs the spans from the last snapshot on
+        launches = loop_launches(cuda_ops, span_launches(range(stop_at // every * every, n)),
+                                 f"checkpoint resume n={n}")
     finally:
         fmod._save_checkpoint, fmod._load_checkpoint = real
     check(set(st) == set(ref), "the resumed state has other arrays than fill6's")
@@ -2282,7 +2530,7 @@ def phase_checkpoint(sp, n=48, every=16, stop_at=20):
     shutil.rmtree(ckpt, ignore_errors=True)
     return {"n": n, "checkpoint_every": every, "interrupted_at_span": stop_at,
             "snapshot_bytes": snapshot_bytes, "save_s": walls["save"],
-            "load_s": walls["load"], "resumed_fill_s": resume_s,
+            "load_s": walls["load"], "resumed_fill_s": resume_s, "launches": launches,
             "arrays_compared": len(ref)}
 
 
@@ -2465,7 +2713,12 @@ def sharded_counts(n, P):
     step; ``history_min`` each span s >= 1 once for the RL scans and once
     per owner of the shard's C rows l = i + s (< n2) for the RI ones (each
     owner reduces its own rows); ``p_split`` each span with a term;
-    ``span_assemble`` and ``span_store`` each span."""
+    ``span_assemble``, ``span_store`` and ``wx_tables`` (the step's weight
+    tables, ``gapped4.span_families``) each span; the 2-D recurrences
+    (``span_v``, ``span_wbp``, ``span_wm``) once a span on the one replica
+    of the 2-D matrices (every shard on one card), as an unsharded fill
+    runs them.  ``_history_tables`` adds no ``wx_tables``: its owners
+    share the one device's tables."""
     from ccj_tpu_torch.dist.wavefront import row_partition, span_rows
 
     R, _ = row_partition(n, P)
@@ -2478,7 +2731,7 @@ def sharded_counts(n, P):
             hist += (s >= 1) * (1 + owners)
             ps += s >= 3
             spans += 1
-    return tt, hist, ps, tt, tt, spans, spans
+    return tt, hist, ps, tt, tt, spans, spans, n - 1, n, n - 3, spans
 
 
 def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
@@ -2706,7 +2959,11 @@ def phase_corpus_processes(entries, nproc=2):
                                           "corpus-stencil-pl-launches",
                                           "corpus-stencil-pr-launches",
                                           "corpus-assemble-launches",
-                                          "corpus-store-launches")))
+                                          "corpus-store-launches",
+                                          "corpus-span-v-launches",
+                                          "corpus-span-wbp-launches",
+                                          "corpus-span-wm-launches",
+                                          "corpus-wx-launches")))
             reports.append({"wall_s": walls[pid],
                             "fold_s": float(vals["corpus-fold-seconds"]),
                             "launches": int(vals["corpus-tt-span-launches"]),
@@ -2716,6 +2973,10 @@ def phase_corpus_processes(entries, nproc=2):
                             "stencil_pr_launches": int(vals["corpus-stencil-pr-launches"]),
                             "assemble_launches": int(vals["corpus-assemble-launches"]),
                             "store_launches": int(vals["corpus-store-launches"]),
+                            "span_v_launches": int(vals["corpus-span-v-launches"]),
+                            "span_wbp_launches": int(vals["corpus-span-wbp-launches"]),
+                            "span_wm_launches": int(vals["corpus-span-wm-launches"]),
+                            "wx_launches": int(vals["corpus-wx-launches"]),
                             "minplus_launches": int(vals["corpus-minplus-launches"]),
                             "tt_step_launches": int(vals["corpus-tt-step-launches"])})
         res = json.loads(out.read_text())
@@ -2740,7 +3001,8 @@ def phase_corpus_processes(entries, nproc=2):
 
     want = fill_counts(*(bucket_for(len(e["seq"])) for e in entries))
     keys = ("launches", "history_launches", "psplit_launches", "stencil_pl_launches",
-            "stencil_pr_launches", "assemble_launches", "store_launches", "minplus_launches",
+            "stencil_pr_launches", "assemble_launches", "store_launches", "span_v_launches",
+            "span_wbp_launches", "span_wm_launches", "wx_launches", "minplus_launches",
             "tt_step_launches")
     for label, reps in (("two-process", multi), ("one-process", solo)):
         got = tuple(sum(r[k] for r in reps) for k in keys)
@@ -2753,6 +3015,8 @@ def phase_corpus_processes(entries, nproc=2):
             "history_launches": want[1], "psplit_launches": want[2],
             "stencil_pl_launches": want[3], "stencil_pr_launches": want[4],
             "assemble_launches": want[5], "store_launches": want[6],
+            "span_v_launches": want[7], "span_wbp_launches": want[8],
+            "span_wm_launches": want[9], "wx_launches": want[10],
             "one_process": solo[0]}
 
 
@@ -2803,6 +3067,8 @@ def main():
     report.update(stencil_rows)
     span_k_rows = phase_span(cuda_ops, sp, bucket_dims, torch.device("cuda"), span_ptxas(log))
     report.update(span_k_rows)
+    span2d_rows = phase_span2d(cuda_ops, bucket_dims, torch.device("cuda"), span2d_ptxas(log))
+    report.update(span2d_rows)
 
     # ---- 3: corpus goldens -----------------------------------------------
     corpus = json.loads((ROOT / "tests" / "golden" / "corpus.json").read_text())
@@ -3137,6 +3403,33 @@ def main():
             "share_of_bound_l2cold": main["share_of_bound_l2cold"],
             "ptxas": main["ptxas"], "matches_plain": True, "shape": main["case"],
             "other_shapes": [{k: r[k] for k in span_keys} for r in rows_k[1:]]})
+    span2d_keys = ("case", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms", "bound_by",
+                   "share_of_bound", "share_of_bound_l2cold", "bytes", "max_abs_err")
+    for name, what in (
+            ("span_v", "the XLA fusion of compute_V_span (nested.py:54-152): hairpin, "
+             "interior loops and multiloop of every live row of a span, one launch a span "
+             "s >= 1 (and replica)"),
+            ("span_wbp", "the XLA fusion of compute_WBP_WPP_span (gapped.py:119-160), its "
+             "WB / WP weights computed inline, one launch a span (and replica)"),
+            ("span_wm", "the XLA fusion of compute_WMv_WMp_WM_span (nested.py:155-196), one "
+             "launch a span s >= 3 (and replica)"),
+            ("wx_tables", "the XLA fusion of _wx_tables (gapped.py:42-59), the gapped step's "
+             "four weight tables, one launch a span (and row shard)")):
+        idx = FILL_KERNELS.index(name)
+        rows_k = span2d_rows[name]
+        main = rows_k[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "ccj_tpu_torch/csrc/span2d.cu",
+            "replaces": SPAN2D_REPLACES[name], "replaces_what": what,
+            "launches": PATH_COUNTS["the main path"][idx],
+            "launches_by_path": {k: v[idx] for k, v in PATH_COUNTS.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "call_ms": main["call_ms"],
+            "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
+            "share_of_bound_l2cold": main["share_of_bound_l2cold"],
+            "ptxas": main["ptxas"], "matches_plain": True, "shape": main["case"],
+            "other_shapes": [{k: r[k] for k in span2d_keys} for r in rows_k[1:]]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,6 +1,7 @@
 """The CUDA kernels (``tt_span``, ``minplus_group``, ``tt_step``,
 ``history_min``, ``p_split``, ``stencil_pl``, ``stencil_pr``,
-``span_assemble``, ``span_store``) against
+``span_assemble``, ``span_store``, ``span_v``, ``span_wbp``, ``span_wm``,
+``wx_tables``) against
 their plain PyTorch versions, on the card (exact: integer data), ``tt_span``
 against the two-launch loop it replaces, ``fold_many``'s
 fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
@@ -903,3 +904,126 @@ def test_fill_launches_span_kernels(cuda):
         run(C, SC4)
         torch.cuda.synchronize()
         assert tuple(a - b for a, b in zip(counts(), before)) == (want, want), n
+
+
+# ---------------------------------------------------------------------------
+# span_v, span_wbp, span_wm, wx_tables: the span's 2-D recurrences
+# ---------------------------------------------------------------------------
+
+SPAN2D = {"span_v": "SPAN_V_LAUNCHES", "span_wbp": "SPAN_WBP_LAUNCHES",
+          "span_wm": "SPAN_WM_LAUNCHES", "wx_tables": "WX_LAUNCHES"}
+
+
+def _span2d_consts(n, dangles, B, dev):
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE), dangles=dangles)
+    Cs = [tfold.consts_from_numpy(tfold.build_consts(
+        build_seq_tables(_bench_seq(n, 42 + b), sp, DEFAULT_PK), sp, DEFAULT_PK), dev,
+        sc4_np={})[0] for b in range(B)]
+    return tfold.stack_consts(Cs)
+
+
+@pytest.mark.parametrize("dangles", [0, 1, 2])
+@pytest.mark.parametrize("n,spans", [(37, tuple(range(37))), (100, (0, 1, 3, 4, 37, 99)),
+                                     (200, (2, 5, 135, 199))])
+def test_span2d_kernels_match_plain(cuda, n, spans, dangles):
+    """Each 2-D kernel against its plain version on a batch of four random
+    states (INF, TRI_UNSET and V_UNSET cells among them): the whole 2-D
+    state after the kernel, one launch a call where the span has cells to
+    write (span_v s >= 1, span_wm s >= 3), none elsewhere."""
+    import chip_smoke
+
+    C = _span2d_consts(n, dangles, 4, cuda)
+    gen = torch.Generator().manual_seed(n + dangles)
+    for s in spans:
+        st0 = chip_smoke.span2d_state(4, n, gen, cuda)
+        for name, counter in SPAN2D.items():
+            args = (s, dangles) if name in ("span_v", "span_wm") else (
+                (s,) if name == "span_wbp" else ())
+            got = {k: v.clone() for k, v in st0.items()}
+            want = {k: v.clone() for k, v in st0.items()}
+            before = getattr(cuda_ops, counter)
+            out_k = getattr(cuda_ops, name)(C, got, *args)
+            torch.cuda.synchronize()
+            launched = {"span_v": s >= 1, "span_wm": s >= 3}.get(name, True)
+            assert getattr(cuda_ops, counter) == before + launched, (name, s)
+            out_p = getattr(cuda_ops, f"{name}_ref")(C, want, *args)
+            if name == "wx_tables":
+                for g, w in zip(out_k, out_p):
+                    assert torch.equal(g, w), (name, s)
+            for k in st0:
+                assert torch.equal(got[k], want[k]), (name, s, k)
+
+
+def test_span2d_kernels_take_operands_through_their_strides(cuda):
+    """Column-major tables (as numpy hands some of them to the fills), a
+    batch of one as a view, and a state array read through a strided view:
+    each kernel equals its plain version on the same operands."""
+    import chip_smoke
+
+    from ccj_tpu_torch.engine import fold as tfold
+
+    for dangles in (1, 2):
+        C = tfold.add_batch({k: v[0] if isinstance(v, torch.Tensor) else v
+                             for k, v in _span2d_consts(100, dangles, 1, cuda).items()})
+        C = {**C, **{k: C[k].transpose(1, 2).contiguous().transpose(1, 2)
+                     for k in ("H", "MB0", "MB2", "MB_5", "ML0", "ML2", "ML_ip1")},
+             "EINT": C["EINT"].permute(0, 4, 3, 2, 1).contiguous().permute(0, 4, 3, 2, 1)}
+        st0 = chip_smoke.span2d_state(1, 100, torch.Generator().manual_seed(dangles), cuda)
+        for name, args in (("span_v", (37, dangles)), ("span_wbp", (37,)),
+                           ("span_wm", (37, dangles)), ("wx_tables", ())):
+            got = {k: v.clone() for k, v in st0.items()}
+            wide = torch.zeros((1, 102, 204), dtype=torch.int32, device=cuda)
+            wide[..., ::2] = got["WM"]
+            got["WM"] = wide[..., ::2]
+            want = {k: v.clone() for k, v in st0.items()}
+            out_k = getattr(cuda_ops, name)(C, got, *args)
+            out_p = getattr(cuda_ops, f"{name}_ref")(C, want, *args)
+            torch.cuda.synchronize()
+            if name == "wx_tables":
+                for g, w in zip(out_k, out_p):
+                    assert torch.equal(g, w), name
+            for k in st0:
+                assert torch.equal(got[k], want[k]), (name, k)
+
+
+def test_span2d_kernels_refuse_operands_on_two_devices(cuda):
+    import chip_smoke
+
+    C = _span2d_consts(37, 2, 1, cuda)
+    st = chip_smoke.span2d_state(1, 37, torch.Generator().manual_seed(1), cuda)
+    before = tuple(getattr(cuda_ops, c) for c in SPAN2D.values())
+    with pytest.raises(ValueError, match="one device"):
+        cuda_ops.span_wbp(C, {**st, "P2": st["P2"].cpu()}, 20)
+    with pytest.raises(ValueError, match="one device"):
+        cuda_ops.span_v({**C, "EINT": C["EINT"].cpu()}, st, 20, 2)
+    assert tuple(getattr(cuda_ops, c) for c in SPAN2D.values()) == before
+
+
+def test_fill_launches_span2d_kernels(cuda):
+    """fill6 at n=100 and fill7 at n=134 (its tables as numpy gives them,
+    some column-major): one span_v a span s >= 1, one span_wbp and one
+    wx_tables a span, one span_wm a span s >= 3; V(1, 100) is bench.py's
+    golden."""
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.engine.gapped5 import segments7
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    for n in (100, 134):
+        tabs = build_seq_tables(_bench_seq(n, 42), sp, DEFAULT_PK)
+        C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
+        before = tuple(getattr(cuda_ops, c) for c in SPAN2D.values())
+        st = (tfold.fill6(C, SC4, n, sp.dangles) if n <= 128 else
+              tfold.fill7(C, SC4, n, sp.dangles, segments7(n)))
+        torch.cuda.synchronize()
+        got = tuple(getattr(cuda_ops, c) - b for c, b in zip(SPAN2D.values(), before))
+        assert got == (n - 1, n, n - 3, n)
+        if n == 100:
+            assert int(st["V"][1, 100]) == -1528

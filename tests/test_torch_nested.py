@@ -1,0 +1,559 @@
+"""The span's 2-D recurrences, bit for bit (tolerance zero: integer data):
+``nested.compute_V_span``, ``gapped.compute_WBP_WPP_span``,
+``nested.compute_WMv_WMp_WM_span`` and ``gapped._wx_tables`` of the port
+(on the card ``cuda_ops.span_v`` / ``span_wbp`` / ``span_wm`` /
+``wx_tables``, csrc/span2d.cu; here their plain versions) against the JAX
+package's functions of the same names:
+
+* tables of real sequences, each package's own (``build_seq_tables``,
+  ``build_consts``; the port's through ``fold.consts_from_numpy``), on
+  random int32 states with INF, TRI_UNSET, V_UNSET and negative cells
+  sprinkled in, so that every guard (``guarded_add``'s ``== INF``, the
+  getters, the ``< INF // 2`` writes) is hit; n in {16, 23}, spans 0, 2,
+  3, 4, 5, a middle one and n - 1, dangles 0, 1 and 2; a batch of two
+  sequences against two JAX calls;
+* Vtype's first minimum on cells forced to H = I = M and I = M < H;
+* csrc/span2d.cu's walk restated in Python (per live row: the kernel's
+  (di, dj) enumeration, its multiloop, WBP / WPP and WM splits, the WB /
+  WP weights computed inline, int32 sums that wrap) against the plain
+  versions;
+* refusals of operands that do not fit; no launch counted on the CPU;
+  CUDA operands without the kernel library raise.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ccj_tpu.engine import fold as jfold
+from ccj_tpu.engine import gapped as jgapped
+from ccj_tpu.engine import nested as jnested
+from ccj_tpu.params import DEFAULT_PK as JPK
+from ccj_tpu.params import parse_par as jparse
+from ccj_tpu.params import scale_parameters as jscale
+from ccj_tpu.precompute import build_seq_tables as jtables
+from ccj_tpu_torch.engine import cuda_ops, fold, gapped, nested
+from ccj_tpu_torch.engine.common import INF, MAXLOOP, TRI_UNSET, TURN, V_UNSET
+from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+from ccj_tpu_torch.precompute import build_seq_tables
+
+from oracle_util import REPO
+
+torch.set_num_threads(1)
+
+PAR = "ccj_tpu/params/rna_Turner04.par"
+SEQS = {16: ("GCGCUUCGCCGCGCCA", "GGGAAACUUCGGUUCC"),
+        23: ("GGGAAACGGGCGAUCCUUCCCGA", "GCAUCCGGAUGCAAAGCUUCGGC")}
+KEYS_2D = ("V", "Vtype", "WM", "WMv", "WMp", "P2", "WBP", "WPP")
+I32 = np.int32
+
+
+def _spans(n):
+    return (0, 2, 3, 4, 5, n // 2, n - 1)
+
+
+_CONSTS = {}
+
+
+def _consts(seq, dangles):
+    """(the JAX package's C as jnp arrays, the port's C without a batch
+    axis) of ``seq``, each package's own chain from the parameter file."""
+    key = (seq, dangles)
+    if key not in _CONSTS:
+        jsp = jscale(jparse(REPO / PAR), dangles=dangles)
+        jC = jfold.build_consts(jtables(seq, jsp, JPK), jsp, JPK, device=False)
+        jC = {k: jnp.asarray(np.asarray(v)) if not isinstance(v, int) else v
+              for k, v in jC.items()}
+        sp = scale_parameters(parse_par(REPO / PAR), dangles=dangles)
+        C_np = fold.build_consts(build_seq_tables(seq, sp, DEFAULT_PK), sp, DEFAULT_PK)
+        C, _ = fold.consts_from_numpy(C_np, "cpu", sc4_np={})
+        _CONSTS[key] = (jC, C)
+    return _CONSTS[key]
+
+
+def _state(rng, B, n):
+    """Random [B, n2, n2] 2-D state: energies in [-3000, 3000) with 10 %
+    INF, 10 % TRI_UNSET and 5 % V_UNSET cells; Vtype in 0..3."""
+    n2 = n + 2
+    st = {}
+    for k in KEYS_2D:
+        if k == "Vtype":
+            st[k] = rng.integers(0, 4, (B, n2, n2)).astype(np.int8)
+            continue
+        x = rng.integers(-3000, 3000, (B, n2, n2)).astype(I32)
+        u = rng.random((B, n2, n2))
+        x[u < 0.1] = INF
+        x[(u >= 0.1) & (u < 0.2)] = TRI_UNSET
+        x[(u >= 0.2) & (u < 0.25)] = V_UNSET
+        st[k] = x
+    return st
+
+
+def _port(fn, Cs, st_np, *args):
+    """The port's ``fn`` on a batch (one C per element) of numpy states;
+    returns the state as numpy."""
+    C = fold.stack_consts(Cs)
+    st = {k: torch.from_numpy(v.copy()) for k, v in st_np.items()}
+    out = fn(C, st, *args)
+    assert out is st
+    return {k: v.numpy() for k, v in st.items()}
+
+
+def _jax(fn, jC, st_np, b, *args):
+    """The JAX package's ``fn`` on element b of the numpy states."""
+    out = fn(jC, {k: jnp.asarray(v[b]) for k, v in st_np.items()}, *args)
+    return {k: np.asarray(out[k]) for k in KEYS_2D}
+
+
+def _same(got, want, what):
+    for k in KEYS_2D:
+        bad = np.argwhere(got[k] != want[k])
+        assert len(bad) == 0, (f"{what} {k}: {len(bad)} cells differ, first at "
+                               f"{tuple(bad[0])}: port={got[k][tuple(bad[0])]} "
+                               f"jax={want[k][tuple(bad[0])]}")
+
+
+FUNCS = {"V": (nested.compute_V_span, jnested.compute_V_span, True),
+         "WBP": (gapped.compute_WBP_WPP_span, jgapped.compute_WBP_WPP_span, False),
+         "WM": (nested.compute_WMv_WMp_WM_span, jnested.compute_WMv_WMp_WM_span, True)}
+
+
+SPAN_IDS = ["0", "2", "3", "4", "5", "mid", "n-1"]
+
+
+@pytest.mark.parametrize("span", range(len(SPAN_IDS)), ids=SPAN_IDS)
+@pytest.mark.parametrize("dangles", [0, 1, 2])
+@pytest.mark.parametrize("n", sorted(SEQS))
+@pytest.mark.parametrize("name", ["V", "WM"])
+def test_nested_span_matches_jax(name, n, dangles, span):
+    """compute_V_span / compute_WMv_WMp_WM_span at one span of
+    :func:`_spans`, on its own random state."""
+    port_fn, jax_fn, _ = FUNCS[name]
+    jC, C = _consts(SEQS[n][0], dangles)
+    s = _spans(n)[span]
+    st = _state(np.random.default_rng(100 * n + 10 * dangles + s), 1, n)
+    got = _port(port_fn, [C], st, s, dangles)
+    want = _jax(jax_fn, jC, st, 0, s, dangles)
+    _same({k: v[0] for k, v in got.items()}, want, f"{name} n={n} s={s} d={dangles}")
+    changed = any((got[k] != st[k]).any() for k in KEYS_2D)
+    assert changed == (s >= (1 if name == "V" else 3)), (name, s)
+
+
+@pytest.mark.parametrize("span", range(len(SPAN_IDS)), ids=SPAN_IDS)
+@pytest.mark.parametrize("n", sorted(SEQS))
+def test_wbp_span_matches_jax(n, span):
+    port_fn, jax_fn, _ = FUNCS["WBP"]
+    jC, C = _consts(SEQS[n][0], 2)
+    s = _spans(n)[span]
+    st = _state(np.random.default_rng(7 * n + s), 1, n)
+    got = _port(port_fn, [C], st, s)
+    want = _jax(jax_fn, jC, st, 0, s)
+    _same({k: v[0] for k, v in got.items()}, want, f"WBP n={n} s={s}")
+    assert any((got[k] != st[k]).any() for k in KEYS_2D) == (s >= 1)
+
+
+@pytest.mark.parametrize("n", sorted(SEQS))
+def test_wx_tables_match_jax(n):
+    jC, C = _consts(SEQS[n][0], 2)
+    st = _state(np.random.default_rng(n), 1, n)
+    got = gapped._wx_tables(fold.add_batch(C), {k: torch.from_numpy(v)
+                                                for k, v in st.items()})
+    want = jgapped._wx_tables(jC, {k: jnp.asarray(v[0]) for k, v in st.items()})
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (1, n + 2, n + 2)
+        assert np.array_equal(g[0].numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("name", ["V", "WBP", "WM", "WX"])
+def test_batch_of_two_matches_two_jax_calls(name):
+    """Two sequences of one length in one batch against each alone."""
+    n, s, dangles = 23, 13, 1
+    (jC0, C0), (jC1, C1) = (_consts(q, dangles) for q in SEQS[n])
+    st = _state(np.random.default_rng(31), 2, n)
+    if name == "WX":
+        got = gapped._wx_tables(fold.stack_consts([C0, C1]),
+                                {k: torch.from_numpy(v) for k, v in st.items()})
+        for b, jC in enumerate((jC0, jC1)):
+            want = jgapped._wx_tables(jC, {k: jnp.asarray(v[b]) for k, v in st.items()})
+            for g, w in zip(got, want):
+                assert np.array_equal(g[b].numpy(), np.asarray(w))
+        return
+    port_fn, jax_fn, takes_dangles = FUNCS[name]
+    args = (s, dangles) if takes_dangles else (s,)
+    got = _port(port_fn, [C0, C1], st, *args)
+    for b, jC in enumerate((jC0, jC1)):
+        _same({k: v[b] for k, v in got.items()}, _jax(jax_fn, jC, st, b, *args),
+              f"{name} element {b}")
+
+
+@pytest.mark.parametrize("dangles", [0, 2])
+@pytest.mark.parametrize("h,eint,want_type", [(100, 100, 1), (101, 100, 2), (101, 101, 3)])
+def test_vtype_takes_the_first_minimum(dangles, h, eint, want_type):
+    """At one cell, H = h, every interior term EINT = eint (V = 0 inside)
+    and the multiloop 40 + 60 = 100 (WM = WMv = WMp = 40, MB = 60): ties
+    go to the first of H, I, M, as argmin takes them."""
+    n, s, i = 23, 12, 4
+    j = i + s
+    jC, C = _consts(SEQS[n][0], dangles)
+    st = _state(np.random.default_rng(5), 1, n)
+    st["V"][:] = 0
+    for k in ("WM", "WMv", "WMp"):
+        st[k][:] = 40
+    C = dict(C)
+    jC = dict(jC)
+    mb = "MB2" if dangles == 2 else "MB0"
+    for k, val in (("H", h), (mb, 60)):
+        x = C[k].clone()
+        x[i, j] = val
+        C[k] = x
+        jC[k] = jnp.asarray(x.numpy())
+    x = C["EINT"].clone()
+    x[:, :, i, j] = eint
+    C["EINT"] = x
+    jC["EINT"] = jnp.asarray(x.numpy())
+    assert C["MLbase"] >= 0         # the multiloop's minimum is its g = 1 term
+    got = _port(nested.compute_V_span, [C], st, s, dangles)
+    want = _jax(jnested.compute_V_span, jC, st, 0, s, dangles)
+    _same({k: v[0] for k, v in got.items()}, want, "V")
+    assert got["V"][0, i, j] == 100
+    assert got["Vtype"][0, i, j] == want_type
+
+
+# ---------------------------------------------------------------------------
+# csrc/span2d.cu's walk, restated
+# ---------------------------------------------------------------------------
+
+def _wadd(*xs):
+    """An int32 sum that wraps, as the kernels' (unsigned) adds do."""
+    return (sum(int(x) for x in xs) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _gadd(base, add):
+    return INF if base == INF else _wadd(base, add)
+
+
+def _getm(M, a, b):
+    return INF if a >= b else int(M[a, b])
+
+
+def _mlstem(C, V, b, k, j, dangles):
+    e = _gadd(INF if k >= j else int(V[k, j]),
+              C["ML2" if dangles == 2 else "ML0"][b, k, j])
+    if dangles == 1:
+        ML = C["MLbase"]
+        v1 = int(V[k + 1, j]) if (j - k - 1 > TURN and k + 1 < j) else INF
+        e = min(e, _gadd(v1, _wadd(ML, C["ML_ip1"][b, k, j])))
+        v2 = int(V[k, j - 1]) if (j - 1 - k > TURN and k < j - 1) else INF
+        e = min(e, _gadd(v2, _wadd(ML, C["ML_jm1"][b, k, j])))
+        v3 = int(V[k + 1, j - 1]) if (j - k - 2 > TURN and k + 1 < j - 1) else INF
+        e = min(e, _gadd(v3, _wadd(2 * ML, C["ML_both"][b, k, j])))
+    return e
+
+
+def _kernel_v(C, st, s, dangles, threads=128):
+    """span_v_kernel: per live row the block's threads stride the
+    (L - 1) x (L - 1) grid of (di, dj) (keeping di + dj <= L) and the
+    multiloop splits, each thread its own minima, then the block's."""
+    n = C["n"]
+    E = C["EINT"]
+    for b in range(st["V"].shape[0]):
+        V, WM, WMv, WMp = (st[k][b] for k in ("V", "WM", "WMv", "WMp"))
+        for i in range(1, n - s + 1):
+            j = i + s
+            ei = [INF] * threads
+            L = min(MAXLOOP + 2, s - TURN - 1)
+            side = L - 1
+            for q in range(max(side, 0) ** 2 if L >= 2 else 0):
+                di, dj = 1 + q // side, 1 + q % side
+                if di + dj <= L:
+                    t = q % threads
+                    ei[t] = min(ei[t], _wadd(E[b, di, dj, i, j], V[i + di, j - dj]))
+            em = [INF] * threads
+            if s >= 4:
+                ML = C["MLbase"]
+                mb = int(C["MB2" if dangles == 2 else "MB0"][b, i, j])
+                for g in range(1, s - 2):
+                    c, gm1, gm2 = i + g, (g - 1) * ML, (g - 2) * ML
+                    w1, p1 = _getm(WM, i + 1, c - 1), _getm(WMp, c, j - 1)
+                    e = _gadd(min(_wadd(w1, _getm(WMv, c, j - 1)), _wadd(w1, p1),
+                                  _wadd(gm1, p1)), mb)
+                    if dangles == 1:
+                        w2 = _getm(WM, i + 2, c - 1)
+                        e = min(e, _gadd(min(_wadd(w2, _getm(WMv, c, j - 1)),
+                                             _wadd(w2, _getm(WMp, c - 1, j - 1)),
+                                             _wadd(gm2, p1)), int(C["MB_5"][b, i, j])))
+                        v2, p2 = _getm(WMv, c, j - 2), _getm(WMp, c, j - 2)
+                        e = min(e, _gadd(min(_wadd(w1, v2), _wadd(w1, p2), _wadd(gm1, p2)),
+                                         int(C["MB_3"][b, i, j])))
+                        e = min(e, _gadd(min(_wadd(w2, v2), _wadd(w2, p2), _wadd(gm2, p2)),
+                                         int(C["MB_53"][b, i, j])))
+                    t = (g - 1) % threads
+                    em[t] = min(em[t], e)
+            vmin, rank = int(C["H"][b, i, j]), 0
+            if min(ei) < vmin:
+                vmin, rank = min(ei), 1
+            if min(em) < vmin:
+                vmin, rank = min(em), 2
+            ok = vmin < INF // 2
+            V[i, j] = vmin if ok else V_UNSET
+            st["Vtype"][b][i, j] = rank + 1 if ok else 0
+
+
+def _kernel_wbp(C, st, s):
+    """span_wbp_kernel: the WB / WP weights from WBP / WPP inline."""
+    n = C["n"]
+    for b in range(st["V"].shape[0]):
+        V, P2, WBP, WPP = (st[k][b] for k in ("V", "P2", "WBP", "WPP"))
+        for i in range(1, n - s + 1):
+            l = i + s
+            r0 = r1 = INF
+            for g in range(s):
+                d = i + g
+                vdl, pdl = int(V[d, l]), int(P2[d, l])
+                wb = wp = INF
+                if d - 1 >= 1:
+                    wb = wp = 0
+                    if g > 0:
+                        wb = min(C["cp"] * g, int(WBP[i, d - 1]))
+                        wp = min(C["PUP"] * g, int(WPP[i, d - 1]))
+                r0 = min(r0, _wadd(wb, vdl, C["bp"], C["PPS"]),
+                         _wadd(wb, pdl, C["PSM"], C["PPS"]))
+                r1 = min(r1, _wadd(wp, vdl, C["PPS"]), _wadd(wp, pdl, C["PSP"], C["PPS"]))
+            wbp = min(r0, _wadd(int(WBP[i, l - 1]) if s >= 1 else INF, C["cp"]))
+            wpp = min(r1, _wadd(int(WPP[i, l - 1]) if s >= 1 else INF, C["PUP"]))
+            if wbp < INF // 2:
+                WBP[i, l] = wbp
+            if wpp < INF // 2:
+                WPP[i, l] = wpp
+
+
+def _kernel_wm(C, st, s, dangles):
+    """span_wm_kernel: the WM splits, then WMv, WMp and WM of the row."""
+    n = C["n"]
+    if s < 3:
+        return
+    ML, psmb = C["MLbase"], C["PSM"] + C["b"]
+    for b in range(st["V"].shape[0]):
+        V, P2, WM, WMv, WMp = (st[k][b] for k in ("V", "P2", "WM", "WMv", "WMp"))
+        for i in range(1, n - s + 1):
+            j = i + s
+            acc = INF
+            for g in range(s - TURN):
+                k = i + g
+                stem = _mlstem(C, V, b, k, j, dangles)
+                wmb = _wadd(P2[k, j], psmb)
+                wik = INF if i >= k - 1 else int(WM[i, k - 1])
+                acc = min(acc, _wadd(g * ML, stem), _wadd(g * ML, wmb), _wadd(wik, stem),
+                          _wadd(wik, wmb))
+            WMv[i, j] = min(_mlstem(C, V, b, i, j, dangles), _wadd(WMv[i, j - 1], ML))
+            WMp[i, j] = min(_wadd(P2[i, j], psmb), _wadd(WMp[i, j - 1], ML))
+            WM[i, j] = min(acc, _wadd(WM[i, j - 1], ML))
+
+
+@pytest.mark.parametrize("dangles", [0, 1, 2])
+@pytest.mark.parametrize("name", ["V", "WBP", "WM"])
+def test_kernel_walk_restated_matches_plain(name, dangles):
+    """The kernels' walks, restated row by row in Python, against the
+    plain versions on random states at n = 16 (B = 2, spans 1 .. n - 1)."""
+    n = 16
+    Cs = [_consts(q, dangles)[1] for q in SEQS[n]]
+    C = fold.stack_consts(Cs)
+    Cn = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in C.items()}
+    kernel = {"V": _kernel_v, "WBP": _kernel_wbp, "WM": _kernel_wm}[name]
+    plain = {"V": cuda_ops.span_v_ref, "WBP": cuda_ops.span_wbp_ref,
+             "WM": cuda_ops.span_wm_ref}[name]
+    for s in range(1, n):
+        st = _state(np.random.default_rng(s + 50 * dangles), 2, n)
+        mine = {k: v.copy() for k, v in st.items()}
+        args = (s,) if name == "WBP" else (s, dangles)
+        kernel(Cn, mine, *args)
+        want = {k: torch.from_numpy(v.copy()) for k, v in st.items()}
+        plain(C, want, *args)
+        _same(mine, {k: v.numpy() for k, v in want.items()}, f"{name} s={s}")
+
+
+def test_wx_kernel_rule_restated():
+    """wx_kernel's per-cell rule against the plain tables."""
+    n = 16
+    C = fold.stack_consts([_consts(q, 2)[1] for q in SEQS[n]])
+    st = _state(np.random.default_rng(3), 2, n)
+    got = cuda_ops.wx_tables_ref(C, {k: torch.from_numpy(v) for k, v in st.items()})
+    for b in range(2):
+        for a in range(n + 2):
+            for c in range(n + 2):
+                inb = 1 <= a <= n and 1 <= c <= n
+                rb, rp = int(st["WBP"][b, a, c]), int(st["WPP"][b, a, c])
+                want = (INF if not inb else 0 if a > c else min(C["cp"] * (c - a + 1), rb),
+                        INF if not inb else 0 if a > c else min(C["PUP"] * (c - a + 1), rp),
+                        INF if a > c else rb, INF if a > c else rp)
+                assert tuple(int(x[b, a, c]) for x in got) == want
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+def _small(B=1, n=16, dangles=2):
+    C = fold.stack_consts([_consts(SEQS[n][0], dangles)[1]] * B)
+    st = {k: torch.from_numpy(v) for k, v in _state(np.random.default_rng(1), B, n).items()}
+    return C, st
+
+
+def _counts():
+    return (cuda_ops.SPAN_V_LAUNCHES, cuda_ops.SPAN_WBP_LAUNCHES, cuda_ops.SPAN_WM_LAUNCHES,
+            cuda_ops.WX_LAUNCHES)
+
+
+def test_cpu_tensors_run_the_plain_versions_and_count_nothing(monkeypatch):
+    C, st = _small(B=2)
+    want = {k: v.clone() for k, v in st.items()}
+    calls = []
+    for name in ("span_v_ref", "span_wbp_ref", "span_wm_ref", "wx_tables_ref"):
+        real = getattr(cuda_ops, name)
+        monkeypatch.setattr(cuda_ops, name,
+                            lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
+    before = _counts()
+    nested.compute_V_span(C, st, 9, 2)
+    gapped.compute_WBP_WPP_span(C, st, 9)
+    nested.compute_WMv_WMp_WM_span(C, st, 9, 2)
+    gapped._wx_tables(C, st)
+    assert _counts() == before
+    assert calls == ["span_v_ref", "span_wbp_ref", "wx_tables_ref", "span_wm_ref",
+                     "wx_tables_ref"]
+    cuda_ops.span_v_ref(C, want, 9, 2)
+    cuda_ops.span_wbp_ref(C, want, 9)
+    cuda_ops.span_wm_ref(C, want, 9, 2)
+    for k in KEYS_2D:
+        assert torch.equal(st[k], want[k]), k
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "vtype", "eint", "device", "n",
+                                   "dangles"])
+def test_wrappers_refuse_operands_that_do_not_fit(fault):
+    C, st = _small()
+    C, st = dict(C), dict(st)
+    if fault == "dtype":
+        st["WM"] = st["WM"].to(torch.int64)
+    elif fault == "shape":
+        st["P2"] = st["P2"][:, :-1]
+    elif fault == "vtype":
+        st["Vtype"] = st["Vtype"].to(torch.int32)
+    elif fault == "eint":
+        C["EINT"] = C["EINT"][:, :31]
+    elif fault == "device":
+        st["WBP"] = st["WBP"].to("meta")
+    elif fault == "n":
+        C["n"] = 15
+    calls = [lambda: nested.compute_V_span(C, st, 9, 2),
+             lambda: gapped.compute_WBP_WPP_span(C, st, 9),
+             lambda: nested.compute_WMv_WMp_WM_span(C, st, 9, 2),
+             lambda: gapped._wx_tables(C, st)]
+    if fault == "dangles":
+        calls = [lambda: nested.compute_V_span(C, st, 9, 3),
+                 lambda: nested.compute_WMv_WMp_WM_span(C, st, 9, -1)]
+    reads = {"dtype": (0, 2), "shape": (1, 2), "vtype": (0,), "eint": (0,),
+             "device": (1, 3), "n": (0, 1, 2, 3), "dangles": (0, 1)}[fault]
+    for k in reads:
+        with pytest.raises((ValueError, TypeError)):
+            calls[k]()
+
+
+class _CudaTyped:
+    """Stands in for a CUDA tensor on a machine without one: what the
+    wrappers inspect before they need the kernel library."""
+
+    def __init__(self, x):
+        self.shape, self.dtype = x.shape, x.dtype
+        self.device = torch.device("cuda", 0)
+        self.is_cuda = True
+
+    def dim(self):
+        return len(self.shape)
+
+
+def test_cuda_operands_raise_without_the_library(monkeypatch, tmp_path):
+    """CUDA operands need the kernels: without nvcc the wrappers raise (no
+    plain fallback) and nothing is counted."""
+    monkeypatch.setattr(cuda_ops, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_ops, "_lib", None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    C, st = _small()
+    C = {k: _CudaTyped(v) if isinstance(v, torch.Tensor) else v for k, v in C.items()}
+    st = {k: _CudaTyped(v) for k, v in st.items()}
+    before = _counts()
+    for call in (lambda: nested.compute_V_span(C, st, 9, 2),
+                 lambda: gapped.compute_WBP_WPP_span(C, st, 9),
+                 lambda: nested.compute_WMv_WMp_WM_span(C, st, 9, 1),
+                 lambda: gapped._wx_tables(C, st)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert _counts() == before
+
+
+def test_table_mirrors_the_kernel_layout():
+    """Span2dTable: 21 operand slots (pointer and batch, row and column
+    strides), EINT's two inner strides, then the 14 ints, packed by one
+    struct format."""
+    import ctypes
+    assert len(cuda_ops.SPAN2D_OPERANDS) == 21
+    assert ctypes.sizeof(cuda_ops.Span2dTable) == 21 * 32 + 16 + 14 * 4
+    assert cuda_ops._SPAN2D_FMT.size == ctypes.sizeof(cuda_ops.Span2dTable)
+    for kind in cuda_ops.SPAN2D_KINDS:
+        for d in (0, 1, 2):
+            assert set(cuda_ops._SPAN2D_READS[kind, d]) <= set(cuda_ops.SPAN2D_OPERANDS)
+
+
+@pytest.mark.parametrize("kind,dangles", [("span_v", 1), ("span_v", 2), ("span_wbp", 2),
+                                          ("span_wm", 1), ("wx_tables", 2)])
+def test_launch_table_reads_each_operand_through_its_strides(monkeypatch, kind, dangles):
+    """The packed Span2dTable, read back as the kernel reads it (pointer
+    plus batch, row and column strides; EINT's di and dj strides), gives
+    every operand's elements: tables from numpy as the fills hold them
+    (some column-major, a batch of one as a view) and a state array read
+    through a strided view."""
+    import ctypes
+
+    packed = {}
+    monkeypatch.setattr(cuda_ops, "_library",
+                        lambda: type("Lib", (), {"ccj_span2d": None}))
+    monkeypatch.setattr(cuda_ops, "_raw_stream", lambda dev: 0)
+    monkeypatch.setattr(cuda_ops, "_launch", lambda fn, dev, what, addr, stream: packed.update(
+        t=cuda_ops.Span2dTable.from_buffer_copy(
+            (ctypes.c_char * ctypes.sizeof(cuda_ops.Span2dTable)).from_address(addr))))
+    n = 16
+    C = fold.add_batch(_consts(SEQS[n][0], dangles)[1])
+    C = {**C, "MB0": C["MB0"].transpose(1, 2).contiguous().transpose(1, 2),
+         "ML0": C["ML0"].transpose(1, 2).contiguous().transpose(1, 2)}
+    st = {k: torch.from_numpy(v) for k, v in _state(np.random.default_rng(2), 1, n).items()}
+    wide = torch.zeros((1, n + 2, 2 * (n + 2)), dtype=torch.int32)
+    wide[..., 1::2] = st["WM"]
+    st["WM"] = wide[..., 1::2]
+    assert any(C[k].stride()[-1] != 1 for k in C if isinstance(C[k], torch.Tensor))
+    dev, names, xs = cuda_ops.span2d_operands(C, st, kind, dangles)
+    cuda_ops._span2d_launch(kind, C, 9, dangles, names, xs, dev, out=kind == "wx_tables")
+    t = packed["t"]
+    assert (t.kind, t.B, t.n, t.n2, t.s, t.dangles) == (
+        cuda_ops.SPAN2D_KINDS.index(kind), 1, n, n + 2, 9, dangles)
+    assert (t.MLbase, t.PSM, t.PSP, t.PUP, t.PPS, t.pkb, t.bp, t.cp) == tuple(
+        C[k] for k in ("MLbase", "PSM", "PSP", "PUP", "PPS", "b", "bp", "cp"))
+    rng = np.random.default_rng(4)
+    for name, x in zip(names, xs):
+        k = cuda_ops._SPAN2D_SLOT[name]
+        elem = ctypes.c_int8 if name == "Vtype" else ctypes.c_int32
+        for _ in range(20):
+            a, c = (int(v) for v in rng.integers(0, n + 2, 2))
+            off = a * t.rs[k] + c * t.cs[k]
+            if name == "EINT":
+                di, dj = (int(v) for v in rng.integers(0, MAXLOOP + 2, 2))
+                off += di * t.edi + dj * t.edj
+                want = x[0, di, dj, a, c]
+            else:
+                want = x[0, a, c]
+            got = elem.from_address(t.p[k] + ctypes.sizeof(elem) * off).value
+            assert got == int(want), (name, a, c)
+    used = {cuda_ops._SPAN2D_SLOT[nm] for nm in names} | (
+        {len(cuda_ops.SPAN2D_OPERANDS) - 1} if kind == "wx_tables" else set())
+    assert all((t.p[k] != 0) == (k in used) for k in range(len(cuda_ops.SPAN2D_OPERANDS)))
