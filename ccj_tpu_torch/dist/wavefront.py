@@ -66,14 +66,14 @@ import torch
 
 from ..engine.common import I16, I32, INF, SAT16, dynamic_slice
 from ..engine.fold import add_batch, init_state_2d
-from ..engine.gapped import (C_MATS, DS, M4_NAMES, _set_P_diag, _wx_tables,
-                             compute_WBP_WPP_span, dims)
+from ..engine.gapped import (C_MATS, DS, M4_NAMES, WX, _wx_tables, compute_WBP_WPP_span,
+                             dims)
 from ..engine import cuda_ops
 from ..engine.cuda_ops import StoreDest
 from ..engine.gapped4 import (SpanReads, bucket_dims, dense_rl, history_groups,
                               history_launch, pk_dests, span_families, store_span)
 from ..engine.gapped5 import DROPPED, M4_STORED, packed_rl, prior_segments, window_spans
-from ..engine.nested import compute_V_span, compute_WMv_WMp_WM_span
+from ..engine.nested import cell_major_eint, compute_V_span, compute_WMv_WMp_WM_span
 
 # exchange classes the transport counts ("read": the traceback and gather())
 CLASSES = ("halo", "shift", "gather", "allgather", "read")
@@ -283,6 +283,9 @@ class ShardedState:
         n2, T, S, U = dims(n)
         self.replicas = {dev: init_state_2d(n, dev)
                          for dev in dict.fromkeys(self.devices)}
+        # a fill's tables' dict by device (set by the fill): each holds its
+        # replica's kept weight tables (gapped.WX)
+        self.consts = {}
         dense = Rows(0, n2, 0, n2)
         # name -> (leading axes, rows, whether every shard holds R rows)
         arrays = {}
@@ -390,24 +393,23 @@ class ShardedState:
         return sum(v.nbytes for v in self.replicas[self.devices[0]].values())
 
 
-def _history_tables(st: ShardedState, C, p: int, W):
+def _history_tables(st: ShardedState, p: int, W):
     """``q -> the weight tables on shard q's device``: ``W`` (shard p's) on
-    p's own device, else computed there from that device's replica of the
-    2-D matrices (``gapped._wx_tables``), so an owner's RI launch takes its
+    p's own device, else the fill's kept tables of that device's replica
+    (``gapped.WX`` in ``st.consts``), so an owner's RI launch takes its
     weights from its own copy of X and nothing travels."""
     cache = {st.devices[p]: W}
 
     def on(q):
         dev = st.devices[q]
         if dev not in cache:
-            WB, WP, WBPg, _ = _wx_tables(C, st.shards[q])
+            WB, WP, WBPg, _ = st.consts[dev][WX]
             cache[dev] = {"WBt": WB, "WBPg": WBPg, "WPt": WP}
         return cache[dev]
     return on
 
 
-def _sharded_history(st: ShardedState, C, p: int, s: int, TB: int, IB: int, rl,
-                     ri_windows):
+def _sharded_history(st: ShardedState, p: int, s: int, TB: int, IB: int, rl, ri_windows):
     """``SpanReads.history`` of shard p's rows [i0, i0 + IB): one launch for
     the RL windows (``rl``: row-local, ``family -> parts``) on p's device;
     the RI windows' C rows l = i + s reduced on their owners, one launch
@@ -422,7 +424,7 @@ def _sharded_history(st: ShardedState, C, p: int, s: int, TB: int, IB: int, rl,
         keys, out = history_launch(history_groups(cuda_ops.RL), lambda m, f: rl(f), W, s,
                                    i0, TB, IB)
         got = dict(zip(keys, out))
-        tables = _history_tables(st, C, p, W)
+        tables = _history_tables(st, p, W)
         groups = history_groups(cuda_ops.RI)
         keys = [key for *_g, outs in groups for _t, key in outs]
         B = W["WBt"].shape[0]
@@ -438,15 +440,15 @@ def _sharded_history(st: ShardedState, C, p: int, s: int, TB: int, IB: int, rl,
     return history
 
 
-def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int, C) -> SpanReads:
+def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int) -> SpanReads:
     """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
     s of a dense state: ``parts`` gives its own rows in place and the halo
     row of the next shard as a second piece (moved only from another
     device: no joined copy), ``window`` fetches its DS-row halo (a joined
     copy where it crosses shards, a view where shard p owns it); the
     history scans take the dense layout's row-local RL windows and reduce
-    each C row's RI history on its owner (``C``: the tables' dict, whose
-    scalars give an owner its weights)."""
+    each C row's RI history on its owner, with the weights of the owner's
+    device (``st.consts``)."""
     n = st.n
     n2, T, S, U = dims(n)
     sh, R = st.shards[p], st.R
@@ -475,12 +477,12 @@ def sharded_reads(st: ShardedState, p: int, s: int, TB: int, IB: int, C) -> Span
         return [(st.fetch(p, name, lambda t: t.narrow(2, lo, s - lo),
                           i0, i0 + IB + halo, "halo"), lo)]
 
-    history = _sharded_history(st, C, p, s, TB, IB, dense_rl(sh, s, TB, IB), ri_windows)
+    history = _sharded_history(st, p, s, TB, IB, dense_rl(sh, s, TB, IB), ri_windows)
     return SpanReads(parts, history, window)
 
 
 def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
-                         IB: int, C) -> SpanReads:
+                         IB: int) -> SpanReads:
     """:class:`gapped4.SpanReads` of shard p's rows [p R, p R + IB) at span
     s of segment gi of a packed state, reader by reader
     ``gapped5.packed_reads``' own over the transport: a family plane's
@@ -533,7 +535,7 @@ def sharded_packed_reads(st: ShardedState, p: int, s: int, gi: int, SEGS,
                           i0, i0 + IB + halo, "halo"), a)
                 for h, a, b in window_spans(s, gi, SEGS)]
 
-    history = _sharded_history(st, C, p, s, TB, IB, packed_rl(sh, s, gi, SEGS, IB),
+    history = _sharded_history(st, p, s, TB, IB, packed_rl(sh, s, gi, SEGS, IB),
                                ri_windows)
     return SpanReads(parts, history, window)
 
@@ -611,18 +613,25 @@ def _spans(st: ShardedState):
 def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
     """The span loop of both sharded fills, on ``st`` in place.  Per span:
     the 2-D recurrences on every replica; the P split on each shard's
-    rows, all-gathered into every replica's P diagonal; the gapped step on
-    each shard with a span-s row (``gapped4.span_families`` over the
-    layout's sharded reads with its row offset, one ``tt_span`` launch
-    per span and shard on CUDA); then the write-back."""
+    rows, all-gathered into every replica, whose WBP/WPP update writes it
+    into P's diagonal; the gapped step on each shard with a span-s row
+    (``gapped4.span_families`` over the layout's sharded reads with its row
+    offset, one ``tt_span`` launch per span and shard on CUDA); then the
+    write-back.  Each device's tables (``st.consts``) hold EINT cell-major,
+    as the unsharded fills do, and its replica's own weight tables
+    (``gapped.WX``), made once here and kept current by its WBP/WPP update;
+    from the second span on ``span_v`` is a programmatic dependent launch,
+    as in ``fold._run_spans``."""
     n, tr = st.n, st.transport
     n2, T, S, U = dims(n)
-    Cd = {dev: {**_on(C, dev), "n": n} for dev in st.replicas}
+    Cd = st.consts = {dev: cell_major_eint({**_on(C, dev), "n": n}) for dev in st.replicas}
+    for dev, rep in st.replicas.items():
+        Cd[dev][WX] = _wx_tables(Cd[dev], rep)
     SC4d = {dev: _on(SC4, dev) for dev in st.replicas}
-    for s, TB, gi in _spans(st):
+    for k, (s, TB, gi) in enumerate(_spans(st)):
         tr.span = s
         for dev, rep in st.replicas.items():
-            compute_V_span(Cd[dev], rep, s, dangles)
+            compute_V_span(Cd[dev], rep, s, dangles, dependent=k > 0)
         active = span_rows(n, st.R, st.P, s)
         pieces = {}
         for p, i0, IB in active:
@@ -638,15 +647,13 @@ def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
             pieces[p] = (i0, cuda_ops.p_split(st.shards[p]["PKE"], pkd, s=s, n=n, i0=i0,
                                               R=IB, sp=(0, 1), ro=(0, 0)))
         for dev, p_min in tr.allgather(pieces, st.replicas).items():
-            _set_P_diag(st.replicas[dev], n, s, p_min)
-        for dev, rep in st.replicas.items():
-            compute_WBP_WPP_span(Cd[dev], rep, s)
+            compute_WBP_WPP_span(Cd[dev], st.replicas[dev], s, p_min if s >= 3 else None)
         # every shard's reads of the span come before any write-back
         packed = {}
         for p, i0, IB in active:
             dev = st.devices[p]
-            reads = (sharded_reads(st, p, s, TB, IB, Cd[dev]) if gi is None else
-                     sharded_packed_reads(st, p, s, gi, st.segs, IB, Cd[dev]))
+            reads = (sharded_reads(st, p, s, TB, IB) if gi is None else
+                     sharded_packed_reads(st, p, s, gi, st.segs, IB))
             packed[p] = span_families(Cd[dev], SC4d[dev], st.shards[p], s, TB, IB,
                                       reads, i0)
         for p, slabs in packed.items():

@@ -39,11 +39,11 @@ from ..params.pk import PKPenalties
 from ..params.scaling import ScaledParams
 from ..precompute import SeqTables
 from .common import INF, SAT16, TRI_UNSET, V_UNSET
-from .gapped import M4_NAMES, compute_WBP_WPP_span
-from .gapped3 import compute_P_span3
+from .gapped import M4_NAMES, WX, _wx_tables, compute_WBP_WPP_span
+from .gapped3 import p_split_minima
 from .gapped4 import bucket_dims, build_sc4, init_big_state4, span_gapped4
 from .gapped5 import init_big_state7, segments7, span_gapped7
-from .nested import compute_V_span, compute_WMv_WMp_WM_span
+from .nested import cell_major_eint, compute_V_span, compute_WMv_WMp_WM_span
 
 # Largest n the dense engine folds.  The dense state (22 families, 5 C-skews
 # and PKD as [T, S, n2, n2] int16, plus PKE [T, S+T+2, n2, n2]) is 16.5 GB at
@@ -201,14 +201,22 @@ def _run_spans(C, SC4, n: int, dangles: int, st, steps, s0: int = 0):
     span after its update: the one span body of every fill (nested
     recurrences, P split, WBP/WPP, the layout's gapped step, WM).  ``C``,
     ``SC4`` and ``st`` carry the batch axis (:func:`add_batch`,
-    :func:`stack_consts`)."""
-    C = {**C, "n": n}
+    :func:`stack_consts`).  This run's ``C`` holds EINT cell-major
+    (``nested.cell_major_eint``) and the gapped step's weight tables, made
+    once from ``st`` as it is (a resumed fill's too) and kept under
+    ``gapped.WX``: each span's WBP/WPP update writes their span-s cells,
+    with P's diagonal from the P split's minima, in one launch.  From the
+    run's second span on ``span_v`` is a programmatic dependent launch:
+    nothing in the loop writes EINT, H or the MB tables."""
+    C = cell_major_eint({**C, "n": n})
+    C[WX] = _wx_tables(C, st)
+    first = True
     for s, step, args in steps:
         if s < s0:
             continue
-        compute_V_span(C, st, s, dangles)
-        compute_P_span3(C, st, s)
-        compute_WBP_WPP_span(C, st, s)
+        compute_V_span(C, st, s, dangles, dependent=not first)
+        first = False
+        compute_WBP_WPP_span(C, st, s, p_split_minima(C, st, s))
         step(C, SC4, st, s, *args)
         compute_WMv_WMp_WM_span(C, st, s, dangles)
         yield s

@@ -3,7 +3,10 @@
 Counterpart of ``compute_P_span3`` in ``ccj_tpu/engine/gapped3.py``, the one
 part of that module the dense fill runs.  The contraction itself is
 ``cuda_ops.p_split`` (one launch a span on the card), which takes any range
-of rows, so the row shards of dist/wavefront.py run it on theirs.
+of rows, so the row shards of dist/wavefront.py run it on theirs.  The
+fills take its minima (:func:`p_split_minima`) into ``cuda_ops.span_wbp``,
+which writes P's span-s diagonal in its own launch;
+:func:`compute_P_span3` writes it apart.
 """
 
 from __future__ import annotations
@@ -26,9 +29,18 @@ def compute_P_span3(C, st, s):
     lanes a > s-2 of the last chunk to INF; here only a in [0, s-2] is
     visited, which leaves the minimum unchanged.
     """
+    p_min = p_split_minima(C, st, s)
+    return st if p_min is None else _set_P_diag(st, C["n"], s, p_min)
+
+
+def p_split_minima(C, st, s):
+    """The P split's minima of span s for every row (int32 [B, n2], INF
+    where no candidate: :func:`compute_P_span3`'s, unwritten), or None for a
+    span without a term or a live row (s < 3 or s >= n), which leaves P's
+    diagonal as it is."""
     n = C["n"]
-    n2 = dims(n)[0]
+    if not 3 <= s < n:
+        return None
     pkd = st["PKD"].transpose(1, 2)                 # [B, span, c-1, row, b-1]
-    p_min = cuda_ops.p_split(st["PKE"], pkd, s=s, n=n, i0=0, R=n2, sp=(s - 1, -1),
-                             ro=(1, 1))
-    return _set_P_diag(st, n, s, p_min)
+    return cuda_ops.p_split(st["PKE"], pkd, s=s, n=n, i0=0, R=dims(n)[0],
+                            sp=(s - 1, -1), ro=(1, 1))

@@ -48,7 +48,7 @@ import torch
 from . import cuda_ops
 from .common import I16, I32, INF, MAXLOOP, SAT16, TURN, pad_axis
 from .cuda_ops import StoreDest
-from .gapped import C_MATS, DS, M4_NAMES, _wx_tables, dims
+from .gapped import C_MATS, DS, M4_NAMES, WX, dims
 from .ttloop import run_tt_loop
 
 # families updated in the serial tt loop (same-span dependencies)
@@ -364,7 +364,9 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
     for the layout's write-back (:func:`store_span`).  Writes nothing, so
     the caller's write-back into ``st`` follows every read of the span.
 
-    Per span: the weight tables, the PL / PR stencils, the 16 history scans,
+    Per span: the weight tables (the fill's kept ones, ``gapped.WX`` in
+    ``C``, which a caller outside a fill puts there: ``gapped._wx_tables``
+    of the state), the PL / PR stencils, the 16 history scans,
     one ``cuda_ops.span_assemble`` (the fixed-offset plane reads in place,
     the PL / PR / PO assembly and the cross-span-only families for every
     tt) and the serial tt loop (one ``tt_span``).  The slabs' rows are i in
@@ -373,7 +375,7 @@ def span_families(C, SC4, st, s, TB, IB, reads: SpanReads, i0: int = 0):
     (caller guarantees; padded rows are never valid)."""
     n = C["n"]
     n2 = n + 2
-    WBt, WPt, WBPg, WPPg = _wx_tables(C, st)
+    WBt, WPt, WBPg, _ = C[WX]
     pl_int = pl_stencil(reads, SC4, s, n, TB, IB, i0)
     pr_int = pr_stencil(reads, SC4, s, n, TB, IB, i0)
     H = reads.history({"WBt": WBt, "WBPg": WBPg, "WPt": WPt})

@@ -8,7 +8,8 @@ write, as the JAX data flow does) and return it.  State arrays and tables
 carry a leading batch axis ([B, n2, n2]; fill.fill6 is a batch of one).
 Each is one kernel launch a span on the card (``cuda_ops.span_v`` and
 ``cuda_ops.span_wm``, csrc/span2d.cu); on the CPU their plain versions
-(``cuda_ops.span_v_ref``, ``span_wm_ref``) run.
+(``cuda_ops.span_v_ref``, ``span_wm_ref``) run.  The fills hand
+``span_v`` EINT cell-major (:func:`cell_major_eint`).
 """
 
 from __future__ import annotations
@@ -16,10 +17,20 @@ from __future__ import annotations
 from . import cuda_ops
 
 
-def compute_V_span(C, st, s, dangles):
+def cell_major_eint(C):
+    """``C`` with EINT cell-major in memory ([B, n2, n2, 32, 32], the same
+    [B, 32, 32, n2, n2] tensor through its strides), as the fills hand it
+    to ``span_v``: a cell's interior terms lie in 4 KB, not n2^2 * 4 B
+    apart each.  One copy (none where EINT is so already)."""
+    E = C["EINT"]
+    return {**C, "EINT": E.permute(0, 3, 4, 1, 2).contiguous().permute(0, 3, 4, 1, 2)}
+
+
+def compute_V_span(C, st, s, dangles, dependent=False):
     """V(i, i+s) for all i (s_energy_matrix.cc:315-358); in place: one
-    ``cuda_ops.span_v``."""
-    cuda_ops.span_v(C, st, s, dangles)
+    ``cuda_ops.span_v`` (``dependent``: its programmatic dependent launch,
+    for a span loop whose kernels write no EINT, H or MB table)."""
+    cuda_ops.span_v(C, st, s, dangles, dependent)
     return st
 
 

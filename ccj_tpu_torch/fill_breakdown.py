@@ -65,10 +65,10 @@ taken the same way for both engines, in this order:
   an eager call, most of them a launch), a span of the gapped step's
   cross-span phase: those outside the named kernels' wrappers
   (``history_min``, ``stencil_pl``, ``stencil_pr``, ``span_assemble``,
-  ``span_store``, where the tree has them) and the step's weight tables,
-  those inside them, and the tt loop's (``run_tt_loop``, its table
-  build); and the 2-D recurrences' by function (V, WBP/WPP, WM/WMv/WMp,
-  the step's ``_wx_tables``, ``_set_P_diag``), per span and in total.
+  ``span_store``, where the tree has them), those inside them, and the tt
+  loop's (``run_tt_loop``, its table build); and the 2-D recurrences' by
+  function (V, WBP/WPP with P's diagonal and the kept weight tables,
+  WM/WMv/WMp), per span and in total.
 """
 
 from __future__ import annotations
@@ -89,13 +89,11 @@ ROOT = Path(__file__).resolve().parents[1]
 NAMED_KERNELS = ("history_min", "stencil_pl", "stencil_pr", "span_assemble", "span_store")
 # the 2-D kernels' launch counts (a tree may lack them)
 SPAN2D_COUNTS = ("SPAN_V_LAUNCHES", "SPAN_WBP_LAUNCHES", "SPAN_WM_LAUNCHES", "WX_LAUNCHES")
-# the span body's 2-D recurrences eager_ops and host_views count by function:
-# key -> (module, name), names both trees have
-RECURRENCES = {"V": ("fold", "compute_V_span"),
-               "WBP/WPP": ("fold", "compute_WBP_WPP_span"),
-               "WM/WMv/WMp": ("fold", "compute_WMv_WMp_WM_span"),
-               "wx_tables (gapped step)": ("gapped4", "_wx_tables"),
-               "_set_P_diag": ("gapped3", "_set_P_diag")}
+# the span body's 2-D recurrences eager_ops and host_views count by function,
+# key -> its name in fold (WBP/WPP also writes P's diagonal and the kept
+# weight tables' span-s cells)
+RECURRENCES = {"V": "compute_V_span", "WBP/WPP": "compute_WBP_WPP_span",
+               "WM/WMv/WMp": "compute_WMv_WMp_WM_span"}
 
 
 def _timed(fn, acc, key):
@@ -115,17 +113,16 @@ def _top(events):
             for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
 
 
-def eager_ops(fold, gapped3, gapped4, cuda_ops, run_fill, step, n):
+def eager_ops(fold, gapped4, cuda_ops, run_fill, step, n):
     """One fill under a TorchDispatchMode counting the non-view aten ops the
     span body dispatches, by where they come from: in the gapped step
     (``step``: the fill's span step in ``fold``), inside a named kernel's
     wrapper (:data:`NAMED_KERNELS`), inside ``run_tt_loop`` (the tt loop's
-    table build and its kernel's wrapper), inside the step's weight tables
-    (``gapped4._wx_tables``), or the rest of the cross-span phase
-    (``outside``: views, plane reads, assembly and write-back); and the 2-D
-    recurrences by function (:data:`RECURRENCES`: V, WBP/WPP with its own
-    weight tables, WM/WMv/WMp, the P diagonal's write), everything inside
-    each counted.  Returns the totals and the per-span means over the
+    table build and its kernel's wrapper), or the rest of the cross-span
+    phase (``outside``: views, plane reads, assembly and write-back); and
+    the 2-D recurrences by function (:data:`RECURRENCES`: V, WBP/WPP with
+    P's diagonal and the kept weight tables, WM/WMv/WMp), everything
+    inside each counted.  Returns the totals and the per-span means over the
     fill's n spans."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -147,10 +144,9 @@ def eager_ops(fold, gapped3, gapped4, cuda_ops, run_fill, step, n):
                 where.pop()
         return run
 
-    mods = {"fold": fold, "gapped3": gapped3, "gapped4": gapped4}
     patches = [(fold, step, "outside"), (gapped4, "run_tt_loop", "tt_loop"),
                *((cuda_ops, k, k) for k in NAMED_KERNELS if hasattr(cuda_ops, k)),
-               *((mods[m], k, key) for key, (m, k) in RECURRENCES.items())]
+               *((fold, k, key) for key, k in RECURRENCES.items())]
     saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
     try:
         for m, k, name in patches:
@@ -253,7 +249,7 @@ def main(argv=None):
         sys.exit(f"ccj_tpu_torch is already imported from {loaded.__file__}: run this "
                  "file as a script to split another tree")
     sys.path.insert(0, str(tree))
-    from ccj_tpu_torch.engine import cuda_ops, fold, gapped3, gapped4, gapped5, ttloop
+    from ccj_tpu_torch.engine import cuda_ops, fold, gapped4, gapped5, ttloop
     from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
     from ccj_tpu_torch.precompute import build_seq_tables
 
@@ -314,7 +310,7 @@ def main(argv=None):
 
     def parts(loop, split=False):
         acc = defaultdict(float)
-        names = {"compute_V_span": fold, "compute_P_span3": fold,
+        names = {"compute_V_span": fold, "p_split_minima": fold,
                  "compute_WBP_WPP_span": fold, step: fold,
                  "compute_WMv_WMp_WM_span": fold, "run_tt_loop": gapped4,
                  "pl_stencil": gapped4, "pr_stencil": gapped4}
@@ -435,8 +431,7 @@ def main(argv=None):
         (gapped5, "packed_reads", "parts") if packed else (gapped4, "dense_reads", "parts"),
         (cuda_ops, "span_assemble", "span_assemble_call"),
         (cuda_ops, "span_store", "span_store_call"),
-        *(({"fold": fold, "gapped3": gapped3, "gapped4": gapped4}[m], k, f"{key}_call")
-          for key, (m, k) in RECURRENCES.items())], n)
+        *((fold, k, f"{key}_call") for key, k in RECURRENCES.items())], n)
     if args.sharded:
         from ccj_tpu_torch.dist import wavefront
 
@@ -445,7 +440,7 @@ def main(argv=None):
             wavefront, lambda: (wavefront.fill7_sharded(C, SC4, n, sp.dangles, SEGS, devs)
                                 if packed else
                                 wavefront.fill6_sharded(C, SC4, n, sp.dangles, devs)), n)}
-    out["eager_ops"] = eager_ops(fold, gapped3, gapped4, cuda_ops, run_fill, step, n)
+    out["eager_ops"] = eager_ops(fold, gapped4, cuda_ops, run_fill, step, n)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     tag = f"_{args.label}" if args.label else ""

@@ -1,24 +1,28 @@
 """Device times of the port's redesigned span kernels of one checkout, so
 that two commits can be timed in turns within one run: the PL / PR
 stencils (``stencil_pl``, ``stencil_pr``) at ``chip_smoke.py``'s phase 2e
-shapes, or the span's assembly and write-back (``span_assemble``,
-``span_store``) at its phase 2f shapes.
+shapes, the span's assembly and write-back (``span_assemble``,
+``span_store``) at its phase 2f shapes, or the 2-D recurrences ``span_v``
+and ``span_wbp`` at its phase 2g shapes (``span_wbp`` as called apart and,
+where the tree's takes them, as the fills call it: the P split's minima
+and the kept weight tables).
 
-    python ccj_tpu_torch/stencil_times.py [--tree DIR] [--kernels stencil|span]
+    python ccj_tpu_torch/stencil_times.py [--tree DIR] [--kernels stencil|span|span2d]
 
 The kernels come from ``--tree``'s package (default: the checkout this file
 lies in), built from its ``csrc/`` into its ``build/``; an older commit
 unpacked beside this one (``git archive <commit>`` into ``build/parent``)
 is timed the same way.  The operands, the shapes and the timers are this
 checkout's ``chip_smoke.py`` (``stencil_cases`` / ``stencil_operands``,
-``span_cases`` / ``span_kernel_calls``, ``graph_ms``, ``flushed_ms``,
-``graph_cold_ms``, ``cuda_ms``): the fills' own calls on a random state
-and the bench sequences' tables, the same seed for every tree.  Each call
-is checked against the plain version (the store's views filled with -7
-before the plain version writes them).  Prints one JSON line: the card's
-name and power limit, the tree, the kernels' ``ptxas`` report where this
-run built the library, and per case and kernel the L2-hot (graph replay)
-and L2-cold ms a call (``span``: also the eager call's ms, the wrapper's
+``span_cases`` / ``span_kernel_calls``, ``span2d_cases`` /
+``span2d_state``, ``graph_ms``, ``flushed_ms``, ``graph_cold_ms``,
+``cuda_ms``): the fills' own calls on a random state and the bench
+sequences' tables, the same seed for every tree.  Each call is checked
+against the plain version (the store's views filled with -7 before the
+plain version writes them).  Prints one JSON line: the card's name and
+power limit, the tree, the kernels' ``ptxas`` report where this run built
+the library, and per case and kernel the L2-hot (graph replay) and L2-cold
+ms a call (``span``, ``span2d``: also the eager call's ms, the wrapper's
 host work and launch); also appends it to
 ``chiprun_out/stencil_times.jsonl`` beside this file's checkout.
 """
@@ -38,7 +42,7 @@ HERE = Path(__file__).resolve().parents[1]
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE))
-    ap.add_argument("--kernels", choices=("stencil", "span"), default="stencil")
+    ap.add_argument("--kernels", choices=("stencil", "span", "span2d"), default="stencil")
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -66,6 +70,9 @@ def main(argv=None):
     if args.kernels == "stencil":
         out["ptxas"] = smoke.stencil_ptxas(log) if log else None
         out["cases"] = stencil_rows(smoke, cuda_ops, bucket_dims, sp, dev)
+    elif args.kernels == "span2d":
+        out["ptxas"] = smoke.span2d_ptxas(log) if log else None
+        out["cases"] = span2d_rows(smoke, cuda_ops, bucket_dims, dev)
     else:
         out["ptxas"] = smoke.span_ptxas(log) if log else None
         out["cases"] = span_rows(smoke, cuda_ops, bucket_dims, sp, dev)
@@ -162,6 +169,61 @@ def span_rows(smoke, cuda_ops, bucket_dims, sp, dev):
             rows.append(row)
             del aa, sa, st
         torch.cuda.empty_cache()
+    return rows
+
+
+def span2d_rows(smoke, cuda_ops, bucket_dims, dev):
+    """Phase 2g's cases: ``span_v`` (on EINT as the tree's fills hand it)
+    and ``span_wbp`` (as called apart, and as the fills call it where the
+    tree's ``span_wbp`` takes the P split's minima and the kept tables),
+    each checked against its plain version: L2-hot, L2-cold
+    (``graph_cold_ms``) and eager-call ms a call."""
+    import inspect
+
+    import torch
+
+    from ccj_tpu_torch.engine import fold, nested
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    fills_call = "p_min" in inspect.signature(cuda_ops.span_wbp).parameters
+    gen = torch.Generator().manual_seed(7)
+    rows = []
+    for case in smoke.span2d_cases(bucket_dims):
+        n, s, B, d = case["n"], case["s"], case["B"], case["dangles"]
+        sp = scale_parameters(parse_par(HERE / "ccj_tpu_torch" / "params"
+                                        / "rna_DirksPierce09.par"), dangles=d)
+        Cs = [fold.consts_from_numpy(fold.build_consts(build_seq_tables(
+            smoke.bench_seq(n, seed=42 + b), sp, DEFAULT_PK), sp, DEFAULT_PK), dev,
+            sc4_np={})[0] for b in range(B)]
+        C = {**(fold.add_batch(Cs[0]) if B == 1 else fold.stack_consts(Cs)), "n": n}
+        if hasattr(nested, "cell_major_eint"):       # as the tree's fills hand it
+            C = nested.cell_major_eint(C)
+        st0 = smoke.span2d_state(B, n, gen, dev)
+        calls = [("span_v", (s, d), {}), ("span_wbp", (s,), {})]
+        if fills_call:
+            calls.append(("span_wbp fills' call", (s,), {
+                "p_min": smoke.span2d_pmin(B, n, gen, dev),
+                "wx": cuda_ops.wx_tables_ref(C, {k: v.cpu() for k, v in st0.items()}).to(dev)}))
+        row = {"case": case["label"]}
+        for label, args, kw in calls:
+            name = label.split()[0]
+            fn, plain = getattr(cuda_ops, name), getattr(cuda_ops, name + "_ref")
+            got, want = ({k: v.clone() for k, v in st0.items()} for _ in range(2))
+            kw_k, kw_p = ({k: v.clone() for k, v in kw.items()} for _ in range(2))
+            fn(C, got, *args, **kw_k)
+            plain(C, want, *args, **kw_p)
+            if not all(torch.equal(got[k], want[k]) for k in st0) or not all(
+                    torch.equal(kw_k[k], kw_p[k]) for k in kw):
+                sys.exit(f"{label} {case['label']}: differs from the plain version")
+
+            def kern(fn=fn, got=got, args=args, kw=kw_k):
+                fn(C, got, *args, **kw)
+
+            row[label] = {"ms": smoke.graph_ms(kern, reps=20, replays=5),
+                          "ms_l2cold": smoke.graph_cold_ms(kern),
+                          "call_ms": smoke.cuda_ms(kern, 20), "host_ms": host_ms(kern)}
+        rows.append(row)
     return rows
 
 

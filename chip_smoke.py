@@ -99,11 +99,15 @@ Phases; any failure exits non-zero and prints no result:
    their plain versions exactly on random 2-D states with INF, TRI_UNSET
    and V_UNSET cells (:func:`span2d_cases`: the n=100 main span, n=128's,
    n=200 span 135, bucket 100 x 4, dangles 0 and 1 at n=100, the odd-n2
-   n=37 span 20), the whole 2-D state after each, each with its L2-hot
+   n=37 span 20; ``span_wbp`` also as the fills call it, with P-split
+   minima and the kept weight tables), the whole 2-D state after each,
+   each with its L2-hot
    and L2-cold device times, the eager call's, the plain version's on
    the card, its byte bound (:func:`span2d_bound`, well under a
    microsecond: these kernels are launch- and host-bound) and its
-   ``ptxas`` report;
+   ``ptxas`` report; then the kept weight tables of the n=100 fill, the
+   packed n=134 fill and a P=2 row-sharded fill against a from-scratch
+   ``wx_tables`` after every span (:func:`kept_tables_check`);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -113,9 +117,10 @@ Phases; any failure exits non-zero and prints no result:
    s >= 1 (all 16 RL / RI scans, 99), one ``p_split`` per span with a term (97),
    one ``stencil_pl`` and one ``stencil_pr`` per span with a tt step (98
    each, ``STENCIL_LAUNCHES`` 196), one ``span_assemble``, one
-   ``span_store``, one ``span_wbp`` and one ``wx_tables`` a span (100
-   each), one ``span_v`` a span s >= 1 (99), one ``span_wm`` a span s >= 3
-   (97), no ``minplus_group`` and no ``tt_step``; every later path (the
+   ``span_store`` and one ``span_wbp`` a span (100 each), one ``span_v`` a
+   span s >= 1 (99), one ``span_wm`` a span s >= 3 (97), one
+   ``wx_tables`` a fill (1: the weight tables kept by ``span_wbp``), no
+   ``minplus_group`` and no ``tt_step``; every later path (the
    checkpoint's resumed fill too) is checked the
    same way (:func:`fill_counts`; per span and row shard with a span-s
    row, :func:`sharded_counts`); then
@@ -285,15 +290,18 @@ def span_launches(spans):
     ``stencil_pr`` (spans 0 and 1 have no valid cell), every span s >= 1
     one ``history_min`` (all 16 RL / RI scans; the packed layout's prior
     segments in the same launch), every span with a term (s >= 3) one
-    ``p_split``, every span one ``span_assemble``, one ``span_store``, one
-    ``span_wbp`` and one ``wx_tables``; every span s >= 1 one ``span_v``
-    (span 0's cells j = i are never written) and every span s >= 3 one
-    ``span_wm`` (no cell of a shorter span is written)."""
+    ``p_split``, every span one ``span_assemble``, one ``span_store`` and
+    one ``span_wbp`` (which writes P's diagonal and the kept weight
+    tables' span-s cells); every span s >= 1 one ``span_v`` (span 0's
+    cells j = i are never written) and every span s >= 3 one ``span_wm``
+    (no cell of a shorter span is written); one ``wx_tables`` a run of the
+    span loop (the weight tables, made once and kept)."""
     out = [0] * len(FILL_KERNELS)
     for s in spans:
         for k, on in enumerate((s >= 2, s >= 1, s >= 3, s >= 2, s >= 2, True, True,
-                                s >= 1, True, s >= 3, True)):
+                                s >= 1, True, s >= 3, False)):
             out[k] += on
+    out[-1] = 1 if out[5] else 0
     return tuple(out)
 
 
@@ -1828,7 +1836,7 @@ def span_kernel_calls(cuda_ops, case, sp, gen, dev):
     write-back of the shard on P=4 shards of one device.  Returns
     ((args, keywords) of span_assemble, those of span_store, the state)."""
     from ccj_tpu_torch.dist import wavefront
-    from ccj_tpu_torch.engine import fold, gapped4, gapped5
+    from ccj_tpu_torch.engine import fold, gapped, gapped4, gapped5
     from ccj_tpu_torch.params import DEFAULT_PK
     from ccj_tpu_torch.precompute import build_seq_tables
 
@@ -1861,10 +1869,11 @@ def span_kernel_calls(cuda_ops, case, sp, gen, dev):
                 for v in st.values():
                     if v.dim() == 5:
                         fill_rand16_(v, gen)
+                Cw = gapped.step_tables(Cb, st)
                 if segs:
-                    gapped5.span_gapped7(Cb, SC4b, st, s, gi, segs)
+                    gapped5.span_gapped7(Cw, SC4b, st, s, gi, segs)
                 else:
-                    gapped4.span_gapped4(Cb, SC4b, st, s, TB, IB)
+                    gapped4.span_gapped4(Cw, SC4b, st, s, TB, IB)
             else:
                 st = wavefront.ShardedState(n, [dev] * 4, segs)
                 for sh in st.shards:
@@ -1873,9 +1882,10 @@ def span_kernel_calls(cuda_ops, case, sp, gen, dev):
                 p = i0 // st.R
                 check((p, i0, rows) in wavefront.span_rows(n, st.R, 4, s),
                       f"{case['label']}: not a shard's rows")
-                reads = (wavefront.sharded_packed_reads(st, p, s, gi, segs, rows, Cb) if segs
-                         else wavefront.sharded_reads(st, p, s, TB, rows, Cb))
-                res = gapped4.span_families(Cb, SC4b, st.shards[p], s, TB, rows, reads, i0)
+                reads = (wavefront.sharded_packed_reads(st, p, s, gi, segs, rows) if segs
+                         else wavefront.sharded_reads(st, p, s, TB, rows))
+                Cw = gapped.step_tables(Cb, st.replicas[st.devices[p]])
+                res = gapped4.span_families(Cw, SC4b, st.shards[p], s, TB, rows, reads, i0)
                 wavefront._write_back(st, p, s, res, gi)
         torch.cuda.synchronize()
     finally:
@@ -2107,15 +2117,17 @@ def span2d_state(B, n, gen, dev):
     return st
 
 
-def span2d_bound(name, n, s, B, dangles):
+def span2d_bound(name, n, s, B, dangles, fill_call=False):
     """(bytes, ms by bytes) of one call of ``name`` at span s: each
     element of the state and the tables its live rows need read once (the
     union of their cells, array by array; the interior terms' EINT
     entries, which no two rows share) and each output written once
-    (span_v: V and Vtype, 5 B a row; span_wbp: WBP and WPP; span_wm: WMv,
-    WMp and WM; wx_tables: two [B, n2, n2] tables read and four
-    written).  No arithmetic is worth counting: a few adds and mins a
-    term."""
+    (span_v: V and Vtype, 5 B a row; span_wbp: WBP and WPP, and with
+    ``fill_call`` (the fills' call: the P-split minima and the kept
+    tables) also a minimum read, P's cell written and the four tables'
+    cells, the row's span-s WBP / WPP read for them; span_wm: WMv, WMp and
+    WM; wx_tables: two [B, n2, n2] tables read and four written).  No
+    arithmetic is worth counting: a few adds and mins a term."""
     from ccj_tpu_torch.engine.common import MAXLOOP, TURN
 
     n2 = n + 2
@@ -2165,7 +2177,9 @@ def span2d_bound(name, n, s, B, dangles):
             mark(key, i, d - 1, (d - 1 >= 1) & (g > 0))
             if s >= 1:
                 mark(key, i, j - 1)
-        writes = 8
+            if fill_call:
+                mark(key, i, j)
+        writes = 8 + (4 + 4 + 16 if fill_call else 0)     # p_min read, P and tables
     else:
         if s < 3:
             return 0, 0.0
@@ -2201,6 +2215,31 @@ def span2d_ptxas(log):
             "wx_tables": entry("wx_kernel")}
 
 
+def span2d_pmin(B, n, gen, dev):
+    """Random P-split minima [B, n2] as ``p_split`` gives them: energies
+    in [-3000, 3000) with 30 % INF (no candidate)."""
+    from ccj_tpu_torch.engine.common import INF
+
+    x = torch.randint(-3000, 3000, (B, n + 2), generator=gen, dtype=torch.int32)
+    x[torch.rand((B, n + 2), generator=gen) < 0.3] = INF
+    return x.to(dev)
+
+
+def span2d_calls(cuda_ops, C, st0, case, gen, dev):
+    """Phase 2g's calls at one case: (kernel, positional arguments after
+    C and the state, keyword arguments) per call -- span_v, span_wbp as the
+    fills call it (random P-split minima, the kept weight tables made from
+    ``st0``) and plain (P's diagonal written already, no tables),
+    span_wm, wx_tables."""
+    s, d, B, n = case["s"], case["dangles"], case["B"], case["n"]
+    wx0 = cuda_ops.wx_tables_ref(C, {k: v.cpu() for k, v in st0.items()}).to(dev)
+    return [("span_v", (s, d), {}),
+            ("span_wbp", (s,), {"p_min": span2d_pmin(B, n, gen, dev), "wx": wx0}),
+            ("span_wbp", (s,), {}),
+            ("span_wm", (s, d), {}),
+            ("wx_tables", (), {})]
+
+
 def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
     """Phase 2g: ``span_v``, ``span_wbp``, ``span_wm`` and ``wx_tables``
     against their plain versions on the card, exactly, at
@@ -2208,18 +2247,26 @@ def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
     with the bench sequences' tables (one sequence an element of a batch):
     the whole 2-D state after the kernel against the same state after the
     plain version (``wx_tables``: its four tables), one launch a call;
+    ``span_wbp`` twice, as the fills call it (random P-split minima, the
+    kept weight tables written; :func:`span2d_calls`) and without them;
     each row with the kernel's L2-hot (graph replay) and L2-cold
     (:func:`graph_cold_ms`) device times, the eager call's (the wrapper's
     checks, table and launch), the plain version's on the card, the bound
-    (:func:`span2d_bound`) and the ``ptxas`` report.  Returns the rows by
-    kernel."""
+    (:func:`span2d_bound`) and the ``ptxas`` report; each case's
+    ``span_wm`` -> ``span_v`` pair back to back (:func:`span2d_pair`).
+    The tables are the fills': EINT cell-major.  Then the kept tables of
+    three fills against a from-scratch ``wx_tables`` after every span
+    (:func:`kept_tables_check`).  Returns the rows by kernel, the pairs and
+    the fills' check."""
     from ccj_tpu_torch.engine import fold
+    from ccj_tpu_torch.engine.nested import cell_major_eint
     from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
     from ccj_tpu_torch.precompute import build_seq_tables
 
     gen = torch.Generator().manual_seed(7)
     emit({"phase": "span2d", "library": "none: no single PyTorch call computes a span of "
           "these recurrences, so library_ms is null for the four kernels"})
+    pair_rows = []
     rows = {k: [] for k in SPAN2D_KERNELS}
     counters = {"span_v": "SPAN_V_LAUNCHES", "span_wbp": "SPAN_WBP_LAUNCHES",
                 "span_wm": "SPAN_WM_LAUNCHES", "wx_tables": "WX_LAUNCHES"}
@@ -2233,47 +2280,133 @@ def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
             Cs.append(fold.consts_from_numpy(fold.build_consts(tabs, sp, DEFAULT_PK), dev,
                                              sc4_np={})[0])
         # a batch of one as the fills hold it: a view of the tables, some of
-        # them column-major as numpy gives them
-        C = {**(fold.add_batch(Cs[0]) if B == 1 else fold.stack_consts(Cs)), "n": n}
+        # them column-major as numpy gives them, EINT cell-major
+        C = cell_major_eint({**(fold.add_batch(Cs[0]) if B == 1 else fold.stack_consts(Cs)),
+                             "n": n})
         st0 = span2d_state(B, n, gen, dev)
-        for name in SPAN2D_KERNELS:
+        pair_rows.append(span2d_pair(cuda_ops, C, st0, case))
+        for name, args, kw in span2d_calls(cuda_ops, C, st0, case, gen, dev):
             kern, plain = getattr(cuda_ops, name), getattr(cuda_ops, f"{name}_ref")
-            args = (s, d) if name in ("span_v", "span_wm") else (s,) if name == "span_wbp" \
-                else ()
+            fills_call = bool(kw)
             got = {k: v.clone() for k, v in st0.items()}
             want = {k: v.clone() for k, v in st0.items()}
+            kw_k = {k: v.clone() for k, v in kw.items()}
+            kw_p = {k: v.clone() for k, v in kw.items()}
             before = getattr(cuda_ops, counters[name])
-            out_k = kern(C, got, *args)
+            out_k = kern(C, got, *args, **kw_k)
             torch.cuda.synchronize()
             check(getattr(cuda_ops, counters[name]) == before + 1,
                   f"a {name} call made other than one launch")
-            out_p = plain(C, want, *args)
-            label = f"{name} {case['label']}"
+            out_p = plain(C, want, *args, **kw_p)
+            label = f"{name} {case['label']}" + (
+                " (the fills' call: P-split minima, kept tables)" if fills_call else "")
             if name == "wx_tables":
                 pairs = list(zip(out_k, out_p))
             else:
-                pairs = [(got[k], want[k]) for k in st0]
+                pairs = [(got[k], want[k]) for k in st0] + [(kw_k[k], kw_p[k]) for k in kw]
                 check(any(not torch.equal(want[k], st0[k]) for k in st0),
                       f"{label}: the plain version wrote nothing")
+            if fills_call:
+                check(not torch.equal(kw_p["wx"], kw["wx"]),
+                      f"{label}: the plain version wrote no table cell")
             err = max(int((g.long() - w.long()).abs().max()) for g, w in pairs)
             check(err == 0, f"{label} != plain: max |err| = {err}")
-            nbytes, t_bytes = span2d_bound(name, n, s, B, d)
+            nbytes, t_bytes = span2d_bound(name, n, s, B, d, fill_call=fills_call)
 
-            def call(kern=kern, got=got, args=args):
-                kern(C, got, *args)
+            def call(kern=kern, got=got, args=args, kw=kw_k):
+                kern(C, got, *args, **kw)
 
             row = {"case": label, "batch": B, "n": n, "s": s, "dangles": d,
-                   "bytes": nbytes, "max_abs_err": err,
+                   "fills_call": fills_call, "bytes": nbytes, "max_abs_err": err,
                    "ms": graph_ms(call, reps=20, replays=5),
                    "ms_l2cold": graph_cold_ms(call), "call_ms": cuda_ms(call, 20),
-                   "plain_ms": cuda_ms(lambda: plain(C, want, *args), 3),
+                   "plain_ms": cuda_ms(lambda: plain(C, want, *args, **kw_p), 3),
                    "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None,
                    "ptxas": (ptxas or {}).get(name)}
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
             rows[name].append(row)
             emit({"phase": "span2d", **row})
-    return rows
+    kept = kept_tables_check(cuda_ops, dev)
+    emit({"phase": "span2d_kept_tables", **kept})
+    return rows, pair_rows, kept
+
+
+def span2d_pair(cuda_ops, C, st0, case):
+    """``span_wm`` of span s - 1, then ``span_v`` of span s, back to back
+    (the fills' order from one span to the next; ``span_v`` a programmatic
+    dependent launch of ``span_wm``, as the fills make it from their second
+    span on), exactly against the plain pair; its device ms a pair (20
+    pairs in one CUDA graph)."""
+    s, d = case["s"], case["dangles"]
+    got = {k: v.clone() for k, v in st0.items()}
+    want = {k: v.clone() for k, v in st0.items()}
+
+    def pair():
+        cuda_ops.span_wm(C, got, s - 1, d)
+        cuda_ops.span_v(C, got, s, d, dependent=True)
+
+    pair()
+    torch.cuda.synchronize()
+    cuda_ops.span_wm_ref(C, want, s - 1, d)
+    cuda_ops.span_v_ref(C, want, s, d)
+    err = max(int((got[k].long() - want[k].long()).abs().max()) for k in st0)
+    check(err == 0, f"span_wm -> span_v pair {case['label']} != plain: max |err| = {err}")
+    row = {"case": case["label"], "max_abs_err": err,
+           "pair_ms": graph_ms(pair, reps=20, replays=5)}
+    emit({"phase": "span2d_pair", **row})
+    return row
+
+
+def kept_tables_check(cuda_ops, dev):
+    """The fills' kept weight tables (``gapped.WX``, made once a fill,
+    written by ``span_wbp``) against a from-scratch ``wx_tables`` of the
+    state after every span's WBP/WPP update, on the card: the n=100 fill
+    (V(1, 100) checked), the packed fill of the n=134 anchor and a P=2
+    row-sharded fill at n=100 on one card (each device's replica with its
+    own tables).  Raises on the first difference; returns the spans
+    checked per fill."""
+    from ccj_tpu_torch.dist import wavefront
+    from ccj_tpu_torch.engine import fold, gapped
+    from ccj_tpu_torch.engine.gapped5 import segments7
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
+                                    / "rna_DirksPierce09.par"))
+    out = {}
+    for label, n, mod, run in (
+            ("fill6 n=100", 100, fold, lambda C, SC4, n: fold.fill6(C, SC4, n, sp.dangles)),
+            ("fill7 n=134", 134, fold,
+             lambda C, SC4, n: fold.fill7(C, SC4, n, sp.dangles, segments7(n))),
+            ("fill6_sharded n=100 P=2", 100, wavefront,
+             lambda C, SC4, n: wavefront.fill6_sharded(C, SC4, n, sp.dangles,
+                                                       [dev, dev]))):
+        seq = bench_seq(n) if n == 100 else anchor_line(n)[0]
+        tabs = build_seq_tables(seq, sp, DEFAULT_PK)
+        C, SC4 = fold.consts_from_numpy(fold.build_consts(tabs, sp, DEFAULT_PK), dev)
+        real, spans = mod.compute_WBP_WPP_span, []
+
+        def checked(Cf, st, s, p_min=None, real=real, spans=spans, label=label):
+            real(Cf, st, s, p_min)
+            bare = {k: v for k, v in Cf.items() if k != gapped.WX}
+            check(torch.equal(Cf[gapped.WX], gapped._wx_tables(bare, st)),
+                  f"{label}: the kept weight tables differ from wx_tables after span {s}")
+            spans.append(s)
+            return st
+
+        mod.compute_WBP_WPP_span = checked
+        try:
+            st = run(C, SC4, n)
+        finally:
+            mod.compute_WBP_WPP_span = real
+        check(spans == list(range(n)), f"{label}: spans checked {spans[:3]}...")
+        if n == 100 and mod is fold:
+            check(int(st["V"][1, n]) == BENCH_V100, f"{label}: V(1, 100) != {BENCH_V100}")
+        out[label] = len(spans)
+        del st
+        torch.cuda.empty_cache()
+    return {"spans_checked": out, "all_equal": True}
 
 
 def max_rel_err(got, want):
@@ -2713,11 +2846,11 @@ def sharded_counts(n, P):
     step; ``history_min`` each span s >= 1 once for the RL scans and once
     per owner of the shard's C rows l = i + s (< n2) for the RI ones (each
     owner reduces its own rows); ``p_split`` each span with a term;
-    ``span_assemble``, ``span_store`` and ``wx_tables`` (the step's weight
-    tables, ``gapped4.span_families``) each span; the 2-D recurrences
+    ``span_assemble`` and ``span_store`` each span; the 2-D recurrences
     (``span_v``, ``span_wbp``, ``span_wm``) once a span on the one replica
     of the 2-D matrices (every shard on one card), as an unsharded fill
-    runs them.  ``_history_tables`` adds no ``wx_tables``: its owners
+    runs them, and ``wx_tables`` once a fill for that replica's kept
+    weight tables.  ``_history_tables`` adds no ``wx_tables``: its owners
     share the one device's tables."""
     from ccj_tpu_torch.dist.wavefront import row_partition, span_rows
 
@@ -2731,7 +2864,7 @@ def sharded_counts(n, P):
             hist += (s >= 1) * (1 + owners)
             ps += s >= 3
             spans += 1
-    return tt, hist, ps, tt, tt, spans, spans, n - 1, n, n - 3, spans
+    return tt, hist, ps, tt, tt, spans, spans, n - 1, n, n - 3, 1
 
 
 def phase_wavefront(cuda_ops, C, SC4, n, dangles, tabs, sp, P, want_line,
@@ -3067,7 +3200,8 @@ def main():
     report.update(stencil_rows)
     span_k_rows = phase_span(cuda_ops, sp, bucket_dims, torch.device("cuda"), span_ptxas(log))
     report.update(span_k_rows)
-    span2d_rows = phase_span2d(cuda_ops, bucket_dims, torch.device("cuda"), span2d_ptxas(log))
+    span2d_rows, report["span2d_pairs"], report["span2d_kept_tables"] = phase_span2d(
+        cuda_ops, bucket_dims, torch.device("cuda"), span2d_ptxas(log))
     report.update(span2d_rows)
 
     # ---- 3: corpus goldens -----------------------------------------------
@@ -3410,11 +3544,12 @@ def main():
              "interior loops and multiloop of every live row of a span, one launch a span "
              "s >= 1 (and replica)"),
             ("span_wbp", "the XLA fusion of compute_WBP_WPP_span (gapped.py:119-160), its "
-             "WB / WP weights computed inline, one launch a span (and replica)"),
+             "WB / WP weights computed inline, with _set_P_diag (gapped.py:108-118) and the "
+             "kept weight tables' span-s cells, one launch a span (and replica)"),
             ("span_wm", "the XLA fusion of compute_WMv_WMp_WM_span (nested.py:155-196), one "
              "launch a span s >= 3 (and replica)"),
             ("wx_tables", "the XLA fusion of _wx_tables (gapped.py:42-59), the gapped step's "
-             "four weight tables, one launch a span (and row shard)")):
+             "four weight tables, one launch a fill (and device), kept by span_wbp")):
         idx = FILL_KERNELS.index(name)
         rows_k = span2d_rows[name]
         main = rows_k[0]
@@ -3429,7 +3564,8 @@ def main():
             "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
             "share_of_bound_l2cold": main["share_of_bound_l2cold"],
             "ptxas": main["ptxas"], "matches_plain": True, "shape": main["case"],
-            "other_shapes": [{k: r[k] for k in span2d_keys} for r in rows_k[1:]]})
+            "other_shapes": [{k: r[k] for k in span2d_keys} for r in rows_k[1:]],
+            **({"after_span_wm_pairs": report["span2d_pairs"]} if name == "span_v" else {})})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -38,7 +38,7 @@ from ccj_tpu_torch.dist import wavefront
 from ccj_tpu_torch.engine import cuda_ops, gapped4, gapped5
 from ccj_tpu_torch.engine import fold as tfold
 from ccj_tpu_torch.engine.common import INF, SAT16
-from ccj_tpu_torch.engine.gapped import C_MATS, M4_NAMES
+from ccj_tpu_torch.engine.gapped import C_MATS, M4_NAMES, WX, step_tables
 
 from oracle_util import REPO
 
@@ -154,7 +154,11 @@ def dense():
 
         def spy(C_, SC4_, st, s, TB, IB):
             if s == SPAN:
-                seen.update(st={k: v.clone() for k, v in st.items()}, C=C_, SC4=SC4_,
+                # the tables without the fill's kept weight tables (derived
+                # from the state: the cases below build their own states and
+                # add their tables, step_tables)
+                seen.update(st={k: v.clone() for k, v in st.items()},
+                            C={k: v for k, v in C_.items() if k != WX}, SC4=SC4_,
                             TB=TB, IB=IB)
                 raise _Stop
             return real(C_, SC4_, st, s, TB, IB)
@@ -181,7 +185,8 @@ def dense():
 def test_dense_assembly_and_state_match_jax(dense, b):
     C, SC4, st, TB, IB, new, args, _ = dense[b]
     st = {k: v.clone() for k, v in st.items()}
-    _, seen = _port_args(lambda: gapped4.span_gapped4(C, SC4, st, SPAN, TB, IB))
+    _, seen = _port_args(lambda: gapped4.span_gapped4(step_tables(C, st), SC4, st, SPAN, TB,
+                                                      IB))
     assert len(seen) == 1
     _assert_args(seen[0], args)
     assert (args["PLs"] < INF).any() and (args["POs"] < INF).any()
@@ -195,7 +200,8 @@ def test_dense_batch_of_two(dense):
     C = {k: torch.cat([v, C1[k]]) if isinstance(v, torch.Tensor) else v for k, v in C0.items()}
     SC4 = {k: torch.cat([v, S1[k]]) for k, v in S0.items()}
     st = {k: torch.cat([st0[k], st1[k]]) for k in st0}
-    _, seen = _port_args(lambda: gapped4.span_gapped4(C, SC4, st, SPAN, TB, IB))
+    _, seen = _port_args(lambda: gapped4.span_gapped4(step_tables(C, st), SC4, st, SPAN, TB,
+                                                      IB))
     for b, (new, args) in enumerate(((new0, args0), (new1, args1))):
         _assert_args(seen[0], args, b)
         _assert_state(st, new, BIG, b)
@@ -285,7 +291,8 @@ def test_packed_assembly_and_state_match_jax():
     new, args = _jax_step("packed", lambda C, S4, st: jg5.span_gapped7(C, S4, st, s, gi, SEGS),
                           C_np, sc4_np, st_j)
     Cb, SC4b = tfold.add_batch(C), tfold.add_batch(SC4)
-    _, seen = _port_args(lambda: gapped5.span_gapped7(Cb, SC4b, st, s, gi, SEGS))
+    _, seen = _port_args(lambda: gapped5.span_gapped7(step_tables(Cb, st), SC4b, st, s, gi,
+                                                      SEGS))
     _assert_args(seen[0], args)
     assert (args["PLs"] < INF).any() and (args["PRs"] < INF).any()
     names = [k for k in st if "@" in k or k == "PKD"]
@@ -403,7 +410,7 @@ def test_span_functions_on_cpu_count_no_launch(dense):
     C, SC4, st, TB, IB, *_ = dense[0]
     st = {k: v.clone() for k, v in st.items()}
     before = (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES)
-    gapped4.span_gapped4(C, SC4, st, SPAN, TB, IB)
+    gapped4.span_gapped4(step_tables(C, st), SC4, st, SPAN, TB, IB)
     assert (cuda_ops.ASSEMBLE_LAUNCHES, cuda_ops.STORE_LAUNCHES) == before
 
 

@@ -933,30 +933,40 @@ def _span2d_consts(n, dangles, B, dev):
 def test_span2d_kernels_match_plain(cuda, n, spans, dangles):
     """Each 2-D kernel against its plain version on a batch of four random
     states (INF, TRI_UNSET and V_UNSET cells among them): the whole 2-D
-    state after the kernel, one launch a call where the span has cells to
-    write (span_v s >= 1, span_wm s >= 3), none elsewhere."""
+    state after the kernel (span_wbp also as the fills call it, with random
+    P-split minima and the kept weight tables, compared too), one launch a
+    call where the span has cells to write (span_v s >= 1, span_wm
+    s >= 3), none elsewhere."""
     import chip_smoke
 
     C = _span2d_consts(n, dangles, 4, cuda)
     gen = torch.Generator().manual_seed(n + dangles)
     for s in spans:
         st0 = chip_smoke.span2d_state(4, n, gen, cuda)
-        for name, counter in SPAN2D.items():
+        calls = [(name, counter, {}) for name, counter in SPAN2D.items()]
+        calls.append(("span_wbp", SPAN2D["span_wbp"], {
+            "p_min": chip_smoke.span2d_pmin(4, n, gen, cuda),
+            "wx": cuda_ops.wx_tables_ref(C, {k: v.cpu() for k, v in st0.items()}).to(cuda)}))
+        for name, counter, kw in calls:
             args = (s, dangles) if name in ("span_v", "span_wm") else (
                 (s,) if name == "span_wbp" else ())
             got = {k: v.clone() for k, v in st0.items()}
             want = {k: v.clone() for k, v in st0.items()}
+            kw_k = {k: v.clone() for k, v in kw.items()}
+            kw_p = {k: v.clone() for k, v in kw.items()}
             before = getattr(cuda_ops, counter)
-            out_k = getattr(cuda_ops, name)(C, got, *args)
+            out_k = getattr(cuda_ops, name)(C, got, *args, **kw_k)
             torch.cuda.synchronize()
             launched = {"span_v": s >= 1, "span_wm": s >= 3}.get(name, True)
             assert getattr(cuda_ops, counter) == before + launched, (name, s)
-            out_p = getattr(cuda_ops, f"{name}_ref")(C, want, *args)
+            out_p = getattr(cuda_ops, f"{name}_ref")(C, want, *args, **kw_p)
             if name == "wx_tables":
                 for g, w in zip(out_k, out_p):
                     assert torch.equal(g, w), (name, s)
             for k in st0:
-                assert torch.equal(got[k], want[k]), (name, s, k)
+                assert torch.equal(got[k], want[k]), (name, s, k, sorted(kw))
+            for k in kw:
+                assert torch.equal(kw_k[k], kw_p[k]), (name, s, k)
 
 
 def test_span2d_kernels_take_operands_through_their_strides(cuda):
@@ -1006,9 +1016,9 @@ def test_span2d_kernels_refuse_operands_on_two_devices(cuda):
 
 def test_fill_launches_span2d_kernels(cuda):
     """fill6 at n=100 and fill7 at n=134 (its tables as numpy gives them,
-    some column-major): one span_v a span s >= 1, one span_wbp and one
-    wx_tables a span, one span_wm a span s >= 3; V(1, 100) is bench.py's
-    golden."""
+    some column-major): one span_v a span s >= 1, one span_wbp a span, one
+    span_wm a span s >= 3 and one wx_tables a fill (the weight tables kept
+    by span_wbp); V(1, 100) is bench.py's golden."""
     from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
     from ccj_tpu_torch.engine import fold as tfold
     from ccj_tpu_torch.engine.gapped5 import segments7
@@ -1024,6 +1034,17 @@ def test_fill_launches_span2d_kernels(cuda):
               tfold.fill7(C, SC4, n, sp.dangles, segments7(n)))
         torch.cuda.synchronize()
         got = tuple(getattr(cuda_ops, c) - b for c, b in zip(SPAN2D.values(), before))
-        assert got == (n - 1, n, n - 3, n)
+        assert got == (n - 1, n, n - 3, 1)
         if n == 100:
             assert int(st["V"][1, 100]) == -1528
+
+
+def test_kept_weight_tables_equal_wx_tables_after_every_span(cuda):
+    """The fills' kept weight tables against a from-scratch wx_tables after
+    every span's WBP/WPP update: fill6 at n=100, fill7 on the n=134 anchor,
+    fill6_sharded at n=100 with P=2 (chip_smoke.kept_tables_check)."""
+    import chip_smoke
+
+    got = chip_smoke.kept_tables_check(cuda_ops, cuda)
+    assert got["spans_checked"] == {"fill6 n=100": 100, "fill7 n=134": 134,
+                                    "fill6_sharded n=100 P=2": 100}

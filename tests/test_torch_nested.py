@@ -15,11 +15,21 @@ package's functions of the same names:
 * Vtype's first minimum on cells forced to H = I = M and I = M < H;
 * csrc/span2d.cu's walk restated in Python (per live row: the kernel's
   (di, dj) enumeration, its multiloop, WBP / WPP and WM splits, the WB /
-  WP weights computed inline, int32 sums that wrap) against the plain
-  versions;
+  WP weights computed inline, span_wbp's P write and kept tables' cells,
+  int32 sums that wrap) against the plain versions; span_v's closed-form
+  walk of the interior terms against the plain version's mask for every
+  L in [2, 32];
+* the span body of small fills (dense n=20, odd n2, a batch of two,
+  dangles 0 / 1 / 2, the packed layout): after every span's WBP/WPP
+  update (the P split's minima into span_wbp), P2 / WBP / WPP against
+  gapped3.compute_P_span3 + gapped.compute_WBP_WPP_span run apart and the
+  JAX package's functions, the kept weight tables against _wx_tables from
+  scratch and the JAX one;
 * refusals of operands that do not fit; no launch counted on the CPU;
   CUDA operands without the kernel library raise.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,23 +63,26 @@ def _spans(n):
     return (0, 2, 3, 4, 5, n // 2, n - 1)
 
 
-_CONSTS = {}
+@functools.cache
+def _params(dangles):
+    """(the JAX package's scaled parameters, the port's) at ``dangles``:
+    each parameter file parsed once a module."""
+    return (jscale(jparse(REPO / PAR), dangles=dangles),
+            scale_parameters(parse_par(REPO / PAR), dangles=dangles))
 
 
+@functools.cache
 def _consts(seq, dangles):
     """(the JAX package's C as jnp arrays, the port's C without a batch
-    axis) of ``seq``, each package's own chain from the parameter file."""
-    key = (seq, dangles)
-    if key not in _CONSTS:
-        jsp = jscale(jparse(REPO / PAR), dangles=dangles)
-        jC = jfold.build_consts(jtables(seq, jsp, JPK), jsp, JPK, device=False)
-        jC = {k: jnp.asarray(np.asarray(v)) if not isinstance(v, int) else v
-              for k, v in jC.items()}
-        sp = scale_parameters(parse_par(REPO / PAR), dangles=dangles)
-        C_np = fold.build_consts(build_seq_tables(seq, sp, DEFAULT_PK), sp, DEFAULT_PK)
-        C, _ = fold.consts_from_numpy(C_np, "cpu", sc4_np={})
-        _CONSTS[key] = (jC, C)
-    return _CONSTS[key]
+    axis) of ``seq``, each package's own chain from the parameter file;
+    built once a module."""
+    jsp, sp = _params(dangles)
+    jC = jfold.build_consts(jtables(seq, jsp, JPK), jsp, JPK, device=False)
+    jC = {k: jnp.asarray(np.asarray(v)) if not isinstance(v, int) else v
+          for k, v in jC.items()}
+    C_np = fold.build_consts(build_seq_tables(seq, sp, DEFAULT_PK), sp, DEFAULT_PK)
+    C, _ = fold.consts_from_numpy(C_np, "cpu", sc4_np={})
+    return jC, C
 
 
 def _state(rng, B, n):
@@ -252,10 +265,25 @@ def _mlstem(C, V, b, k, j, dangles):
     return e
 
 
-def _kernel_v(C, st, s, dangles, threads=128):
-    """span_v_kernel: per live row the block's threads stride the
-    (L - 1) x (L - 1) grid of (di, dj) (keeping di + dj <= L) and the
-    multiloop splits, each thread its own minima, then the block's."""
+V_THREADS, V_TERMS = 128, 4    # csrc/span2d.cu kThreads, kVTerms
+
+
+def _interior_term(q, L, nq):
+    """csrc/span2d.cu interior_term: the admissible (di, dj) of term q, in
+    float32 as the kernel's sqrtf takes it."""
+    p = nq - 1 - q
+    f32 = np.float32
+    k = int((np.sqrt(f32(8) * f32(p) + f32(1), dtype=f32) - f32(1)) * f32(0.5))
+    di = L - 1 - k
+    return di, 1 + k - (p - k * (k + 1) // 2)
+
+
+def _kernel_v(C, st, s, dangles):
+    """span_v_kernel: per live row each thread takes the admissible
+    interior terms q = tid + k * threads (k < kVTerms) through
+    interior_term, and the multiloop splits g = 1 + tid + k * threads in
+    rounds of two; then the block's minima."""
+    threads = V_THREADS
     n = C["n"]
     E = C["EINT"]
     for b in range(st["V"].shape[0]):
@@ -264,33 +292,38 @@ def _kernel_v(C, st, s, dangles, threads=128):
             j = i + s
             ei = [INF] * threads
             L = min(MAXLOOP + 2, s - TURN - 1)
-            side = L - 1
-            for q in range(max(side, 0) ** 2 if L >= 2 else 0):
-                di, dj = 1 + q // side, 1 + q % side
-                if di + dj <= L:
-                    t = q % threads
-                    ei[t] = min(ei[t], _wadd(E[b, di, dj, i, j], V[i + di, j - dj]))
+            nq = L * (L - 1) // 2 if L >= 2 else 0
+            for t in range(threads):
+                for k in range(V_TERMS):
+                    q = t + k * threads
+                    if q < nq:
+                        di, dj = _interior_term(q, L, nq)
+                        ei[t] = min(ei[t], _wadd(E[b, di, dj, i, j], V[i + di, j - dj]))
+            assert nq <= V_TERMS * threads
             em = [INF] * threads
             if s >= 4:
                 ML = C["MLbase"]
                 mb = int(C["MB2" if dangles == 2 else "MB0"][b, i, j])
-                for g in range(1, s - 2):
-                    c, gm1, gm2 = i + g, (g - 1) * ML, (g - 2) * ML
-                    w1, p1 = _getm(WM, i + 1, c - 1), _getm(WMp, c, j - 1)
-                    e = _gadd(min(_wadd(w1, _getm(WMv, c, j - 1)), _wadd(w1, p1),
-                                  _wadd(gm1, p1)), mb)
-                    if dangles == 1:
-                        w2 = _getm(WM, i + 2, c - 1)
-                        e = min(e, _gadd(min(_wadd(w2, _getm(WMv, c, j - 1)),
-                                             _wadd(w2, _getm(WMp, c - 1, j - 1)),
-                                             _wadd(gm2, p1)), int(C["MB_5"][b, i, j])))
-                        v2, p2 = _getm(WMv, c, j - 2), _getm(WMp, c, j - 2)
-                        e = min(e, _gadd(min(_wadd(w1, v2), _wadd(w1, p2), _wadd(gm1, p2)),
-                                         int(C["MB_3"][b, i, j])))
-                        e = min(e, _gadd(min(_wadd(w2, v2), _wadd(w2, p2), _wadd(gm2, p2)),
-                                         int(C["MB_53"][b, i, j])))
-                    t = (g - 1) % threads
-                    em[t] = min(em[t], e)
+                for t in range(threads):
+                    for g0 in range(1 + t, s - 2, 2 * threads):
+                        for g in (g0, g0 + threads):
+                            if g > s - 3:
+                                continue
+                            c, gm1, gm2 = i + g, (g - 1) * ML, (g - 2) * ML
+                            w1, p1 = _getm(WM, i + 1, c - 1), _getm(WMp, c, j - 1)
+                            e = _gadd(min(_wadd(w1, _getm(WMv, c, j - 1)), _wadd(w1, p1),
+                                          _wadd(gm1, p1)), mb)
+                            if dangles == 1:
+                                w2 = _getm(WM, i + 2, c - 1)
+                                e = min(e, _gadd(min(_wadd(w2, _getm(WMv, c, j - 1)),
+                                                     _wadd(w2, _getm(WMp, c - 1, j - 1)),
+                                                     _wadd(gm2, p1)), int(C["MB_5"][b, i, j])))
+                                v2, p2 = _getm(WMv, c, j - 2), _getm(WMp, c, j - 2)
+                                e = min(e, _gadd(min(_wadd(w1, v2), _wadd(w1, p2),
+                                                     _wadd(gm1, p2)), int(C["MB_3"][b, i, j])))
+                                e = min(e, _gadd(min(_wadd(w2, v2), _wadd(w2, p2),
+                                                     _wadd(gm2, p2)), int(C["MB_53"][b, i, j])))
+                            em[t] = min(em[t], e)
             vmin, rank = int(C["H"][b, i, j]), 0
             if min(ei) < vmin:
                 vmin, rank = min(ei), 1
@@ -301,23 +334,27 @@ def _kernel_v(C, st, s, dangles, threads=128):
             st["Vtype"][b][i, j] = rank + 1 if ok else 0
 
 
-def _kernel_wbp(C, st, s):
-    """span_wbp_kernel: the WB / WP weights from WBP / WPP inline."""
+def _kernel_wbp(C, st, s, p_min=None, wx=None):
+    """span_wbp_kernel: thread 0 sets P(i, l) from p_min (below INF / 2)
+    and takes it for the g = 0 term; the WB / WP weights from WBP / WPP
+    inline; thread 0 writes WBP, WPP and the kept tables' span-s cell from
+    the value each cell now holds."""
     n = C["n"]
     for b in range(st["V"].shape[0]):
         V, P2, WBP, WPP = (st[k][b] for k in ("V", "P2", "WBP", "WPP"))
         for i in range(1, n - s + 1):
             l = i + s
+            if p_min is not None and p_min[b, i] < INF // 2:
+                P2[i, l] = p_min[b, i]
             r0 = r1 = INF
             for g in range(s):
                 d = i + g
                 vdl, pdl = int(V[d, l]), int(P2[d, l])
-                wb = wp = INF
-                if d - 1 >= 1:
-                    wb = wp = 0
-                    if g > 0:
-                        wb = min(C["cp"] * g, int(WBP[i, d - 1]))
-                        wp = min(C["PUP"] * g, int(WPP[i, d - 1]))
+                if g > 0:
+                    wb = min(C["cp"] * g, int(WBP[i, d - 1]))
+                    wp = min(C["PUP"] * g, int(WPP[i, d - 1]))
+                else:
+                    wb = wp = 0 if d - 1 >= 1 else INF
                 r0 = min(r0, _wadd(wb, vdl, C["bp"], C["PPS"]),
                          _wadd(wb, pdl, C["PSM"], C["PPS"]))
                 r1 = min(r1, _wadd(wp, vdl, C["PPS"]), _wadd(wp, pdl, C["PSP"], C["PPS"]))
@@ -327,6 +364,9 @@ def _kernel_wbp(C, st, s):
                 WBP[i, l] = wbp
             if wpp < INF // 2:
                 WPP[i, l] = wpp
+            if wx is not None:
+                wx[:, b, i, l] = (min(C["cp"] * (s + 1), WBP[i, l]),
+                                  min(C["PUP"] * (s + 1), WPP[i, l]), WBP[i, l], WPP[i, l])
 
 
 def _kernel_wm(C, st, s, dangles):
@@ -356,7 +396,8 @@ def _kernel_wm(C, st, s, dangles):
 @pytest.mark.parametrize("name", ["V", "WBP", "WM"])
 def test_kernel_walk_restated_matches_plain(name, dangles):
     """The kernels' walks, restated row by row in Python, against the
-    plain versions on random states at n = 16 (B = 2, spans 1 .. n - 1)."""
+    plain versions on random states at n = 16 (B = 2, spans 1 .. n - 1;
+    span_wbp with and without the P-split minima and the kept tables)."""
     n = 16
     Cs = [_consts(q, dangles)[1] for q in SEQS[n]]
     C = fold.stack_consts(Cs)
@@ -365,13 +406,25 @@ def test_kernel_walk_restated_matches_plain(name, dangles):
     plain = {"V": cuda_ops.span_v_ref, "WBP": cuda_ops.span_wbp_ref,
              "WM": cuda_ops.span_wm_ref}[name]
     for s in range(1, n):
-        st = _state(np.random.default_rng(s + 50 * dangles), 2, n)
-        mine = {k: v.copy() for k, v in st.items()}
+        rng = np.random.default_rng(s + 50 * dangles)
+        st = _state(rng, 2, n)
         args = (s,) if name == "WBP" else (s, dangles)
-        kernel(Cn, mine, *args)
-        want = {k: torch.from_numpy(v.copy()) for k, v in st.items()}
-        plain(C, want, *args)
-        _same(mine, {k: v.numpy() for k, v in want.items()}, f"{name} s={s}")
+        extra = [{}]
+        if name == "WBP":
+            p_min = rng.integers(-3000, 3000, (2, n + 2)).astype(I32)
+            p_min[rng.random((2, n + 2)) < 0.3] = INF
+            wx = cuda_ops.wx_tables_ref(C, {k: torch.from_numpy(v) for k, v in st.items()})
+            extra.append({"p_min": p_min, "wx": wx.numpy()})
+        for kw in extra:
+            mine = {k: v.copy() for k, v in st.items()}
+            kw_mine = {k: v.copy() for k, v in kw.items()}
+            kernel(Cn, mine, *args, **kw_mine)
+            want = {k: torch.from_numpy(v.copy()) for k, v in st.items()}
+            kw_plain = {k: torch.from_numpy(v.copy()) for k, v in kw.items()}
+            plain(C, want, *args, **kw_plain)
+            _same(mine, {k: v.numpy() for k, v in want.items()}, f"{name} s={s} {sorted(kw)}")
+            if "wx" in kw:
+                assert np.array_equal(kw_mine["wx"], kw_plain["wx"].numpy()), s
 
 
 def test_wx_kernel_rule_restated():
@@ -389,6 +442,140 @@ def test_wx_kernel_rule_restated():
                         INF if not inb else 0 if a > c else min(C["PUP"] * (c - a + 1), rp),
                         INF if a > c else rb, INF if a > c else rp)
                 assert tuple(int(x[b, a, c]) for x in got) == want
+
+
+@pytest.mark.parametrize("L", range(2, MAXLOOP + 3))
+def test_interior_enumeration_restated_matches_the_plain_mask(L):
+    """span_v's walk of the interior terms (interior_term, restated): the
+    q in [0, L(L-1)/2) give each admissible (di, dj) of the plain
+    version's mask once, di-major with dj rising (so a warp's V reads run
+    along a row), within kVTerms a thread at 128 threads."""
+    s = L + TURN + 1                    # the span whose loops reach di + dj <= L
+    assert min(MAXLOOP + 2, s - TURN - 1) == L
+    nq = L * (L - 1) // 2
+    got = [_interior_term(q, L, nq) for q in range(nq)]
+    di = np.arange(MAXLOOP + 2)[:, None]
+    dj = np.arange(MAXLOOP + 2)[None, :]
+    mask = ((di >= 1) & (dj >= 1) & (di <= MAXLOOP + 1) & (di + dj <= MAXLOOP + 2)
+            & (di + dj <= s - TURN - 1))
+    assert sorted(got) == got == [tuple(map(int, x)) for x in np.argwhere(mask)]
+    assert nq <= V_TERMS * V_THREADS
+
+
+# ---------------------------------------------------------------------------
+# the span body: the P split's minima into span_wbp, the kept weight tables
+# ---------------------------------------------------------------------------
+
+# small fills, each with its own span steps: (n, dangles, batch, packed)
+SPAN_BODY_FILLS = {"dense n=20": (20, 2, 1, False), "odd n2 (n=17) dangles 0": (17, 0, 1, False),
+                   "batch of two n=16 dangles 1": (16, 1, 2, False),
+                   "packed n=16": (16, 2, 1, True)}
+_JAX_SPAN = {}
+
+
+def _jax_span(n):
+    """The JAX package's compute_P_span3 + compute_WBP_WPP_span (P2, WBP,
+    WPP after span s) and its _wx_tables, each jitted once for length n,
+    with its own PK penalties (the only entries of C they read)."""
+    if n not in _JAX_SPAN:
+        import jax
+
+        from ccj_tpu.engine import gapped3 as jgapped3
+
+        jC = {"n": n, **{k: getattr(JPK, k) for k in ("PSM", "PSP", "PUP", "PPS", "bp", "cp")}}
+
+        def span(st, s):
+            out = jgapped.compute_WBP_WPP_span(jC, jgapped3.compute_P_span3(jC, st, s), s)
+            return out["P2"], out["WBP"], out["WPP"]
+
+        _JAX_SPAN[n] = (jax.jit(span), jax.jit(lambda st: jnp.stack(jgapped._wx_tables(jC, st))))
+    return _JAX_SPAN[n]
+
+
+@pytest.mark.parametrize("case", list(SPAN_BODY_FILLS))
+def test_span_body_matches_p_split_and_wbp_apart_and_jax(case, monkeypatch):
+    """A small fill's span body (fold._run_spans: the P split's minima into
+    span_wbp, the weight tables kept by it), checked after every span's
+    WBP/WPP update: P2, WBP and WPP equal gapped3.compute_P_span3 +
+    gapped.compute_WBP_WPP_span run apart on the state before it (no kept
+    tables) and the JAX package's functions on the same state; the kept
+    tables equal gapped._wx_tables from scratch and the JAX one.  Minima
+    only on the spans with a P-split term (3 <= s < n); span_v a dependent
+    launch from the fill's second span on."""
+    from ccj_tpu_torch.engine import gapped3, gapped5
+
+    n, dangles, B, packed = SPAN_BODY_FILLS[case]
+    sp = _params(dangles)[1]
+    rng = np.random.default_rng(n + 10 * B)
+    consts = [fold.consts_from_numpy(fold.build_consts(build_seq_tables(
+        "".join("ACGU"[k] for k in rng.integers(0, 4, n)), sp, DEFAULT_PK), sp, DEFAULT_PK),
+        "cpu") for _ in range(B)]
+    jspan, jwx = _jax_span(n)
+    real = fold.compute_WBP_WPP_span
+    seen = []
+
+    def checked(C, st, s, p_min=None):
+        assert (p_min is not None) == (3 <= s < n), s
+        before = {k: st[k].clone() for k in ("V", "P2", "WBP", "WPP")}
+        real(C, st, s, p_min)
+        bare = {k: v for k, v in C.items() if k != gapped.WX}
+        apart = {**before, "PKD": st["PKD"], "PKE": st["PKE"]}
+        gapped.compute_WBP_WPP_span(bare, gapped3.compute_P_span3(bare, apart, s), s)
+        for k in ("P2", "WBP", "WPP"):
+            assert torch.equal(st[k], apart[k]), (case, s, k)
+        assert torch.equal(C[gapped.WX], gapped._wx_tables(bare, st)), (case, s)
+        for b in range(B):
+            want = jspan({k: jnp.asarray(v[b].numpy()) for k, v in apart.items()
+                          if k in ("PKD", "PKE")} | {k: jnp.asarray(v[b].numpy())
+                                                      for k, v in before.items()}, s)
+            for k, w in zip(("P2", "WBP", "WPP"), want):
+                assert np.array_equal(st[k][b].numpy(), np.asarray(w)), (case, s, b, k)
+            wx = jwx({k: jnp.asarray(st[k][b].numpy()) for k in ("WBP", "WPP")})
+            assert np.array_equal(C[gapped.WX][:, b].numpy(), np.asarray(wx)), (case, s, b)
+        seen.append(s)
+        return st
+
+    real_v, launches = fold.compute_V_span, []
+
+    def v_span(C, st, s, d, dependent=False):
+        launches.append(dependent)
+        return real_v(C, st, s, d, dependent)
+
+    monkeypatch.setattr(fold, "compute_WBP_WPP_span", checked)
+    monkeypatch.setattr(fold, "compute_V_span", v_span)
+    if B > 1:
+        fold.fill6_batched(fold.stack_consts([c for c, _ in consts]),
+                           fold.stack_consts([s4 for _, s4 in consts]), n, dangles)
+    elif packed:
+        fold.fill7(*consts[0], n, dangles, gapped5.segments7(n))
+    else:
+        fold.fill6(*consts[0], n, dangles)
+    assert seen == list(range(n))
+    assert launches == [False] + [True] * (n - 1)
+
+
+def test_sharded_fill_keeps_one_table_home_and_launches_span_v_dependent(monkeypatch):
+    """A P=2 row-sharded fill (n=14, one CPU device): span_v a dependent
+    launch from its second span on, and the weight tables kept in the one
+    home, the device's tables' dict (st.consts), equal to gapped._wx_tables
+    of its replica after the fill."""
+    from ccj_tpu_torch.dist import wavefront
+
+    n = 14
+    sp = _params(2)[1]
+    C, SC4 = fold.consts_from_numpy(fold.build_consts(build_seq_tables(
+        SEQS[16][0][:n], sp, DEFAULT_PK), sp, DEFAULT_PK), "cpu")
+    real_v, launches = wavefront.compute_V_span, []
+
+    def v_span(C, st, s, d, dependent=False):
+        launches.append(dependent)
+        return real_v(C, st, s, d, dependent)
+
+    monkeypatch.setattr(wavefront, "compute_V_span", v_span)
+    st = wavefront.fill6_sharded(C, SC4, n, sp.dangles, devices=["cpu"] * 2)
+    assert launches == [False] + [True] * (n - 1)
+    (dev, Cd), = st.consts.items()
+    assert torch.equal(Cd[gapped.WX], gapped._wx_tables(Cd, st.replicas[dev]))
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +617,7 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing(monkeypatch):
 
 
 @pytest.mark.parametrize("fault", ["dtype", "shape", "vtype", "eint", "device", "n",
-                                   "dangles"])
+                                   "dangles", "p_min", "wx"])
 def test_wrappers_refuse_operands_that_do_not_fit(fault):
     C, st = _small()
     C, st = dict(C), dict(st)
@@ -446,15 +633,19 @@ def test_wrappers_refuse_operands_that_do_not_fit(fault):
         st["WBP"] = st["WBP"].to("meta")
     elif fault == "n":
         C["n"] = 15
+    elif fault == "wx":                 # kept tables must be contiguous
+        C[gapped.WX] = torch.zeros((4, 1, 18, 18), dtype=torch.int32).transpose(2, 3)
+    p_min = torch.zeros((1, 17 if fault == "p_min" else 18), dtype=torch.int32)
     calls = [lambda: nested.compute_V_span(C, st, 9, 2),
-             lambda: gapped.compute_WBP_WPP_span(C, st, 9),
+             lambda: gapped.compute_WBP_WPP_span(C, st, 9, p_min),
              lambda: nested.compute_WMv_WMp_WM_span(C, st, 9, 2),
              lambda: gapped._wx_tables(C, st)]
     if fault == "dangles":
         calls = [lambda: nested.compute_V_span(C, st, 9, 3),
                  lambda: nested.compute_WMv_WMp_WM_span(C, st, 9, -1)]
     reads = {"dtype": (0, 2), "shape": (1, 2), "vtype": (0,), "eint": (0,),
-             "device": (1, 3), "n": (0, 1, 2, 3), "dangles": (0, 1)}[fault]
+             "device": (1, 3), "n": (0, 1, 2, 3), "dangles": (0, 1), "p_min": (1,),
+             "wx": (1,)}[fault]
     for k in reads:
         with pytest.raises((ValueError, TypeError)):
             calls[k]()
@@ -494,13 +685,16 @@ def test_cuda_operands_raise_without_the_library(monkeypatch, tmp_path):
 
 
 def test_table_mirrors_the_kernel_layout():
-    """Span2dTable: 21 operand slots (pointer and batch, row and column
-    strides), EINT's two inner strides, then the 14 ints, packed by one
-    struct format."""
+    """Span2dTable: 22 operand slots (pointer and batch, row and column
+    strides; span_wbp's P-split minima and the out slot last), EINT's two
+    inner strides, then the 15 ints, every field packed by one struct
+    format."""
     import ctypes
-    assert len(cuda_ops.SPAN2D_OPERANDS) == 21
-    assert ctypes.sizeof(cuda_ops.Span2dTable) == 21 * 32 + 16 + 14 * 4
-    assert cuda_ops._SPAN2D_FMT.size == ctypes.sizeof(cuda_ops.Span2dTable)
+    assert len(cuda_ops.SPAN2D_OPERANDS) == 22
+    assert cuda_ops.SPAN2D_OPERANDS[-2:] == ("p_min", "out")
+    # the 15 ints end 4 bytes short of the struct's 8-byte alignment
+    assert ctypes.sizeof(cuda_ops.Span2dTable) == 22 * 32 + 16 + 15 * 4 + 4
+    assert cuda_ops._SPAN2D_FMT.size == cuda_ops.Span2dTable.cp.offset + 4
     for kind in cuda_ops.SPAN2D_KINDS:
         for d in (0, 1, 2):
             assert set(cuda_ops._SPAN2D_READS[kind, d]) <= set(cuda_ops.SPAN2D_OPERANDS)
@@ -513,7 +707,8 @@ def test_launch_table_reads_each_operand_through_its_strides(monkeypatch, kind, 
     plus batch, row and column strides; EINT's di and dj strides), gives
     every operand's elements: tables from numpy as the fills hold them
     (some column-major, a batch of one as a view) and a state array read
-    through a strided view."""
+    through a strided view; span_wbp's P-split minima (a strided view too)
+    and its kept tables in the out slot; span_v's dependent-launch flag."""
     import ctypes
 
     packed = {}
@@ -533,10 +728,17 @@ def test_launch_table_reads_each_operand_through_its_strides(monkeypatch, kind, 
     st["WM"] = wide[..., 1::2]
     assert any(C[k].stride()[-1] != 1 for k in C if isinstance(C[k], torch.Tensor))
     dev, names, xs = cuda_ops.span2d_operands(C, st, kind, dangles)
-    cuda_ops._span2d_launch(kind, C, 9, dangles, names, xs, dev, out=kind == "wx_tables")
+    p_min = wx = None
+    if kind == "span_wbp":
+        p_min = torch.arange(3 * (n + 2), dtype=torch.int32).reshape(1, n + 2, 3)[..., 1]
+        wx = cuda_ops.wx_tables(C, st)
+    dependent = kind == "span_v" and dangles == 2
+    cuda_ops._span2d_launch(kind, C, 9, dangles, names, xs, dev,
+                            out=wx if kind == "span_wbp" else kind == "wx_tables",
+                            p_min=p_min, dependent=dependent)
     t = packed["t"]
-    assert (t.kind, t.B, t.n, t.n2, t.s, t.dangles) == (
-        cuda_ops.SPAN2D_KINDS.index(kind), 1, n, n + 2, 9, dangles)
+    assert (t.kind, t.B, t.n, t.n2, t.s, t.dangles, t.dependent) == (
+        cuda_ops.SPAN2D_KINDS.index(kind), 1, n, n + 2, 9, dangles, int(dependent))
     assert (t.MLbase, t.PSM, t.PSP, t.PUP, t.PPS, t.pkb, t.bp, t.cp) == tuple(
         C[k] for k in ("MLbase", "PSM", "PSP", "PUP", "PPS", "b", "bp", "cp"))
     rng = np.random.default_rng(4)
@@ -555,5 +757,12 @@ def test_launch_table_reads_each_operand_through_its_strides(monkeypatch, kind, 
             got = elem.from_address(t.p[k] + ctypes.sizeof(elem) * off).value
             assert got == int(want), (name, a, c)
     used = {cuda_ops._SPAN2D_SLOT[nm] for nm in names} | (
-        {len(cuda_ops.SPAN2D_OPERANDS) - 1} if kind == "wx_tables" else set())
+        {len(cuda_ops.SPAN2D_OPERANDS) - 1} if kind in ("wx_tables", "span_wbp") else set())
+    if kind == "span_wbp":
+        k = cuda_ops._SPAN2D_SLOT["p_min"]
+        used.add(k)
+        for a in range(n + 2):
+            got = ctypes.c_int32.from_address(t.p[k] + 4 * (a * t.cs[k])).value
+            assert got == int(p_min[0, a]), a
+        assert t.p[-1] == wx.data_ptr() and wx.is_contiguous()
     assert all((t.p[k] != 0) == (k in used) for k in range(len(cuda_ops.SPAN2D_OPERANDS)))

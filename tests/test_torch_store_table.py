@@ -32,6 +32,7 @@ from ccj_tpu_torch.dist import wavefront
 from ccj_tpu_torch.engine import cuda_ops, gapped4, gapped5
 from ccj_tpu_torch.engine import fold as tfold
 from ccj_tpu_torch.engine.common import INF, SAT16
+from ccj_tpu_torch.engine.gapped import step_tables
 from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
 from ccj_tpu_torch.precompute import build_seq_tables
 
@@ -87,7 +88,7 @@ def _dense():
         if v.dim() == 5:
             _rand16_(v, gen)
     TB, IB = gapped4.bucket_dims(n, s)
-    return _spied(lambda: gapped4.span_gapped4(C, SC4, st, s, TB, IB))
+    return _spied(lambda: gapped4.span_gapped4(step_tables(C, st), SC4, st, s, TB, IB))
 
 
 def _packed():
@@ -102,7 +103,7 @@ def _packed():
     for v in st.values():
         if v.dim() == 5:
             _rand16_(v, gen)
-    return _spied(lambda: gapped5.span_gapped7(C, SC4, st, s, gi, segs))
+    return _spied(lambda: gapped5.span_gapped7(step_tables(C, st), SC4, st, s, gi, segs))
 
 
 def _row_shard():
@@ -117,8 +118,9 @@ def _row_shard():
     p, i0, rows = wavefront.span_rows(n, st.R, P, s)[1]
 
     def run():
-        reads = wavefront.sharded_reads(st, p, s, TB, rows, C)
-        res = gapped4.span_families(C, SC4, st.shards[p], s, TB, rows, reads, i0)
+        reads = wavefront.sharded_reads(st, p, s, TB, rows)
+        Cw = step_tables(C, st.replicas[st.devices[p]])
+        res = gapped4.span_families(Cw, SC4, st.shards[p], s, TB, rows, reads, i0)
         wavefront._write_back(st, p, s, res, None)
 
     return _spied(run)
