@@ -177,6 +177,11 @@ __device__ __forceinline__ void store_run(const Run& u, const T* __restrict__ sr
 }
 
 __global__ void __launch_bounds__(kThreads) store_kernel(const __grid_constant__ StoreTable t) {
+  // A kernel launched after this one as its programmatic dependent (the
+  // fills' span_wm, csrc/span2d.cu) may start once every block has begun:
+  // it reads nothing this kernel writes before its griddepcontrol.wait.
+  // Without such a launch after it this is a no-op.
+  asm volatile("griddepcontrol.launch_dependents;" :::);
   const int blk = (int)blockIdx.x;
   int d = 0;                           // the last destination with dblock0 <= blk
 #pragma unroll

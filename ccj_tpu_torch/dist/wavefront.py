@@ -619,14 +619,19 @@ def _fill_sharded(C, SC4, dangles: int, st: ShardedState) -> ShardedState:
     offset, one ``tt_span`` launch per span and shard on CUDA); then the
     write-back.  Each device's tables (``st.consts``) hold EINT cell-major,
     as the unsharded fills do, and its replica's own weight tables
-    (``gapped.WX``), made once here and kept current by its WBP/WPP update;
-    from the second span on ``span_v`` is a programmatic dependent launch,
-    as in ``fold._run_spans``."""
+    (``gapped.WX``), made once here and kept current by its WBP/WPP update,
+    and its 2-D kernels' launch tables on its replica, packed once
+    (``cuda_ops.span2d_fill_tables``); from the second span on ``span_v`` is
+    a programmatic dependent launch, as in ``fold._run_spans``.  ``span_wm``
+    is launched plainly: the last op before it on a device may be a
+    transport copy of a staging slab (``_write_back``), not a
+    ``span_store``."""
     n, tr = st.n, st.transport
     n2, T, S, U = dims(n)
     Cd = st.consts = {dev: cell_major_eint({**_on(C, dev), "n": n}) for dev in st.replicas}
     for dev, rep in st.replicas.items():
         Cd[dev][WX] = _wx_tables(Cd[dev], rep)
+        Cd[dev][cuda_ops.SPAN2D_FILL] = cuda_ops.span2d_fill_tables(Cd[dev], rep, dangles)
     SC4d = {dev: _on(SC4, dev) for dev in st.replicas}
     for k, (s, TB, gi) in enumerate(_spans(st)):
         tr.span = s

@@ -68,7 +68,10 @@ kept weight tables' span-s cells) and :func:`span_wm` (WMv, WMp and WM,
 ``gapped.py:42-59``), one launch a fill, whose tables :func:`span_wbp`
 keeps current; their plain versions, the bodies the fills ran before, are
 :func:`span_v_ref`, :func:`span_wbp_ref`, :func:`span_wm_ref` and
-:func:`wx_tables_ref`.
+:func:`wx_tables_ref`.  A fill packs the launch tables of the first three
+once (:func:`span2d_fill_tables`, kept in its tables' dict under
+:data:`SPAN2D_FILL`); each span then writes only the span, the launch
+flag and ``span_wbp``'s P-split minima into them.
 
 Dispatch rule: a wrapper runs its plain PyTorch version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; it never falls
@@ -104,7 +107,7 @@ from typing import NamedTuple
 import torch
 
 from .common import INF, MAXLOOP, SAT16, TURN, V_UNSET, guarded_add, mmin, pad_axis, v_get
-from .gapped import DS
+from .gapped import DS, WX
 from .skew import skew_right, unskew_right
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -2324,7 +2327,10 @@ _SPAN2D_SLOT = {name: k for k, name in enumerate(SPAN2D_OPERANDS)}
 _SPAN2D_SCALARS = ("MLbase", "PSM", "PSP", "PUP", "PPS", "b", "bp", "cp")
 # the kinds whose kernels address each operand with 32-bit offsets inside a
 # batch element (csrc/span2d.cu Mat32)
-_SPAN2D_OFF32 = frozenset(("span_v", "span_wbp"))
+_SPAN2D_OFF32 = frozenset(("span_v", "span_wbp", "span_wm"))
+# the key of a fill's launch tables in its tables' dict C
+# (:func:`span2d_fill_tables`)
+SPAN2D_FILL = "SPAN2D_FILL"
 
 
 def _span2d_reads(kind, dangles):
@@ -2361,6 +2367,16 @@ class Span2dTable(ctypes.Structure):
 
 _SPAN2D_FMT = struct.Struct(f"={4 * len(SPAN2D_OPERANDS) + 2}q15i")
 _packed_layout(Span2dTable, _SPAN2D_FMT, "kind")
+# a fill table's fields that change from span to span: s, dangles and
+# dependent (consecutive ints), and span_wbp's p_min slot (pointer, batch
+# and column strides)
+_SPAN2D_STEP = struct.Struct("=3i")
+_SPAN2D_Q = struct.Struct("=q")
+_SPAN2D_S_AT = Span2dTable.s.offset
+_SPAN2D_PMIN_AT = tuple(getattr(Span2dTable, f).offset + 8 * _SPAN2D_SLOT["p_min"]
+                        for f in ("p", "bs", "cs"))
+if Span2dTable.dependent.offset != _SPAN2D_S_AT + 8:
+    raise RuntimeError("Span2dTable's s, dangles and dependent are not consecutive")
 
 
 def span2d_operands(C, st, kind, dangles=2):
@@ -2392,18 +2408,17 @@ def span2d_operands(C, st, kind, dangles=2):
     return dev, names, xs
 
 
-def _span2d_launch(kind, C, s, dangles, names, xs, dev, out=False, p_min=None,
-                   dependent=False):
-    """One csrc/span2d.cu launch of ``kind`` on the checked operands
-    (:func:`span2d_operands`): this thread's :class:`Span2dTable`, packed in
-    one call, every operand taken with its own strides (the tables from
-    numpy may be column-major).  ``out``: the [4, B, n2, n2] contiguous
-    tensor of the out slot (``span_wbp``'s kept tables), True to allocate
-    it (``wx_tables``' output), or None / False for none; ``p_min``:
-    ``span_wbp``'s [B, n2] P-split minima, or None; ``dependent``:
-    ``span_v``'s programmatic dependent launch (:func:`span_v`).  Returns
-    the out slot's tensor (None without one)."""
-    fn = _library().ccj_span2d
+def _span2d_pack(t, kind, C, s, dangles, names, xs, dev, out=False, p_min=None,
+                 dependent=False):
+    """Pack one csrc/span2d.cu launch of ``kind`` on the checked operands
+    (:func:`span2d_operands`) into the :class:`Span2dTable` ``t``, in one
+    call, every operand taken with its own strides (the tables from numpy
+    may be column-major).  ``out``: the [4, B, n2, n2] contiguous tensor
+    of the out slot (``span_wbp``'s kept tables), True to allocate it
+    (``wx_tables``' output), or None / False for none; ``p_min``:
+    ``span_wbp``'s [B, n2] P-split minima, or None; ``dependent``: a
+    programmatic dependent launch (:func:`span_v`, :func:`span_wm`).
+    Returns the out slot's tensor (None without one)."""
     n = C["n"]
     n2 = n + 2
     k = len(SPAN2D_OPERANDS)
@@ -2431,12 +2446,99 @@ def _span2d_launch(kind, C, s, dangles, names, xs, dev, out=False, p_min=None,
         out = None
     if out is not None:
         ptrs[-1] = out.data_ptr()
-    t = _table(Span2dTable)
     _SPAN2D_FMT.pack_into(t, 0, *ptrs, *bs, *rs, *cs, edi, edj, SPAN2D_KINDS.index(kind),
                           B, n, n2, s, dangles, int(dependent),
                           *(C[name] for name in _SPAN2D_SCALARS))
+    return out
+
+
+def _span2d_launch(kind, C, s, dangles, names, xs, dev, out=False, p_min=None,
+                   dependent=False):
+    """One csrc/span2d.cu launch of ``kind`` on the checked operands, from
+    this thread's :class:`Span2dTable` (:func:`_span2d_pack`'s arguments);
+    returns the out slot's tensor (None without one)."""
+    fn = _library().ccj_span2d
+    t = _table(Span2dTable)
+    out = _span2d_pack(t, kind, C, s, dangles, names, xs, dev, out, p_min, dependent)
     _launch(fn, dev, kind, ctypes.addressof(t), _raw_stream(dev))
     return out
+
+
+def _check_wbp_extra(p_min, wx, B, n2, dev):
+    """Raise unless ``span_wbp``'s P-split minima (int32 [B, n2]) and kept
+    tables (int32 [4, B, n2, n2], contiguous) fit, where given."""
+    for name, x, shape in (("p_min", p_min, (B, n2)), ("wx", wx, (4, B, n2, n2))):
+        if x is not None and (x.shape != shape or x.dtype != torch.int32 or x.device != dev
+                              or name == "wx" and not x.is_contiguous()):
+            raise ValueError(f"span_wbp: {name} must be int32 {shape} on {dev}"
+                             f"{' and contiguous' if name == 'wx' else ''}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}, strides {x.stride()}")
+
+
+class Span2dFill:
+    """One kind's csrc/span2d.cu launch table for a whole fill: the
+    operands of ``st`` and ``C`` checked (:func:`span2d_operands`) and
+    packed once (:func:`_span2d_pack`, ``out`` the kept weight tables of
+    ``span_wbp``); :meth:`launch` writes the fields that change from span
+    to span (s, ``dependent``, ``span_wbp``'s P-split minima) at
+    :data:`_SPAN2D_FMT`'s offsets and launches.  It holds the tensors it
+    points into, and :meth:`fits` takes it only for those very tensors
+    and scalars: the fills update their state in place and swap no tensor,
+    and a call on any other (a state entry reassigned, a copy of ``C``
+    with another table) takes the checked path."""
+    __slots__ = ("kind", "st", "dangles", "out", "dev", "reads", "scalars", "B", "n2",
+                 "table", "addr")
+
+    def __init__(self, kind, C, st, dangles=0, out=None):
+        self.dev, names, xs = span2d_operands(C, st, kind, dangles)
+        self.kind, self.st, self.dangles, self.out = kind, st, dangles, out
+        self.reads = tuple((name in _SPAN2D_STATE, name, x) for name, x in zip(names, xs))
+        self.scalars = tuple((name, C[name]) for name in ("n", *_SPAN2D_SCALARS))
+        self.B, self.n2 = xs[0].shape[0], C["n"] + 2
+        if kind == "span_wbp":
+            _check_wbp_extra(None, out, self.B, self.n2, self.dev)
+        self.table = Span2dTable()
+        _span2d_pack(self.table, kind, C, 0, dangles, names, xs, self.dev, out)
+        self.addr = ctypes.addressof(self.table)
+
+    def fits(self, C, st, dangles, out):
+        """Whether a call on ``C``, ``st``, ``dangles`` and ``out`` reads the
+        very tensors and scalars this table was packed from."""
+        return (self.st is st and self.dangles == dangles and self.out is out
+                and all((st if state else C)[name] is x for state, name, x in self.reads)
+                and all(C[name] == v for name, v in self.scalars))
+
+    def launch(self, s, dependent=False, p_min=None):
+        """One launch at span ``s`` (``p_min``: ``span_wbp``'s minima or
+        None), on the device's current stream."""
+        t = self.table
+        _SPAN2D_STEP.pack_into(t, _SPAN2D_S_AT, s, self.dangles, int(dependent))
+        if self.kind == "span_wbp":
+            vals = (0, 0, 0) if p_min is None else (p_min.data_ptr(), *p_min.stride())
+            for at, v in zip(_SPAN2D_PMIN_AT, vals):
+                _SPAN2D_Q.pack_into(t, at, v)
+        _launch(_library().ccj_span2d, self.dev, self.kind, self.addr, _raw_stream(self.dev))
+
+
+def span2d_fill_tables(C, st, dangles):
+    """A fill's launch tables of ``span_v``, ``span_wbp`` (with the kept
+    weight tables ``C[gapped.WX]``, made first) and ``span_wm`` on its
+    state ``st`` (:class:`Span2dFill`), for ``C[SPAN2D_FILL]``: the
+    wrappers take them wherever ``C`` holds them for the very ``st``,
+    ``dangles``, tensors and scalars they are called with, and the checked
+    path otherwise (a call outside a fill, or on another state).  Built on
+    tensors of any device (on the CPU the plain versions run)."""
+    return {"span_v": Span2dFill("span_v", C, st, dangles),
+            "span_wbp": Span2dFill("span_wbp", C, st, out=C.get(WX)),
+            "span_wm": Span2dFill("span_wm", C, st, dangles)}
+
+
+def _fill_table(C, st, kind, dangles=0, out=None):
+    """``C``'s fill table of ``kind`` where it fits the call
+    (:meth:`Span2dFill.fits`); else None (the checked path)."""
+    tabs = C.get(SPAN2D_FILL)
+    t = None if tabs is None else tabs[kind]
+    return t if t is not None and t.fits(C, st, dangles, out) else None
 
 
 def _diag_idx(n2, s, device):
@@ -2579,14 +2681,19 @@ def span_v(C, st, s, dangles, dependent=False):
     run while span_v reads EINT, H and the MB tables.  Only for a caller
     that knows that kernel writes none of those three (a fill's span loop,
     after its first span); by default the launch is plain and the stream
-    orders every read.  The plain version (:func:`span_v_ref`) for CPU
-    tensors."""
+    orders every read.  A fill's launch table (:func:`span2d_fill_tables`)
+    where ``C`` holds one for ``st``.  The plain version
+    (:func:`span_v_ref`) for CPU tensors."""
     global SPAN_V_LAUNCHES
-    dev, names, xs = span2d_operands(C, st, "span_v", dangles)
+    ft = _fill_table(C, st, "span_v", dangles)
+    dev, names, xs = (ft.dev, (), ()) if ft else span2d_operands(C, st, "span_v", dangles)
     if dev.type == "cpu":
         return span_v_ref(C, st, s, dangles)
     if 1 <= s < C["n"]:
-        _span2d_launch("span_v", C, s, dangles, names, xs, dev, dependent=dependent)
+        if ft:
+            ft.launch(s, dependent)
+        else:
+            _span2d_launch("span_v", C, s, dangles, names, xs, dev, dependent=dependent)
         SPAN_V_LAUNCHES += 1
     return None
 
@@ -2704,21 +2811,24 @@ def span_wbp(C, st, s, p_min=None, wx=None):
     fill's kept weight tables (:func:`wx_tables`' int32 [4, B, n2, n2],
     contiguous), whose span-s cells of the live rows take the new WBP /
     WPP; None to keep none.  ``st``: the state's V, P2, WBP, WPP ([B, n2,
-    n2]); ``C`` the fill's scalars.  The plain version
-    (:func:`span_wbp_ref`) for CPU tensors."""
+    n2]); ``C`` the fill's scalars.  A fill's launch table
+    (:func:`span2d_fill_tables`) where ``C`` holds one for ``st`` and
+    ``wx``.  The plain version (:func:`span_wbp_ref`) for CPU tensors."""
     global SPAN_WBP_LAUNCHES
-    dev, names, xs = span2d_operands(C, st, "span_wbp")
-    B, n2 = xs[0].shape[0], C["n"] + 2
-    for name, x, shape in (("p_min", p_min, (B, n2)), ("wx", wx, (4, B, n2, n2))):
-        if x is not None and (x.shape != shape or x.dtype != torch.int32 or x.device != dev
-                              or not x.is_contiguous() and name == "wx"):
-            raise ValueError(f"span_wbp: {name} must be int32 {shape} on {dev}"
-                             f"{' and contiguous' if name == 'wx' else ''}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}, strides {x.stride()}")
+    ft = _fill_table(C, st, "span_wbp", out=wx)
+    if ft:              # the fill's operands and tables were checked at its start
+        dev = ft.dev
+        _check_wbp_extra(p_min, None, ft.B, ft.n2, dev)
+    else:
+        dev, names, xs = span2d_operands(C, st, "span_wbp")
+        _check_wbp_extra(p_min, wx, xs[0].shape[0], C["n"] + 2, dev)
     if dev.type == "cpu":
         return span_wbp_ref(C, st, s, p_min, wx)
     if 0 <= s < C["n"]:
-        _span2d_launch("span_wbp", C, s, 0, names, xs, dev, out=wx, p_min=p_min)
+        if ft:
+            ft.launch(s, p_min=p_min)
+        else:
+            _span2d_launch("span_wbp", C, s, 0, names, xs, dev, out=wx, p_min=p_min)
         SPAN_WBP_LAUNCHES += 1
     return None
 
@@ -2769,18 +2879,30 @@ def span_wm_ref(C, st, s, dangles):
     WM[:, ii, jjc] = torch.where(row_valid, wm_new, WM[:, ii, jjc])
 
 
-def span_wm(C, st, s, dangles):
+def span_wm(C, st, s, dangles, dependent=False):
     """WMv, WMp, then WM at (i, i+s) for every live row i of span s, in
     place, for every element of the batch: one ``span_wm`` launch on CUDA
     (csrc/span2d.cu), none at s < 3 (no cell is written there).  ``st``:
     the state's V, P2, WM, WMv, WMp ([B, n2, n2]); ``C`` the fill's ML
-    tables of ``dangles`` with their batch axis and its scalars.  The plain
-    version (:func:`span_wm_ref`) for CPU tensors."""
+    tables of ``dangles`` with their batch axis and its scalars.
+    ``dependent``: launch it as a programmatic dependent of the kernel
+    before it in the stream, which may then still run while span_wm reads
+    every operand; it writes its cells after that kernel has finished.
+    Only for a caller that knows that kernel writes none of V, P2, WM, WMv,
+    WMp and the ML tables (``fold._run_spans``: its step's last kernel is a
+    ``span_store``, which writes only the step's destination views); by
+    default the launch is plain.  A fill's launch table
+    (:func:`span2d_fill_tables`) where ``C`` holds one for ``st``.  The
+    plain version (:func:`span_wm_ref`) for CPU tensors."""
     global SPAN_WM_LAUNCHES
-    dev, names, xs = span2d_operands(C, st, "span_wm", dangles)
+    ft = _fill_table(C, st, "span_wm", dangles)
+    dev, names, xs = (ft.dev, (), ()) if ft else span2d_operands(C, st, "span_wm", dangles)
     if dev.type == "cpu":
         return span_wm_ref(C, st, s, dangles)
     if 3 <= s < C["n"]:
-        _span2d_launch("span_wm", C, s, dangles, names, xs, dev)
+        if ft:
+            ft.launch(s, dependent)
+        else:
+            _span2d_launch("span_wm", C, s, dangles, names, xs, dev, dependent=dependent)
         SPAN_WM_LAUNCHES += 1
     return None

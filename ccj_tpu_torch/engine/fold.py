@@ -38,6 +38,7 @@ import torch
 from ..params.pk import PKPenalties
 from ..params.scaling import ScaledParams
 from ..precompute import SeqTables
+from . import cuda_ops
 from .common import INF, SAT16, TRI_UNSET, V_UNSET
 from .gapped import M4_NAMES, WX, _wx_tables, compute_WBP_WPP_span
 from .gapped3 import p_split_minima
@@ -205,11 +206,17 @@ def _run_spans(C, SC4, n: int, dangles: int, st, steps, s0: int = 0):
     (``nested.cell_major_eint``) and the gapped step's weight tables, made
     once from ``st`` as it is (a resumed fill's too) and kept under
     ``gapped.WX``: each span's WBP/WPP update writes their span-s cells,
-    with P's diagonal from the P split's minima, in one launch.  From the
-    run's second span on ``span_v`` is a programmatic dependent launch:
-    nothing in the loop writes EINT, H or the MB tables."""
+    with P's diagonal from the P split's minima, in one launch.  It also
+    holds the 2-D kernels' launch tables on ``st``, packed once
+    (``cuda_ops.span2d_fill_tables`` under ``cuda_ops.SPAN2D_FILL``): the
+    loop updates ``st`` in place and swaps none of its tensors.  From the
+    run's second span on ``span_v`` is a programmatic dependent launch
+    (nothing in the loop writes EINT, H or the MB tables), and ``span_wm``
+    is one at every span: the step's last kernel is its ``span_store``,
+    which writes none of V, P2, WM, WMv, WMp and the ML tables."""
     C = cell_major_eint({**C, "n": n})
     C[WX] = _wx_tables(C, st)
+    C[cuda_ops.SPAN2D_FILL] = cuda_ops.span2d_fill_tables(C, st, dangles)
     first = True
     for s, step, args in steps:
         if s < s0:
@@ -218,7 +225,7 @@ def _run_spans(C, SC4, n: int, dangles: int, st, steps, s0: int = 0):
         first = False
         compute_WBP_WPP_span(C, st, s, p_split_minima(C, st, s))
         step(C, SC4, st, s, *args)
-        compute_WMv_WMp_WM_span(C, st, s, dangles)
+        compute_WMv_WMp_WM_span(C, st, s, dangles, dependent=True)
         yield s
 
 

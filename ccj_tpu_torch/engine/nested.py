@@ -9,7 +9,8 @@ carry a leading batch axis ([B, n2, n2]; fill.fill6 is a batch of one).
 Each is one kernel launch a span on the card (``cuda_ops.span_v`` and
 ``cuda_ops.span_wm``, csrc/span2d.cu); on the CPU their plain versions
 (``cuda_ops.span_v_ref``, ``span_wm_ref``) run.  The fills hand
-``span_v`` EINT cell-major (:func:`cell_major_eint`).
+``span_v`` EINT cell-major (:func:`cell_major_eint`) and both kernels
+their launch tables, packed once a fill (``cuda_ops.span2d_fill_tables``).
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ def compute_V_span(C, st, s, dangles, dependent=False):
     return st
 
 
-def compute_WMv_WMp_WM_span(C, st, s, dangles):
+def compute_WMv_WMp_WM_span(C, st, s, dangles, dependent=False):
     """compute_WMv_WMp + compute_energy_WM for span s
     (s_energy_matrix.cc:206-241); no-op when span < 3 (j-i+1 < 4); in place:
-    one ``cuda_ops.span_wm``."""
-    cuda_ops.span_wm(C, st, s, dangles)
+    one ``cuda_ops.span_wm`` (``dependent``: its programmatic dependent
+    launch, for a caller whose last kernel before it writes none of V, P2,
+    WM, WMv, WMp and the ML tables)."""
+    cuda_ops.span_wm(C, st, s, dangles, dependent)
     return st

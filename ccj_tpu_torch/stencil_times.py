@@ -2,18 +2,22 @@
 that two commits can be timed in turns within one run: the PL / PR
 stencils (``stencil_pl``, ``stencil_pr``) at ``chip_smoke.py``'s phase 2e
 shapes, the span's assembly and write-back (``span_assemble``,
-``span_store``) at its phase 2f shapes, or the 2-D recurrences ``span_v``
-and ``span_wbp`` at its phase 2g shapes (``span_wbp`` as called apart and,
-where the tree's takes them, as the fills call it: the P split's minima
-and the kept weight tables).
+``span_store``) at its phase 2f shapes, or the 2-D recurrences ``span_v``,
+``span_wbp``, ``span_wm`` and ``wx_tables`` at its phase 2g shapes
+(``span_wbp`` as called apart and as the fills call it: the P split's
+minima and the kept weight tables; and the ``span_store`` -> ``span_wm``
+pair as the fills launch it).
 
     python ccj_tpu_torch/stencil_times.py [--tree DIR] [--kernels stencil|span|span2d]
 
 The kernels come from ``--tree``'s package (default: the checkout this file
 lies in), built from its ``csrc/`` into its ``build/``; an older commit
 unpacked beside this one (``git archive <commit>`` into ``build/parent``)
-is timed the same way.  The operands, the shapes and the timers are this
-checkout's ``chip_smoke.py`` (``stencil_cases`` / ``stencil_operands``,
+is timed the same way where its wrappers take this file's calls, else
+with its own copy of this file (``python
+build/parent/ccj_tpu_torch/stencil_times.py``: each tree times itself).
+The operands, the shapes and the timers are the ``chip_smoke.py`` of this
+file's checkout (``stencil_cases`` / ``stencil_operands``,
 ``span_cases`` / ``span_kernel_calls``, ``span2d_cases`` /
 ``span2d_state``, ``graph_ms``, ``flushed_ms``, ``graph_cold_ms``,
 ``cuda_ms``): the fills' own calls on a random state and the bench
@@ -72,7 +76,7 @@ def main(argv=None):
         out["cases"] = stencil_rows(smoke, cuda_ops, bucket_dims, sp, dev)
     elif args.kernels == "span2d":
         out["ptxas"] = smoke.span2d_ptxas(log) if log else None
-        out["cases"] = span2d_rows(smoke, cuda_ops, bucket_dims, dev)
+        out["cases"] = span2d_rows(smoke, cuda_ops, bucket_dims, sp, dev)
     else:
         out["ptxas"] = smoke.span_ptxas(log) if log else None
         out["cases"] = span_rows(smoke, cuda_ops, bucket_dims, sp, dev)
@@ -172,21 +176,27 @@ def span_rows(smoke, cuda_ops, bucket_dims, sp, dev):
     return rows
 
 
-def span2d_rows(smoke, cuda_ops, bucket_dims, dev):
-    """Phase 2g's cases: ``span_v`` (on EINT as the tree's fills hand it)
-    and ``span_wbp`` (as called apart, and as the fills call it where the
-    tree's ``span_wbp`` takes the P split's minima and the kept tables),
+def span2d_rows(smoke, cuda_ops, bucket_dims, sp, dev):
+    """Phase 2g's cases: ``span_v`` (on EINT cell-major, as the fills hand
+    it), ``span_wbp`` (as called apart, and as the fills call it: the P
+    split's minima and the kept tables), ``span_wm`` and ``wx_tables``,
     each checked against its plain version: L2-hot, L2-cold
-    (``graph_cold_ms``) and eager-call ms a call."""
-    import inspect
-
+    (``graph_cold_ms``) and eager-call ms a call; ``span_wm`` right after a
+    ``span_store`` (phase 2f's n=100 main span's, on a random state), a
+    programmatic dependent as the fills launch it, ms a pair
+    (``store_wm_pair``); and the host ms of ``span_v``, ``span_wbp`` and
+    ``span_wm`` called through a fill's launch tables
+    (``cuda_ops.span2d_fill_tables``; ``fill_tables_host_ms``)."""
     import torch
 
     from ccj_tpu_torch.engine import fold, nested
+    from ccj_tpu_torch.engine.gapped import WX
     from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
     from ccj_tpu_torch.precompute import build_seq_tables
 
-    fills_call = "p_min" in inspect.signature(cuda_ops.span_wbp).parameters
+    _a, (sa, skw), _st = smoke.span_kernel_calls(
+        cuda_ops, smoke.span_cases(bucket_dims)[0], sp,
+        torch.Generator(device=dev).manual_seed(8), dev)
     gen = torch.Generator().manual_seed(7)
     rows = []
     for case in smoke.span2d_cases(bucket_dims):
@@ -197,24 +207,25 @@ def span2d_rows(smoke, cuda_ops, bucket_dims, dev):
             smoke.bench_seq(n, seed=42 + b), sp, DEFAULT_PK), sp, DEFAULT_PK), dev,
             sc4_np={})[0] for b in range(B)]
         C = {**(fold.add_batch(Cs[0]) if B == 1 else fold.stack_consts(Cs)), "n": n}
-        if hasattr(nested, "cell_major_eint"):       # as the tree's fills hand it
-            C = nested.cell_major_eint(C)
+        C = nested.cell_major_eint(C)                # as the fills hand it
         st0 = smoke.span2d_state(B, n, gen, dev)
-        calls = [("span_v", (s, d), {}), ("span_wbp", (s,), {})]
-        if fills_call:
-            calls.append(("span_wbp fills' call", (s,), {
-                "p_min": smoke.span2d_pmin(B, n, gen, dev),
-                "wx": cuda_ops.wx_tables_ref(C, {k: v.cpu() for k, v in st0.items()}).to(dev)}))
+        calls = [("span_v", (s, d), {}), ("span_wbp", (s,), {}), ("span_wm", (s, d), {}),
+                 ("wx_tables", (), {}), ("span_wbp fills' call", (s,), {
+                     "p_min": smoke.span2d_pmin(B, n, gen, dev),
+                     "wx": cuda_ops.wx_tables_ref(
+                         C, {k: v.cpu() for k, v in st0.items()}).to(dev)})]
         row = {"case": case["label"]}
         for label, args, kw in calls:
             name = label.split()[0]
             fn, plain = getattr(cuda_ops, name), getattr(cuda_ops, name + "_ref")
             got, want = ({k: v.clone() for k, v in st0.items()} for _ in range(2))
             kw_k, kw_p = ({k: v.clone() for k, v in kw.items()} for _ in range(2))
-            fn(C, got, *args, **kw_k)
-            plain(C, want, *args, **kw_p)
+            out_k = fn(C, got, *args, **kw_k)
+            out_p = plain(C, want, *args, **kw_p)
             if not all(torch.equal(got[k], want[k]) for k in st0) or not all(
-                    torch.equal(kw_k[k], kw_p[k]) for k in kw):
+                    torch.equal(kw_k[k], kw_p[k]) for k in kw) or (
+                    name == "wx_tables" and not torch.equal(torch.stack(tuple(out_k)),
+                                                            torch.stack(tuple(out_p)))):
                 sys.exit(f"{label} {case['label']}: differs from the plain version")
 
             def kern(fn=fn, got=got, args=args, kw=kw_k):
@@ -223,6 +234,27 @@ def span2d_rows(smoke, cuda_ops, bucket_dims, dev):
             row[label] = {"ms": smoke.graph_ms(kern, reps=20, replays=5),
                           "ms_l2cold": smoke.graph_cold_ms(kern),
                           "call_ms": smoke.cuda_ms(kern, 20), "host_ms": host_ms(kern)}
+        # the fills' launches: through launch tables packed once
+        got = {k: v.clone() for k, v in st0.items()}
+        Cf = {**C, WX: cuda_ops.wx_tables(C, got)}
+        Cf[cuda_ops.SPAN2D_FILL] = cuda_ops.span2d_fill_tables(Cf, got, d)
+        p_min = smoke.span2d_pmin(B, n, gen, dev)
+        row["fill_tables_host_ms"] = {
+            "span_v": host_ms(lambda: cuda_ops.span_v(Cf, got, s, d, True)),
+            "span_wbp": host_ms(lambda: cuda_ops.span_wbp(Cf, got, s, p_min, Cf[WX])),
+            "span_wm": host_ms(lambda: cuda_ops.span_wm(Cf, got, s, d, True))}
+        got = {k: v.clone() for k, v in st0.items()}
+        want = {k: v.clone() for k, v in st0.items()}
+        cuda_ops.span_wm_ref(C, want, s, d)
+
+        def pair(got=got):
+            cuda_ops.span_store(*sa, **skw)
+            cuda_ops.span_wm(C, got, s, d, True)
+
+        pair()
+        if not all(torch.equal(got[k], want[k]) for k in st0):
+            sys.exit(f"span_store -> span_wm {case['label']}: differs from the plain version")
+        row["store_wm_pair"] = {"ms": smoke.graph_ms(pair, reps=20, replays=5)}
         rows.append(row)
     return rows
 

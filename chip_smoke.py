@@ -105,9 +105,15 @@ Phases; any failure exits non-zero and prints no result:
    and L2-cold device times, the eager call's, the plain version's on
    the card, its byte bound (:func:`span2d_bound`, well under a
    microsecond: these kernels are launch- and host-bound) and its
-   ``ptxas`` report; then the kept weight tables of the n=100 fill, the
-   packed n=134 fill and a P=2 row-sharded fill against a from-scratch
-   ``wx_tables`` after every span (:func:`kept_tables_check`);
+   ``ptxas`` report; at each shape ``span_wm`` right after a
+   ``span_store`` (the n=100 main span's, as a fill's step ends), launched
+   as its programmatic dependent and plainly, the device time of each pair
+   (:func:`span2d_store_pair`: a timing of the overlap; the two share no
+   memory, so the fills' results in phases 4-10 are what hold the
+   dependent launch's condition); then the kept weight tables
+   of the n=100 fill, the packed n=134 fill and a P=2 row-sharded fill
+   against a from-scratch ``wx_tables`` after every span
+   (:func:`kept_tables_check`);
 3. fold the corpus entries at n=16, 37 and 60 (default arguments) and
    compare with ``tests/golden/corpus.json``;
 4. the main path: ``ccj_tpu_torch.fold`` of the n=100 bench sequence
@@ -2253,11 +2259,14 @@ def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
     (:func:`graph_cold_ms`) device times, the eager call's (the wrapper's
     checks, table and launch), the plain version's on the card, the bound
     (:func:`span2d_bound`) and the ``ptxas`` report; each case's
-    ``span_wm`` -> ``span_v`` pair back to back (:func:`span2d_pair`).
-    The tables are the fills': EINT cell-major.  Then the kept tables of
-    three fills against a from-scratch ``wx_tables`` after every span
-    (:func:`kept_tables_check`).  Returns the rows by kernel, the pairs and
-    the fills' check."""
+    ``span_wm`` -> ``span_v`` pair back to back (:func:`span2d_pair`) and
+    its ``span_store`` -> ``span_wm`` pair, ``span_wm`` dependent and plain
+    (:func:`span2d_store_pair`; the primary is the n=100 main span's
+    ``span_store`` on a random state, :func:`span_kernel_calls`).  The
+    tables are the fills': EINT cell-major.  Then the kept tables of three
+    fills against a from-scratch ``wx_tables`` after every span
+    (:func:`kept_tables_check`).  Returns the rows by kernel, the
+    ``span_v`` pairs, the ``span_wm`` pairs and the fills' check."""
     from ccj_tpu_torch.engine import fold
     from ccj_tpu_torch.engine.nested import cell_major_eint
     from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
@@ -2266,7 +2275,12 @@ def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
     gen = torch.Generator().manual_seed(7)
     emit({"phase": "span2d", "library": "none: no single PyTorch call computes a span of "
           "these recurrences, so library_ms is null for the four kernels"})
-    pair_rows = []
+    store_case = span_cases(bucket_dims)[0]
+    _assemble, store, store_state = span_kernel_calls(
+        cuda_ops, store_case, scale_parameters(parse_par(
+            ROOT / "ccj_tpu_torch" / "params" / "rna_DirksPierce09.par")),
+        torch.Generator(device=dev).manual_seed(8), dev)
+    pair_rows, store_pair_rows = [], []
     rows = {k: [] for k in SPAN2D_KERNELS}
     counters = {"span_v": "SPAN_V_LAUNCHES", "span_wbp": "SPAN_WBP_LAUNCHES",
                 "span_wm": "SPAN_WM_LAUNCHES", "wx_tables": "WX_LAUNCHES"}
@@ -2285,6 +2299,7 @@ def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
                              "n": n})
         st0 = span2d_state(B, n, gen, dev)
         pair_rows.append(span2d_pair(cuda_ops, C, st0, case))
+        store_pair_rows.append(span2d_store_pair(cuda_ops, C, st0, case, store))
         for name, args, kw in span2d_calls(cuda_ops, C, st0, case, gen, dev):
             kern, plain = getattr(cuda_ops, name), getattr(cuda_ops, f"{name}_ref")
             fills_call = bool(kw)
@@ -2327,9 +2342,11 @@ def phase_span2d(cuda_ops, bucket_dims, dev, ptxas=None):
             row["share_of_bound_l2cold"] = row["bound_ms"] / row["ms_l2cold"]
             rows[name].append(row)
             emit({"phase": "span2d", **row})
+    del _assemble, store, store_state
+    torch.cuda.empty_cache()
     kept = kept_tables_check(cuda_ops, dev)
     emit({"phase": "span2d_kept_tables", **kept})
-    return rows, pair_rows, kept
+    return rows, pair_rows, store_pair_rows, kept
 
 
 def span2d_pair(cuda_ops, C, st0, case):
@@ -2355,6 +2372,44 @@ def span2d_pair(cuda_ops, C, st0, case):
     row = {"case": case["label"], "max_abs_err": err,
            "pair_ms": graph_ms(pair, reps=20, replays=5)}
     emit({"phase": "span2d_pair", **row})
+    return row
+
+
+def span2d_store_pair(cuda_ops, C, st0, case, store):
+    """``span_store`` (``store``: the (args, keywords) of the n=100 main
+    span's, whose destinations are the views of a random 4-D state), then
+    ``span_wm`` of the case's span on its 2-D state, as a fill's span ends
+    (``fold._run_spans``): ``span_wm`` launched as a programmatic dependent
+    of ``span_store``, as the fills launch it, and plainly.  A timing of
+    the overlap: the device ms of each pair (20 pairs in one CUDA graph)
+    and what the dependent launch saves.  Each ``span_wm`` is checked
+    exactly against the plain version, which shows its dependent launch
+    computes its cells; the two kernels share no memory here, so no race
+    could show.  What holds the dependent launch's condition (the kernel
+    before it writes none of its operands) are the fills' results, which
+    run with it (phases 4-10), and the CPU test of the fills' dispatch
+    order and storage (``tests/test_torch_nested.py``)."""
+    sa, skw = store
+    s, d = case["s"], case["dangles"]
+    want = {k: v.clone() for k, v in st0.items()}
+    cuda_ops.span_wm_ref(C, want, s, d)
+    row = {"case": case["label"], "primary": f"span_store n={skw['n']} s={skw['s']}"}
+    for label, dependent in (("dependent", True), ("plain", False)):
+        got = {k: v.clone() for k, v in st0.items()}
+
+        def pair(got=got, dependent=dependent):
+            cuda_ops.span_store(*sa, **skw)
+            cuda_ops.span_wm(C, got, s, d, dependent)
+
+        pair()
+        torch.cuda.synchronize()
+        err = max(int((got[k].long() - want[k].long()).abs().max()) for k in st0)
+        check(err == 0, f"span_store -> span_wm ({label}) {case['label']} != plain: "
+              f"max |err| = {err}")
+        row[f"{label}_max_abs_err"] = err
+        row[f"{label}_pair_ms"] = graph_ms(pair, reps=20, replays=5)
+    row["saved_ms"] = row["plain_pair_ms"] - row["dependent_pair_ms"]
+    emit({"phase": "span2d_store_pair", **row})
     return row
 
 
@@ -3200,7 +3255,8 @@ def main():
     report.update(stencil_rows)
     span_k_rows = phase_span(cuda_ops, sp, bucket_dims, torch.device("cuda"), span_ptxas(log))
     report.update(span_k_rows)
-    span2d_rows, report["span2d_pairs"], report["span2d_kept_tables"] = phase_span2d(
+    (span2d_rows, report["span2d_pairs"], report["span2d_store_pairs"],
+     report["span2d_kept_tables"]) = phase_span2d(
         cuda_ops, bucket_dims, torch.device("cuda"), span2d_ptxas(log))
     report.update(span2d_rows)
 
@@ -3565,7 +3621,9 @@ def main():
             "share_of_bound_l2cold": main["share_of_bound_l2cold"],
             "ptxas": main["ptxas"], "matches_plain": True, "shape": main["case"],
             "other_shapes": [{k: r[k] for k in span2d_keys} for r in rows_k[1:]],
-            **({"after_span_wm_pairs": report["span2d_pairs"]} if name == "span_v" else {})})
+            **({"after_span_wm_pairs": report["span2d_pairs"]} if name == "span_v" else {}),
+            **({"after_span_store_pairs": report["span2d_store_pairs"]}
+               if name == "span_wm" else {})})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

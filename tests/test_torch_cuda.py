@@ -7,7 +7,9 @@ against the two-launch loop it replaces, ``fold_many``'s
 fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
 partition function against the CPU's, the long reference anchors
 (n = 134 ... 200) through the packed fill, the batched and the row-sharded
-fills (dense and packed) against single fills.  Marked ``gpu``; each test skips
+fills (dense and packed) against single fills, ``span_wm`` as a dependent
+launch after ``span_store``, ``wx_tables`` on every operand layout and a
+fill through its launch tables against the checked path.  Marked ``gpu``; each test skips
 where no CUDA device is present.  This file imports neither JAX nor
 ``ccj_tpu``, so on a machine without JAX it runs without the suite's
 conftest:
@@ -1048,3 +1050,117 @@ def test_kept_weight_tables_equal_wx_tables_after_every_span(cuda):
     got = chip_smoke.kept_tables_check(cuda_ops, cuda)
     assert got["spans_checked"] == {"fill6 n=100": 100, "fill7 n=134": 134,
                                     "fill6_sharded n=100 P=2": 100}
+
+
+def _span2d_case_operands(case, dev, gen):
+    """The bench tables of one ``chip_smoke.span2d_cases`` shape as the
+    fills hand them (a batch of one as a view, EINT cell-major) and a
+    random 2-D state."""
+    import chip_smoke
+
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.engine.nested import cell_major_eint
+
+    n, B, d = case["n"], case["B"], case["dangles"]
+    C = _span2d_consts(n, d, B, dev)
+    if B == 1:
+        C = tfold.add_batch({k: v[0] if isinstance(v, torch.Tensor) else v
+                             for k, v in C.items()})
+    return cell_major_eint({**C, "n": n}), chip_smoke.span2d_state(B, n, gen, dev)
+
+
+def test_span_wm_matches_plain_plainly_and_as_a_dependent_after_span_store(cuda):
+    """span_wm at every phase-2g shape, exactly against its plain version:
+    launched plainly, and right after a span_store (n=37 span 20's, on a
+    random 4-D state) as its programmatic dependent, as the fills launch
+    it; one launch a call.  This holds the dependent launch's own path
+    (its loads before griddepcontrol.wait, its writes after); the two
+    kernels share no memory, so it shows no race: the fills through their
+    launch tables (below) and the golden folds hold the condition."""
+    import chip_smoke
+
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine.gapped4 import bucket_dims
+    from ccj_tpu_torch.params import parse_par, scale_parameters
+
+    store_case = next(c for c in chip_smoke.span_cases(bucket_dims) if c["n"] == 37)
+    _a, (sa, skw), _st = chip_smoke.span_kernel_calls(
+        cuda_ops, store_case, scale_parameters(parse_par(DEFAULT_PARAM_FILE)),
+        torch.Generator(device=cuda).manual_seed(3), cuda)
+    gen = torch.Generator().manual_seed(11)
+    for case in chip_smoke.span2d_cases(bucket_dims):
+        C, st0 = _span2d_case_operands(case, cuda, gen)
+        s, d = case["s"], case["dangles"]
+        want = {k: v.clone() for k, v in st0.items()}
+        cuda_ops.span_wm_ref(C, want, s, d)
+        for after_store in (False, True):
+            got = {k: v.clone() for k, v in st0.items()}
+            before = cuda_ops.SPAN_WM_LAUNCHES
+            if after_store:
+                cuda_ops.span_store(*sa, **skw)
+            cuda_ops.span_wm(C, got, s, d, dependent=after_store)
+            torch.cuda.synchronize()
+            assert cuda_ops.SPAN_WM_LAUNCHES == before + 1
+            for k in st0:
+                assert torch.equal(got[k], want[k]), (case["label"], after_store, k)
+
+
+@pytest.mark.parametrize("n,B,layout", [(100, 1, "contiguous"), (100, 4, "contiguous"),
+                                        (100, 2, "column-major"), (37, 1, "contiguous"),
+                                        (37, 4, "contiguous"), (37, 3, "column-major"),
+                                        (38, 3, "strided")])
+def test_wx_tables_matches_plain_on_every_layout(cuda, n, B, layout):
+    """wx_tables exactly against its plain version: contiguous WBP / WPP
+    (read at the cell's flat offset), column-major ones and a strided view
+    (through their strides), even and odd n2, batches of 1 to 4."""
+    import chip_smoke
+
+    C = _span2d_consts(n, 2, B, cuda)
+    st = chip_smoke.span2d_state(B, n, torch.Generator().manual_seed(n + B), cuda)
+    for k in ("WBP", "WPP"):
+        if layout == "column-major":
+            st[k] = st[k].transpose(1, 2).contiguous().transpose(1, 2)
+        elif layout == "strided":
+            wide = torch.zeros((B, n + 2, 2 * (n + 2)), dtype=torch.int32, device=cuda)
+            wide[..., 1::2] = st[k]
+            st[k] = wide[..., 1::2]
+    before = cuda_ops.WX_LAUNCHES
+    got = cuda_ops.wx_tables(C, st)
+    torch.cuda.synchronize()
+    assert cuda_ops.WX_LAUNCHES == before + 1
+    assert torch.equal(got, cuda_ops.wx_tables_ref(C, st)), (n, B, layout)
+
+
+@pytest.mark.parametrize("n", [100, 134])
+def test_fill_through_its_launch_tables_equals_the_checked_fill(cuda, n, monkeypatch):
+    """fill6 at n=100 and fill7 at n=134 with the 2-D kernels launched
+    through the fill's launch tables (cuda_ops.span2d_fill_tables, packed
+    once, span_wm a dependent launch after each span_store) against the
+    same fill with every launch packed on the checked path (no table in the
+    fill's dict), array by array; the same launch counts."""
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine import fold as tfold
+    from ccj_tpu_torch.engine.gapped5 import segments7
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    tabs = build_seq_tables(_bench_seq(n, 42), sp, DEFAULT_PK)
+    C, SC4 = tfold.consts_from_numpy(tfold.build_consts(tabs, sp, DEFAULT_PK), cuda)
+
+    def fill():
+        before = tuple(getattr(cuda_ops, c) for c in SPAN2D.values())
+        st = (tfold.fill6(C, SC4, n, sp.dangles) if n <= 128 else
+              tfold.fill7(C, SC4, n, sp.dangles, segments7(n)))
+        torch.cuda.synchronize()
+        return st, tuple(getattr(cuda_ops, c) - b for c, b in zip(SPAN2D.values(), before))
+
+    tables, counts = fill()
+    assert counts == (n - 1, n, n - 3, 1)
+    monkeypatch.setattr(cuda_ops, "span2d_fill_tables",
+                        lambda C, st, dangles: dict.fromkeys(("span_v", "span_wbp", "span_wm")))
+    checked, counts_checked = fill()
+    assert counts_checked == counts
+    assert tables.keys() == checked.keys()
+    for k in tables:
+        assert torch.equal(tables[k], checked[k]), k

@@ -16,15 +16,27 @@ package's functions of the same names:
 * csrc/span2d.cu's walk restated in Python (per live row: the kernel's
   (di, dj) enumeration, its multiloop, WBP / WPP and WM splits, the WB /
   WP weights computed inline, span_wbp's P write and kept tables' cells,
-  int32 sums that wrap) against the plain versions; span_v's closed-form
-  walk of the interior terms against the plain version's mask for every
-  L in [2, 32];
+  span_wm's row cells loaded first and its splits in rounds, loads
+  first, int32 sums that wrap) against the plain
+  versions; span_v's closed-form walk of the interior terms against the
+  plain version's mask for every L in [2, 32]; span_wm's rounds take
+  every split once up to n = 260;
 * the span body of small fills (dense n=20, odd n2, a batch of two,
   dangles 0 / 1 / 2, the packed layout): after every span's WBP/WPP
   update (the P split's minima into span_wbp), P2 / WBP / WPP against
   gapped3.compute_P_span3 + gapped.compute_WBP_WPP_span run apart and the
   JAX package's functions, the kept weight tables against _wx_tables from
   scratch and the JAX one;
+* the fills' launch tables (cuda_ops.span2d_fill_tables): at every
+  span of the dense, packed, batched, resumed fill4 and P=2 row-sharded
+  fills every tensor a table points into keeps the data_ptr and strides
+  packed into it; a launch through a table equals the checked path's
+  table byte for byte; a table is taken only for the very tensors and
+  scalars it was packed from (a swapped state entry, table, scalar or
+  kept tables, or another state, takes the checked path); span_wm is a
+  dependent launch only right after a
+  span_store that launches and writes none of its operands (the call
+  order recorded on the CPU path), never in the row-sharded fill;
 * refusals of operands that do not fit; no launch counted on the CPU;
   CUDA operands without the kernel library raise.
 """
@@ -369,27 +381,85 @@ def _kernel_wbp(C, st, s, p_min=None, wx=None):
                                   min(C["PUP"] * (s + 1), WPP[i, l]), WBP[i, l], WPP[i, l])
 
 
+# csrc/span2d.cu span_wm: a block of 128 threads a row (kThreads), two
+# splits a thread and round (kWMTerms)
+WM_LANES, WM_TERMS = 128, 2
+
+
+def _wm_load(C, b, st, i, j, k, dangles):
+    """wm_load: E_MLStem(k, j)'s V and ML cells (at dangles 1 the three
+    other V cells and their ML tables only where E_MLStem takes them, INF
+    and 0 otherwise), P2(k, j), WM(i, k - 1) (INF for i >= k - 1)."""
+    V = st["V"][b]
+    m = {"v0": _getm(V, k, j), "m0": int(C["ML2" if dangles == 2 else "ML0"][b, k, j]),
+         "p": int(st["P2"][b][k, j]),
+         "w": INF if i >= k - 1 else int(st["WM"][b][i, k - 1]),
+         "v": [INF] * 3, "m": [0] * 3}
+    if dangles == 1:
+        for q, (cond, a, c, tab) in enumerate(((j - k - 1 > TURN, k + 1, j, "ML_ip1"),
+                                               (j - 1 - k > TURN, k, j - 1, "ML_jm1"),
+                                               (j - k - 2 > TURN, k + 1, j - 1, "ML_both"))):
+            if cond:
+                m["v"][q], m["m"][q] = int(V[a, c]), int(C[tab][b, k, j])
+    return m
+
+
+def _wm_stem(m, ML, dangles):
+    """wm_stem: E_MLStem of the loaded cells."""
+    e = _gadd(m["v0"], m["m0"])
+    if dangles == 1:
+        for q, times in enumerate((1, 1, 2)):
+            e = min(e, _gadd(m["v"][q], _wadd(times * ML, m["m"][q])))
+    return e
+
+
+def _wm_rounds(s, lanes, terms):
+    """Each lane's rounds of WM splits g in [0, s - TURN - 1]: lists of the
+    g a round loads before its first min."""
+    return [[[g0 + q * lanes for q in range(terms) if g0 + q * lanes <= s - TURN - 1]
+             for g0 in range(lane, s - TURN, terms * lanes)] for lane in range(lanes)]
+
+
 def _kernel_wm(C, st, s, dangles):
-    """span_wm_kernel: the WM splits, then WMv, WMp and WM of the row."""
+    """span_wm_kernel: thread 0 loads its row's own cells first (E_MLStem(i,
+    j)'s and P2(i, j) through wm_load at k = i, WMv / WMp / WM(i, j - 1));
+    every thread walks its rounds of splits (:func:`_wm_rounds`), all loads
+    of a round before its first min; the row's minimum of the threads',
+    then thread 0 writes WMv, WMp and WM."""
     n = C["n"]
     if s < 3:
         return
     ML, psmb = C["MLbase"], C["PSM"] + C["b"]
+    rounds = _wm_rounds(s, WM_LANES, WM_TERMS)
     for b in range(st["V"].shape[0]):
-        V, P2, WM, WMv, WMp = (st[k][b] for k in ("V", "P2", "WM", "WMv", "WMp"))
+        WM, WMv, WMp = (st[k][b] for k in ("WM", "WMv", "WMp"))
         for i in range(1, n - s + 1):
             j = i + s
-            acc = INF
-            for g in range(s - TURN):
-                k = i + g
-                stem = _mlstem(C, V, b, k, j, dangles)
-                wmb = _wadd(P2[k, j], psmb)
-                wik = INF if i >= k - 1 else int(WM[i, k - 1])
-                acc = min(acc, _wadd(g * ML, stem), _wadd(g * ML, wmb), _wadd(wik, stem),
-                          _wadd(wik, wmb))
-            WMv[i, j] = min(_mlstem(C, V, b, i, j, dangles), _wadd(WMv[i, j - 1], ML))
-            WMp[i, j] = min(_wadd(P2[i, j], psmb), _wadd(WMp[i, j - 1], ML))
-            WM[i, j] = min(acc, _wadd(WM[i, j - 1], ML))
+            own = _wm_load(C, b, st, i, j, i, dangles)
+            prev = int(WMv[i, j - 1]), int(WMp[i, j - 1]), int(WM[i, j - 1])
+            red = [INF] * WM_LANES
+            for lane, lane_rounds in enumerate(rounds):
+                for gs in lane_rounds:
+                    loads = [_wm_load(C, b, st, i, j, i + g, dangles) for g in gs]
+                    for g, m in zip(gs, loads):
+                        stem, wmb = _wm_stem(m, ML, dangles), _wadd(m["p"], psmb)
+                        red[lane] = min(red[lane], _wadd(g * ML, stem), _wadd(g * ML, wmb),
+                                        _wadd(m["w"], stem), _wadd(m["w"], wmb))
+            WMv[i, j] = min(_wm_stem(own, ML, dangles), _wadd(prev[0], ML))
+            WMp[i, j] = min(_wadd(own["p"], psmb), _wadd(prev[1], ML))
+            WM[i, j] = min(min(red), _wadd(prev[2], ML))
+
+
+def test_wm_rounds_take_every_split_once():
+    """span_wm's rounds visit every split g in [0, s - TURN - 1] once, at
+    most kWMTerms a thread and round, for every span s >= 3 up to n = 260,
+    in one round there (s - 3 <= 256)."""
+    for s in range(3, 260):
+        rounds = _wm_rounds(s, WM_LANES, WM_TERMS)
+        got = [g for lane_rounds in rounds for gs in lane_rounds for g in gs]
+        assert sorted(got) == list(range(s - TURN)), s
+        assert all(1 <= len(gs) <= WM_TERMS for lane_rounds in rounds for gs in lane_rounds)
+        assert max(len(r) for r in rounds) == (s > 3), s      # s = 3: no split
 
 
 @pytest.mark.parametrize("dangles", [0, 1, 2])
@@ -579,6 +649,154 @@ def test_sharded_fill_keeps_one_table_home_and_launches_span_v_dependent(monkeyp
 
 
 # ---------------------------------------------------------------------------
+# the fills' launch tables and span_wm's dependent launch
+# ---------------------------------------------------------------------------
+
+FILL_CASES = ("dense n=16", "packed n=16", "batch of two n=16", "fill4 resumed at span 8",
+              "row-sharded P=2 n=14")
+
+
+class _Stop(Exception):
+    pass
+
+
+def _fill_case(case, ckpt):
+    """(the module whose span functions the fill looks up, a callable
+    running the fill on the CPU, the spans its span_wm calls take): one of
+    :data:`FILL_CASES` at dangles 2.  The resumed ``fill4`` snapshots every
+    4 spans, stops after span 9 and resumes from its span-8 snapshot."""
+    from ccj_tpu_torch.dist import wavefront
+    from ccj_tpu_torch.engine import gapped5
+
+    sp = _params(2)[1]
+
+    def consts(seq):
+        return fold.consts_from_numpy(fold.build_consts(build_seq_tables(
+            seq, sp, DEFAULT_PK), sp, DEFAULT_PK), "cpu")
+
+    if case == "row-sharded P=2 n=14":
+        C, SC4 = consts(SEQS[16][0][:14])
+        return wavefront, lambda: wavefront.fill6_sharded(C, SC4, 14, 2, ["cpu"] * 2), \
+            list(range(14))
+    n = 16
+    (C, SC4), (C1, SC41) = consts(SEQS[n][0]), consts(SEQS[n][1])
+    if case == "dense n=16":
+        return fold, lambda: fold.fill6(C, SC4, n, 2), list(range(n))
+    if case == "packed n=16":
+        return fold, lambda: fold.fill7(C, SC4, n, 2, gapped5.segments7(n)), list(range(n))
+    if case == "batch of two n=16":
+        return fold, lambda: fold.fill6_batched(fold.stack_consts([C, C1]),
+                                                fold.stack_consts([SC4, SC41]), n, 2), \
+            list(range(n))
+
+    def resumed():
+        def stop(s, _dt):
+            if s == 9:
+                raise _Stop
+        with pytest.raises(_Stop):
+            fold.fill4(C, SC4, n, 2, checkpoint_dir=ckpt, checkpoint_every=4, on_span=stop)
+        return fold.fill4(C, SC4, n, 2, checkpoint_dir=ckpt, checkpoint_every=4)
+
+    return fold, resumed, list(range(10)) + list(range(8, n))
+
+
+@pytest.mark.parametrize("case", FILL_CASES)
+def test_fill_tables_point_into_tensors_that_keep_their_storage(case, monkeypatch, tmp_path):
+    """Every span of the fill's loop (checked at its span_wm call, the
+    span's last): C holds the three launch tables packed at the loop's
+    start (cuda_ops.span2d_fill_tables), the wrappers take them for the
+    fill's state, and every operand each table points into -- the state's
+    2-D arrays, the fill's tables, EINT cell-major, the kept weight tables
+    -- still has the data_ptr and strides packed into it: the loop swaps
+    no tensor."""
+    mod, run, spans = _fill_case(case, str(tmp_path))
+    real, seen, built = mod.compute_WMv_WMp_WM_span, [], set()
+
+    def checked(C, st, s, d, dependent=False):
+        tabs = C[cuda_ops.SPAN2D_FILL]
+        built.add(id(tabs))
+        assert sorted(tabs) == ["span_v", "span_wbp", "span_wm"]
+        for kind, t in tabs.items():
+            kw = {"out": C[gapped.WX]} if kind == "span_wbp" else {"dangles": d}
+            assert cuda_ops._fill_table(C, st, kind, **kw) is t, (case, s, kind)
+            tb = t.table
+            assert (tb.kind, tb.n, tb.B) == (cuda_ops.SPAN2D_KINDS.index(kind), C["n"],
+                                             st["V"].shape[0])
+            for state, name, held in t.reads:
+                x = (st if state else C)[name]
+                assert x is held, (case, s, kind, name)
+                k, sd = cuda_ops._SPAN2D_SLOT[name], x.stride()
+                assert (tb.p[k], tb.bs[k], tb.rs[k], tb.cs[k]) == (
+                    x.data_ptr(), sd[0], sd[-2], sd[-1]), (case, s, kind, name)
+                if name == "EINT":
+                    assert (tb.edi, tb.edj) == sd[1:3]
+            if kind == "span_wbp":
+                assert tb.p[-1] == C[gapped.WX].data_ptr() and t.out is C[gapped.WX]
+        seen.append(s)
+        return real(C, st, s, d, dependent)
+
+    monkeypatch.setattr(mod, "compute_WMv_WMp_WM_span", checked)
+    run()
+    assert seen == spans
+    # one set of tables a span loop: the resumed fill4 builds its own
+    assert len(built) == (2 if "resumed" in case else 1)
+
+
+@pytest.mark.parametrize("case", FILL_CASES)
+def test_span_wm_is_a_dependent_launch_only_right_after_a_span_store(case, monkeypatch,
+                                                                       tmp_path):
+    """The order the fill's span body dispatches, recorded on the CPU path:
+    every span_wm call that asks for the dependent launch (fold._run_spans:
+    every span) comes right after a span_store, with no aten op (on the
+    card: a kernel) between them, and that span_store launches (its
+    destinations are not empty: cuda_ops.store_table's blocks > 0) and
+    writes none of span_wm's operands; the row-sharded fill launches
+    span_wm plainly."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    mod, run, spans = _fill_case(case, str(tmp_path))
+    events, inside = [], []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not inside and not func.is_view:
+                events.append(("op", str(func)))
+            return func(*args, **(kwargs or {}))
+
+    def spy(name, real):
+        def call(*a, **kw):
+            inside.append(name)
+            try:
+                return real(*a, **kw)
+            finally:
+                inside.pop()
+                if not inside:
+                    events.append((name, a, kw))
+        return call
+
+    real_store, real_wm = cuda_ops.span_store, cuda_ops.span_wm
+    monkeypatch.setattr(cuda_ops, "span_store", spy("span_store", real_store))
+    monkeypatch.setattr(cuda_ops, "span_wm", spy("span_wm", real_wm))
+    with Record():
+        run()
+    wm = [(k, e) for k, e in enumerate(events) if e[0] == "span_wm"]
+    assert [e[1][2] for _, e in wm] == spans
+    dependent = [len(e[1]) > 4 and e[1][4] for _, e in wm]
+    assert dependent == [not case.startswith("row-sharded")] * len(spans), case
+    for k, (_, a, _kw) in wm:
+        if not a[4]:
+            continue
+        kind, sa, skw = events[k - 1]
+        assert kind == "span_store", (case, a[2], kind)
+        dests, loops, xs = sa
+        assert cuda_ops.store_table(dests, loops, xs, **skw)[1] > 0
+        C, st = a[0], a[1]
+        operands = {(st[nm] if nm in cuda_ops._SPAN2D_STATE else C[nm]).untyped_storage()
+                    .data_ptr() for nm in cuda_ops._SPAN2D_READS["span_wm", a[3]]}
+        assert not operands & {d.view.untyped_storage().data_ptr() for d in dests}
+
+
+# ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
 
@@ -653,15 +871,22 @@ def test_wrappers_refuse_operands_that_do_not_fit(fault):
 
 class _CudaTyped:
     """Stands in for a CUDA tensor on a machine without one: what the
-    wrappers inspect before they need the kernel library."""
+    wrappers inspect before they need the kernel library, and what a
+    launch takes of a CPU tensor (its pointer and strides)."""
 
     def __init__(self, x):
-        self.shape, self.dtype = x.shape, x.dtype
+        self.x, self.shape, self.dtype = x, x.shape, x.dtype
         self.device = torch.device("cuda", 0)
         self.is_cuda = True
 
     def dim(self):
         return len(self.shape)
+
+    def data_ptr(self):
+        return self.x.data_ptr()
+
+    def stride(self):
+        return self.x.stride()
 
 
 def test_cuda_operands_raise_without_the_library(monkeypatch, tmp_path):
@@ -698,6 +923,115 @@ def test_table_mirrors_the_kernel_layout():
     for kind in cuda_ops.SPAN2D_KINDS:
         for d in (0, 1, 2):
             assert set(cuda_ops._SPAN2D_READS[kind, d]) <= set(cuda_ops.SPAN2D_OPERANDS)
+
+
+@pytest.mark.parametrize("kind", ["span_v", "span_wbp", "span_wm"])
+def test_fill_table_launch_equals_the_checked_launch(monkeypatch, kind):
+    """A fill's launch table (cuda_ops.Span2dFill), packed once, and then
+    only its span fields written (s, dangles, dependent, span_wbp's P-split
+    minima), gives at two spans the bytes the checked path packs for the
+    same call; the wrapper takes it for the fill's state (on a card: here
+    the table's device is set to cuda:0 and the launch captured), counts
+    each launch, and takes the checked path for another state."""
+    import ctypes
+
+    packed = []
+    monkeypatch.setattr(cuda_ops, "_library", lambda: type("Lib", (), {"ccj_span2d": None}))
+    monkeypatch.setattr(cuda_ops, "_raw_stream", lambda dev: 0)
+    monkeypatch.setattr(cuda_ops, "_launch", lambda fn, dev, what, addr, stream: packed.append(
+        bytes((ctypes.c_char * ctypes.sizeof(cuda_ops.Span2dTable)).from_address(addr))))
+    counter = {"span_v": "SPAN_V_LAUNCHES", "span_wbp": "SPAN_WBP_LAUNCHES",
+               "span_wm": "SPAN_WM_LAUNCHES"}[kind]
+    monkeypatch.setattr(cuda_ops, counter, 0)
+    dangles = 1
+    C, st = _small(B=2, dangles=dangles)
+    C = nested.cell_major_eint({**C})
+    C[gapped.WX] = cuda_ops.wx_tables_ref(C, st)
+    C[cuda_ops.SPAN2D_FILL] = cuda_ops.span2d_fill_tables(C, st, dangles)
+    ft = C[cuda_ops.SPAN2D_FILL][kind]
+    ft.dev = torch.device("cuda", 0)
+    p_min = torch.arange(2 * 18 * 3, dtype=torch.int32).reshape(2, 18, 3)[..., 1]
+    calls = [(9, True, p_min), (10, False, None)]
+    for s, dependent, pm in calls:
+        if kind == "span_wbp":
+            cuda_ops.span_wbp(C, st, s, None if pm is None else _CudaTyped(pm), C[gapped.WX])
+        else:
+            getattr(cuda_ops, kind)(C, st, s, dangles, dependent)
+        _dev, names, xs = cuda_ops.span2d_operands(C, st, kind, dangles)
+        cuda_ops._span2d_launch(kind, C, s, 0 if kind == "span_wbp" else dangles, names, xs,
+                                ft.dev, out=C[gapped.WX] if kind == "span_wbp" else False,
+                                p_min=pm if kind == "span_wbp" else None,
+                                dependent=dependent and kind != "span_wbp")
+        assert packed[-2] == packed[-1], (kind, s)
+    assert getattr(cuda_ops, counter) == len(calls)
+    other = {k: v.clone() for k, v in st.items()}
+    assert cuda_ops._fill_table(C, other, kind, dangles=0 if kind == "span_wbp" else dangles,
+                                out=C[gapped.WX] if kind == "span_wbp" else None) is None
+    assert cuda_ops._fill_table(C, st, kind, dangles=0 if kind == "span_wbp" else dangles,
+                                out=C[gapped.WX] if kind == "span_wbp" else None) is ft
+
+
+SWAPS = {   # what a call changes after the fill's tables were packed: the kinds it stales
+    "state entry reassigned": ("span_v", "span_wbp", "span_wm"),
+    "a table in a copy of C": ("span_v", "span_wm"),
+    "a scalar in a copy of C": ("span_v", "span_wbp", "span_wm"),
+    "other kept tables": ("span_wbp",),
+    "another state": ("span_v", "span_wbp", "span_wm"),
+}
+
+
+@pytest.mark.parametrize("swap", sorted(SWAPS))
+@pytest.mark.parametrize("kind", ["span_v", "span_wbp", "span_wm"])
+def test_fill_table_is_not_taken_after_a_swap(monkeypatch, swap, kind):
+    """A fill's launch table holds the tensors it points into and is taken
+    only for those very tensors and scalars (cuda_ops.Span2dFill.fits):
+    after a state entry is reassigned, in a copy of C that carries the
+    tables with another operand or scalar, for other kept tables or on
+    another state, a wrapper whose operands changed takes the checked path
+    (here the CPU's plain version: no launch from the stale table, the
+    plain version's cells), and one whose operands did not still launches
+    through its table."""
+    import ctypes
+
+    launched = []
+    monkeypatch.setattr(cuda_ops, "_library", lambda: type("Lib", (), {"ccj_span2d": None}))
+    monkeypatch.setattr(cuda_ops, "_raw_stream", lambda dev: 0)
+    monkeypatch.setattr(cuda_ops, "_launch", lambda fn, dev, what, addr, stream: launched.append(
+        (what, ctypes.cast(addr, ctypes.POINTER(cuda_ops.Span2dTable)).contents.s)))
+    for counter in ("SPAN_V_LAUNCHES", "SPAN_WBP_LAUNCHES", "SPAN_WM_LAUNCHES"):
+        monkeypatch.setattr(cuda_ops, counter, 0)
+    dangles = 1
+    C, st = _small(B=2, dangles=dangles)
+    C = nested.cell_major_eint({**C})
+    C[gapped.WX] = cuda_ops.wx_tables_ref(C, st)
+    for t in cuda_ops.span2d_fill_tables(C, st, dangles).values():
+        t.dev = torch.device("cuda", 0)      # a launch through a table is captured
+        C.setdefault(cuda_ops.SPAN2D_FILL, {})[t.kind] = t
+    wx = C[gapped.WX]
+    if swap == "state entry reassigned":
+        st["V"] = st["V"].clone()
+    elif swap == "a table in a copy of C":
+        C = {**C, "EINT": C["EINT"].clone(), "ML0": C["ML0"].clone()}
+    elif swap == "a scalar in a copy of C":
+        C = {**C, "MLbase": C["MLbase"] + 1}
+    elif swap == "other kept tables":
+        wx = wx.clone()
+    else:
+        st = {k: v.clone() for k, v in st.items()}
+    want = {k: v.clone() for k, v in st.items()}
+    wx_want = wx.clone()
+    if kind == "span_wbp":
+        cuda_ops.span_wbp(C, st, 9, None, wx)
+        cuda_ops.span_wbp_ref(C, want, 9, None, wx_want)
+    else:
+        getattr(cuda_ops, kind)(C, st, 9, dangles, True)
+        getattr(cuda_ops, kind + "_ref")(C, want, 9, dangles)
+    stale = kind in SWAPS[swap]
+    assert launched == ([] if stale else [(kind, 9)]), (swap, kind)
+    if stale:
+        _same({k: v.numpy() for k, v in st.items()}, {k: v.numpy() for k, v in want.items()},
+              f"{kind} after {swap}")
+        assert torch.equal(wx, wx_want)
 
 
 @pytest.mark.parametrize("kind,dangles", [("span_v", 1), ("span_v", 2), ("span_wbp", 2),
