@@ -8,8 +8,8 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the CUDA kernel library from
-   ``ccj_tpu_torch/csrc/`` (the thirteen kernels, one ``nvcc`` per
-   source, the nine sources run together) and report the build time;
+   ``ccj_tpu_torch/csrc/`` (the seventeen kernels, one ``nvcc`` per
+   source, the ten sources run together) and report the build time;
 2. the min-plus kernel against its plain PyTorch version on the card,
    exactly (tolerance zero: integer data): single windows
    (``minplus_window``, a group of one) in all three mask modes, at the CPU
@@ -191,15 +191,30 @@ Phases; any failure exits non-zero and prints no result:
    cuda:0), then one process alone; both outputs equal the goldens in order
    with no ``error``; each process's wall, fold wall and the tt-loop
    kernels' launches (the CLI prints them);
-11. the partition function: the float64 device fill on the card against
-   the host float64 engine at n=16 (rtol 1e-9); float32 against float64
-   on the card at n=64 (Z within a relative 1e-5); the n=64 float32 fill's
-   wall, peak device memory, and its device launches (kernels, copies and
-   memsets) and their summed device time from a profiler run apart;
-   ``partition`` at n=64 with 1000 samples end to end, its ensemble
-   energy at or below the MFE.  The fill reaches no Pallas
-   kernel in the JAX package, so it is plain PyTorch here and launches no
-   tt-loop kernel (checked);
+11. the partition function and its four span kernels
+   (``engine/pf_ops.py``, ``csrc/pfspan.cu``): ``pf_tt_span``,
+   ``pf_history``, ``pf_stencil`` and ``pf_p_split`` against their plain
+   versions on the card, on the n=64 fill's own operands at spans 20, 40
+   and 62 in float32 and float64 (:func:`pf_kernel_calls`; relative error
+   within 1e-5 / 1e-12), each with its L2-hot and L2-cold device times,
+   its eager call's, the plain version's eager call's and its bound
+   (:func:`pf_bound`: the distinct elements it needs against its
+   multiply-adds at the float32 / float64 rate; no library yardstick);
+   the float64 fill on the card against the host float64 engine at n=16
+   (rtol 1e-9) and against the CPU's fill (the plain versions) at n=40
+   (rtol 1e-9); the n=64 float32 and float64 fills' walls, peak device
+   memory and parts timed inside the same run (constants, span loop,
+   copy-out, exterior W: :func:`pf_fill_split`), float32's Z against
+   float64's (within 1e-5); the float64 fill of the n=100 bench
+   sequence, its wall, parts and peak, a finite Z and an ensemble energy
+   at or below the MFE; the n=64 float32 fill's device launches
+   (kernels, copies and memsets), their summed device time and each PF
+   kernel's from a profiler run apart, beside the all-eager fill's
+   797,597 launches and 2.77 s (an earlier run's, under a key of their
+   own); ``partition`` at n=64 with
+   1000 samples end to end, its PF launches reset just before and held
+   to :func:`pf_counts` (62 / 62 / 62 / 61) after, its ensemble energy
+   at or below the MFE; it launches no MFE kernel (checked);
 12. the device's busy share of the batched fills: spans 40-41 of phase
    9's batch (a batched fill stopped at span 40) and spans 70-71 of phase
    4c's (the window PERF.md gives for the single n=100 fill), their
@@ -2474,21 +2489,368 @@ def max_rel_err(got, want):
     return float((np.abs(got - want) / den).max())
 
 
-def phase_partition(sp, fold, dev="cuda", n=64):
-    """Phase 11: the sum-product fill on ``dev``; returns its report (keys
-    name the phase's n=64, the length it runs at)."""
+# ---------------------------------------------------------------------------
+# phase 11: the partition function and its four span kernels
+# ---------------------------------------------------------------------------
+
+PF_KERNELS = ("pf_tt_span", "pf_history", "pf_stencil", "pf_p_split")
+PF_COUNTERS = {"pf_tt_span": "PF_TT_SPAN_LAUNCHES", "pf_history": "PF_HISTORY_LAUNCHES",
+               "pf_stencil": "PF_STENCIL_LAUNCHES", "pf_p_split": "PF_PSPLIT_LAUNCHES"}
+PF_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+PF_SPANS = (20, 40, 62)      # phase 11's kernel checks at n=64
+PF_REPLACES = {"pf_tt_span": REPLACES,                       # _minplus_kernel's (+, x) form
+               "pf_history": "ccj_tpu/engine/pf4d.py:312",   # XLA fusions of the JAX
+               "pf_stencil": "ccj_tpu/engine/pf4d.py:359",   # PF span step, no Pallas
+               "pf_p_split": "ccj_tpu/engine/pf4d.py:206"}   # kernel
+FP64_OPS_PER_S = 34e12      # H100 SXM non-tensor-core float64 peak (NVIDIA data sheet)
+# the n=64 float32 fill with every piece eager, before the PF kernels: not
+# measured in this run; printed under its own key as the yardstick
+PF_EAGER = {"fill_s": 14.52, "device_launches": 797597, "device_busy_s": 2.77,
+            "measured": "by this phase before the PF kernels, "
+                        "on an NVIDIA H100 80GB HBM3 at 700 W"}
+
+
+def pf_counts(n):
+    """The PF kernels' launches in one fill of length n, from their
+    bounds: a span has a valid cell where it has a tt step (s >= 2) and a
+    live row (i >= 1, i + s <= n: s <= n - 1); the P split also needs a
+    term (s >= 3)."""
+    cells = sum(1 for s in range(n) if 2 <= s <= n - 1)
+    return {"pf_tt_span": cells, "pf_history": cells, "pf_stencil": cells,
+            "pf_p_split": sum(1 for s in range(n) if 3 <= s <= n - 1)}
+
+
+def pf_launches(pf_ops):
+    return {k: getattr(pf_ops, c) for k, c in PF_COUNTERS.items()}
+
+
+def pf_reset(pf_ops):
+    for c in PF_COUNTERS.values():
+        setattr(pf_ops, c, 0)
+
+
+def pf_kernel_calls(n, spans, dtype, dev, visit, sp=None):
+    """Fill the bench sequence's partition function at length n on
+    ``dev`` span by span (``pf4d.pf_span_step``, as ``pf_fill_device``
+    does); in each span of ``spans`` every call of a PF kernel's wrapper
+    goes to ``visit(name, s, wrapper, plain, args, kw)`` instead, and the
+    fill takes what it returns (the operands are the fill's own, read
+    before the span writes the state), through ``pf_span_step``'s
+    ``kernels``.  Returns the final state."""
+    from types import SimpleNamespace
+
+    from ccj_tpu_torch.engine import pf4d, pf_ops
+    from ccj_tpu_torch.engine.gapped4 import bucket_dims
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    if sp is None:
+        sp = scale_parameters(parse_par(ROOT / "ccj_tpu_torch" / "params"
+                                        / "rna_DirksPierce09.par"))
+    tabs = build_seq_tables(bench_seq(n), sp, DEFAULT_PK)
+    C, _, _ = pf4d.build_pfc(tabs, sp, DEFAULT_PK, dtype=dtype, device=dev)
+    st = pf4d.init_pf_state(n, dtype, dev)
+
+    def spy(name, s):
+        def call(*args, **kw):
+            return visit(name, s, getattr(pf_ops, name), getattr(pf_ops, name + "_ref"),
+                         args, kw)
+        return call
+    with torch.no_grad():
+        for s in range(n):
+            kernels = SimpleNamespace(**{k: spy(k, s) for k in PF_KERNELS}) \
+                if s in spans else None
+            TB, IB = bucket_dims(n, s)
+            pf4d.pf_span_step(C, st, s, n=n, TB=TB, IB=IB, kernels=kernels)
+    return st
+
+
+def pf_rel_err(got, want):
+    """Largest |got - want| / max(|got|, |want|) over two tensors on the
+    card (0 where both are 0)."""
+    den = torch.maximum(got.abs(), want.abs())
+    return float(torch.where(den > 0, (got - want).abs() / den.clamp_min(1e-300), 0.0).max())
+
+
+def pf_cells(n, s, IB):
+    """The span's valid cells as arrays (tt, i, jr): live rows i, tt in
+    [0, s - 2], j = i + jr in [i, i + s - tt - 2]."""
+    import numpy as np
+
+    tt, i, jr = [], [], []
+    for r in range(1, min(n - s, IB - 1) + 1):
+        for t in range(s - 1):
+            m = s - t - 1
+            tt.append(np.full(m, t))
+            i.append(np.full(m, r))
+            jr.append(np.arange(m))
+    if not tt:
+        return (np.zeros(0, int),) * 3
+    return np.concatenate(tt), np.concatenate(i), np.concatenate(jr)
+
+
+_PF_WORK = {}
+
+
+def pf_work(name, n, s, TB, IB):
+    """({operand: elements moved}, multiply-adds, extra bytes) of one PF
+    kernel call at span s, as this run's shapes fix them.  Each input
+    element the function needs is counted once (the distinct cells of each
+    state array and weight table it reads, by the operand's name; ``cells``:
+    the per-cell inputs and the outputs of the span's valid cells), and
+    the terms are those of the sums the recurrences define.  The count is
+    data-independent: any valid cell of the state or of a slab may be
+    nonzero, so every weight that multiplies one is needed and every term
+    that reads one.  Extra bytes: ``ptype`` at 4 and ``can_pair`` at 1 a
+    cell."""
+    import numpy as np
+
+    key = (name, n, s)
+    if key in _PF_WORK:
+        return _PF_WORK[key]
+    n2, T, S = n + 2, n - 1, n
+    U = n2 + T
+    DS_ = 29
+    tt, i, jr = pf_cells(n, s, IB)
+    j = i + jr
+    ncell = len(tt)
+
+    def pos(x):
+        return np.clip(x, 0, None)
+
+    def distinct(shape, marks):
+        m = np.zeros(int(np.prod(shape)), bool)
+        for idx in marks:
+            m[np.ravel_multi_index(idx, shape)] = True
+        return int(m.sum())
+
+    def line(a0, b0, da, db, cnt):
+        """The cells (a0 + m da, b0 + m db), m in [0, cnt), of each entry."""
+        cnt = pos(cnt)
+        idx = np.repeat(np.arange(len(cnt)), cnt)
+        m = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        return a0[idx] + da * m, b0[idx] + db * m
+
+    def rect(d1m, d2m, summ=None):
+        """(d1, d2, cell index) of every term d1 <= d1m, d2 <= d2m (and
+        d1 + d2 <= summ)."""
+        for d1 in range(1, DS_ + 1):
+            for d2 in range(1, DS_ + 1):
+                sel = (d1 <= d1m) & (d2 <= d2m)
+                if summ is not None:
+                    sel &= d1 + d2 <= summ
+                if sel.any():
+                    yield d1, d2, sel
+
+    if name == "pf_tt_span":
+        k = j + tt + 2
+        d1m, d2m = np.minimum(DS_, jr - 1), np.minimum(DS_, s - tt - jr - 3)
+        hi, hk, hj = s - 2, s - 3 - jr, jr + tt - 1
+
+        # the shrinks' terms tp in (tt, h] whose source cell is a valid one:
+        # a j-shrink's slab[tp, i, j + tt - tp] needs tp <= jr + tt, a
+        # k-shrink's slab[tp, i, j] tp <= s - 2 - jr and its weight's
+        # column k + tp - tt - 1 <= n2 - 1
+        def tj(h):
+            return pos(np.minimum(h, jr + tt) - tt)
+
+        def tk(h):
+            return pos(np.minimum(np.minimum(h, s - 2 - jr), n2 + tt - k) - tt)
+        terms = (pos(d1m) * pos(d2m) + 3 * tj(hi) + 4 * tj(np.minimum(hi, hj))
+                 + 3 * tk(hi) + 3 * tk(np.minimum(hi, hk)))
+        dpm = distinct((DS_, DS_, T, U), ((np.full(sel.sum(), d1 - 1), np.full(sel.sum(), d2 - 1),
+                                            tt[sel], (j + tt)[sel])
+                                           for d1, d2, sel in rect(d1m, d2m)))
+        # the weights: a j-shrink's X[j', j] for j' in (j - tj(h), j], a
+        # k-shrink's X[k, k'] for k' in [k, k + tk(h)); WB and WBPg up to
+        # s - 2 (WB's j1 sum is inside that), WP under the j1 / k1 bounds
+        def shrinks(hj_, hk_):
+            return (line(j, j, -1, 0, tj(hj_)), line(k, k, 0, 1, tk(hk_)))
+        elems = {tab: distinct((n2, n2), shrinks(*h)) for tab, h in (
+            ("WB", (hi, hi)), ("WBPg", (hi, hi)),
+            ("WP", (np.minimum(hi, hj), np.minimum(hi, hk))))}
+        pm = distinct((n2, n2), ((j, k),))                 # the PM step's (j, k) pairs
+        x = (jr >= 1) & (jr <= s - tt - 3)                 # PM[tt + 2, i, j - 1] valid
+        elems.update(cells=(10 + 14) * ncell, DPM=dpm, scalars=4,
+                     expESTP=distinct((n2, n2), ((j[x] - 1, k[x] + 1),)))
+        work = (elems, int(terms.sum()), 5 * pm)           # + ptype / can_pair bytes
+    elif name == "pf_history":
+        from ccj_tpu_torch.engine.pf_ops import PF_HISTORY
+
+        sp0 = max(s - TB, 0)
+        terms, lo_of, w_of = 0, {}, {"WB": [], "WP": [], "WBPg": []}
+        for mode, fam, tab, g1 in PF_HISTORY:
+            lo = np.full(ncell, sp0)
+            if g1:
+                lo = np.maximum(lo, s - jr + 1 if mode == "RI" else jr + tt + 3)
+            terms += int(pos(s - lo).sum())
+            src = fam if mode == "RL" else "C_" + fam
+            lo_of[src] = lo if src not in lo_of else np.minimum(lo_of[src], lo)
+            # a row's weights over sp in [lo, s - 1]: RL X[i + sp + 1, i + s],
+            # RI X[i, i + s - sp - 1]
+            rlo = np.full(n2, s)
+            np.minimum.at(rlo, i, lo)
+            r = np.unique(i)
+            w_of[tab].append(
+                line(r + rlo[r] + 1, r + s, 1, 0, s - rlo[r]) if mode == "RL"
+                else line(r, r + s - rlo[r] - 1, 0, -1, s - rlo[r]))
+        elems = {"cells": 16 * ncell, **{src: int(pos(s - lo).sum()) for src, lo in lo_of.items()},
+                 **{tab: distinct((n2, n2), marks) for tab, marks in w_of.items()}}
+        work = (elems, terms, 0)
+    elif name == "pf_stencil":
+        # each family's terms whose source cell is a valid one: PL's
+        # PL[tt + d2, s - d1, i + d1, j - d2] needs d1 + d2 <= min(jr,
+        # s - tt - 2), PR's PR[tt + d1, s - d2, i, j] d1 + d2 <= s - tt - jr
+        # - 2; PO's bounds keep its sources valid
+        st_shape = (T, S, n2, n2)
+        pl = (np.minimum(np.minimum(DS_, s), n2 - 1 - i), np.minimum(np.minimum(DS_, T - 1 - tt), j),
+              np.minimum(jr, s - tt - 2))
+        pr = (np.minimum(DS_, T - 1 - tt), np.full(ncell, min(DS_, s)), s - tt - jr - 2)
+        po = (np.minimum(DS_, jr - 1), np.minimum(DS_, s - tt - jr - 3))
+        terms = sum(int(x.sum()) for b in (pl, pr, po) for _, _, x in rect(*b))
+
+        def marks(bounds, idx, weight):
+            """The cell of each term of the rectangle ``bounds``:
+            ``idx(d1, d2)``'s index arrays over the span's cells, led by
+            (d1 - 1, d2 - 1) in a weight table."""
+            for d1, d2, x in rect(*bounds):
+                lead = (np.full(x.sum(), d1 - 1), np.full(x.sum(), d2 - 1)) if weight else ()
+                yield lead + tuple(np.broadcast_to(a, x.shape)[x] for a in idx(d1, d2))
+        elems = {
+            "cells": 3 * ncell,
+            "PL": distinct(st_shape, marks(pl, lambda d1, d2: (tt + d2, s - d1, i + d1, j - d2),
+                                           False)),
+            "W4PL": distinct((DS_, DS_, n2, n2), marks(pl, lambda d1, d2: (i, j), True)),
+            "PR": distinct(st_shape, marks(pr, lambda d1, d2: (tt + d1, s - d2, i, j), False)),
+            "W4PR": distinct((DS_, DS_, n2 + T + 2, 2 * n2),
+                             marks(pr, lambda d1, d2: (j + tt + 2, s + i), True)),
+            "PO": distinct(st_shape, marks(po, lambda d1, d2: (tt, s - d1 - d2, i + d1, j),
+                                           False)),
+            "W4POD": distinct((DS_, DS_, n2, n2), marks(po, lambda d1, d2: (i, s), True))}
+        work = (elems, terms, 0)
+    else:       # pf_p_split: C(s, 3) terms a live row, each reading its own two cells
+        rows = max(0, n - s)
+        terms = rows * math.comb(s, 3)
+        work = ({"cells": rows, "PKE": terms, "PKD": terms}, terms, 0)
+    _PF_WORK[key] = work
+    return work
+
+
+def pf_bound(name, n, s, TB, IB, dtype):
+    """(bound_ms, bound_by, bytes, flops) of one call: the bytes over the
+    card's memory rate against the multiply-adds (2 operations each) over
+    its float32 / float64 rate."""
+    elems, terms, extra = pf_work(name, n, s, TB, IB)
+    size = torch.finfo(dtype).bits // 8
+    nbytes, flops = sum(elems.values()) * size + extra, 2 * terms
+    rate = FP64_OPS_PER_S if dtype == torch.float64 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def pf_kernel_row(rows, n, dtype, timed, name, s, fn, ref, args, kw):
+    """A :func:`pf_kernel_calls` visit: the kernel against its plain
+    version on the fill's own operands, within :data:`PF_RTOL`; with
+    ``timed`` its L2-hot and L2-cold device times, its eager call's, the
+    plain version's eager call's and its bound.  Returns the kernel's
+    result."""
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref(*args, **kw)
+    err = pf_rel_err(got, want)
+    tol = PF_RTOL[dtype]
+    label = f"{name} n={n} s={s} {str(dtype)[6:]}"
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{label}: shape {tuple(got.shape)} / {tuple(want.shape)} or not finite")
+    check(err <= tol, f"{label}: max rel err {err} > {tol}")
+    row = {"kernel": name, "case": f"n={n} s={s}", "dtype": str(dtype)[6:],
+           "max_rel_err": err, "rtol": tol,
+           "max_abs_err": float((got - want).abs().max()),
+           "nonzero": int((got != 0).sum())}
+    if timed:
+        TB, IB = kw.get("TB", 0), kw.get("IB", n + 2)
+
+        def call():
+            fn(*args, **kw)
+        row.update(ms=graph_ms(call, reps=10, replays=5),
+                   ms_l2cold=graph_cold_ms(call, reps=10, replays=2),
+                   call_ms=cuda_ms(call, 10),
+                   plain_ms=cuda_ms(lambda: ref(*args, **kw), 2))
+        bound_ms, by, nbytes, flops = pf_bound(name, n, s, TB, IB, dtype)
+        row.update(bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops,
+                   share_of_bound=bound_ms / row["ms"],
+                   share_of_bound_l2cold=bound_ms / row["ms_l2cold"], library_ms=None)
+    rows.append(row)
+    emit({"phase": "pf_kernel", **row})
+    return got
+
+
+def pf_fill_err(got, want):
+    """Largest relative difference of two PF fill results over every 2-D
+    matrix, W and every 4-D array."""
+    worst = max(max_rel_err(got[k], want[k])
+                for k in ("V", "WM", "WMv", "WMp", "P2", "WBP", "WPP", "W"))
+    for name, view in want["M4"].items():
+        worst = max(worst, max_rel_err(got["M4"][name].arr, view.arr))
+    return worst
+
+
+def pf_ptxas(log):
+    """``ptxas_usage`` of the four PF kernels' float and double
+    instantiations: {"pf_tt_span<float>": usage, ...}."""
+    usage = ptxas_usage(log)
+    return {f"{k}<{t}>": next((v for name, v in usage.items() if f"{k}_kernelI{c}E" in name),
+                              None)
+            for k in PF_KERNELS for t, c in (("float", "f"), ("double", "d"))}
+
+
+def pf_fill_split(key, out, tabs, sp, dtype, dev):
+    """One PF fill on ``dev`` from a drained queue and empty caches: its
+    wall, peak device memory and, from the same run, its parts
+    (``pf_fill_device``'s ``times``: constants, span loop, copy-out,
+    exterior W) into ``out`` under ``key``; returns the fill's result."""
+    from ccj_tpu_torch.engine.pf4d import pf_fill_device
+    from ccj_tpu_torch.params import DEFAULT_PK
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    parts = {}
+    t0 = time.perf_counter()
+    res = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=dtype, device=dev, times=parts)
+    out[f"{key}_fill_s"] = time.perf_counter() - t0
+    out[f"{key}_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out.update({f"{key}_{part}": v for part, v in parts.items()})
+    return res
+
+
+def phase_partition(sp, fold, dev="cuda", n=64, ptxas=None):
+    """Phase 11: the sum-product fill on ``dev`` and its four kernels;
+    returns its report (keys name the lengths they run at; ``ptxas``, the
+    kernels' :func:`pf_ptxas`, goes in as it is)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ccj_tpu_torch.api import partition
-    from ccj_tpu_torch.engine import cuda_ops
+    from ccj_tpu_torch.engine import cuda_ops, pf_ops
     from ccj_tpu_torch.engine import pf as pfmod
     from ccj_tpu_torch.engine.pf4d import pf_fill_device
     from ccj_tpu_torch.params import DEFAULT_PK
     from ccj_tpu_torch.precompute import build_seq_tables
 
-    out = {}
-    reset_counts(cuda_ops)
+    out = {"ptxas": ptxas}
+    # each kernel against its plain version on the n=64 fill's own operands
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        pf_kernel_calls(n, PF_SPANS, dtype, dev,
+                        lambda *a, dtype=dtype: pf_kernel_row(rows, n, dtype, True, *a), sp=sp)
+    check(sorted({(r["kernel"], r["case"], r["dtype"]) for r in rows})
+          == sorted((k, f"n={n} s={s}", d) for k in PF_KERNELS for s in PF_SPANS
+                    for d in ("float32", "float64")),
+          f"phase 11 checked {len(rows)} kernel calls, not each kernel at each span")
+    out["kernel_rows"] = rows
+
     # float64 on the card against the host float64 engine at n=16
     tabs = build_seq_tables("GCGCUUCGCCGCGCCA", sp, DEFAULT_PK)
     host = pfmod.pf_fill(tabs, sp, DEFAULT_PK)
@@ -2502,24 +2864,44 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     check(worst <= 1e-9, f"float64 PF on the card vs host at n=16: rel err {worst}")
     out["n16_f64_vs_host_max_rel_err"] = worst
 
+    # float64 at n=40: the card (kernels) against the CPU (plain versions)
+    tabs = build_seq_tables(bench_seq(40), sp, DEFAULT_PK)
+    t0 = time.perf_counter()
+    r40 = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device=dev)
+    out["n40_f64_fill_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r40_cpu = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device="cpu")
+    out["n40_f64_cpu_fill_s"] = time.perf_counter() - t0
+    out["n40_f64_vs_cpu_max_rel_err"] = pf_fill_err(r40, r40_cpu)
+    check(out["n40_f64_vs_cpu_max_rel_err"] <= 1e-9,
+          f"float64 PF at n=40, card vs CPU: rel err {out['n40_f64_vs_cpu_max_rel_err']}")
+    del r40, r40_cpu
+
     # n=64: float32 (the default) against float64, both on the card
     seq = bench_seq(n)
     tabs = build_seq_tables(seq, sp, DEFAULT_PK)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    r32 = pf_fill_device(tabs, sp, DEFAULT_PK, device=dev)
-    out["n64_f32_fill_s"] = time.perf_counter() - t0
-    out["n64_f32_max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    r64 = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device=dev)
-    out["n64_f64_fill_s"] = time.perf_counter() - t0
-    z32, z64 = float(r32["W"][n]), float(r64["W"][n])
+    res = {}
+    for key, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        res[key] = pf_fill_split(f"n{n}_{key}", out, tabs, sp, dtype, dev)
+    z32, z64 = float(res["f32"]["W"][n]), float(res["f64"]["W"][n])
     rel = abs(z32 - z64) / abs(z64)
     check(math.isfinite(z32) and z64 > 0 and rel < 1e-5,
           f"n=64: float32 Z {z32!r} vs float64 Z {z64!r} (rel {rel})")
     out.update({"n64_Z_f32": z32, "n64_Z_f64": z64, "n64_Z_rel_err": rel})
+    del res
+
+    # float64 at n=100, the bench sequence: wall, peak, Z, ensemble energy
+    seq100 = bench_seq(100)
+    tabs100 = build_seq_tables(seq100, sp, DEFAULT_PK)
+    r100 = pf_fill_split("n100_f64", out, tabs100, sp, torch.float64, dev)
+    z100 = float(r100["W"][100])
+    e100 = pfmod.ensemble_energy(r100)
+    mfe100 = fold(seq100, device=dev).energy
+    check(math.isfinite(z100) and z100 > 0, f"n=100 float64 Z = {z100!r}")
+    check(e100 <= mfe100 + 1e-6, f"n=100 ensemble energy {e100} above the MFE {mfe100}")
+    out.update({"n100_Z_f64": z100, "n100_ensemble_energy": e100, "n100_mfe": mfe100})
+    del r100
+    torch.cuda.empty_cache()
 
     # device work the float32 fill launches (a profiler run apart; its raw
     # events are read directly, key_averages over them would take minutes)
@@ -2529,15 +2911,27 @@ def phase_partition(sp, fold, dev="cuda", n=64):
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
     copies = [e for e in events if e.name().startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in events:
+        if e.name().startswith("void (anonymous namespace)::pf_"):
+            key = e.name().split("::")[1].split("_kernel")[0]
+            by_name[key] = by_name.get(key, 0.0) + e.duration_ns() / 1e9
     out["n64_f32_device_launches"] = len(events)
     out["n64_f32_device_copies"] = len(copies)
     out["n64_f32_device_busy_s"] = sum(e.duration_ns() for e in events) / 1e9
+    out["n64_f32_pf_kernel_busy_s"] = by_name
     out["n64_profile_s"] = time.perf_counter() - t0
+    out["n64_f32_all_eager_not_this_run"] = PF_EAGER
 
     # partition end to end, and thermodynamic consistency with the MFE fold
+    reset_counts(cuda_ops)
+    pf_reset(pf_ops)
     t0 = time.perf_counter()
     pf = partition(seq, num_samples=1000, device=dev)
     out["n64_partition_s"] = time.perf_counter() - t0
+    out["pf_launches"] = pf_launches(pf_ops)
+    check(out["pf_launches"] == pf_counts(n),
+          f"partition n={n}: PF kernel launches {out['pf_launches']} != {pf_counts(n)}")
     out["launches"] = loop_launches(cuda_ops, (0,) * len(FILL_KERNELS),
                                     "the partition function")
     mfe = fold(seq, device=dev)
@@ -3423,8 +3817,9 @@ def main():
     emit({"phase": "corpus_processes", **report["corpus_processes"]})
 
     # ---- 11: the partition function (the profiler from here on) ---------------
-    report["partition"] = phase_partition(sp, fold)
-    emit({"phase": "partition", **report["partition"]})
+    report["partition"] = phase_partition(sp, fold, ptxas=pf_ptxas(log))
+    emit({"phase": "partition", **{k: v for k, v in report["partition"].items()
+                                   if k != "kernel_rows"}})
 
     # ---- 12: the batched fills' device busy share ----------------------------
     for key, seqs_b, lo in (("n64_x8", seqs64, 40), ("n100_x4", seqs100, 70)):
@@ -3624,6 +4019,36 @@ def main():
             **({"after_span_wm_pairs": report["span2d_pairs"]} if name == "span_v" else {}),
             **({"after_span_store_pairs": report["span2d_store_pairs"]}
                if name == "span_wm" else {})})
+    pf_keys = ("case", "dtype", "ms", "ms_l2cold", "plain_ms", "call_ms", "bound_ms",
+               "bound_by", "share_of_bound", "share_of_bound_l2cold", "bytes", "flops",
+               "max_rel_err", "rtol", "max_abs_err")
+    for name, what in (
+            ("pf_tt_span", "on the partition function's path, the (+, x) form of "
+             "pallas_ops.py:_minplus_kernel (the PF tt loop's 6 red_k / 7 red_j suffix sums) "
+             "with the rest of the XLA fusion of pf4d.py:470-579 (t_body: the PM stencil, "
+             "the 14 families), every step of a span in one launch"),
+            ("pf_history", "the XLA fusion of the PF span's 16 RL / RI weighted sums "
+             "(pf4d.py:312-344, :428-443), one launch a span"),
+            ("pf_stencil", "the XLA fusion of the PF span's PL / PR / PO interior-loop "
+             "stencils (pf4d.py:359-427), one launch a span"),
+            ("pf_p_split", "the XLA fusion of P2's span-s diagonal over PKE / PKD "
+             "(pf4d.py:206-233), one launch a span")):
+        rows_k = [r for r in report["partition"]["kernel_rows"] if r["kernel"] == name]
+        main = next(r for r in rows_k if r["case"] == "n=64 s=40" and r["dtype"] == "float32")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "ccj_tpu_torch/csrc/pfspan.cu",
+            "replaces": PF_REPLACES[name], "replaces_what": what,
+            "launches": report["partition"]["pf_launches"][name],
+            "launches_by_path": {"partition n=64 (float32 fill)":
+                                 report["partition"]["pf_launches"][name]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
+            "max_rel_err": max(r["max_rel_err"] for r in rows_k),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "call_ms": main["call_ms"],
+            "ms_l2cold": main["ms_l2cold"], "share_of_bound": main["share_of_bound"],
+            "share_of_bound_l2cold": main["share_of_bound_l2cold"],
+            "matches_plain": True, "shape": f"{main['case']} {main['dtype']}",
+            "other_shapes": [{k: r[k] for k in pf_keys} for r in rows_k if r is not main]})
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -2,7 +2,9 @@
 ``history_min``, ``p_split``, ``stencil_pl``, ``stencil_pr``,
 ``span_assemble``, ``span_store``, ``span_v``, ``span_wbp``, ``span_wm``,
 ``wx_tables``) against
-their plain PyTorch versions, on the card (exact: integer data), ``tt_span``
+their plain PyTorch versions, on the card (exact: integer data), the
+partition fill's four (``pf_tt_span``, ``pf_history``, ``pf_stencil``,
+``pf_p_split``) within rtol 1e-12 (float64) / 1e-5 (float32), ``tt_span``
 against the two-launch loop it replaces, ``fold_many``'s
 fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
 partition function against the CPU's, the long reference anchors
@@ -172,6 +174,59 @@ def test_pf_float64_on_cuda_matches_cpu(cuda):
     for name, view in want["M4"].items():
         np.testing.assert_allclose(got["M4"][name].arr, view.arr, rtol=1e-12,
                                    atol=1e-300, err_msg=name)
+
+
+PF_SPANS48 = (20, 33, 46)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_pf_kernels_match_plain(cuda, dtype):
+    """The partition fill's four kernels (``pf_ops.pf_tt_span``,
+    ``pf_history``, ``pf_stencil``, ``pf_p_split``) against their plain
+    versions on the card, on the n=48 fill's own operands at spans 20, 33
+    and 46 (``chip_smoke.pf_kernel_calls``): rtol 1e-12 in float64, 1e-5
+    in float32, one launch a call."""
+    import chip_smoke
+    from ccj_tpu_torch.engine import pf_ops
+
+    seen = []
+
+    def visit(name, s, fn, ref, args, kw):
+        before = getattr(pf_ops, chip_smoke.PF_COUNTERS[name])
+        got = fn(*args, **kw)
+        assert getattr(pf_ops, chip_smoke.PF_COUNTERS[name]) == before + 1, name
+        want = ref(*args, **kw)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), (name, s)
+        err = chip_smoke.pf_rel_err(got, want)
+        assert err <= chip_smoke.PF_RTOL[dtype], (name, s, err)
+        seen.append((name, s, int((got != 0).sum())))
+        return got
+
+    chip_smoke.pf_kernel_calls(48, PF_SPANS48, dtype, cuda, visit)
+    assert sorted(x[:2] for x in seen) == sorted(
+        (k, s) for k in chip_smoke.PF_KERNELS for s in PF_SPANS48)
+    assert all(nz > 0 for name, s, nz in seen if name != "pf_p_split")
+
+
+def test_pf_fill_n40_float64_on_cuda_matches_cpu(cuda):
+    """A whole float64 fill at n=40 on the card (the four kernels, one
+    launch each a span) against the CPU's (their plain versions), rtol
+    1e-9 on every array."""
+    import chip_smoke
+    from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
+    from ccj_tpu_torch.engine import pf_ops
+    from ccj_tpu_torch.engine.pf4d import pf_fill_device
+    from ccj_tpu_torch.params import DEFAULT_PK, parse_par, scale_parameters
+    from ccj_tpu_torch.precompute import build_seq_tables
+
+    sp = scale_parameters(parse_par(DEFAULT_PARAM_FILE))
+    tabs = build_seq_tables(chip_smoke.bench_seq(40), sp, DEFAULT_PK)
+    before = chip_smoke.pf_launches(pf_ops)
+    got = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device=cuda)
+    after = chip_smoke.pf_launches(pf_ops)
+    assert {k: after[k] - before[k] for k in after} == chip_smoke.pf_counts(40)
+    want = pf_fill_device(tabs, sp, DEFAULT_PK, dtype=torch.float64, device="cpu")
+    assert chip_smoke.pf_fill_err(got, want) <= 1e-9
 
 
 LONG_ANCHORS = (134, 140, 150, 160, 170, 180, 200)
