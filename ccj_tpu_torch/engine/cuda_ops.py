@@ -88,9 +88,9 @@ times); ``TT_STEP_LAUNCHES`` counts ``tt_step`` launches,
 and ``SPAN_V_LAUNCHES``, ``SPAN_WBP_LAUNCHES``, ``SPAN_WM_LAUNCHES`` and
 ``WX_LAUNCHES`` those of the four 2-D kernels;
 nothing else moves them, so a run can show that its main path went
-through the kernels.  The partition fill's four kernels
-(``csrc/pfspan.cu``) are built into the same library; their wrappers and
-counters are in ``engine/pf_ops.py``.
+through the kernels.  The partition fill's seven kernels
+(``csrc/pfspan.cu``, ``csrc/pfbody.cu``) are built into the same library;
+their wrappers and counters are in ``engine/pf_ops.py``.
 """
 
 from __future__ import annotations

@@ -21,15 +21,16 @@ Matches the host engine exactly in structure:
 dtype: float32 by default (a documented divergence from the reference's
 double; see ``api.partition`` for its envelope), ``torch.float64`` on
 request.  The JAX package runs a span as one XLA program, with no Pallas
-kernel.  Here four hand-written kernels take its heavy parts
-(``engine/pf_ops.py``, ``csrc/pfspan.cu``): the P split
-(``pf_p_split``), the 16 history sums (``pf_history``), the PL / PR / PO
-interior stencils (``pf_stencil``) and the serial tt loop
-(``pf_tt_span``), each one launch a span on CUDA and its plain version
-on the CPU; the rest of the span (``_wx_pf``, V, WBP / WPP, WM, the plane
-reads, the assembly and the write-back) is plain PyTorch.  Each span
-updates the state in place, every write after the last read of what it
-overwrites.
+kernel.  Here a span is seven hand-written kernels (``engine/pf_ops.py``;
+``csrc/pfspan.cu``, ``csrc/pfbody.cu``), each at most one launch a span on
+CUDA and its plain version on the CPU: the P split (``pf_p_split``), the
+2-D recurrences V, P2, WBP / WPP and WM with the kept weight tables'
+span-s cells (``pf_span2d``), the 16 history sums (``pf_history``), the
+PL / PR / PO interior stencils (``pf_stencil``), the plane reads and the
+assembly (``pf_assemble``), the serial tt loop (``pf_tt_span``) and the
+write-back (``pf_store``).  The weight tables WB / WP / WBPg are built
+once a fill (:func:`pf_wx_tables`) and kept.  Each span updates the state
+in place, every write after the last read of what it overwrites.
 
 Reference recurrences: src/part_func.cc:152-178 and pseudo_loop.cc; the
 branch-by-branch citations live in ``ccj_tpu/engine/gapped.py`` / pf.py.
@@ -41,15 +42,12 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..params.io_par import MAXLOOP, TURN
-from . import cuda_ops, pf_ops
-from .common import dynamic_slice, dynamic_update_slice
+from . import pf_ops
 from .gapped import C_MATS, DS, M4_NAMES, dims
-from .gapped4 import LOOP_MATS, bucket_dims
+from .gapped4 import bucket_dims
 from .pf import PFTables
-from .pf_ops import g2s
 from .skew import unskew_right
 
 ML = MAXLOOP
@@ -188,9 +186,12 @@ def init_pf_state(n, dtype, device):
     return st
 
 
-def _wx_pf(C, st):
-    """WB / WP / raw-WBP / raw-WPP lookup tables (host pf.py WB()/WP())."""
-    n = C["n"]
+def pf_wx_tables(C, st, n):
+    """The gapped step's WB / WP / raw-WBP lookup tables (host pf.py
+    WB()/WP()) from the state's WBP / WPP: {"WB", "WP", "WBPg"}, each
+    [n2, n2].  A fill builds them once and keeps them; ``pf_span2d``
+    writes their span-s cells (i, i + s) by the same rule.  (The JAX
+    ``_wx_pf``'s raw-WPP table has no reader and is not built.)"""
     n2 = n + 2
     dev = st["WBP"].device
     a = torch.arange(n2, device=dev)[:, None]
@@ -201,257 +202,35 @@ def _wx_pf(C, st):
         base = unit[(b - a + 1).clamp(0, n2 - 1)] + raw
         return torch.where(inb, torch.where(a > b, 1.0, base), 0.0)
 
-    WB = wx(st["WBP"], C["expcp"])
-    WP = wx(st["WPP"], C["expPUP"])
-    WBPg = torch.where(inb & (a <= b), st["WBP"], 0.0)
-    WPPg = torch.where(inb & (a <= b), st["WPP"], 0.0)
-    return WB, WP, WBPg, WPPg
+    return {"WB": wx(st["WBP"], C["expcp"]), "WP": wx(st["WPP"], C["expPUP"]),
+            "WBPg": torch.where(inb & (a <= b), st["WBP"], 0.0)}
 
 
-def pf_span_nested(C, st, s, kernels=None):
-    """V, P2, WBP, WPP for every (i, l=i+s) (host pf.py's per-cell blocks,
-    vectorized over i); updates ``st`` in place.  ``kernels``: as in
-    :func:`pf_span_step`."""
+def pf_span_step(C, st, s, n: int, TB: int, IB: int, kernels=None, wx=None):
+    """One whole span of the device PF fill, in place: seven kernel
+    wrappers of ``pf_ops`` and their output allocations, nothing else.
+    ``wx``: the kept weight tables (:func:`pf_wx_tables`), whose span-s
+    cells the span writes; built here from ``st`` when None.  ``kernels``:
+    what the span calls its kernel wrappers through, by their names in
+    ``pf_ops`` (:data:`pf_ops.PF_KERNELS`); ``pf_ops`` itself when None.
+
+    The 2-D recurrences (``pf_span2d``: V, P2, WBP / WPP, the tables, WM)
+    run before the gapped step, which reads none of V, VD, P2, PD, WM,
+    WMv, WMp; the write-back (``pf_store``) runs after the last read of
+    the state."""
     kernels = pf_ops if kernels is None else kernels
-    n = C["n"]
-    n2, T, S, U = dims(n)
-    dev = st["V"].device
-    ii = torch.arange(n2, device=dev)
-    ll = (ii + s).clamp(0, n2 - 1)
-    row_ok = (ii >= 1) & (ii + s <= n)
-
-    # ---- V(i, i+s) --------------------------------------------------------
-    hair = dynamic_slice(C["HD"], (0, s), (n2, 1))[:, 0]
-    dk = torch.arange(ML + 2, device=dev)[:, None, None]
-    dl = torch.arange(ML + 2, device=dev)[None, :, None]
-    eintd = dynamic_slice(C["EINTD"], (0, 0, 0, s), (ML + 2, ML + 2, n2, 1))[..., 0]
-    # V[i+dk, i+s-dl] = VD[s-dk-dl, i+dk]
-    spw = (s - dk - dl).clamp(0, S)
-    iw = (ii[None, None, :] + dk).clamp(0, n2 - 1)
-    vrd = st["VD"][spw, iw]
-    okint = ((dk >= 1) & (dl >= 1)
-             & (dk <= min(s - TURN - 1, ML))
-             & (dl <= torch.minimum(s - TURN - 1 - dk, ML + 2 - dk))
-             & (ii[None, None, :] + dk <= n2 - 1))
-    interior = torch.where(okint, eintd * vrd, 0.0).sum(dim=(0, 1))
-
-    cc = torch.arange(n2, device=dev)[:, None]           # c (multiloop split)
-    iv2 = ii[None, :]
-    okc = (cc >= iv2 + 1) & (cc <= iv2 + s - TURN - 1) & row_ok[None, :]
-    ccl = cc.clamp(0, n2 - 1)
-    jm1 = (iv2 + s - 1).clamp(0, n2 - 1)
-    wm_l = st["WM"][(iv2 + 1).clamp(0, n2 - 1), (cc - 1).clamp(0, n2 - 1)]
-    wmv_r = st["WMv"][ccl, jm1]
-    wmp_r = st["WMp"][ccl, jm1]
-    mlb = C["expMLbase"][(cc - iv2 - 1).clamp(0, n2 - 1)]
-    vm = torch.where(okc, wm_l * (wmv_r + wmp_r) + mlb * wmp_r, 0.0).sum(dim=0)
-    mb = C["expMB"][ii, ll]
-    vnew = hair + interior + vm * mb * C["scale2"]
-    st["V"][ii, ll] = torch.where(row_ok, vnew, st["V"][ii, ll])
-    st["VD"][min(s, S)] = torch.where(row_ok, vnew, 0.0)
-
-    # ---- P2(i, i+s) via the PK diagonal skews (sum-product compute_P) -----
+    if wx is None:
+        wx = pf_wx_tables(C, st, n)
+    kw = {"n": n, "s": s, "TB": TB, "IB": IB}
     p_new = kernels.pf_p_split(st["PKE"], st["PKD"], n=n, s=s)
-    st["P2"][ii, ll] = torch.where(row_ok, p_new, st["P2"][ii, ll])
-    st["PD"][min(s, S)] = torch.where(row_ok, p_new, 0.0)
-
-    # ---- WBP / WPP --------------------------------------------------------
-    WB, WP, WBPg, WPPg = _wx_pf(C, st)
-    gg = torch.arange(n2, device=dev)[:, None]           # g = dd - i
-    dd = iv2 + gg
-    okd = (gg >= 0) & (gg <= s - 1) & row_ok[None, :]
-    ddc = dd.clamp(0, n2 - 1)
-    lv = (iv2 + s).clamp(0, n2 - 1)
-    vdl = st["V"][ddc, lv]
-    pdl = st["P2"][ddc, lv]
-    ivc = iv2.clamp(0, n2 - 1)
-    dm1 = (dd - 1).clamp(0, n2 - 1)
-    wb_prev = torch.where(dd - 1 >= 0, WB[ivc, dm1], 0.0)
-    wp_prev = torch.where(dd - 1 >= 0, WP[ivc, dm1], 0.0)
-    lm1 = (ll - 1).clamp(0, n2 - 1)
-    b1 = torch.where(okd, wb_prev * vdl, 0.0).sum(dim=0) \
-        * C["expbp"] * C["expPPS"]
-    b2 = torch.where(okd, wb_prev * pdl, 0.0).sum(dim=0) \
-        * C["expPSM"] * C["expPPS"]
-    b3 = torch.where(ii <= ll - 1, st["WBP"][ii, lm1], 0.0) * C["expcp"][1]
-    c1 = torch.where(okd, wp_prev * vdl, 0.0).sum(dim=0) * C["expPPS"]
-    c2 = torch.where(okd, wp_prev * pdl, 0.0).sum(dim=0) \
-        * C["expPSP"] * C["expPPS"]
-    c3 = torch.where(ii <= ll - 1, st["WPP"][ii, lm1], 0.0) * C["expPUP"][1]
-    st["WBP"][ii, ll] = torch.where(row_ok, b1 + b2 + b3, st["WBP"][ii, ll])
-    st["WPP"][ii, ll] = torch.where(row_ok, c1 + c2 + c3, st["WPP"][ii, ll])
+    kernels.pf_span2d(C, st, p_new, wx, n=n, s=s)
+    hist = kernels.pf_history(st, wx["WB"], wx["WP"], wx["WBPg"], **kw)
+    stn = kernels.pf_stencil(st, C["W4PL"], C["W4PR"], C["W4POD"], **kw)
+    fams, bases = kernels.pf_assemble(C, st, hist, stn, **kw)
+    loops = kernels.pf_tt_span(C, wx["WB"], wx["WP"], wx["WBPg"], fams["PL"], fams["PR"],
+                               fams["PO"], bases, **kw)
+    kernels.pf_store(st, loops, fams, **kw)
     return st
-
-
-def pf_span_gapped(C, st, s, TB, IB, kernels=None):
-    """All 22 gapped families for span s in the sum-product semiring;
-    updates the big state in place.
-
-    Mirrors engine/gapped4.span_gapped4 phase for phase; 0 is both the
-    unset and the out-of-range value (Matrix4DPF), so only the strict
-    d-range bounds (the g1=1 cases) need runtime masks — everything else
-    contributes 0 automatically.  The history sums, the three interior
-    stencils and the tt loop run through ``pf_ops``' kernels (their plain
-    versions on the CPU; ``kernels``: as in :func:`pf_span_step`); the
-    plane reads, the assembly and the write-back here.
-    """
-    kernels = pf_ops if kernels is None else kernels
-    n = C["n"]
-    n2, T, S, U = dims(n)
-    dev = st["PK"].device
-    dtype = st["PK"].dtype
-
-    def ar(m):
-        return torch.arange(m, device=dev)
-
-    tv = ar(TB)[:, None, None]
-    iv = ar(IB)[None, :, None]
-    jv = ar(n2)[None, None, :]
-    kv = jv + tv + 2
-    lv = iv + s
-    valid4 = cuda_ops.span_valid(n, s, 0, TB, IB, n2, dev)
-
-    WB, WP, WBPg, WPPg = _wx_pf(C, st)
-    canp, pt = C["can_pair"], C["ptype"]
-
-    def rplane_big_all(name, c, b, di, dj):
-        """value[tt, i, j] = big[name][tt+c, s-b, i+di, j+dj] (0 outside):
-        one zero pad of the span's plane, then a view."""
-        if s - b < 0:
-            return torch.zeros((TB, IB, n2), dtype=dtype, device=dev)
-        lj = max(-dj, 0)
-        sl = F.pad(st[name][:, s - b], (lj, max(dj, 0), 0, max(di + IB - n2, 0),
-                                        0, max(c + TB - T, 0)))
-        return sl[c: c + TB, di: di + IB, dj + lj: dj + lj + n2]
-
-    # ---- the 16 RL / RI history sums and the three interior stencils ------
-    (ri_POm00, rl_POm00, POm01, ri_POm10, rl_POm10, rl_PRm01, ri_PfromO, rl_PfromO,
-     basePLm00, basePLm10, basePRm00, basePMm01, ri_PMm10, rl_PMm10, basePfromL,
-     basePfromR) = kernels.pf_history(st, WB, WP, WBPg, n=n, s=s, TB=TB, IB=IB)
-    pl_acc, pr_int, po_acc = kernels.pf_stencil(st, C["W4PL"], C["W4PR"], C["W4POD"],
-                                                n=n, s=s, TB=TB, IB=IB)
-
-    # ---- PL ---------------------------------------------------------------
-    estp, canp_, pt_ = g2s(iv, jv, C["expESTP"], canp, pt)
-    pl_stack = rplane_big_all("PL", 1, 1, 1, -1) * estp
-    PLiloop = torch.where(canp_ > 0, pl_stack + pl_acc, 0.0)
-    PLml = (rplane_big_all("PLmloop10", 1, 1, 1, -1)
-            + rplane_big_all("PLmloop01", 1, 1, 1, -1)) \
-        * C["expap"] * C["expbp"] * C["expbp"]
-    PL_b3 = torch.where(jv >= iv + TURN + 1,
-                        rplane_big_all("PfromL", 1, 1, 1, -1), 0.0)
-    PLv = torch.where(pt_ > 0, PLiloop + PLml + PL_b3, 0.0)
-    PLs = torch.where(valid4, PLv, 0.0)
-
-    # ---- PR -----------------------------------------------------------------
-    estp, canp_, pt_ = g2s(kv, lv, C["expESTP"], canp, pt)
-    pr_stack = rplane_big_all("PR", 1, 1, 0, 0) * estp
-    PRiloop = torch.where(canp_ > 0, pr_stack + pr_int, 0.0)
-    PRml = (rplane_big_all("PRmloop10", 1, 1, 0, 0)
-            + rplane_big_all("PRmloop01", 1, 1, 0, 0)) \
-        * C["expap"] * C["expbp"] * C["expbp"]
-    PR_b3 = torch.where(lv >= kv + TURN + 1,
-                        rplane_big_all("PfromR", 1, 1, 0, 0), 0.0)
-    PRv = torch.where(pt_ > 0, PRiloop + PRml + PR_b3, 0.0)
-    PRs = torch.where(valid4, PRv, 0.0)
-
-    # ---- PO (with the interior scan the reference's MFE path dead-codes) --
-    estp, canp_, pt_ = g2s(iv, lv, C["expESTP"], canp, pt)
-    po_stack = rplane_big_all("PO", 0, 2, 1, 0) * estp
-    POiloop = torch.where(canp_ > 0, po_stack + po_acc, 0.0)
-    POml = (rplane_big_all("POmloop10", 0, 2, 1, 0)
-            + rplane_big_all("POmloop01", 0, 2, 1, 0)) \
-        * C["expap"] * C["expbp"] * C["expbp"]
-    PO_b3 = torch.where(lv >= iv + TURN + 1,
-                        rplane_big_all("PfromO", 0, 2, 1, 0), 0.0)
-    POv = torch.where(pt_ > 0, POiloop + POml + PO_b3, 0.0)
-    POs = torch.where(valid4, POv, 0.0)
-
-    # ---- cross-span-only families + bases ----------------------------------
-    POm00 = POs * C["expbp"] + ri_POm00 + rl_POm00
-    POm10 = ri_POm10 + rl_POm10
-    PRm01 = rplane_big_all("PRmloop01", 0, 1, 0, 0) * C["expcp"][1] + rl_PRm01
-    PfromO = ri_PfromO + rl_PfromO + (PLs + PRs) * C["expPB"]
-    basePMm10 = ri_PMm10 + rl_PMm10
-
-    # ---- serial loop -------------------------------------------------------
-    loops = kernels.pf_tt_span(C, WB, WP, WBPg, PLs, PRs, POs, {
-        "PLmloop00": basePLm00, "PLmloop10": basePLm10,
-        "PRmloop00": basePRm00, "PMmloop01": basePMm01,
-        "PMmloop10": basePMm10, "PfromL": basePfromL,
-        "PfromR": basePfromR}, n=n, s=s, TB=TB, IB=IB)
-
-    # ---- write-back (in place: every read of st above is done) -----------
-    # (the loop's slabs are 0 off the span's valid cells already)
-    packed = {name: slab[:TB] for name, slab in zip(LOOP_MATS, loops)}
-    for name, v in (("PL", PLv), ("PR", PRv), ("PO", POv),
-                    ("PRmloop01", PRm01), ("POmloop00", POm00),
-                    ("POmloop01", POm01), ("POmloop10", POm10),
-                    ("PfromO", PfromO)):
-        packed[name] = torch.where(valid4, v, 0.0)
-
-    for name in M4_NAMES:
-        sl = packed[name]
-        if IB < n2:
-            sl = F.pad(sl, (0, 0, 0, n2 - IB))                # rows i >= IB: 0
-        dynamic_update_slice(st[name], sl[:, None], (0, s, 0, 0))
-    for name in C_MATS:
-        slp = F.pad(packed[name], (0, 0, n2, 0))
-        cs = dynamic_slice(slp, (0, n2 - s, 0), (TB, n2, n2))
-        dynamic_update_slice(st["C_" + name], cs[:, None], (0, s, 0, 0))
-
-    # PK diagonal skews (0-filled): PKD[tt, s] and PKE[tt, s - tt] for
-    # tt <= s (the JAX scatter writes rows tt > s back unchanged)
-    slab = unskew_right(F.pad(packed["PK"], (0, 0, 0, n2 - IB)), 0.0, n2)
-    slab = F.pad(slab, (0, 0, 0, 0, 0, T - TB))
-    dynamic_update_slice(st["PKD"], slab[:, None], (0, s, 0, 0))
-    tt_idx = torch.arange(min(s, T - 1) + 1, device=dev)
-    st["PKE"][tt_idx, s - tt_idx] = slab[tt_idx]
-    return st
-
-
-def pf_span_wm(C, st, s):
-    """WMv / WMp / WM for all (i, j=i+s) (host pf.py's trailing block);
-    updates ``st`` in place."""
-    n = C["n"]
-    n2 = n + 2
-    dev = st["V"].device
-    ii = torch.arange(n2, device=dev)
-    ll = (ii + s).clamp(0, n2 - 1)
-    row_ok = (ii >= 1) & (ii + s <= n) & (s >= 3)
-    jm1 = (ii + s - 1).clamp(0, n2 - 1)
-    stem = st["V"][ii, ll] * C["expML"][ii, ll]
-    wmv = stem + st["WMv"][ii, jm1] * C["expMLbase"][1]
-    wmp = (st["P2"][ii, ll] * C["expPSM"] * C["expb"]
-           + st["WMp"][ii, jm1] * C["expMLbase"][1])
-    kk = torch.arange(n2, device=dev)[:, None]
-    iv2 = ii[None, :]
-    okk = (kk >= iv2) & (kk <= iv2 + s - TURN - 1) & row_ok[None, :]
-    kcl = kk.clamp(0, n2 - 1)
-    jcl = (iv2 + s).clamp(0, n2 - 1)
-    qbt = (st["V"][kcl, jcl] * C["expML"][kcl, jcl]
-           + st["P2"][kcl, jcl] * C["expPSM"] * C["expb"])
-    pre = C["expMLbase"][(kk - iv2).clamp(0, n2 - 1)] \
-        + torch.where(kk - 1 >= iv2,
-                      st["WM"][iv2.clamp(0, n2 - 1), (kk - 1).clamp(0, n2 - 1)],
-                      0.0)
-    tot = torch.where(okk, pre * qbt, 0.0).sum(dim=0) \
-        + st["WM"][ii, jm1] * C["expMLbase"][1]
-    st["WMv"][ii, ll] = torch.where(row_ok, wmv, st["WMv"][ii, ll])
-    st["WMp"][ii, ll] = torch.where(row_ok, wmp, st["WMp"][ii, ll])
-    st["WM"][ii, ll] = torch.where(row_ok, tot, st["WM"][ii, ll])
-    return st
-
-
-def pf_span_step(C, st, s, n: int, TB: int, IB: int, kernels=None):
-    """One whole span of the device PF fill, in place.  ``kernels``: what
-    the span calls its four kernel wrappers through, by their names in
-    ``pf_ops`` (``pf_p_split``, ``pf_history``, ``pf_stencil``,
-    ``pf_tt_span``); ``pf_ops`` itself when None."""
-    C = {**C, "n": n}
-    pf_span_nested(C, st, s, kernels)
-    pf_span_gapped(C, st, s, TB, IB, kernels)
-    return pf_span_wm(C, st, s)
 
 
 class _ArrView:
@@ -508,9 +287,10 @@ def pf_fill_device(tabs, P, pk, pf_scale: float = 1.0, dtype=torch.float32,
     n = tabs.n
     lap("constants_s")
     st = init_pf_state(n, dtype, C["expMLbase"].device)
+    wx = pf_wx_tables(C, st, n)
     for s in range(n):
         TB, IB = bucket_dims(n, s)
-        pf_span_step(C, st, s, n=n, TB=TB, IB=IB)
+        pf_span_step(C, st, s, n=n, TB=TB, IB=IB, wx=wx)
     lap("span_loop_s")
 
     res = {k: st[k].cpu().numpy().astype(np.float64, copy=False)

@@ -191,15 +191,18 @@ Phases; any failure exits non-zero and prints no result:
    cuda:0), then one process alone; both outputs equal the goldens in order
    with no ``error``; each process's wall, fold wall and the tt-loop
    kernels' launches (the CLI prints them);
-11. the partition function and its four span kernels
-   (``engine/pf_ops.py``, ``csrc/pfspan.cu``): ``pf_tt_span``,
-   ``pf_history``, ``pf_stencil`` and ``pf_p_split`` against their plain
+11. the partition function and its seven span kernels
+   (``engine/pf_ops.py``; ``csrc/pfspan.cu``: ``pf_tt_span``,
+   ``pf_history``, ``pf_stencil``, ``pf_p_split``; ``csrc/pfbody.cu``:
+   ``pf_span2d``, ``pf_assemble``, ``pf_store``) against their plain
    versions on the card, on the n=64 fill's own operands at spans 20, 40
-   and 62 in float32 and float64 (:func:`pf_kernel_calls`; relative error
-   within 1e-5 / 1e-12), each with its L2-hot and L2-cold device times,
-   its eager call's, the plain version's eager call's and its bound
-   (:func:`pf_bound`: the distinct elements it needs against its
-   multiply-adds at the float32 / float64 rate; no library yardstick);
+   and 62 (``pf_span2d`` and ``pf_store`` also 0 and 1) in float32 and
+   float64 (:func:`pf_kernel_calls`, :func:`pf_pair`; relative error
+   within 2e-6, 1e-5 for the three of ``pfbody.cu``, / 1e-13), each with
+   its L2-hot and L2-cold device times, its eager call's, the plain
+   version's eager call's and its bound (:func:`pf_bound`: the distinct
+   elements it needs against its multiply-adds at the float32 / float64
+   rate; no library yardstick);
    the float64 fill on the card against the host float64 engine at n=16
    (rtol 1e-9) and against the CPU's fill (the plain versions) at n=40
    (rtol 1e-9); the n=64 float32 and float64 fills' walls, peak device
@@ -208,13 +211,14 @@ Phases; any failure exits non-zero and prints no result:
    float64's (within 1e-5); the float64 fill of the n=100 bench
    sequence, its wall, parts and peak, a finite Z and an ensemble energy
    at or below the MFE; the n=64 float32 fill's device launches
-   (kernels, copies and memsets), their summed device time and each PF
-   kernel's from a profiler run apart, beside the all-eager fill's
-   797,597 launches and 2.77 s (an earlier run's, under a key of their
-   own); ``partition`` at n=64 with
+   (kernels, copies and memsets; at most :data:`PF_DEVICE_OPS_CEILING`),
+   their summed device time and each PF kernel's from a profiler run
+   apart, beside the all-eager fill's 797,597 launches and 2.77 s (an
+   earlier run's, under a key of their own); ``partition`` at n=64 with
    1000 samples end to end, its PF launches reset just before and held
-   to :func:`pf_counts` (62 / 62 / 62 / 61) after, its ensemble energy
-   at or below the MFE; it launches no MFE kernel (checked);
+   to :func:`pf_counts` (62 / 62 / 62 / 61 / 64 / 62 / 64) after, its
+   ensemble energy at or below the MFE; it launches no MFE kernel
+   (checked);
 12. the device's busy share of the batched fills: spans 40-41 of phase
    9's batch (a batched fill stopped at span 40) and spans 70-71 of phase
    4c's (the window PERF.md gives for the single n=100 fill), their
@@ -2490,18 +2494,33 @@ def max_rel_err(got, want):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the partition function and its four span kernels
+# phase 11: the partition function and its seven span kernels
 # ---------------------------------------------------------------------------
 
-PF_KERNELS = ("pf_tt_span", "pf_history", "pf_stencil", "pf_p_split")
+PF_KERNELS = ("pf_tt_span", "pf_history", "pf_stencil", "pf_p_split", "pf_span2d",
+              "pf_assemble", "pf_store")
 PF_COUNTERS = {"pf_tt_span": "PF_TT_SPAN_LAUNCHES", "pf_history": "PF_HISTORY_LAUNCHES",
-               "pf_stencil": "PF_STENCIL_LAUNCHES", "pf_p_split": "PF_PSPLIT_LAUNCHES"}
-PF_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+               "pf_stencil": "PF_STENCIL_LAUNCHES", "pf_p_split": "PF_PSPLIT_LAUNCHES",
+               "pf_span2d": "PF_SPAN2D_LAUNCHES", "pf_assemble": "PF_ASSEMBLE_LAUNCHES",
+               "pf_store": "PF_STORE_LAUNCHES"}
+PF_NEW = ("pf_span2d", "pf_assemble", "pf_store")   # csrc/pfbody.cu; the rest pfspan.cu
+# relative error against the plain version (the four kernels of
+# pfspan.cu; in float32 the three of pfbody.cu, which may sum up to 33 x 33
+# terms a cell in another order than torch.sum's, within 1e-5: pf_rtol)
+PF_RTOL = {torch.float64: 1e-13, torch.float32: 2e-6}
 PF_SPANS = (20, 40, 62)      # phase 11's kernel checks at n=64
+# the spans each kernel is checked at: pf_span2d and pf_store launch at
+# every span, so s = 0 and 1 too
+PF_CHECK_SPANS = {k: ((0, 1) if k in ("pf_span2d", "pf_store") else ()) + PF_SPANS
+                  for k in PF_KERNELS}
+PF_DEVICE_OPS_CEILING = 1500  # the n=64 float32 fill's device operations
 PF_REPLACES = {"pf_tt_span": REPLACES,                       # _minplus_kernel's (+, x) form
                "pf_history": "ccj_tpu/engine/pf4d.py:312",   # XLA fusions of the JAX
                "pf_stencil": "ccj_tpu/engine/pf4d.py:359",   # PF span step, no Pallas
-               "pf_p_split": "ccj_tpu/engine/pf4d.py:206"}   # kernel
+               "pf_p_split": "ccj_tpu/engine/pf4d.py:206",   # kernel
+               "pf_span2d": "ccj_tpu/engine/pf4d.py:164",
+               "pf_assemble": "ccj_tpu/engine/pf4d.py:297",
+               "pf_store": "ccj_tpu/engine/pf4d.py:581"}
 FP64_OPS_PER_S = 34e12      # H100 SXM non-tensor-core float64 peak (NVIDIA data sheet)
 # the n=64 float32 fill with every piece eager, before the PF kernels: not
 # measured in this run; printed under its own key as the yardstick
@@ -2514,10 +2533,11 @@ def pf_counts(n):
     """The PF kernels' launches in one fill of length n, from their
     bounds: a span has a valid cell where it has a tt step (s >= 2) and a
     live row (i >= 1, i + s <= n: s <= n - 1); the P split also needs a
-    term (s >= 3)."""
+    term (s >= 3); the 2-D part and the write-back run at every span."""
     cells = sum(1 for s in range(n) if 2 <= s <= n - 1)
     return {"pf_tt_span": cells, "pf_history": cells, "pf_stencil": cells,
-            "pf_p_split": sum(1 for s in range(n) if 3 <= s <= n - 1)}
+            "pf_p_split": sum(1 for s in range(n) if 3 <= s <= n - 1),
+            "pf_span2d": n, "pf_assemble": cells, "pf_store": n}
 
 
 def pf_launches(pf_ops):
@@ -2550,6 +2570,7 @@ def pf_kernel_calls(n, spans, dtype, dev, visit, sp=None):
     tabs = build_seq_tables(bench_seq(n), sp, DEFAULT_PK)
     C, _, _ = pf4d.build_pfc(tabs, sp, DEFAULT_PK, dtype=dtype, device=dev)
     st = pf4d.init_pf_state(n, dtype, dev)
+    wx = pf4d.pf_wx_tables(C, st, n)
 
     def spy(name, s):
         def call(*args, **kw):
@@ -2561,8 +2582,69 @@ def pf_kernel_calls(n, spans, dtype, dev, visit, sp=None):
             kernels = SimpleNamespace(**{k: spy(k, s) for k in PF_KERNELS}) \
                 if s in spans else None
             TB, IB = bucket_dims(n, s)
-            pf4d.pf_span_step(C, st, s, n=n, TB=TB, IB=IB, kernels=kernels)
+            pf4d.pf_span_step(C, st, s, n=n, TB=TB, IB=IB, kernels=kernels, wx=wx)
     return st
+
+
+def pf_store_views(st, n, s, TB):
+    """The views of the state ``pf_store`` writes at span s: each family's
+    and C skew's plane [:TB, s], PKD's [:, s] and PKE's planes [tt, s - tt]
+    for tt <= min(s, T - 1) (one strided view)."""
+    from ccj_tpu_torch.engine.gapped import C_MATS, M4_NAMES
+
+    T, n2 = n - 1, n + 2
+    pke = st["PKE"]
+    return ([st[k][:TB, s] for k in M4_NAMES] + [st["C_" + k][:TB, s] for k in C_MATS]
+            + [st["PKD"][:, s],
+               pke.as_strided((min(s, T - 1) + 1, n2, n2),
+                              (pke.stride(0) - pke.stride(1), n2, 1),
+                              pke.storage_offset() + s * pke.stride(1))])
+
+
+def pf_flat(x):
+    """The tensors of a PF wrapper's result in a fixed order: the tensor
+    itself, or ``pf_assemble``'s (families, bases) by name."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    fams, bases = x
+    return [fams[k] for k in sorted(fams)] + [bases[k] for k in sorted(bases)]
+
+
+def pf_pair(name, fn, ref, args, kw):
+    """A PF kernel's wrapper and its plain version on the same operands:
+    (result, got, want, call, plain).  ``result`` is what the fill takes
+    (the kernel's); ``got`` / ``want`` the tensors to compare; ``call`` /
+    ``plain`` run the kernel / the plain version again on the same operands
+    for timing.  The in-place kernels: ``pf_span2d`` against its plain
+    version on a copy of the 2-D state and the kept tables (both read only
+    cells neither writes, so a second run writes the same); ``pf_store``'s
+    destination views set to NaN before each of the two runs, so an
+    element the kernel leaves unwritten shows."""
+    from ccj_tpu_torch.engine.pf_ops import PF_2D
+
+    def call():
+        return fn(*args, **kw)
+    if name == "pf_span2d":
+        C, st, p_new, wx = args
+        st2 = {**st, **{k: st[k].clone() for k in PF_2D}}
+        wx2 = {k: v.clone() for k, v in wx.items()}
+        call()
+        ref(C, st2, p_new, wx2, **kw)
+        return (None, [st[k] for k in PF_2D] + [wx[k] for k in sorted(wx)],
+                [st2[k] for k in PF_2D] + [wx2[k] for k in sorted(wx2)], call,
+                lambda: ref(C, st2, p_new, wx2, **kw))
+    if name == "pf_store":
+        views = pf_store_views(args[0], kw["n"], kw["s"], kw["TB"])
+        out = []
+        for run in (call, lambda: ref(*args, **kw)):
+            for v in views:
+                v.fill_(float("nan"))
+            run()
+            out.append([v.clone() for v in views])
+        return None, out[0], out[1], call, lambda: ref(*args, **kw)
+    got = call()
+    torch.cuda.synchronize()
+    return got, pf_flat(got), pf_flat(ref(*args, **kw)), call, lambda: ref(*args, **kw)
 
 
 def pf_rel_err(got, want):
@@ -2610,7 +2692,7 @@ def pf_work(name, n, s, TB, IB):
         return _PF_WORK[key]
     n2, T, S = n + 2, n - 1, n
     U = n2 + T
-    DS_ = 29
+    DS_, ML_, TURN_ = 29, 30, 3
     tt, i, jr = pf_cells(n, s, IB)
     j = i + jr
     ncell = len(tt)
@@ -2728,6 +2810,69 @@ def pf_work(name, n, s, TB, IB):
                                            False)),
             "W4POD": distinct((DS_, DS_, n2, n2), marks(po, lambda d1, d2: (i, s), True))}
         work = (elems, terms, 0)
+    elif name == "pf_span2d":
+        # the live rows i (l = i + s): V's interior terms (dk, dl) and
+        # multiloop splits c in [i + 1, l - 4], WBP / WPP's g in [0, s - 1],
+        # WM's k in [i, l - 4] (s >= 3); the row's span-s cells written
+        rows = np.arange(1, n - s + 1)
+        nl, el = len(rows), rows + s
+        wm = s >= 3
+        g = max(s - TURN_ - 1, 0)
+        vd, n_int = [], 0
+        for dk in range(1, min(s - TURN_ - 1, ML_) + 1):
+            for dl in range(1, min(s - TURN_ - 1, ML_ + 2) - dk + 1):
+                r = rows[rows + dk <= n2 - 1]
+                n_int += len(r)
+                vd.append((np.full(len(r), s - dk - dl), r + dk))
+        own = ((rows, el - 1),) if wm else ()
+        full = np.full(nl, g)
+        elems = {
+            "cells": 2 * n2 + nl * (7 + 3 * wm), "p_new": nl, "HD": nl,
+            "expMB": nl if g else 0, "EINTD": n_int, "VD": distinct((S + 1, n2), vd),
+            "WM": distinct((n2, n2), (line(rows + 1, rows, 0, 1, full),
+                                      line(rows, rows, 0, 1, full), *own)),
+            **{k: distinct((n2, n2), (line(rows + 1, el - 1, 1, 0, full), *own))
+               for k in ("WMv", "WMp")},
+            **dict.fromkeys(("V", "P2"), nl * max(s - 1, 0)),
+            **dict.fromkeys(("WBP", "WPP"), nl if s >= 1 else 0),
+            **{k: distinct((n2, n2), (line(rows, rows - 1, 0, 1, np.full(nl, s)),))
+               for k in ("WB", "WP")},
+            "expML": distinct((n2, n2), (((rows, el),) if wm else ())
+                              + (line(rows + 1, el, 1, 0, full),)),
+            "expMLbase": len(set(range(g)) | (set(range(s - 3)) | {1} if wm else set())),
+            **dict.fromkeys(("expcp", "expPUP"), len({min(s + 1, n2 - 1)} | ({1} if s else set()))),
+            "scalars": 6}
+        # interior, the splits' two products, WBP / WPP's four sums, WM's
+        # three products a split
+        work = (elems, n_int + nl * (2 * g + 4 * s + (3 * (g + 1) if wm else 0)), 0)
+    elif name == "pf_assemble":
+        from ccj_tpu_torch.engine.pf_ops import PF_PLANE_READS
+
+        # each plane read's source cell where it is a valid state cell and
+        # its branch reads it (the b3 reads under their bounds)
+        k, el = j + tt + 2, i + s
+        bounds = {"PfromL": jr >= TURN_ + 1, "PfromR": el >= k + TURN_ + 1,
+                  "PfromO": el >= i + TURN_ + 1}
+        marks, oks = {}, []
+        for fam, c, b, di, dj in PF_PLANE_READS:
+            a, sp, r, col = tt + c, s - b, i + di, j + dj
+            ok = ((a < T) & (sp >= 0) & (r < n2) & (col >= 0) & (col < n2) & (a <= sp - 2)
+                  & (r >= 1) & (col >= r) & (col + a + 2 <= r + sp) & (r + sp <= n)
+                  & bounds.get(fam, True))
+            marks.setdefault(fam, []).append((a[ok], np.full(ok.sum(), sp), r[ok], col[ok]))
+            oks.append(ok)
+        pairs = ((i, j), (k, el), (i, el))               # PL's, PR's and PO's tables
+        elems = {"cells": 8 * TB * IB * n2, "hist": 9 * ncell, "stn": 3 * ncell, "scalars": 4,
+                 **{fam: distinct((T, S, n2, n2), m) for fam, m in marks.items()},
+                 "expESTP": distinct((n2, n2), ((a[oks[q]], b[oks[q]])
+                                                for q, (a, b) in zip((0, 4, 8), pairs)))}
+        # ~35 operations a valid cell; ptype at 4 B and can_pair at 1 B a pair
+        work = (elems, 18 * ncell, 5 * distinct((n2, n2), pairs))
+    elif name == "pf_store":
+        # every destination element written once; the slabs' valid cells
+        # read (the loop's 14 families, the 8 others)
+        work = ({"cells": (27 * TB + T + min(s, T - 1) + 1) * n2 * n2, "loops": 14 * ncell,
+                 "fams": 8 * ncell}, 0, 0)
     else:       # pf_p_split: C(s, 3) terms a live row, each reading its own two cells
         rows = max(0, n - s)
         terms = rows * math.comb(s, 3)
@@ -2749,41 +2894,47 @@ def pf_bound(name, n, s, TB, IB, dtype):
             nbytes, flops)
 
 
+def pf_rtol(name, dtype):
+    """The relative error a PF kernel may show against its plain version."""
+    return 1e-5 if dtype == torch.float32 and name in PF_NEW else PF_RTOL[dtype]
+
+
 def pf_kernel_row(rows, n, dtype, timed, name, s, fn, ref, args, kw):
-    """A :func:`pf_kernel_calls` visit: the kernel against its plain
-    version on the fill's own operands, within :data:`PF_RTOL`; with
+    """A :func:`pf_kernel_calls` visit: at the kernel's
+    :data:`PF_CHECK_SPANS`, the kernel against its plain version on the
+    fill's own operands (:func:`pf_pair`), within :func:`pf_rtol`; with
     ``timed`` its L2-hot and L2-cold device times, its eager call's, the
     plain version's eager call's and its bound.  Returns the kernel's
     result."""
-    got = fn(*args, **kw)
+    if s not in PF_CHECK_SPANS[name]:
+        return fn(*args, **kw)
+    result, got, want, call, plain = pf_pair(name, fn, ref, args, kw)
     torch.cuda.synchronize()
-    want = ref(*args, **kw)
-    err = pf_rel_err(got, want)
-    tol = PF_RTOL[dtype]
+    tol = pf_rtol(name, dtype)
     label = f"{name} n={n} s={s} {str(dtype)[6:]}"
-    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-          f"{label}: shape {tuple(got.shape)} / {tuple(want.shape)} or not finite")
+    check(len(got) == len(want) and all(
+              g.shape == w.shape and bool(torch.isfinite(g).all()) for g, w in zip(got, want)),
+          f"{label}: shapes {[tuple(g.shape) for g in got]} / "
+          f"{[tuple(w.shape) for w in want]} or not finite")
+    err = max(pf_rel_err(g, w) for g, w in zip(got, want))
     check(err <= tol, f"{label}: max rel err {err} > {tol}")
     row = {"kernel": name, "case": f"n={n} s={s}", "dtype": str(dtype)[6:],
            "max_rel_err": err, "rtol": tol,
-           "max_abs_err": float((got - want).abs().max()),
-           "nonzero": int((got != 0).sum())}
+           "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+           "nonzero": sum(int((g != 0).sum()) for g in got)}
     if timed:
         TB, IB = kw.get("TB", 0), kw.get("IB", n + 2)
-
-        def call():
-            fn(*args, **kw)
         row.update(ms=graph_ms(call, reps=10, replays=5),
                    ms_l2cold=graph_cold_ms(call, reps=10, replays=2),
                    call_ms=cuda_ms(call, 10),
-                   plain_ms=cuda_ms(lambda: ref(*args, **kw), 2))
+                   plain_ms=cuda_ms(plain, 2))
         bound_ms, by, nbytes, flops = pf_bound(name, n, s, TB, IB, dtype)
         row.update(bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops,
                    share_of_bound=bound_ms / row["ms"],
                    share_of_bound_l2cold=bound_ms / row["ms_l2cold"], library_ms=None)
     rows.append(row)
     emit({"phase": "pf_kernel", **row})
-    return got
+    return result
 
 
 def pf_fill_err(got, want):
@@ -2797,7 +2948,7 @@ def pf_fill_err(got, want):
 
 
 def pf_ptxas(log):
-    """``ptxas_usage`` of the four PF kernels' float and double
+    """``ptxas_usage`` of the seven PF kernels' float and double
     instantiations: {"pf_tt_span<float>": usage, ...}."""
     usage = ptxas_usage(log)
     return {f"{k}<{t}>": next((v for name, v in usage.items() if f"{k}_kernelI{c}E" in name),
@@ -2826,7 +2977,7 @@ def pf_fill_split(key, out, tabs, sp, dtype, dev):
 
 
 def phase_partition(sp, fold, dev="cuda", n=64, ptxas=None):
-    """Phase 11: the sum-product fill on ``dev`` and its four kernels;
+    """Phase 11: the sum-product fill on ``dev`` and its seven kernels;
     returns its report (keys name the lengths they run at; ``ptxas``, the
     kernels' :func:`pf_ptxas`, goes in as it is)."""
     from torch.autograd import DeviceType
@@ -2842,13 +2993,14 @@ def phase_partition(sp, fold, dev="cuda", n=64, ptxas=None):
     out = {"ptxas": ptxas}
     # each kernel against its plain version on the n=64 fill's own operands
     rows = []
+    spans = sorted({s for v in PF_CHECK_SPANS.values() for s in v})
     for dtype in (torch.float32, torch.float64):
-        pf_kernel_calls(n, PF_SPANS, dtype, dev,
+        pf_kernel_calls(n, spans, dtype, dev,
                         lambda *a, dtype=dtype: pf_kernel_row(rows, n, dtype, True, *a), sp=sp)
-    check(sorted({(r["kernel"], r["case"], r["dtype"]) for r in rows})
-          == sorted((k, f"n={n} s={s}", d) for k in PF_KERNELS for s in PF_SPANS
+    check(sorted((r["kernel"], r["case"], r["dtype"]) for r in rows)
+          == sorted((k, f"n={n} s={s}", d) for k in PF_KERNELS for s in PF_CHECK_SPANS[k]
                     for d in ("float32", "float64")),
-          f"phase 11 checked {len(rows)} kernel calls, not each kernel at each span")
+          f"phase 11 checked {len(rows)} kernel calls, not each kernel at each of its spans")
     out["kernel_rows"] = rows
 
     # float64 on the card against the host float64 engine at n=16
@@ -2917,6 +3069,9 @@ def phase_partition(sp, fold, dev="cuda", n=64, ptxas=None):
             key = e.name().split("::")[1].split("_kernel")[0]
             by_name[key] = by_name.get(key, 0.0) + e.duration_ns() / 1e9
     out["n64_f32_device_launches"] = len(events)
+    check(len(events) <= PF_DEVICE_OPS_CEILING,
+          f"the n={n} float32 fill ran {len(events)} device operations, "
+          f"over {PF_DEVICE_OPS_CEILING}")
     out["n64_f32_device_copies"] = len(copies)
     out["n64_f32_device_busy_s"] = sum(e.duration_ns() for e in events) / 1e9
     out["n64_f32_pf_kernel_busy_s"] = by_name
@@ -4032,11 +4187,21 @@ def main():
             ("pf_stencil", "the XLA fusion of the PF span's PL / PR / PO interior-loop "
              "stencils (pf4d.py:359-427), one launch a span"),
             ("pf_p_split", "the XLA fusion of P2's span-s diagonal over PKE / PKD "
-             "(pf4d.py:206-233), one launch a span")):
+             "(pf4d.py:206-233), one launch a span"),
+            ("pf_span2d", "the XLA fusions of the PF span's 2-D recurrences: V, P2's "
+             "diagonal, WBP / WPP (pf4d.py:164-265, less the P split) and WMv / WMp / WM "
+             "(pf4d.py:618-651), with the kept weight tables' span-s cells (_wx_pf, "
+             ":144-161, once a fill), one launch a span"),
+            ("pf_assemble", "the XLA fusion of the PF span's 13 plane reads (rplane_big_all, "
+             "pf4d.py:297-310) and the PL / PR / PO assembly, cross-span-only families and "
+             "bases around the stencils (pf4d.py:371-443), one launch a span"),
+            ("pf_store", "the XLA fusion of the PF span's write-back of 22 families, 5 C "
+             "skews, PKD and PKE (pf4d.py:581-615), one launch a span")):
         rows_k = [r for r in report["partition"]["kernel_rows"] if r["kernel"] == name]
         main = next(r for r in rows_k if r["case"] == "n=64 s=40" and r["dtype"] == "float32")
         kernels.append({
-            "name": name, "route": "cuda", "source": "ccj_tpu_torch/csrc/pfspan.cu",
+            "name": name, "route": "cuda",
+            "source": f"ccj_tpu_torch/csrc/{'pfbody' if name in PF_NEW else 'pfspan'}.cu",
             "replaces": PF_REPLACES[name], "replaces_what": what,
             "launches": report["partition"]["pf_launches"][name],
             "launches_by_path": {"partition n=64 (float32 fill)":

@@ -3,8 +3,9 @@
 ``span_assemble``, ``span_store``, ``span_v``, ``span_wbp``, ``span_wm``,
 ``wx_tables``) against
 their plain PyTorch versions, on the card (exact: integer data), the
-partition fill's four (``pf_tt_span``, ``pf_history``, ``pf_stencil``,
-``pf_p_split``) within rtol 1e-12 (float64) / 1e-5 (float32), ``tt_span``
+partition fill's seven (``pf_tt_span``, ``pf_history``, ``pf_stencil``,
+``pf_p_split``, ``pf_span2d``, ``pf_assemble``, ``pf_store``) within rtol
+1e-13 (float64) / 2e-6 or 1e-5 (float32), ``tt_span``
 against the two-launch loop it replaces, ``fold_many``'s
 fill-ahead pipeline against per-sequence folds, the card's lazy traceback, P-split argmin and float64
 partition function against the CPU's, the long reference anchors
@@ -179,39 +180,71 @@ def test_pf_float64_on_cuda_matches_cpu(cuda):
 PF_SPANS48 = (20, 33, 46)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
-def test_pf_kernels_match_plain(cuda, dtype):
-    """The partition fill's four kernels (``pf_ops.pf_tt_span``,
-    ``pf_history``, ``pf_stencil``, ``pf_p_split``) against their plain
-    versions on the card, on the n=48 fill's own operands at spans 20, 33
-    and 46 (``chip_smoke.pf_kernel_calls``): rtol 1e-12 in float64, 1e-5
-    in float32, one launch a call."""
+def _pf_visit(seen, dtype, spans):
+    """A ``chip_smoke.pf_kernel_calls`` visit: at ``spans[name]``, the kernel
+    against its plain version (``chip_smoke.pf_pair``) within
+    ``chip_smoke.pf_rtol``, one launch a call; appends (name, span,
+    nonzero outputs) to ``seen``."""
     import chip_smoke
     from ccj_tpu_torch.engine import pf_ops
 
-    seen = []
-
     def visit(name, s, fn, ref, args, kw):
+        if s not in spans.get(name, ()):
+            return fn(*args, **kw)
         before = getattr(pf_ops, chip_smoke.PF_COUNTERS[name])
-        got = fn(*args, **kw)
-        assert getattr(pf_ops, chip_smoke.PF_COUNTERS[name]) == before + 1, name
-        want = ref(*args, **kw)
-        assert got.shape == want.shape and bool(torch.isfinite(got).all()), (name, s)
-        err = chip_smoke.pf_rel_err(got, want)
-        assert err <= chip_smoke.PF_RTOL[dtype], (name, s, err)
-        seen.append((name, s, int((got != 0).sum())))
-        return got
+        result, got, want, _, _ = chip_smoke.pf_pair(name, fn, ref, args, kw)
+        assert getattr(pf_ops, chip_smoke.PF_COUNTERS[name]) == before + 1, (name, s)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all()), (name, s)
+            err = chip_smoke.pf_rel_err(g, w)
+            assert err <= chip_smoke.pf_rtol(name, dtype), (name, s, err)
+        seen.append((name, s, sum(int((g != 0).sum()) for g in got)))
+        return result
+    return visit
 
-    chip_smoke.pf_kernel_calls(48, PF_SPANS48, dtype, cuda, visit)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_pf_kernels_match_plain(cuda, dtype):
+    """The partition fill's seven kernels (``pf_ops.PF_KERNELS``) against
+    their plain versions on the card, on the n=48 fill's own operands at
+    spans 20, 33 and 46 (``chip_smoke.pf_kernel_calls``): rtol 1e-13 in
+    float64, in float32 2e-6 (1e-5 for ``pf_span2d``, ``pf_assemble``,
+    ``pf_store``), one launch a call."""
+    import chip_smoke
+
+    seen = []
+    spans = dict.fromkeys(chip_smoke.PF_KERNELS, PF_SPANS48)
+    chip_smoke.pf_kernel_calls(48, PF_SPANS48, dtype, cuda, _pf_visit(seen, dtype, spans))
     assert sorted(x[:2] for x in seen) == sorted(
         (k, s) for k in chip_smoke.PF_KERNELS for s in PF_SPANS48)
     assert all(nz > 0 for name, s, nz in seen if name != "pf_p_split")
 
 
+@pytest.mark.parametrize("n", [40, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_pf_body_kernels_match_plain(cuda, dtype, n):
+    """``pf_span2d``, ``pf_assemble`` and ``pf_store`` against their plain
+    versions on the card, on the length-n fill's own operands at its first
+    three spans, a middle one and its last two (the store's destinations
+    set to NaN before each run, so an element left unwritten shows)."""
+    import chip_smoke
+
+    spans = (0, 1, 2, n // 2 + 8, n - 2, n - 1)
+    seen = []
+    chip_smoke.pf_kernel_calls(n, spans, dtype, cuda, _pf_visit(
+        seen, dtype, {k: spans if k != "pf_assemble" else spans[2:] for k in chip_smoke.PF_NEW}))
+    assert sorted(x[:2] for x in seen) == sorted(
+        [("pf_span2d", s) for s in spans] + [("pf_store", s) for s in spans]
+        + [("pf_assemble", s) for s in spans[2:]])
+    assert all(nz > 0 for name, s, nz in seen if s >= n // 2)
+
+
 def test_pf_fill_n40_float64_on_cuda_matches_cpu(cuda):
-    """A whole float64 fill at n=40 on the card (the four kernels, one
-    launch each a span) against the CPU's (their plain versions), rtol
-    1e-9 on every array."""
+    """A whole float64 fill at n=40 on the card (the seven kernels, each
+    launched as ``chip_smoke.pf_counts`` says) against the CPU's (their
+    plain versions), rtol 1e-9 on every array."""
     import chip_smoke
     from ccj_tpu_torch.api import DEFAULT_PARAM_FILE
     from ccj_tpu_torch.engine import pf_ops

@@ -1,21 +1,24 @@
 """The partition function's span kernels (``ccj_tpu_torch/engine/pf_ops.py``:
 ``pf_tt_span``, ``pf_history``, ``pf_stencil``, ``pf_p_split``;
-``csrc/pfspan.cu`` on the card, their plain versions here):
+``csrc/pfspan.cu`` on the card, their plain versions here; the other three,
+``pf_span2d``, ``pf_assemble``, ``pf_store``, in
+``tests/test_torch_pf_body.py``):
 
-* per span: the port's ``pf4d.pf_span_step`` (the four wrappers' plain
+* per span: the port's ``pf4d.pf_span_step`` (the seven wrappers' plain
   versions inside) against the JAX package's ``pf_span_step`` on one random
   non-negative float64 state at n = 36 (``jax_enable_x64`` on, restored
-  after), at spans 2, 3 and 33 (all 29 stencil offsets live), every state
-  array to rtol 1e-12;
+  after), at spans 0, 1, 2, 3, 20 (IB < n2), 33 (all 29 stencil offsets
+  live) and 35 (the last), every state array to rtol 1e-12;
 * per kernel: each plain version against the sums it replaced, restated
   cell by cell as the kernel walks them (per live row, tt and column the
   kernel's loop bounds; the tt loop's three phases, its j-shrink reading
   the family's own slab at j + tt - tp, its k- and j-weights from the
   [n2, n2] tables), at n = 13 on random operands under the fill's contract
   (the per-cell inputs 0 off the span's valid cells), rtol 1e-12;
-* no fallback: each wrapper refuses a wrong dtype, shape or device; a
-  CUDA tensor without the kernel library raises; no launch is counted on
-  the CPU.
+* no fallback: each of the seven wrappers refuses a wrong dtype, shape or
+  device; a CUDA tensor without the kernel library raises; no launch is
+  counted on the CPU;
+* each kernel's bound counts the cells its plain version reads.
 """
 
 import jax
@@ -39,8 +42,7 @@ RTOL = 1e-12
 
 
 def _counts():
-    return (pf_ops.PF_TT_SPAN_LAUNCHES, pf_ops.PF_HISTORY_LAUNCHES,
-            pf_ops.PF_STENCIL_LAUNCHES, pf_ops.PF_PSPLIT_LAUNCHES)
+    return tuple(getattr(pf_ops, c) for c in pf_ops.PF_COUNTERS.values())
 
 
 def _random_state(n, seed):
@@ -62,7 +64,7 @@ def span_case():
     return C_np, _random_state(N, 7)
 
 
-@pytest.mark.parametrize("s", [2, 3, 33])
+@pytest.mark.parametrize("s", [0, 1, 2, 3, 20, 33, N - 1])
 def test_span_step_matches_jax(span_case, s):
     C_np, st_np = span_case
     TB, IB = bucket_dims(N, s)
@@ -318,15 +320,36 @@ def _calls(n, s, dtype=torch.float64, device="cpu"):
     bases = {k: dev(v) for k, v in bases.items()}
     W4PL = dev(torch.from_numpy(rng.random((DS, DS, n2, n2))))
     W4PR = dev(torch.from_numpy(rng.random((DS, DS, n2 + T + 2, 2 * n2))))
+    C = {**C_tt, **{k: dev(v) for k, v in _body_consts(n, rng).items()}}
+    wx = {"WB": WB, "WP": WP, "WBPg": WBPg}
+    hist = dev(torch.from_numpy(rng.random((len(pf_ops.PF_HISTORY), TB, IB, n2))))
+    stn = dev(torch.from_numpy(rng.random((len(pf_ops.PF_STENCILS), TB, IB, n2))))
+    loops = dev(torch.from_numpy(rng.random((len(LOOP_MATS), TB + 2, IB, n2))))
+    fams = {k: PLs for k in pf_ops.PF_STORED}
     kw = {"n": n, "s": s, "TB": TB, "IB": IB}
     return {
         "pf_tt_span": lambda: pf_ops.pf_tt_span(C_tt, WB, WP, WBPg, PLs, PRs, POs, bases, **kw),
         "pf_history": lambda: pf_ops.pf_history(st, WB, WP, WBPg, **kw),
         "pf_stencil": lambda: pf_ops.pf_stencil(st, W4PL, W4PR, W4PL, **kw),
-        "pf_p_split": lambda: pf_ops.pf_p_split(st["PKE"], st["PKD"], n=n, s=s)}
+        "pf_p_split": lambda: pf_ops.pf_p_split(st["PKE"], st["PKD"], n=n, s=s),
+        # the in-place wrappers: the first array they write, after the call
+        "pf_span2d": lambda: (pf_ops.pf_span2d(C, st, st["VD"][0], wx, n=n, s=s), st["V"])[1],
+        "pf_assemble": lambda: pf_ops.pf_assemble(C, st, hist, stn, **kw)[0]["PL"],
+        "pf_store": lambda: (pf_ops.pf_store(st, loops, fams, **kw), st["PL"])[1]}
 
 
-@pytest.mark.parametrize("name", ["pf_tt_span", "pf_history", "pf_stencil", "pf_p_split"])
+def _body_consts(n, rng):
+    """Random float64 constants of the span's 2-D part (``pf_span2d``)."""
+    n2 = n + 2
+    C = {k: torch.from_numpy(rng.random((n2, n2))) for k in ("HD", "expMB", "expML")}
+    C["EINTD"] = torch.from_numpy(rng.random((pf_ops.ML + 2, pf_ops.ML + 2, n2, n2)))
+    C.update((k, torch.from_numpy(rng.random(n2))) for k in ("expMLbase", "expcp", "expPUP"))
+    C.update((k, torch.tensor(rng.random(), dtype=torch.float64))
+             for k in pf_ops.PF_SPAN2D_SCALARS)
+    return C
+
+
+@pytest.mark.parametrize("name", pf_ops.PF_KERNELS)
 def test_wrappers_refuse_and_count_nothing_on_the_cpu(name, monkeypatch, tmp_path):
     before = _counts()
     assert _calls(9, 5)[name]().dtype == torch.float64
@@ -372,7 +395,7 @@ def test_wrappers_refuse_wrong_shapes():
 
 
 def test_span_step_calls_its_kernels_through_the_given_wrappers():
-    """``pf_span_step(..., kernels=...)`` calls each of the four wrappers
+    """``pf_span_step(..., kernels=...)`` calls each of the seven wrappers
     through the object given, once a span, and fills as the default
     does."""
     from types import SimpleNamespace
@@ -442,32 +465,89 @@ def _reads(fn, tensors, within=None):
     """How many cells of each named tensor the sum of ``fn()`` depends on,
     by autograd through a plain version (each saved tensor cloned, as the
     tt loop writes its slabs in place), counted inside ``within[name]``
-    where given; the operands are non-negative, so no term cancels."""
+    where given (none where the result does not reach the tensor); the
+    operands are non-negative, so no term cancels."""
     for x in tensors.values():
         x.requires_grad_(True)
     with torch.autograd.graph.saved_tensors_hooks(torch.clone, lambda x: x):
         out = fn()
     out.sum().backward()
     within = within or {}
-    return {k: int(((x.grad != 0) & within.get(k, True)).sum()) for k, x in tensors.items()}
+    return {k: 0 if x.grad is None else int(((x.grad != 0) & within.get(k, True)).sum())
+            for k, x in tensors.items()}
 
 
 @pytest.mark.parametrize("name,n,s", [
     ("pf_tt_span", NK, 7), ("pf_tt_span", NK, NK - 1), ("pf_history", NK, 7),
     ("pf_history", NK, NK - 1), ("pf_stencil", NK, 7), ("pf_stencil", N, 33),
-    ("pf_p_split", NK, 7), ("pf_p_split", NK, NK - 1)])
+    ("pf_p_split", NK, 7), ("pf_p_split", NK, NK - 1), ("pf_span2d", NK, 2),
+    ("pf_span2d", NK, 7), ("pf_span2d", N, 33), ("pf_assemble", NK, 7),
+    ("pf_assemble", NK, NK - 1), ("pf_store", NK, 1), ("pf_store", NK, 7)])
 def test_bound_counts_the_cells_the_plain_version_reads(name, n, s):
     """``chip_smoke.pf_work`` counts, for each state array and weight table
     a kernel reads, the cells its plain version's result depends on when
     every valid cell of the state is positive, and of a state array only
     its valid cells (the tt loop's expESTP: at least those, no more than
-    one a PM cell)."""
+    one a PM cell).  The in-place kernels' result is what they write: the
+    2-D part's span-s cells of the live rows and VD / PD's row s, the
+    write-back's destination planes."""
     import chip_smoke
 
     rng = np.random.default_rng(s)
     TB, IB = bucket_dims(n, s)
     want, _, _ = chip_smoke.pf_work(name, n, s, TB, IB)
-    if name == "pf_tt_span":
+    n2 = n + 2
+    if name == "pf_span2d":
+        st = pf4d.pf_state_from_numpy(_random_state(n, s), "cpu")
+        C = _body_consts(n, rng)
+        consts = ("HD", "EINTD", "expMB", "expML", "expMLbase", "expcp", "expPUP")
+        ops = {**{k: st[k] for k in pf_ops.PF_2D if k != "PD"}, **{k: C[k] for k in consts},
+               "p_new": torch.from_numpy(rng.random(n2)),
+               **{k: torch.from_numpy(rng.random((n2, n2))) for k in ("WB", "WP")}}
+        lo, hi = pf_ops.pf_live_rows(n, s, n2)
+        i = torch.arange(lo, hi + 1)
+
+        def fn():
+            st2 = {**st, **{k: v.clone() for k, v in ops.items() if k in st}, "PD": st["PD"]}
+            wx = {"WB": ops["WB"].clone(), "WP": ops["WP"].clone(),
+                  "WBPg": torch.zeros(n2, n2, dtype=torch.float64)}
+            pf_ops.pf_span2d_ref({**C, **{k: ops[k] for k in consts}}, st2, ops["p_new"], wx,
+                                 n, s)
+            cells = [st2[k][i, i + s] for k in ("V", "P2", "WBP", "WPP")] \
+                + [wx[k][i, i + s] for k in wx] + [st2["VD"][s], st2["PD"][s]]
+            if s >= 3:
+                cells += [st2[k][i, i + s] for k in ("WM", "WMv", "WMp")]
+            return torch.cat(cells)
+        got = _reads(fn, ops)
+    elif name == "pf_assemble":
+        C, *_ = _tt_operands(n, s, rng)
+        C["can_pair"][:] = True
+        C["ptype"][:] = 1
+        valid = torch.from_numpy(_valid_state_cells(n))
+        st = pf4d.pf_state_from_numpy(_random_state(n, s), "cpu")
+        reads = {fam for fam, *_ in pf_ops.PF_PLANE_READS}
+        ops = {**{k: st[k].where(valid, 0.0) for k in reads}, "expESTP": C["expESTP"],
+               "hist": torch.from_numpy(rng.random((len(pf_ops.PF_HISTORY), TB, IB, n2))),
+               "stn": torch.from_numpy(rng.random((len(pf_ops.PF_STENCILS), TB, IB, n2)))}
+        got = _reads(lambda: torch.stack(
+            [*(pf_ops.pf_assemble_ref(
+                {**C, "expESTP": ops["expESTP"]}, ops, ops["hist"], ops["stn"],
+                n, s, TB, IB)[0][k] for k in pf_ops.PF_ASSEMBLED),
+             pf_ops.pf_assemble_ref({**C, "expESTP": ops["expESTP"]}, ops, ops["hist"],
+                                    ops["stn"], n, s, TB, IB)[1]["PMmloop10"]]),
+            ops, dict.fromkeys(reads, valid))
+    elif name == "pf_store":
+        st = pf4d.pf_state_from_numpy(_random_state(n, s), "cpu")
+        ops = {"loops": torch.from_numpy(rng.random((len(LOOP_MATS), TB + 2, IB, n2))),
+               "fams": torch.from_numpy(rng.random((len(pf_ops.PF_STORED), TB, IB, n2)))}
+
+        def fn():
+            st2 = {k: v.clone() for k, v in st.items()}
+            pf_ops.pf_store_ref(st2, ops["loops"].clone(),
+                                dict(zip(pf_ops.PF_STORED, ops["fams"].clone())), n, s, TB, IB)
+            return torch.cat([v.flatten() for v in chip_smoke.pf_store_views(st2, n, s, TB)])
+        got = _reads(fn, ops)
+    elif name == "pf_tt_span":
         C, WB, WP, WBPg, PLs, PRs, POs, bases, _, _ = _tt_operands(n, s, rng)
         C["can_pair"][:] = True
         C["ptype"][:] = 1
